@@ -1,0 +1,18 @@
+"""mxnet_tpu_torch — the PyTorch/CUDA port of ``mxnet_tpu``.
+
+Imported as ``import mxnet_tpu_torch as mx``. It runs on an NVIDIA H100
+(``mx.gpu()``, the default context of every entry point) with its hot
+kernels written by hand in CUDA C++ for Hopper (``kernels/csrc``); a CPU
+context (``mx.cpu()``) runs each kernel's plain PyTorch version. It
+imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
+
+This slice carries the paged-KV Llama serving path:
+``mx.serving.Server(net, decode_pages=...).submit_generate(...)`` over
+``mx.gluon.model_zoo.nlp.llama_3_8b``.
+"""
+from . import base, context, convert, gluon, kernels, ops, serving
+from .base import MXNetError
+from .context import cpu, gpu, num_gpus
+
+__all__ = ["MXNetError", "cpu", "gpu", "num_gpus", "base", "context",
+           "convert", "gluon", "kernels", "ops", "serving"]

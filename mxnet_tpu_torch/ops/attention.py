@@ -1,0 +1,105 @@
+"""Attention-path ops of the Llama serving slice.
+
+Counterpart of ``mxnet_tpu/ops/attention.py`` (``rms_norm``, ``rope``,
+``rope_at``, ``_paged_reference``, ``paged_attention``). The JAX op
+registry and its ``MXNET_PALLAS_FUSED`` knob have no counterpart: a CUDA
+tensor always takes the port's kernel, a CPU tensor its plain version.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import fused_rms_norm, paged_attention_kernel
+
+__all__ = ["rms_norm", "rope", "rope_at", "paged_attention"]
+
+
+def rms_norm(data: torch.Tensor, weight: torch.Tensor, *,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 statistics; output in
+    ``promote_types(data.dtype, weight.dtype)``."""
+    return fused_rms_norm(data, weight, eps=eps)
+
+
+def rope_at(data: torch.Tensor, positions: torch.Tensor, *,
+            theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding over (B, L, H, D) at explicit per-row absolute
+    ``positions`` (B, L), in the rotate-half (Llama) convention, computed
+    in f32 and returned in ``data``'s dtype."""
+    b, l, h, d = data.shape
+    pos = positions.to(torch.float32)
+    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=data.device) / d))
+    angles = pos[:, :, None] * inv_freq[None, None, :]   # (B, L, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1 = data[..., : d // 2].float()
+    x2 = data[..., d // 2:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(data.dtype)
+
+
+def rope(data: torch.Tensor, *, theta: float = 10000.0,
+         position_offset: int = 0) -> torch.Tensor:
+    """:func:`rope_at` with positions ``position_offset + arange(L)`` for
+    every row."""
+    b, l = data.shape[:2]
+    pos = torch.arange(position_offset, position_offset + l,
+                       device=data.device).expand(b, l)
+    return rope_at(data, pos, theta=theta)
+
+
+def _paged_reference(q, k_arena, v_arena, page_table, lengths,
+                     q_positions, page_size, scale):
+    """Gather K/V through the page table, then masked f32-softmax
+    attention, causal over each request's own timeline. The prefill path
+    (Lq > 1) everywhere, as in the JAX package, and the decode path on
+    the CPU. A padding row (length 0) sees only scratch key 0: garbage
+    that the batcher slices away."""
+    b, h, lq, d = q.shape
+    kv = k_arena.shape[-2]
+    ps = int(page_size)
+    slots = (page_table.long()[:, :, None] * ps
+             + torch.arange(ps, device=q.device)).reshape(b, -1)  # (B, T)
+    k = k_arena[slots]                                  # (B, T, KV, D)
+    v = v_arena[slots]
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    k = k.transpose(1, 2)                               # (B, H, T, D)
+    v = v.transpose(1, 2)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    key_pos = torch.arange(slots.shape[1], device=q.device)
+    mask = key_pos[None, None, None, :] <= q_positions[:, None, :, None]
+    mask = mask & (key_pos[None, None, None, :]
+                   < lengths.long()[:, None, None, None])
+    scores = scores.masked_fill(~mask, -1e9)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def paged_attention(query, k_arena, v_arena, page_table, lengths,
+                    q_positions=None, *, page_size: int, scale=None):
+    """Attention over a paged KV cache: ``query`` (B, H, Lq, D),
+    ``k_arena``/``v_arena`` (slots, KV, D) for one layer, ``page_table``
+    (B, P) int32, ``lengths`` (B,) int32 valid tokens per row including
+    the query tokens, ``q_positions`` (B, Lq) absolute query positions
+    (default: the trailing ``lengths - Lq + arange(Lq)``).
+
+    The single-query decode shape on a CUDA tensor runs the paged
+    kernel; everything else (prefill, or any CPU tensor) runs
+    :func:`_paged_reference`, as the JAX op does off the TPU kernel."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(query.shape[-1])
+    lq = query.shape[2]
+    if lq == 1 and query.is_cuda:
+        return paged_attention_kernel(query.contiguous(), k_arena, v_arena,
+                                      page_table, lengths,
+                                      page_size=page_size, scale=scale)
+    if q_positions is None:
+        q_positions = (lengths.long()[:, None] - lq
+                       + torch.arange(lq, device=query.device)[None, :])
+    return _paged_reference(query, k_arena, v_arena, page_table, lengths,
+                            q_positions, page_size, scale)

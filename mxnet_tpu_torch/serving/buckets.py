@@ -1,0 +1,220 @@
+"""Padding-bucket grid for the serving batcher.
+
+Copied from ``mxnet_tpu/serving/buckets.py`` (framework-neutral). In the
+port PyTorch runs eagerly, so a bucket bounds the set of dispatch shapes
+(and with it cuBLAS's choice of GEMM per shape) rather than a set of
+compiled executables; the text below is the reference's.
+
+The reference answered variable-shape traffic with ``BucketingModule``
+(PAPER.md §2.3): one executor per sequence-length bucket, requests padded
+up to the nearest bucket so a handful of compiled graphs cover the whole
+shape distribution. Here the same idea keys the ``_CachedGraph`` compiled
+path instead of executors — two axes:
+
+* **batch buckets** — allowed dispatch batch sizes (e.g. ``1,2,4,...,32``).
+  A partially-filled batch is padded with zero rows up to the nearest
+  bucket, so every dispatch hits one warm compiled entry instead of a
+  retrace per distinct fill level.
+* **shape buckets** — allowed per-sample shapes. A request's sample is
+  zero-padded up to the smallest bucket that fits (same rank, every dim
+  >=), the BucketingModule move. ``None`` = exact-shape mode: no sample
+  padding, one compiled entry per distinct sample shape seen.
+* **len buckets** — allowed PREFILL lengths for autoregressive
+  generate requests. The generate key space is (batch, prefill-len,
+  decode-step): prefill dispatches compile per (batch bucket, len
+  bucket), while the decode-step axis collapses to the single constant
+  ``(batch, 1)`` signature — however deep each co-batched request is in
+  its own completion, every decode step lands on ONE warm executable
+  per batch bucket (zero steady-state retraces). Requests at different
+  decode depths are equal-shaped by construction, which is what lets
+  continuous batching re-form the batch every step.
+
+Padding is part of the serving contract exactly as it was for
+BucketingModule: the model sees the padded input (a bucketed sequence
+model must mask padding itself), and per-request outputs are sliced from
+the real rows only — padded rows never reach a caller.
+
+Bit-reproducibility: padding rows are bit-transparent — a request's
+output is identical however empty its batch is, *within one bucket*
+(same compiled executable). Across buckets, XLA may pick a different
+kernel per batch size: batch-1 matmuls lower to a GEMV whose reduction
+order differs in the last ulp from the GEMM used for every batch >= 2
+(tools/serving_bench.py measures this). Grids that need response bits
+independent of co-batched traffic should start at batch bucket 2.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..base import MXNetError
+
+__all__ = ["BucketGrid", "TokenBucket"]
+
+DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
+DEFAULT_LEN_BUCKETS = (16, 32, 64, 128, 256)
+
+
+class TokenBucket:
+    """Per-tenant admission rate limiter (the weighted-admission half of
+    multi-tenant serving): ``rate`` tokens/second refill into a bucket
+    of ``burst`` capacity, one token per admitted request. ``take()``
+    is non-blocking — an empty bucket is a SYNCHRONOUS, typed shed at
+    submit (``TenantThrottled``), never a queued request that starves
+    another tenant's deadline. Thread-safe (any submitter thread)."""
+
+    def __init__(self, rate: float, burst: Optional[float] = None):
+        rate = float(rate)
+        if rate <= 0:
+            raise MXNetError(f"token bucket rate must be > 0, got {rate}")
+        self.rate = rate
+        self.burst = float(burst) if burst is not None \
+            else max(1.0, rate)
+        if self.burst < 1:
+            raise MXNetError(
+                f"token bucket burst must be >= 1, got {self.burst}")
+        self._tokens = self.burst
+        self._t = time.monotonic()
+        self._lock = threading.Lock()
+
+    def take(self, n: float = 1.0) -> bool:
+        """Take ``n`` tokens if available; False (taking nothing) when
+        the bucket cannot cover them right now."""
+        now = time.monotonic()
+        with self._lock:
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._t) * self.rate)
+            self._t = now
+            if self._tokens < n:
+                return False
+            self._tokens -= n
+            return True
+
+    def level(self) -> float:
+        """Current token level (refilled to now) — observability only."""
+        now = time.monotonic()
+        with self._lock:
+            return min(self.burst,
+                       self._tokens + (now - self._t) * self.rate)
+
+
+class BucketGrid:
+    """The (batch buckets x shape buckets x len buckets) padding grid.
+
+    ``batch_buckets``: positive ints; dispatches are padded up to the
+    smallest bucket >= the drained request count (capped at the largest).
+    ``shape_buckets``: sample-shape tuples, or None for exact-shape mode.
+    ``len_buckets``: allowed prefill lengths for generate requests, or
+    None when the server does no autoregressive decode.
+    """
+
+    def __init__(self, batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
+                 shape_buckets: Optional[Sequence[Tuple[int, ...]]] = None,
+                 len_buckets: Optional[Sequence[int]] = None):
+        self.len_buckets: Optional[Tuple[int, ...]] = None
+        if len_buckets is not None:
+            lens = sorted({int(b) for b in len_buckets})
+            if not lens or lens[0] < 1:
+                raise MXNetError(
+                    f"len_buckets must be positive ints, got "
+                    f"{len_buckets!r}")
+            self.len_buckets = tuple(lens)
+        buckets = sorted({int(b) for b in batch_buckets})
+        if not buckets or buckets[0] < 1:
+            raise MXNetError(
+                f"batch_buckets must be positive ints, got {batch_buckets!r}")
+        self.batch_buckets: Tuple[int, ...] = tuple(buckets)
+        self.shape_buckets: Optional[Tuple[Tuple[int, ...], ...]] = None
+        if shape_buckets is not None:
+            shapes = []
+            for s in shape_buckets:
+                s = tuple(int(d) for d in s)
+                if not s or any(d < 1 for d in s):
+                    raise MXNetError(
+                        f"shape bucket {s!r} must be a non-empty tuple of "
+                        "positive dims")
+                shapes.append(s)
+            if not shapes:
+                raise MXNetError("shape_buckets must not be empty "
+                                 "(use None for exact-shape mode)")
+            # smallest-first so bucket_shape picks the tightest fit
+            self.shape_buckets = tuple(
+                sorted(set(shapes), key=lambda s: (int(np.prod(s)), s)))
+
+    @property
+    def max_batch(self) -> int:
+        return self.batch_buckets[-1]
+
+    def batch_bucket(self, n: int) -> int:
+        """Smallest batch bucket >= ``n`` (callers cap n at max_batch)."""
+        for b in self.batch_buckets:
+            if b >= n:
+                return b
+        return self.max_batch
+
+    def prefill_bucket(self, length: int) -> int:
+        """Smallest len bucket >= ``length`` — the padded prefill
+        length of a generate request. Raises :class:`MXNetError` when
+        the grid has no len buckets or the prompt outgrows the largest
+        (rejected at submit, not discovered as a retrace mid-serve)."""
+        if self.len_buckets is None:
+            raise MXNetError("this grid has no len_buckets: the server "
+                             "was not configured for generate requests")
+        for b in self.len_buckets:
+            if b >= length:
+                return b
+        raise MXNetError(
+            f"no len bucket fits prompt length {length}; buckets: "
+            f"{list(self.len_buckets)}")
+
+    def generate_signatures(self) -> List[Tuple[int, int]]:
+        """Every (batch_bucket, len) input signature of the generate
+        key space: the prefill grid plus the single decode-step column
+        ``(batch, 1)`` — the warmup manifest for a decode-capable
+        server."""
+        if self.len_buckets is None:
+            return []
+        sigs = [(b, l) for l in self.len_buckets
+                for b in self.batch_buckets]
+        sigs += [(b, 1) for b in self.batch_buckets]
+        return sigs
+
+    def bucket_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The padded sample shape for a request of ``shape``: the
+        tightest shape bucket that fits (exact-shape mode: ``shape``
+        itself). Raises :class:`MXNetError` when no bucket fits — a
+        too-big request must be rejected at submit, not discovered as a
+        shape error mid-batch."""
+        shape = tuple(int(d) for d in shape)
+        if self.shape_buckets is None:
+            return shape
+        for b in self.shape_buckets:
+            if len(b) == len(shape) and all(d <= bd
+                                            for d, bd in zip(shape, b)):
+                return b
+        raise MXNetError(
+            f"no shape bucket fits sample shape {shape}; buckets: "
+            f"{list(self.shape_buckets)}")
+
+    @staticmethod
+    def pad_sample(arr: np.ndarray, bucket: Tuple[int, ...]) -> np.ndarray:
+        """Zero-pad one sample up to its bucket shape (no-op when exact)."""
+        if tuple(arr.shape) == tuple(bucket):
+            return arr
+        pad = [(0, b - d) for d, b in zip(arr.shape, bucket)]
+        return np.pad(arr, pad)
+
+    def input_signatures(self, sample_shapes: Optional[Sequence[Tuple[int, ...]]]
+                         = None) -> List[Tuple[int, ...]]:
+        """Every (batch_bucket, *sample_bucket) input shape of the grid —
+        the warmup manifest. ``sample_shapes`` overrides/limits the
+        sample axis (required in exact-shape mode, where the grid itself
+        has no shape inventory)."""
+        samples = (tuple(tuple(int(d) for d in s) for s in sample_shapes)
+                   if sample_shapes is not None else self.shape_buckets)
+        if not samples:
+            return []
+        return [(b,) + s for s in samples for b in self.batch_buckets]
