@@ -8,15 +8,16 @@ without a result line otherwise. It imports nothing of JAX or of the JAX
 package. Phases, each printing JSON lines and failing loudly:
 
 1. device  — the card's name and power limit, as nvidia-smi gives them;
-2. build   — nvcc builds every kernel of the path from the checkout's
-             sources (into build/kernels/, listed in .gitignore);
-3. kernels — each kernel against its plain PyTorch version at the
+2. build   — nvcc builds every kernel from the checkout's sources, one
+             process per source, all at once (into build/kernels/,
+             listed in .gitignore);
+3. kernels — each kernel against its plain PyTorch version at its
              serving path's shapes, bf16 and f32, with its stated
              tolerance; kernel, plain and library-call times from CUDA
              events (cold L2), and the least time the card could take
              (bound_ms) from this run's bytes and operations;
-4. reference — the decode path at Llama-3-8B widths, depth cut to 2
-             layers, in f32: each stream's last decode-step logits
+4. reference — the Llama decode path at Llama-3-8B widths, depth cut to
+             2 layers, in f32: each stream's last decode-step logits
              against forward_full over the same tokens, to f32 noise;
 5. serving — Llama-3-8B at full width (32 layers, bf16, seeded random
              weights) behind serving.Server: 8 concurrent
@@ -25,7 +26,23 @@ package. Phases, each printing JSON lines and failing loudly:
              kernels' launch counts over this phase, and each stream's
              last decode-step logits against forward_full over the same
              tokens;
-6. summary — one {"kernels": [...]} line.
+6. bert_reference — BERT-base widths, depth cut to 2 layers, every
+             output (masked-LM head included), in f32: each sample served
+             through Server.submit against a batch-1 forward of the same
+             padded sample, and that forward against the same weights
+             run through the plain versions (a CPU copy of the model),
+             both to f32 noise;
+7. bert_serving — bert_12_768_12 at full width and depth (bf16, seeded
+             random weights, no MLM head) behind Server.submit: 256
+             requests of 16-512 tokens from 8 client threads; requests/s,
+             real and padded tokens/s, p50/p99 latency, batches by close
+             reason, occupancy, the launches of each kernel per dispatched
+             forward (exactly 25 LayerNorm, 12 flash, 12 bias+GELU), each
+             response against its batch-1 forward, a breakdown of one
+             (32, 512) forward (host vs device ms, top device events),
+             and the burst served again under the profiler (the card's
+             busy share of the wall time, its top device events);
+8. summary — one {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -34,6 +51,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -46,6 +64,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
 SEED = 0
 N_STREAMS = 8
 NEW_TOKENS = 32
+BERT_REQUESTS = 256
+BERT_CLIENTS = 8
+BF16_ULP = 2.0 ** -7        # bf16 keeps 8 significant bits
 
 
 def emit(obj) -> None:
@@ -147,6 +168,24 @@ def within(out, ref, rtol, atol) -> tuple:
 # weight product) so two bf16 ulps; paged bf16 output rounds once
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -6, 1e-5)}
 PAGED_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+# LayerNorm and bias+GELU: the same f32 arithmetic (statistics summed in
+# another order, erff vs torch.erf), rounded once to bf16: one ulp;
+# flash: bf16 P rounds against the running row max in the kernel and the
+# final one in the plain version, then the output rounds once more; the
+# f32 lse differs in the order of f32 sums
+LN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+GELU_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2.0 ** -7, 1e-6)}
+FLASH_TOL = {torch.float32: (2e-5, 2e-5),
+             torch.bfloat16: (2.0 ** -6, 2.0 ** -7)}
+LSE_TOL = (1e-5, 1e-4)
+
+
+def _size(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def _dname(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def rms_case(rows, d, dtype, flush, gen) -> dict:
@@ -245,6 +284,121 @@ def paged_case(b, dtype, flush, rs, gen) -> dict:
     return rec
 
 
+def ln_case(rows, d, dtype, with_res, flush, gen) -> dict:
+    """LayerNorm(x + residual) over (rows, d), gamma/beta in x's dtype.
+    Library yardstick: F.layer_norm without the residual (no single
+    PyTorch call adds a residual, so that case records null)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (fused_layer_norm,
+                                         fused_layer_norm_reference)
+
+    x = (2 + torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    r = (torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+         if with_res else None)
+    g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    eps = 1e-5
+    out = fused_layer_norm(x, g, b, r, eps=eps)
+    torch.cuda.synchronize()
+    err, ok = within(out, fused_layer_norm_reference(x, g, b, r, eps=eps),
+                     *LN_TOL[dtype])
+    size = _size(dtype)
+    n_bytes = rows * d * size * (3 if with_res else 2) + 2 * d * size
+    # sum (+ residual add), centre, square-accumulate, normalise, scale,
+    # shift: ~7 f32 operations per element
+    b_ms, b_by = bound(n_bytes, 7.0 * rows * d, torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_layer_norm",
+           "shape": [rows, d], "residual": with_res, "dtype": _dname(dtype),
+           "max_abs_err": err, "rtol_atol": list(LN_TOL[dtype]), "ok": ok,
+           "ms": time_ms(lambda: fused_layer_norm(x, g, b, r, eps=eps),
+                         flush),
+           "plain_ms": time_ms(lambda: fused_layer_norm_reference(
+               x, g, b, r, eps=eps), flush),
+           "library_ms": None if with_res else time_ms(
+               lambda: F.layer_norm(x, (d,), g, b, eps), flush),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    return rec
+
+
+def gelu_case(rows, d, dtype, flush, gen) -> dict:
+    """gelu(x + b) over (rows, d). No single PyTorch call computes this
+    function (F.gelu takes no bias), so library_ms is null."""
+    from mxnet_tpu_torch.kernels import (fused_bias_gelu,
+                                         fused_bias_gelu_reference)
+
+    x = (2 * torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    bias = torch.randn(d, device="cuda", generator=gen).to(dtype)
+    out = fused_bias_gelu(x, bias)
+    torch.cuda.synchronize()
+    err, ok = within(out, fused_bias_gelu_reference(x, bias),
+                     *GELU_TOL[dtype])
+    size = _size(dtype)
+    # add, scale, erf (counted as one), add, two multiplies
+    b_ms, b_by = bound(2 * rows * d * size + d * size, 6.0 * rows * d,
+                       torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_bias_gelu",
+           "shape": [rows, d], "dtype": _dname(dtype), "max_abs_err": err,
+           "rtol_atol": list(GELU_TOL[dtype]), "ok": ok,
+           "ms": time_ms(lambda: fused_bias_gelu(x, bias), flush),
+           "plain_ms": time_ms(lambda: fused_bias_gelu_reference(x, bias),
+                               flush),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    return rec
+
+
+def flash_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
+    """Flash attention forward, output and lse against the plain version
+    on the same inputs. "blhd" builds them as MultiHeadAttention does:
+    (b, l, h, d) views into one (b, l, 3*h*d) fused QKV output, so the
+    sequence stride is 3*h*d and k and v start h*d and 2*h*d elements in;
+    "bhld" draws three contiguous (b, h, l, d) tensors. Library
+    yardstick: F.scaled_dot_product_attention on the same inputs (timed
+    only; the port never calls it). Operations count the key positions
+    this run visits: all l for every row, or the causal triangle."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (flash_attention_fwd,
+                                         flash_attention_reference)
+
+    if layout == "blhd":
+        qkv = torch.randn(b, l, 3 * h * d, device="cuda",
+                          generator=gen).to(dtype)
+        q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+        sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
+    else:
+        q, k, v = (torch.randn(b, h, l, d, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(3))
+        sdpa_in = [q, k, v]
+    kw = {"causal": causal, "layout": layout}
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref, rlse = flash_attention_reference(q, k, v, **kw)
+    err, ok = within(out, ref, *FLASH_TOL[dtype])
+    lse_err, lse_ok = within(lse, rlse, *LSE_TOL)
+    pairs = l * (l + 1) // 2 if causal else l * l
+    n_ops = 4.0 * b * h * pairs * d
+    n_bytes = 4 * b * h * l * d * _size(dtype) + 4 * b * h * l
+    b_ms, b_by = bound(n_bytes, n_ops, dtype)
+    rec = {"phase": "kernels", "kernel": "flash_attention",
+           "shape": [b, h, l, d], "layout": layout,
+           "q_strides": list(q.stride()), "causal": causal,
+           "dtype": _dname(dtype), "max_abs_err": err,
+           "lse_max_abs_err": lse_err, "rtol_atol": list(FLASH_TOL[dtype]),
+           "lse_rtol_atol": list(LSE_TOL), "ok": ok and lse_ok,
+           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw), flush),
+           "plain_ms": time_ms(lambda: flash_attention_reference(
+               q, k, v, **kw), flush),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               *sdpa_in, is_causal=causal), flush),
+           "bound_ms": b_ms, "bound_by": b_by, "gflop": n_ops / 1e9,
+           "mbytes": n_bytes / 1e6}
+    emit(rec)
+    return rec
+
+
 def _warm_card(seconds=2.0) -> None:
     """Keep the card busy with bf16 GEMMs for ``seconds`` so its clocks
     have ramped up before anything is timed."""
@@ -269,13 +423,27 @@ def phase_kernels() -> dict:
             recs.append(rms_case(rows, 4096, dtype, flush, gen))
         for b in (1, 8, 32):
             recs.append(paged_case(b, dtype, flush, rs, gen))
+        # the BERT path's shapes: batch 32 x seq 512, BERT-base widths
+        for with_res in (True, False):
+            recs.append(ln_case(32 * 512, 768, dtype, with_res, flush, gen))
+        recs.append(gelu_case(32 * 512, 3072, dtype, flush, gen))
+        # BERT's heads as the path hands them over (views of the fused
+        # QKV output), and a causal (2, 8, 2048, 128) for the streaming
+        # TPU site
+        for shape in ((32, 12, 512, 64, False, "blhd"),
+                      (8, 12, 128, 64, False, "blhd"),
+                      (2, 8, 2048, 128, True, "bhld")):
+            recs.append(flash_case(*shape, dtype, flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     del flush
     torch.cuda.empty_cache()
-    # the decode-step shapes of the serving path stand for each kernel in
-    # the summary: RMS (8, 4096) bf16, paged B = 8 bf16
+    # each kernel's main-path shape stands for it in the summary: the
+    # decode step's RMS (8, 4096) and paged B = 8, and BERT-base's
+    # (32 x 512) batch for LayerNorm with the residual (24 of its 25
+    # calls per forward), bias+GELU and flash attention on fused-QKV
+    # views; all bf16
     pick = {}
     for r in recs:
         if r["dtype"] != "bfloat16":
@@ -284,6 +452,14 @@ def phase_kernels() -> dict:
             pick["fused_rms_norm"] = r
         if r["kernel"] == "paged_attention_kernel" and r["shape"]["B"] == 8:
             pick["paged_attention_kernel"] = r
+        if r["kernel"] == "fused_layer_norm" and r["residual"]:
+            pick["fused_layer_norm"] = r
+        if r["kernel"] == "fused_bias_gelu":
+            pick["fused_bias_gelu"] = r
+        if r["kernel"] == "flash_attention" and r["shape"] == [32, 12, 512,
+                                                               64] \
+                and r["layout"] == "blhd":
+            pick["flash_attention"] = r
     return pick
 
 
@@ -458,76 +634,384 @@ def phase_serving() -> dict:
     return res["launches"]
 
 
-def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
-    """Where a (batch, 1) decode step's time goes: host wall time per
-    step (synchronised, unprofiled) against the device time
-    torch.profiler records over as many further steps, and the device
-    events that take most of it. Rows hold 300-token prompts, as in the
-    serving phase."""
-    from torch.autograd import DeviceType
+def _device_breakdown(step, steps) -> dict:
+    """Where ``step()``'s time goes: host wall time per call (synchronised,
+    unprofiled, after one warm call) against the device time
+    torch.profiler records over as many further calls, and the device
+    events that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
-    owners = [object() for _ in range(batch)]
-    width = engine.pool.pages_for(768)
-    table = np.zeros((batch, width), np.int32)
-    tokens = rs.randint(0, vocab, size=(batch, 512)).astype(np.int32)
-    lengths = np.full((batch,), 300, np.int32)
-    try:
-        for i, o in enumerate(owners):
-            table[i, :engine.pool.pages_for(300 + 2 * steps + 2)] = \
-                engine.pool.alloc(o, 300 + 2 * steps + 2)
-        nxt = np.argmax(engine.prefill(tokens, lengths, table), -1)
-        for _ in range(2):                                   # warm
-            lengths = lengths + 1
-            nxt = np.argmax(engine.decode_step(nxt, lengths, table), -1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()                    # host clock, unprofiled
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()                        # host clock, unprofiled
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            lengths = lengths + 1
-            nxt = np.argmax(engine.decode_step(nxt, lengths, table), -1)
+            step()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                lengths = lengths + 1
-                nxt = np.argmax(engine.decode_step(nxt, lengths, table), -1)
-            torch.cuda.synchronize()
-    finally:
-        for o in owners:
-            engine.pool.free(o)
+    device_ms, top = _device_events(prof, steps)
+    return {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+            "device_idle_share": 1 - device_ms / host_ms,
+            "top_device_ms_per_step": top}
+
+
+def _device_events(prof, per) -> tuple:
+    """(device ms, the 8 largest device events in ms), each divided by
+    ``per``. Device-side events only (kernels, copies, memsets): a CPU
+    op's device time repeats its kernels' time."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only (kernels, copies): a CPU op's device time
-    # repeats its kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    return {"batch": batch, "context": 300, "host_ms_per_step": host_ms,
-            "device_ms_per_step": device_ms,
-            "device_idle_share": 1 - device_ms / host_ms,
-            "top_device_ms_per_step": {e.key[:60]: dev_us(e) / 1e3 / steps
-                                       for e in top}}
+    return (sum(dev_us(e) for e in events) / 1e3 / per,
+            {e.key[:60]: dev_us(e) / 1e3 / per for e in top})
+
+
+def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
+    """A (batch, 1) decode step's host vs device time; rows hold
+    300-token prompts, as in the serving phase."""
+    owners = [object() for _ in range(batch)]
+    width = engine.pool.pages_for(768)
+    table = np.zeros((batch, width), np.int32)
+    tokens = rs.randint(0, vocab, size=(batch, 512)).astype(np.int32)
+    state = {"lengths": np.full((batch,), 300, np.int32)}
+    try:
+        for i, o in enumerate(owners):
+            table[i, :engine.pool.pages_for(300 + 2 * steps + 2)] = \
+                engine.pool.alloc(o, 300 + 2 * steps + 2)
+        state["nxt"] = np.argmax(engine.prefill(tokens, state["lengths"],
+                                                table), -1)
+        engine.decode_step(state["nxt"], state["lengths"] + 1, table)
+
+        def step():
+            state["lengths"] = state["lengths"] + 1
+            state["nxt"] = np.argmax(engine.decode_step(
+                state["nxt"], state["lengths"], table), -1)
+
+        res = _device_breakdown(step, steps)
+    finally:
+        for o in owners:
+            engine.pool.free(o)
+    return {"batch": batch, "context": 300, **res}
+
+
+# ---------------------------------------------------------------------------
+# 6-7. BERT through Server.submit
+# ---------------------------------------------------------------------------
+
+def _bert_counts():
+    from mxnet_tpu_torch.kernels import (flash_attention, fused_bias_gelu,
+                                         fused_layer_norm)
+
+    return {"fused_layer_norm": fused_layer_norm.launches,
+            "flash_attention": flash_attention.launches,
+            "fused_bias_gelu": fused_bias_gelu.launches}
+
+
+def _reset_bert_counts() -> None:
+    from mxnet_tpu_torch.kernels import (flash_attention, fused_bias_gelu,
+                                         fused_layer_norm)
+
+    fused_layer_norm.launches = 0
+    flash_attention.launches = 0
+    fused_bias_gelu.launches = 0
+
+
+def _bert_samples(rs, n, vocab, lo=16, hi=512) -> list:
+    """``n`` token-id samples, lengths uniform in [lo, hi], ids uniform in
+    [1, vocab)."""
+    lens = rs.randint(lo, hi + 1, size=n)
+    return [rs.randint(1, vocab, size=int(k)).astype(np.float32)
+            for k in lens]
+
+
+def _serve_bert(net, samples, n_clients, **server_kw) -> dict:
+    """Serve ``samples`` through Server.submit from ``n_clients`` threads,
+    each submitting its contiguous share back to back and then waiting.
+    The launch counters are zeroed after the server's warm-up and just
+    before the first submit, and read once the last future resolved;
+    a forward pre-hook records each dispatched batch's shape."""
+    import mxnet_tpu_torch as mx
+
+    n = len(samples)
+    shapes = []
+    hook = net.register_forward_pre_hook(
+        lambda m, args: shapes.append(tuple(args[0].shape)))
+    results = [None] * n
+    t_sub = [0.0] * n
+    t_done = [0.0] * n
+    per = -(-n // n_clients)
+    try:
+        with mx.serving.Server(net, ctx=mx.gpu(0), **server_kw) as srv:
+            torch.cuda.synchronize()
+            warm = srv.stats()["warmup_forwards"]
+            del shapes[:]
+            _reset_bert_counts()
+
+            def client(c):
+                futs = []
+                for i in range(c * per, min(n, (c + 1) * per)):
+                    t_sub[i] = time.perf_counter()
+                    f = srv.submit(samples[i])
+                    f.add_done_callback(
+                        lambda _f, i=i: t_done.__setitem__(
+                            i, time.perf_counter()))
+                    futs.append((i, f))
+                for i, f in futs:
+                    results[i] = f.result(600)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(n_clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _bert_counts()
+            stats = srv.stats()
+    finally:
+        hook.remove()
+    if any(r is None for r in results):
+        fail(f"{sum(r is None for r in results)} of {n} requests were "
+             "not served")
+    lat_ms = 1e3 * (np.asarray(t_done) - np.asarray(t_sub))
+    return {"results": results, "shapes": shapes, "wall": wall,
+            "launches": launches, "stats": stats, "lat_ms": lat_ms,
+            "warmup_forwards": warm}
+
+
+def _fold(acc, got, ref) -> tuple:
+    """Fold one sample's leaves into ``acc``: (largest |got - ref| per
+    leaf, largest |ref| per leaf) over the samples seen so far."""
+    e = [float(np.max(np.abs(g - r))) for g, r in zip(got, ref)]
+    m = [float(np.max(np.abs(r))) for r in ref]
+    if acc is None:
+        return e, m
+    return ([max(x, y) for x, y in zip(acc[0], e)],
+            [max(x, y) for x, y in zip(acc[1], m)])
+
+
+def _verdict(acc, tol) -> dict:
+    rel = [e / m for e, m in zip(*acc)]
+    return {"max_abs_err": acc[0], "max_abs_output": acc[1],
+            "err_over_max_output": rel, "tolerance": tol,
+            "ok": max(rel) <= tol}
+
+
+def _leaves(out) -> list:
+    """Row 0 of each output leaf of a batch-1 forward, as f32 numpy."""
+    out = out if isinstance(out, tuple) else (out,)
+    return [a[0].float().cpu().numpy() for a in out]
+
+
+def _check_bert(net, samples, served, tol, buckets, plain=None) -> dict:
+    """Each served response against a batch-1 forward of its padded
+    sample on the card, leaf by leaf: the largest |diff| over all samples
+    must stay within ``tol`` times the largest |output| of that leaf.
+    With ``plain`` (the same weights on the CPU, whose tensors take every
+    kernel's plain version), each batch-1 forward is also held against
+    ``plain``'s forward of the same sample, within ``tol`` likewise."""
+    batched, vs_plain = None, None
+    with torch.inference_mode():
+        for s, got in zip(samples, served["results"]):
+            length = next(b for b in buckets if b >= len(s))
+            padded = torch.zeros((1, length), dtype=torch.float32)
+            padded[0, :len(s)] = torch.from_numpy(s)
+            alone = _leaves(net(padded.cuda()))
+            got = got if isinstance(got, tuple) else (got,)
+            if not all(np.isfinite(g).all() for g in got):
+                fail("a served BERT response is not finite")
+            batched = _fold(batched, got, alone)
+            if plain is not None:
+                vs_plain = _fold(vs_plain, alone, _leaves(plain(padded)))
+    out = {"vs_batch1": _verdict(batched, tol)}
+    if plain is not None:
+        out["batch1_vs_plain"] = _verdict(vs_plain, tol)
+    return out
+
+
+def _bert_summary(served, samples, net_cfg, per_forward) -> dict:
+    stats = served["stats"]
+    shapes = served["shapes"]
+    forwards = len(shapes)
+    want = {k: v * forwards for k, v in per_forward.items()}
+    lat = served["lat_ms"]
+    return {"requests": len(samples),
+            "requests_per_s": len(samples) / served["wall"],
+            "real_tokens_per_s": sum(len(s) for s in samples)
+            / served["wall"],
+            "padded_tokens_per_s": sum(b * l for b, l in shapes)
+            / served["wall"],
+            "wall_s": served["wall"],
+            "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                           "p99": float(np.percentile(lat, 99)),
+                           "max": float(np.max(lat))},
+            "batches": stats["batches"], "forwards": forwards,
+            "close_reasons": stats["close_reasons"],
+            "mean_occupancy": stats["batch_rows"] / stats["batch_slots"],
+            "batch_shapes": sorted(set(shapes)),
+            "warmup_forwards": served["warmup_forwards"],
+            "launches": served["launches"], "launches_expected": want,
+            "launches_per_forward": per_forward, "config": net_cfg}
+
+
+def _profile_burst(net, samples, buckets) -> dict:
+    """The same burst served again under torch.profiler (device activity
+    only, so the host pays little for it): the card's busy time over the
+    burst's wall time, and the device events that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        served = _serve_bert(net, samples, BERT_CLIENTS,
+                             shape_buckets=[(b,) for b in buckets],
+                             batch_buckets=(1, 2, 4, 8, 16, 32),
+                             slo_ms=500.0, batch_timeout_ms=10.0)
+    device_ms, top = _device_events(prof, 1)
+    wall_ms = served["wall"] * 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": device_ms,
+            "device_idle_share": 1 - device_ms / wall_ms,
+            "forwards": len(served["shapes"]),
+            "top_device_ms": top}
+
+
+def _per_forward(cfg, decoder) -> dict:
+    layers = cfg["num_layers"]
+    return {"fused_layer_norm": 2 * layers + 1 + int(decoder),
+            "flash_attention": layers,
+            "fused_bias_gelu": layers + int(decoder)}
+
+
+def phase_bert_reference() -> None:
+    """BERT-base widths in f32, depth cut to 2 layers, every output: a
+    response served in a batch must equal the batch-1 forward of its
+    padded sample, and that forward the plain versions' forward of the
+    same weights on the CPU, to f32 noise (1e-4 of the largest output; a
+    wrong row, pad, mask, stride or kernel would move it by O(1))."""
+    import copy
+
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import bert_12_768_12
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    net = bert_12_768_12(num_layers=2, ctx="cuda", dtype=torch.float32,
+                         generator=gen)
+    rs = np.random.RandomState(SEED + 2)
+    samples = _bert_samples(rs, 24, net.config["vocab_size"])
+    buckets = (128, 512)
+    served = _serve_bert(net, samples, 4,
+                         shape_buckets=[(b,) for b in buckets],
+                         batch_buckets=(1, 2, 4, 8), slo_ms=500.0,
+                         batch_timeout_ms=10.0)
+    per_forward = _per_forward(net.config, decoder=True)
+    out = _bert_summary(served, samples, net.config, per_forward)
+    out.update(_check_bert(net, samples, served, 1e-4, buckets,
+                           plain=copy.deepcopy(net).to("cpu")))
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "bert_reference", "model": "bert_12_768_12("
+          "num_layers=2)", "dtype": "float32", **out})
+    if not out["vs_batch1"]["ok"]:
+        fail(f"f32 BERT responses disagree with batch-1 forwards: "
+             f"{out['vs_batch1']}")
+    if not out["batch1_vs_plain"]["ok"]:
+        fail(f"f32 BERT forwards on the card disagree with the plain "
+             f"versions: {out['batch1_vs_plain']}")
+    if out["launches"] != out["launches_expected"]:
+        fail(f"BERT reference launch counts {out['launches']} are not "
+             f"{out['launches_expected']}")
+    del net
+    torch.cuda.empty_cache()
+
+
+def phase_bert_serving() -> dict:
+    """bert_12_768_12 (12 layers, 768 units, 3072 FFN, 12 heads, vocab
+    30522), bf16, no MLM head, behind Server.submit. Each response must
+    agree with the batch-1 forward of its padded sample within one bf16
+    ulp (2**-7) of the leaf's largest magnitude. Every kernel of the
+    path is row-independent and the readings so far were exactly 0.0;
+    the ulp leaves room for cuBLAS to sum another GEMM shape (a batch
+    of 32 against a batch of 1) in another order, while a wrong row, pad
+    or mask would move a response by O(1)."""
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import bert_12_768_12
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = bert_12_768_12(use_decoder=False, ctx="cuda",
+                         dtype=torch.bfloat16, generator=gen)
+    cfg = net.config
+    if (cfg["num_layers"], cfg["units"], cfg["hidden_size"],
+            cfg["num_heads"], cfg["vocab_size"]) != (12, 768, 3072, 12,
+                                                     30522):
+        fail(f"not BERT-base at full width and depth: {cfg}")
+    rs = np.random.RandomState(0)
+    samples = _bert_samples(rs, BERT_REQUESTS, cfg["vocab_size"])
+    buckets = (128, 512)
+    served = _serve_bert(net, samples, BERT_CLIENTS,
+                         shape_buckets=[(b,) for b in buckets],
+                         batch_buckets=(1, 2, 4, 8, 16, 32), slo_ms=500.0,
+                         batch_timeout_ms=10.0)
+    per_forward = _per_forward(cfg, decoder=False)
+    out = _bert_summary(served, samples, cfg, per_forward)
+    out.update(_check_bert(net, samples, served, BF16_ULP, buckets))
+    x = torch.from_numpy(np.stack([np.resize(s, 512) for s in
+                                   samples[:32]])).cuda()
+
+    def forward():
+        with torch.inference_mode():
+            net(x)
+
+    out["forward_breakdown"] = {"batch": 32, "seq": 512,
+                                **_device_breakdown(forward, 5)}
+    out["burst_profile"] = _profile_burst(net, samples, buckets)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "bert_serving", "model": "bert_12_768_12",
+          "dtype": "bfloat16", **out})
+    if not out["vs_batch1"]["ok"]:
+        fail(f"bf16 BERT responses disagree with batch-1 forwards: "
+             f"{out['vs_batch1']}")
+    if out["launches"] != out["launches_expected"]:
+        fail(f"BERT serving launch counts {out['launches']} are not "
+             f"{out['launches_expected']} ({per_forward} per forward)")
+    del net
+    torch.cuda.empty_cache()
+    return out["launches"]
 
 
 # ---------------------------------------------------------------------------
 
 def main() -> None:
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     picks = phase_kernels()
     phase_reference()
     launches = phase_serving()
+    phase_bert_reference()
+    launches.update(phase_bert_serving())
     replaces = {
         "fused_rms_norm": ("mxnet_tpu_torch/kernels/csrc/rms_norm.cu",
                            "mxnet_tpu/pallas_kernels/fused_layers.py:323"),
         "paged_attention_kernel": (
             "mxnet_tpu_torch/kernels/csrc/paged_attention.cu",
             "mxnet_tpu/pallas_kernels/paged_attention.py:150"),
+        "fused_layer_norm": ("mxnet_tpu_torch/kernels/csrc/layer_norm.cu",
+                             "mxnet_tpu/pallas_kernels/fused_layers.py:323"),
+        "fused_bias_gelu": ("mxnet_tpu_torch/kernels/csrc/bias_gelu.cu",
+                            "mxnet_tpu/pallas_kernels/fused_layers.py:533"),
+        # one kernel for both forward pallas_call sites (:552 and :590)
+        "flash_attention": (
+            "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+            "mxnet_tpu/pallas_kernels/flash_attention.py:552"),
     }
     kernels = []
     for name, (src, tpu) in replaces.items():
@@ -539,6 +1023,9 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "dtype": r["dtype"]})
+    kernels[-1]["also_replaces"] = \
+        "mxnet_tpu/pallas_kernels/flash_attention.py:590"
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,11 @@ kernels written by hand in CUDA C++ for Hopper (``kernels/csrc``); a CPU
 context (``mx.cpu()``) runs each kernel's plain PyTorch version. It
 imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
 
-This slice carries the paged-KV Llama serving path:
-``mx.serving.Server(net, decode_pages=...).submit_generate(...)`` over
-``mx.gluon.model_zoo.nlp.llama_3_8b``.
+Ported so far: two serving paths. One-shot BERT serving,
+``mx.serving.Server(net, shape_buckets=...).submit(...)`` over
+``mx.gluon.model_zoo.nlp.bert_12_768_12``, and paged-KV Llama
+generation, ``mx.serving.Server(net, decode_pages=...)
+.submit_generate(...)`` over ``mx.gluon.model_zoo.nlp.llama_3_8b``.
 """
 from . import base, context, convert, gluon, kernels, ops, serving
 from .base import MXNetError

@@ -14,7 +14,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["llama_params_from_reference"]
+__all__ = ["llama_params_from_reference", "bert_params_from_reference"]
 
 _GLOBAL = {"embed_weight": "embed.weight", "norm_weight": "norm.weight",
            "lm_head_weight": "lm_head.weight"}
@@ -100,4 +100,136 @@ def llama_params_from_reference(named: Dict[str, np.ndarray]
         if tuple(out[key].shape) != shape:
             raise MXNetError(f"parameter {key!r} has shape "
                              f"{tuple(out[key].shape)}, expected {shape}")
+    return out
+
+
+# -- BERT ---------------------------------------------------------------------
+
+_BERT_GLOBAL = {
+    "word_embed_weight": "word_embed.weight",
+    "token_type_embed_weight": "token_type_embed.weight",
+    "position_embed_weight": "position_embed.weight",
+    "embed_ln_gamma": "embed_ln.gamma", "embed_ln_beta": "embed_ln.beta",
+    "pooler_weight": "pooler.weight", "pooler_bias": "pooler.bias",
+    "classifier_weight": "classifier.weight",
+    "classifier_bias": "classifier.bias",
+    "decoder_transform_weight": "decoder_transform.weight",
+    "decoder_transform_bias": "decoder_transform.bias",
+    "decoder_ln_gamma": "decoder_ln.gamma",
+    "decoder_ln_beta": "decoder_ln.beta",
+    # the masked-LM output projection shares word_embed_weight; its bias
+    # is registered under the shared "word_embed_" scope
+    "word_embed_bias": "decoder.bias",
+}
+_BERT_LAYER = {"attn_qkv_weight": "attention.qkv_proj.weight",
+               "attn_qkv_bias": "attention.qkv_proj.bias",
+               "attn_out_weight": "attention.out_proj.weight",
+               "attn_out_bias": "attention.out_proj.bias",
+               "ffn_ffn1_weight": "ffn.ffn1.weight",
+               "ffn_ffn1_bias": "ffn.ffn1.bias",
+               "ffn_ffn2_weight": "ffn.ffn2.weight",
+               "ffn_ffn2_bias": "ffn.ffn2.bias",
+               "ln1_gamma": "ln1.gamma", "ln1_beta": "ln1.beta",
+               "ln2_gamma": "ln2.gamma", "ln2_beta": "ln2.beta"}
+_BERT_LAYER_RE = re.compile(r"enc_layer(\d+)_(" + "|".join(_BERT_LAYER)
+                            + r")")
+# the heads come whole or not at all
+_BERT_HEADS = {"pooler": ("pooler.weight", "pooler.bias"),
+               "classifier": ("classifier.weight", "classifier.bias"),
+               "decoder": ("decoder_transform.weight",
+                           "decoder_transform.bias", "decoder_ln.gamma",
+                           "decoder_ln.beta", "decoder.bias")}
+
+
+def _bert_shapes(out, n_layers):
+    """Every name's shape implied by the word, token-type and position
+    embeddings and layer 0's FFN: (V, U), (T, U), (P, U) tables, (3U, U)
+    qkv, (U, U) out, (F, U) ffn1, (U, F) ffn2, (U,) norms and biases,
+    (2, U) classifier, (V,) decoder bias."""
+    vocab, units = out["word_embed.weight"].shape
+    hidden = out["encoder.cells.0.ffn.ffn1.weight"].shape[0]
+    shapes = {"word_embed.weight": (vocab, units),
+              "token_type_embed.weight": (
+                  out["token_type_embed.weight"].shape[0], units),
+              "position_embed.weight": (
+                  out["position_embed.weight"].shape[0], units),
+              "embed_ln.gamma": (units,), "embed_ln.beta": (units,)}
+    per = {"attention.qkv_proj.weight": (3 * units, units),
+           "attention.qkv_proj.bias": (3 * units,),
+           "attention.out_proj.weight": (units, units),
+           "attention.out_proj.bias": (units,),
+           "ffn.ffn1.weight": (hidden, units), "ffn.ffn1.bias": (hidden,),
+           "ffn.ffn2.weight": (units, hidden), "ffn.ffn2.bias": (units,),
+           "ln1.gamma": (units,), "ln1.beta": (units,),
+           "ln2.gamma": (units,), "ln2.beta": (units,)}
+    for i in range(n_layers):
+        for k, s in per.items():
+            shapes[f"encoder.cells.{i}.{k}"] = s
+    heads = {"pooler.weight": (units, units), "pooler.bias": (units,),
+             "classifier.weight": (2, units), "classifier.bias": (2,),
+             "decoder_transform.weight": (units, units),
+             "decoder_transform.bias": (units,),
+             "decoder_ln.gamma": (units,), "decoder_ln.beta": (units,),
+             "decoder.bias": (vocab,)}
+    for names in _BERT_HEADS.values():
+        if any(n in out for n in names):
+            shapes.update({n: heads[n] for n in names})
+    return shapes
+
+
+def bert_params_from_reference(named: Dict[str, np.ndarray]
+                               ) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``BERTModel``'s named numpy parameters onto the port's
+    ``BERTModel.state_dict()`` names (CPU tensors of the same dtype;
+    ``load_state_dict`` moves them to the model's device and dtype).
+
+    Names match on their suffix after the model prefix (for example
+    ``bertmodel0_``). The masked-LM output projection is tied to the word
+    embedding: when the decoder head is present, ``word_embed_weight``
+    fills both ``word_embed.weight`` and ``decoder.weight``. Raises
+    :class:`MXNetError` on a missing name, an unknown name, a head that
+    is only partly present, or a shape that disagrees with the rest."""
+    heads = [n for n in named if n.endswith("word_embed_weight")]
+    if len(heads) != 1:
+        raise MXNetError(f"expected exactly one '*word_embed_weight' "
+                         f"parameter, found {heads}")
+    prefix = heads[0][:-len("word_embed_weight")]
+    out: Dict[str, torch.Tensor] = {}
+    layers = set()
+    for name, arr in named.items():
+        if not name.startswith(prefix):
+            raise MXNetError(f"parameter {name!r} lacks the model prefix "
+                             f"{prefix!r}")
+        suffix = name[len(prefix):]
+        m = _BERT_LAYER_RE.fullmatch(suffix)
+        if suffix in _BERT_GLOBAL:
+            key = _BERT_GLOBAL[suffix]
+        elif m is not None:
+            layers.add(int(m.group(1)))
+            key = f"encoder.cells.{int(m.group(1))}.{_BERT_LAYER[m.group(2)]}"
+        else:
+            raise MXNetError(f"unexpected parameter {name!r} (suffix "
+                             f"{suffix!r}) for a BERT model")
+        out[key] = _to_tensor(np.asarray(arr))
+    n_layers = max(layers) + 1 if layers else 0
+    needed = ("token_type_embed.weight", "position_embed.weight",
+              "encoder.cells.0.ffn.ffn1.weight")
+    if n_layers == 0 or any(k not in out for k in needed):
+        raise MXNetError(f"missing parameters among {list(needed)}: no "
+                         "complete embedding set and layer 0")
+    for head, names in _BERT_HEADS.items():
+        present = [n for n in names if n in out]
+        if present and len(present) != len(names):
+            raise MXNetError(f"the {head} head is incomplete: missing "
+                             f"{sorted(set(names) - set(present))}")
+    expected = _bert_shapes(out, n_layers)
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise MXNetError(f"missing parameters: {missing}")
+    for key, shape in expected.items():
+        if tuple(out[key].shape) != shape:
+            raise MXNetError(f"parameter {key!r} has shape "
+                             f"{tuple(out[key].shape)}, expected {shape}")
+    if "decoder.bias" in out:
+        out["decoder.weight"] = out["word_embed.weight"]
     return out

@@ -1,5 +1,5 @@
-"""Gluon layer of the port (counterpart of ``mxnet_tpu/gluon``); this slice
-carries only the Llama model of the model zoo."""
-from . import model_zoo
+"""Gluon layer of the port (counterpart of ``mxnet_tpu/gluon``): the basic
+layers and the model zoo's BERT and Llama serving models."""
+from . import model_zoo, nn
 
-__all__ = ["model_zoo"]
+__all__ = ["model_zoo", "nn"]

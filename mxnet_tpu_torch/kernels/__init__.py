@@ -1,8 +1,16 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (counterpart of ``mxnet_tpu/pallas_kernels``)."""
-from .fused_layers import fused_rms_norm, fused_rms_norm_reference
+from .flash import (flash_attention, flash_attention_fwd,
+                    flash_attention_reference)
+from .fused_layers import (fused_bias_gelu, fused_bias_gelu_reference,
+                           fused_layer_norm, fused_layer_norm_reference,
+                           fused_rms_norm, fused_rms_norm_reference)
 from .paged_attention import (paged_attention_kernel,
                               paged_attention_reference)
 
 __all__ = ["fused_rms_norm", "fused_rms_norm_reference",
+           "fused_layer_norm", "fused_layer_norm_reference",
+           "fused_bias_gelu", "fused_bias_gelu_reference",
+           "flash_attention", "flash_attention_fwd",
+           "flash_attention_reference",
            "paged_attention_kernel", "paged_attention_reference"]

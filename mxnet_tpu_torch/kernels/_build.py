@@ -25,11 +25,12 @@ from typing import Dict
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "build_dir", "load", "check"]
+__all__ = ["SOURCES", "build_all", "build_dir", "load", "check", "call"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
-SOURCES = ("rms_norm.cu", "paged_attention.cu")
+SOURCES = ("rms_norm.cu", "paged_attention.cu", "layer_norm.cu",
+           "bias_gelu.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -116,3 +117,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.mx_error_string(rc).decode(errors="replace")
         raise MXNetError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def call(src: str, name: str, argtypes, what: str, *args) -> None:
+    """Call the C entry point ``name`` of ``csrc/<src>``, declaring its
+    ``argtypes`` (an int return) on first use, and raise
+    :class:`MXNetError` naming ``what`` when it returns a CUDA error."""
+    lib = load(src)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    check(lib, fn(*args), what)

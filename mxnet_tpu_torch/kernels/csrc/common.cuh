@@ -82,7 +82,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sum over the whole block; every thread gets the result. ``scratch``
-// holds one float per warp. blockDim.x must be a multiple of 32.
+// holds one float per warp. blockDim.x must be a multiple of 32. A
+// second call in the same kernel needs its own ``scratch`` (or a
+// __syncthreads() between the calls): a fast warp could otherwise
+// overwrite a slot another warp has not read yet.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -93,6 +96,30 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   v = lane < n_warps ? scratch[lane] : 0.f;
   v = warp_sum(v);
   return v;
+}
+
+// Threads for a one-CTA-per-row kernel that gives each thread ``work``
+// items (chunks or elements): a whole number of warps, at most ``cap``.
+inline int row_threads(int work, int cap) {
+  int t = ((work + 31) / 32) * 32;
+  return t > cap ? cap : (t < 32 ? 32 : t);
+}
+
+// Two f32 values as one bf16x2 register, the lower index in the low half
+// (the operand layout of mma.sync).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Set the dynamic shared memory a kernel may use (above 48 KB only after
+// this call); a no-op below the default.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace mxk

@@ -1,0 +1,212 @@
+"""Flash attention forward: the hand-written CUDA kernel and its plain
+PyTorch version.
+
+Counterpart of ``mxnet_tpu/pallas_kernels/flash_attention.py``'s forward
+(``_flash_fwd_pallas``: the whole-head ``pallas_call`` at ``:552`` and
+the streaming one at ``:590``, one algorithm). The kernel is
+``csrc/flash_attention.cu``; its header comment says what bounds it on
+an H100 and how its design answers that.
+
+Contract, as in the JAX kernel: softmax in base 2 (``scale * log2(e)``
+folded into the f32 scores), f32 statistics, the output in the input
+dtype, and the per-row logsumexp in base 2, ``m + log2(l)``, as f32 —
+the residual the training slice's backward and ring attention read as
+it is. Two differences of form from the TPU kernel:
+
+* the lse comes back as ``(B * H, Lq)``, not the TPU's sublane tile
+  ``(B * H, nq, 8, bq)``;
+* any ``Lq, Lk >= 1`` (a masked ragged edge, no ``L % 128`` gate) and
+  any head dim ``D <= 256`` with ``D % 8 == 0``.
+
+Causal masking is bottom-right aligned (key ``j`` is visible to query
+``i`` iff ``j <= i + Lk - Lq``); causal with ``Lq > Lk`` is rejected, as
+``flash_shape_supported`` rejects it. A row that sees no key gives zeros
+and lse ``-1e30``. ``layout`` is ``"bhld"`` (B, H, L, D) or ``"blhd"``
+(B, L, H, D); the kernel reads either through strides, so the per-head
+views of a fused QKV projection need no copy. ``dropout > 0`` raises
+until the training slice brings the position-hash dropout.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..base import MXNetError
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_fwd",
+           "flash_attention_reference", "LOG2E", "NO_KEY_LSE"]
+
+LOG2E = 1.4426950408889634
+NO_KEY_LSE = -1e30
+MAX_HEAD_DIM = 256
+_BLOCK_Q = 64                     # query rows per CTA (csrc kBM)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def _dims(q, k, v, layout):
+    if layout not in ("bhld", "blhd"):
+        raise MXNetError(f"flash_attention: layout {layout!r} is not "
+                         "'bhld' or 'blhd'")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise MXNetError("flash_attention: q, k and v must be 4-D")
+    if layout == "blhd":
+        (b, lq, h, d), (bk, lk, hk, dk) = q.shape, k.shape
+    else:
+        (b, h, lq, d), (bk, hk, lk, dk) = q.shape, k.shape
+    if (bk, hk, dk) != (b, h, d) or v.shape != k.shape:
+        raise MXNetError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)} do not agree in batch, heads and head dim "
+            f"({layout})")
+    return b, h, lq, lk, d
+
+
+def _check(q, k, v, causal, layout):
+    b, h, lq, lk, d = _dims(q, k, v, layout)
+    if lq < 1 or lk < 1:
+        raise MXNetError(f"flash_attention: need Lq, Lk >= 1, got {lq}, "
+                         f"{lk}")
+    if causal and lq > lk:
+        raise MXNetError(
+            f"flash_attention: causal with Lq {lq} > Lk {lk} leaves the "
+            "first query rows no visible key (bottom-right alignment); "
+            "use sdp_attention, which takes the dense path for it")
+    return b, h, lq, lk, d
+
+
+def _no_dropout(dropout):
+    if dropout > 0.0:
+        raise MXNetError("flash_attention: dropout > 0 needs the "
+                         "position-hash dropout of the training slice "
+                         "(ROADMAP.md, port queue 2, item 0)")
+
+
+def _bhld(x, layout):
+    return x.transpose(1, 2) if layout == "blhd" else x
+
+
+def _reference(q, k, v, scale, causal, causal_offset, layout):
+    """The plain version with an explicit causal offset (the public
+    functions use ``Lk - Lq``; a negative offset makes rows with no
+    visible key)."""
+    qh, kh, vh = (_bhld(t, layout) for t in (q, k, v))
+    b, h, lq, d = qh.shape
+    lk = kh.shape[2]
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) \
+        * (float(scale) * LOG2E)
+    if causal:
+        qpos = torch.arange(lq, device=q.device)[:, None]
+        kpos = torch.arange(lk, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos + causal_offset, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m_use = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp2(s - m_use)
+    l = p.sum(dim=-1, keepdim=True)
+    # P rounds to v's dtype before the product, as in the kernels
+    o = torch.matmul(p.to(v.dtype).float(), vh.float())
+    o = o / torch.where(l > 0, l, torch.ones_like(l))
+    lse = torch.where(l > 0, m + torch.log2(torch.where(l > 0, l,
+                                                        torch.ones_like(l))),
+                      torch.full_like(l, NO_KEY_LSE))
+    out = o.to(q.dtype)
+    if layout == "blhd":
+        out = out.transpose(1, 2).contiguous()
+    return out, lse.reshape(b * h, lq)
+
+
+def flash_attention_reference(q, k, v, scale=None, causal=False,
+                              layout="bhld", dropout=0.0):
+    """Plain PyTorch version of :func:`flash_attention_fwd`: dense f32
+    scores in base 2, the masked softmax, P rounded to v's dtype, f32
+    P.V. Returns ``(out, lse)``."""
+    _no_dropout(dropout)
+    _, _, lq, lk, d = _check(q, k, v, causal, layout)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return _reference(q, k, v, scale, causal, lk - lq, layout)
+
+
+def _strides(x, layout):
+    """(batch, head, seq) element strides of a tensor in ``layout``."""
+    if layout == "blhd":
+        return x.stride(0), x.stride(2), x.stride(1)
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
+def _launch(q, k, v, scale, causal, causal_offset, layout):
+    """Launch the kernel on CUDA tensors already shape-checked; returns
+    ``(out, lse)``."""
+    b, h, lq, lk, d = _dims(q, k, v, layout)
+    if any(t.device != q.device for t in (k, v)):
+        raise MXNetError("flash_attention: q, k and v must be on one "
+                         "CUDA device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise MXNetError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}: need one of float32, bfloat16 for "
+                         "all three")
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise MXNetError(f"flash_attention: head dim {d} must be a "
+                         f"multiple of 8 and <= {MAX_HEAD_DIM}")
+    if -(-lq // _BLOCK_Q) > 65535:
+        raise MXNetError(f"flash_attention: Lq {lq} exceeds the grid "
+                         f"({65535 * _BLOCK_Q} rows)")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = []
+    for t in (q, k, v, out):
+        st = _strides(t, layout)
+        if t.stride(3) != 1 or any(s % 8 for s in st) \
+                or t.data_ptr() % 16:
+            raise MXNetError(
+                f"flash_attention: a tensor with strides {t.stride()} and "
+                f"address {t.data_ptr():#x}: the head dim must be "
+                "contiguous, the other strides multiples of 8 and the "
+                "base 16-byte aligned (call .contiguous())")
+        strides.extend(st)
+    lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    c_strides = (ctypes.c_longlong * 12)(*strides)
+    with torch.cuda.device(q.device):
+        _build.call(
+            "flash_attention.cu", "mx_flash_attention_fwd", _ARGS,
+            "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), ctypes.addressof(c_strides), b,
+            h, lq, lk, d, float(scale) * LOG2E, int(bool(causal)),
+            int(causal_offset), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, scale=None, causal=False, layout="bhld",
+                        dropout=0.0):
+    """Attention and its base-2 logsumexp: returns ``(out, lse)`` with
+    ``out`` shaped and laid out as ``q`` (contiguous) in q's dtype and
+    ``lse`` (B * H, Lq) float32. See the module docstring."""
+    _no_dropout(dropout)
+    _, _, lq, lk, d = _check(q, k, v, causal, layout)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return _reference(q, k, v, scale, causal, lk - lq, layout)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q, k, v, scale, causal, lk - lq, layout)
+
+
+def flash_attention(q, k, v, scale=None, causal=False, layout="bhld",
+                    dropout=0.0):
+    """Scaled dot-product attention without a mask (see the module
+    docstring); the output only."""
+    return flash_attention_fwd(q, k, v, scale, causal, layout, dropout)[0]
+
+
+flash_attention.launches = 0

@@ -57,14 +57,8 @@ def paged_attention_reference(q, k_arena, v_arena, page_table, lengths, *,
     return o.reshape(b, h, 1, d).to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_SRC)
-    fn = lib.mx_paged_attention_decode
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check(q, k_arena, v_arena, page_table, lengths, page_size) -> None:
@@ -128,15 +122,14 @@ def paged_attention_kernel(q, k_arena, v_arena, page_table, lengths, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    lib = _lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mx_paged_attention_decode(
-            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kv, d, page_table.shape[1], int(page_size), float(scale),
-            _DTYPE_CODE[q.dtype], stream)
-    _build.check(lib, rc, "paged_attention_kernel")
+        _build.call(
+            _SRC, "mx_paged_attention_decode", _ARGS,
+            "paged_attention_kernel", q.data_ptr(), k_arena.data_ptr(),
+            v_arena.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, h, kv, d, page_table.shape[1],
+            int(page_size), float(scale), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention_kernel.launches += 1
     return out
 

@@ -1,9 +1,10 @@
-"""Attention-path ops of the Llama serving slice.
+"""Attention-path ops.
 
-Counterpart of ``mxnet_tpu/ops/attention.py`` (``rms_norm``, ``rope``,
-``rope_at``, ``_paged_reference``, ``paged_attention``). The JAX op
-registry and its ``MXNET_PALLAS_FUSED`` knob have no counterpart: a CUDA
-tensor always takes the port's kernel, a CPU tensor its plain version.
+Counterpart of ``mxnet_tpu/ops/attention.py`` (``sdp_attention`` with
+its ``_sdpa_reference``, ``rms_norm``, ``rope``, ``rope_at``,
+``_paged_reference``, ``paged_attention``). The JAX op registry and its
+``MXNET_PALLAS_FUSED`` knob have no counterpart: a CUDA tensor always
+takes the port's kernel, a CPU tensor its plain version.
 """
 from __future__ import annotations
 
@@ -11,9 +12,63 @@ import math
 
 import torch
 
-from ..kernels import fused_rms_norm, paged_attention_kernel
+from ..base import MXNetError
+from ..kernels import flash_attention, fused_rms_norm, paged_attention_kernel
 
-__all__ = ["rms_norm", "rope", "rope_at", "paged_attention"]
+__all__ = ["sdp_attention", "rms_norm", "rope", "rope_at",
+           "paged_attention"]
+
+
+def _sdpa_reference(q, k, v, mask, scale, causal, layout="bhld"):
+    """Dense f32-softmax attention (``mxnet_tpu/ops/attention.py:21-62``,
+    dropout off): the score product in the input dtype, then f32 scores
+    times ``scale``, causal bottom-right (``tril(k=Lk-Lq)``) and ``mask``
+    (1 = attend, broadcastable to (B, H, Lq, Lk)) filled with -1e9, the
+    softmax, the probabilities in the input dtype, and the value product.
+    ``layout``: "bhld" (B, H, L, D) or "blhd" (B, L, H, D)."""
+    if layout == "blhd":
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    else:
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    scores = scores.float() * scale
+    if causal:
+        lq, lk = scores.shape[-2], scores.shape[-1]
+        keep = torch.ones((lq, lk), dtype=torch.bool,
+                          device=q.device).tril(lk - lq)
+        scores = scores.masked_fill(~keep, -1e9)
+    if mask is not None:
+        keep = torch.broadcast_to(mask.to(torch.bool), scores.shape)
+        scores = scores.masked_fill(~keep, -1e9)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if layout == "blhd":
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def sdp_attention(query, key, value, mask=None, *, scale=None,
+                  causal=False, layout="bhld", dropout=0.0):
+    """Scaled dot-product attention, ``layout`` "bhld" (B, H, L, D) or
+    "blhd" (B, L, H, D), output in the same layout.
+
+    Mask-free calls go to :func:`~mxnet_tpu_torch.kernels.flash_attention`
+    (the kernel on a CUDA tensor); a ``mask`` (1 = attend, broadcastable
+    to (B, H, Lq, Lk)) and causal attention with Lq > Lk go to
+    :func:`_sdpa_reference`, the JAX package's own route for them.
+    ``dropout > 0`` raises until the training slice; ``ring_axis``
+    (sequence parallelism) waits for the parallelism queue."""
+    if dropout > 0.0:
+        raise MXNetError("sdp_attention: attention dropout needs the "
+                         "position-hash dropout of the training slice "
+                         "(ROADMAP.md, port queue 2, item 0)")
+    if scale is None:
+        scale = 1.0 / math.sqrt(query.shape[-1])
+    seq_ax = 1 if layout == "blhd" else 2
+    if mask is None and not (causal
+                             and query.shape[seq_ax] > key.shape[seq_ax]):
+        return flash_attention(query, key, value, scale=scale,
+                               causal=causal, layout=layout)
+    return _sdpa_reference(query, key, value, mask, scale, causal,
+                           layout=layout)
 
 
 def rms_norm(data: torch.Tensor, weight: torch.Tensor, *,

@@ -1,5 +1,6 @@
 """Serving stack of the port (counterpart of ``mxnet_tpu/serving``): the
-continuous-batching generate server over a paged KV cache."""
+SLO batcher for one-shot requests and the continuous-batching generate
+server over a paged KV cache."""
 from .buckets import DEFAULT_LEN_BUCKETS, BucketGrid, TokenBucket
 from .kvcache import (CacheFull, PagePool, Preempted, apply_defrag,
                       make_kv_arena)

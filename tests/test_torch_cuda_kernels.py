@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the Llama-3-8B serving path's shapes.
+card, at the Llama-3-8B and BERT serving paths' shapes and at ragged
+ones.
 
 Marked ``cuda``: each test skips where there is no CUDA card (the CPU
 test runs) and runs on a machine with one. This file imports neither JAX
@@ -14,9 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch.kernels import (fused_rms_norm, fused_rms_norm_reference,
+from mxnet_tpu_torch.kernels import (flash_attention_fwd,
+                                     flash_attention_reference,
+                                     fused_bias_gelu,
+                                     fused_bias_gelu_reference,
+                                     fused_layer_norm,
+                                     fused_layer_norm_reference,
+                                     fused_rms_norm, fused_rms_norm_reference,
                                      paged_attention_kernel,
                                      paged_attention_reference)
+from mxnet_tpu_torch.kernels.flash import NO_KEY_LSE, _launch, _reference
 
 # bf16 keeps 8 significant bits, so one ulp is at most 2**-7 of a
 # value's magnitude. The kernel and its plain version sum the squares in
@@ -86,3 +94,144 @@ def test_paged_kernel_matches_plain_on_card(b, dtype, d):
     assert torch.count_nonzero(out[0]) == 0
     tol = 2e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(32 * 512, 768), (7, 100), (5, 8192)])
+@pytest.mark.parametrize("xdt,gdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+@pytest.mark.parametrize("with_res", [True, False])
+def test_layer_norm_kernel_matches_plain_on_card(rows, d, xdt, gdt,
+                                                 with_res):
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(rows + d)
+    xt, gt = getattr(torch, xdt), getattr(torch, gdt)
+    x = (2 + torch.randn(rows, d, device="cuda", generator=g)).to(xt)
+    r = torch.randn(rows, d, device="cuda", generator=g).to(xt) \
+        if with_res else None
+    gamma = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    beta = (0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    before = fused_layer_norm.launches
+    out, mean, rstd = fused_layer_norm(x, gamma, beta, r, eps=1e-5,
+                                       return_stats=True)
+    torch.cuda.synchronize()
+    assert fused_layer_norm.launches == before + 1
+    ref, rmean, rrstd = fused_layer_norm_reference(x, gamma, beta, r,
+                                                   eps=1e-5,
+                                                   return_stats=True)
+    assert out.dtype == x.dtype
+    # f32: statistics summed in another order; bf16: one rounding of the
+    # f32 result, which may sit on either side of a rounding boundary
+    rtol = 1e-5 if xdt == "float32" else BF16_RTOL
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(32 * 512, 3072), (9, 100), (3, 8)])
+@pytest.mark.parametrize("xdt,bdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+def test_bias_gelu_kernel_matches_plain_on_card(rows, d, xdt, bdt):
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(rows * d)
+    x = (2 * torch.randn(rows, d, device="cuda", generator=g)).to(
+        getattr(torch, xdt))
+    b = torch.randn(d, device="cuda", generator=g).to(getattr(torch, bdt))
+    before = fused_bias_gelu.launches
+    out = fused_bias_gelu(x, b)
+    torch.cuda.synchronize()
+    assert fused_bias_gelu.launches == before + 1
+    ref = fused_bias_gelu_reference(x, b)
+    # the same f32 arithmetic (erff on the card, erf in torch)
+    rtol = 1e-6 if xdt == "float32" else BF16_RTOL
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-6)
+
+
+# flash attention: f32 differs in the order of f32 sums; bf16 rounds P
+# to bf16 against the running row max in the kernel and against the
+# final one in the plain version, then rounds the output once more
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (B, H, Lq, Lk, D, causal, layout)
+    (32, 12, 512, 512, 64, False, "bhld"),      # BERT-base seq 512
+    (8, 12, 128, 128, 64, False, "blhd"),
+    (2, 8, 2048, 2048, 128, True, "bhld"),      # the streaming case
+    (2, 3, 77, 200, 40, True, "bhld"),          # ragged L and D
+    (1, 2, 100, 33, 256, False, "blhd"),
+    (3, 2, 50, 50, 8, True, "blhd"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_on_card(shape, dtype):
+    _require_card()
+    b, h, lq, lk, d, causal, layout = shape
+    g = torch.Generator(device="cuda").manual_seed(lq * d)
+    qs = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+    ks = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+    tdt = getattr(torch, dtype)
+    q = torch.randn(*qs, device="cuda", generator=g).to(tdt)
+    k = torch.randn(*ks, device="cuda", generator=g).to(tdt)
+    v = torch.randn(*ks, device="cuda", generator=g).to(tdt)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, layout=layout)
+    torch.cuda.synchronize()
+    ref, rlse = flash_attention_reference(q, k, v, causal=causal,
+                                          layout=layout)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (b * h, lq) and lse.dtype == torch.float32
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_rows_with_no_visible_key_on_card(dtype):
+    """A causal offset below zero leaves the first rows no key: zeros and
+    the -1e30 lse, as in the Pallas kernels."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn(2, 2, 70, 64, device="cuda", generator=g).to(tdt)
+               for _ in range(3))
+    out, lse = _launch(q, k, v, 0.125, True, -10, "bhld")
+    torch.cuda.synchronize()
+    ref, rlse = _reference(q, k, v, 0.125, True, -10, "bhld")
+    assert torch.count_nonzero(out[:, :, :10]) == 0
+    assert torch.all(lse[:, :10] == NO_KEY_LSE)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,d", [(32, 512, 12, 64),      # BERT-base
+                                     (3, 77, 5, 40),
+                                     (2, 130, 2, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_on_fused_qkv_views_on_card(b, l, h, d, dtype):
+    """The heads as MultiHeadAttention hands them over: (B, L, H, D)
+    views into one (B, L, 3*H*D) QKV output, with a sequence stride of
+    3*H*D and k and v starting H*D and 2*H*D elements in."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(l * d)
+    qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=g).to(
+        getattr(torch, dtype))
+    q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+    assert q.stride(1) == 3 * h * d and v.storage_offset() == 2 * h * d
+    out, lse = flash_attention_fwd(q, k, v, layout="blhd")
+    torch.cuda.synchronize()
+    ref, rlse = flash_attention_reference(q, k, v, layout="blhd")
+    assert out.shape == (b, l, h, d) and out.is_contiguous()
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)

@@ -225,8 +225,10 @@ def test_rejections_are_typed_and_synchronous(nets):
             srv.submit_generate(np.zeros(0, np.int32), 1)
         assert len(srv.submit_generate(PROMPTS[0], 2).result(60)) == 2
     assert srv.stats()["shed"] == 1
-    with pytest.raises(mx.MXNetError):
-        Server(pnet, ctx=mx.cpu(), batch_buckets=(1,))  # no decode_pages
+    # without decode_pages the server serves one-shot submit only
+    with Server(pnet, ctx=mx.cpu(), batch_buckets=(1,)) as plain:
+        with pytest.raises(mx.MXNetError, match="decode is not enabled"):
+            plain.submit_generate(PROMPTS[0], 2)
 
 
 def test_defrag_keeps_output_unchanged(nets):
