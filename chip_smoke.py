@@ -12,10 +12,14 @@ package. Phases, each printing JSON lines and failing loudly:
              process per source, all at once (into build/kernels/,
              listed in .gitignore);
 3. kernels — each kernel against its plain PyTorch version at its
-             serving path's shapes, bf16 and f32, with its stated
-             tolerance; kernel, plain and library-call times from CUDA
-             events (cold L2), and the least time the card could take
-             (bound_ms) from this run's bytes and operations;
+             path's shapes, bf16 and f32, with its stated tolerance (the
+             backward kernels on BERT-base's (32 x 512) batch, flash on
+             its fused-QKV views and a causal (2, 8, 2048, 128); the Adam
+             sweep over BERTForPretrainFused's bf16 multi-precision
+             parameter set, bit for bit); kernel, plain and library-call
+             times from CUDA events (cold L2), and the least time the
+             card could take (bound_ms) from this run's bytes and
+             operations;
 4. reference — the Llama decode path at Llama-3-8B widths, depth cut to
              2 layers, in f32: each stream's last decode-step logits
              against forward_full over the same tokens, to f32 noise;
@@ -42,7 +46,20 @@ package. Phases, each printing JSON lines and failing loudly:
              (32, 512) forward (host vs device ms, top device events),
              and the burst served again under the profiler (the card's
              busy share of the wall time, its top device events);
-8. summary — one {"kernels": [...]} line.
+8. train_reference — BERTForPretrainFused at BERT-base widths, depth
+             cut to 2 layers, f32: three TrainStep Adam steps on the card
+             against the same weights and batch on the CPU (the plain
+             versions): each loss, and each parameter's delta over the
+             run by norm ratio;
+9. bert_train — BERTForPretrainFused at bert_12_768_12, not cut
+             (dropout 0, bf16, multi-precision Adam at lr 1e-4, seeded
+             random weights), one (32, 512) batch: 3 warm-up and 20 timed
+             TrainStep calls; ms per step, samples/s, MFU, peak memory,
+             the loss (finite, falling), exactly 26/26 LayerNorm, 13/13
+             bias+GELU and 12/12 flash launches forward/backward and one
+             sweep per dtype bucket per step, and a profiled step (host
+             vs device ms, idle share, top device events);
+10. summary — one {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -399,6 +416,239 @@ def flash_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
     return rec
 
 
+# backward kernels: max |kernel - plain| over max |plain| (the gradients
+# sum over many rows, so an elementwise test near 0 says nothing). f32:
+# sums in other orders; bf16: P and dS (flash), or dx, dgamma and dbeta
+# (LayerNorm, bias+GELU), round once from f32 values summed in another
+# order, and each gradient rounds once more: two bf16 ulps of the
+# largest magnitude
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def max_rel(outs, refs) -> tuple:
+    """(largest max |out - ref|, whether each out is finite and within
+    its BWD tolerance of max |ref|) over pairs, as f32."""
+    errs, rels = [], []
+    for o, r in zip(outs, refs):
+        o, r = o.float(), r.float()
+        errs.append(float((o - r).abs().max()))
+        rels.append(errs[-1] / max(float(r.abs().max()), 1e-30)
+                    if bool(torch.isfinite(o).all()) else float("inf"))
+    return max(errs), max(rels)
+
+
+def _grad_timer(out, inputs, grad):
+    """A callable running autograd's backward of ``out`` with respect to
+    ``inputs`` for ``grad`` (the graph is kept, so it can run again)."""
+    return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+
+def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
+    """Flash attention backward (dq, dk, dv) against its plain version on
+    the forward's own output and lse. "blhd" takes BERT's fused-QKV
+    views, as flash_case does. Library yardstick: the autograd backward
+    of F.scaled_dot_product_attention on the same inputs (timed only).
+    Operations: the five products of the causal triangle or the full
+    square; bytes: q, k, v, o, dO and lse read, dq, dk, dv written."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (flash_attention_bwd,
+                                         flash_attention_bwd_reference,
+                                         flash_attention_fwd)
+
+    if layout == "blhd":
+        qkv = torch.randn(b, l, 3 * h * d, device="cuda",
+                          generator=gen).to(dtype)
+        q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+        do = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
+        to_sdpa = lambda t: t.transpose(1, 2)           # noqa: E731
+    else:
+        q, k, v, do = (torch.randn(b, h, l, d, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
+        to_sdpa = lambda t: t                           # noqa: E731
+    kw = {"causal": causal, "layout": layout}
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    err, rel = max_rel(got, flash_attention_bwd_reference(q, k, v, o, lse,
+                                                          do, **kw))
+    leaves = [to_sdpa(t).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    pairs = l * (l + 1) // 2 if causal else l * l
+    n_ops = 5 * 2.0 * b * h * pairs * d
+    n_bytes = 8 * b * h * l * d * _size(dtype) + 4 * b * h * l
+    b_ms, b_by = bound(n_bytes, n_ops, dtype)
+    rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
+           "shape": [b, h, l, d], "layout": layout, "causal": causal,
+           "dtype": _dname(dtype), "max_abs_err": err,
+           "max_err_over_max_ref": rel, "tol": BWD_TOL[dtype],
+           "ok": rel <= BWD_TOL[dtype],
+           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                     **kw), flush),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+               q, k, v, o, lse, do, **kw), flush),
+           "library_ms": time_ms(_grad_timer(sdpa_out, leaves, to_sdpa(do)),
+                                 flush),
+           "library": "autograd backward of F.scaled_dot_product_attention",
+           "bound_ms": b_ms, "bound_by": b_by, "gflop": n_ops / 1e9,
+           "mbytes": n_bytes / 1e6}
+    emit(rec)
+    return rec
+
+
+def ln_bwd_case(rows, d, dtype, with_res, flush, gen) -> dict:
+    """LayerNorm(x + residual) backward from the forward's f32 row
+    statistics. Library yardstick: autograd's backward of F.layer_norm
+    without the residual (null with it: no single call adds one)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (fused_layer_norm,
+                                         fused_layer_norm_bwd,
+                                         fused_layer_norm_bwd_reference)
+
+    x = (2 + torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    r = (torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+         if with_res else None)
+    g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    dy = torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+    _, mean, rstd = fused_layer_norm(x, g, b, r, return_stats=True)
+    got = fused_layer_norm_bwd(x, g, mean, rstd, dy, r)
+    torch.cuda.synchronize()
+    err, rel = max_rel(got, fused_layer_norm_bwd_reference(x, g, mean, rstd,
+                                                           dy, r))
+    library = None
+    if not with_res:
+        leaves = [t.detach().requires_grad_() for t in (x, g, b)]
+        y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+        library = time_ms(_grad_timer(y, leaves, dy), flush)
+    size = _size(dtype)
+    n_bytes = rows * d * size * (4 if with_res else 3) + 8 * rows \
+        + 3 * d * size
+    # recentre, scale, two products and two sums for the row means, the
+    # dh expression, two column sums: ~12 f32 operations per element
+    b_ms, b_by = bound(n_bytes, 12.0 * rows * d, torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_layer_norm_bwd",
+           "shape": [rows, d], "residual": with_res, "dtype": _dname(dtype),
+           "max_abs_err": err, "max_err_over_max_ref": rel,
+           "tol": BWD_TOL[dtype], "ok": rel <= BWD_TOL[dtype],
+           "ms": time_ms(lambda: fused_layer_norm_bwd(x, g, mean, rstd, dy,
+                                                      r), flush),
+           "plain_ms": time_ms(lambda: fused_layer_norm_bwd_reference(
+               x, g, mean, rstd, dy, r), flush),
+           "library_ms": library,
+           "library": "null: no single PyTorch call adds a residual"
+                      if with_res else "autograd backward of F.layer_norm",
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    return rec
+
+
+def gelu_bwd_case(rows, d, dtype, flush, gen) -> dict:
+    """bias+GELU backward, recomputed from (x, bias). No single PyTorch
+    call computes it (F.gelu takes no bias), so library_ms is null."""
+    from mxnet_tpu_torch.kernels import (fused_bias_gelu_bwd,
+                                         fused_bias_gelu_bwd_reference)
+
+    x = (2 * torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    bias = torch.randn(d, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+    got = fused_bias_gelu_bwd(x, bias, dy)
+    torch.cuda.synchronize()
+    err, rel = max_rel(got, fused_bias_gelu_bwd_reference(x, bias, dy))
+    size = _size(dtype)
+    # add, erf and exp (one each), ~6 multiplies and adds, the bias sum
+    b_ms, b_by = bound(3 * rows * d * size + d * size, 10.0 * rows * d,
+                       torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_bias_gelu_bwd",
+           "shape": [rows, d], "dtype": _dname(dtype), "max_abs_err": err,
+           "max_err_over_max_ref": rel, "tol": BWD_TOL[dtype],
+           "ok": rel <= BWD_TOL[dtype],
+           "ms": time_ms(lambda: fused_bias_gelu_bwd(x, bias, dy), flush),
+           "plain_ms": time_ms(lambda: fused_bias_gelu_bwd_reference(
+               x, bias, dy), flush),
+           "library_ms": None,
+           "library": "null: no single PyTorch call (F.gelu takes no bias)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    return rec
+
+
+def _pretrain_shapes() -> list:
+    """The trainable parameter shapes of BERTForPretrainFused at
+    bert_12_768_12's widths (the tied projection counted once)."""
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+
+    net = BERTForPretrainFused(dropout=0.0, ctx="cuda",
+                               dtype=torch.bfloat16)
+    shapes = [tuple(p.shape) for p in net.parameters()]
+    del net
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def adam_case(flush, gen) -> dict:
+    """The fused Adam sweep over BERTForPretrainFused's bf16
+    multi-precision parameter set (f32 masters and moments, bf16 grads,
+    the bf16 weights written in the same pass), held bit for bit against
+    its plain version from the same state. Library yardstick:
+    torch._fused_adam_ over the same members as f32 weights and f32
+    grads, with no bf16 weight to write (24 bytes per element against
+    the sweep's 28): the nearest single PyTorch call, timed only."""
+    from mxnet_tpu_torch.kernels import adam_sweep_reference, fused_adam_sweep
+
+    shapes = _pretrain_shapes()
+    n = sum(int(np.prod(s)) for s in shapes)
+
+    def members(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ws = [torch.randn(s, device="cuda", generator=g) for s in shapes]
+        gs = [torch.randn(s, device="cuda", generator=g).to(torch.bfloat16)
+              for s in shapes]
+        ms = [0.01 * torch.randn(s, device="cuda", generator=g)
+              for s in shapes]
+        vs = [1e-4 * torch.rand(s, device="cuda", generator=g)
+              for s in shapes]
+        return ws, gs, ms, vs, [w.to(torch.bfloat16) for w in ws]
+
+    lrs = [1e-4 * (1 - 0.999) ** 0.5 / (1 - 0.9)] * len(shapes)
+    wds = [0.0] * len(shapes)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, rescale_grad=1.0)
+    a = members(5)
+    fused_adam_sweep(*a, lrs, wds, **kw)
+    b = members(5)
+    adam_sweep_reference(*b, lrs, wds, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for grp in range(5)
+               for x, y in zip(a[grp], b[grp]))
+    err = max(float((x.float() - y.float()).abs().max())
+              for grp in (0, 2, 3, 4) for x, y in zip(a[grp], b[grp]))
+    del b
+    ms = time_ms(lambda: fused_adam_sweep(*a, lrs, wds, **kw), flush)
+    plain_ms = time_ms(lambda: adam_sweep_reference(*a, lrs, wds, **kw),
+                       flush, iters=5, warmup=1)
+    ws, gs, m1, v1, _ = a
+    g32 = [g.float() for g in gs]
+    steps = [torch.ones((), device="cuda") for _ in shapes]
+    library_ms = time_ms(lambda: torch._fused_adam_(
+        ws, g32, m1, v1, [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False), flush)
+    # bf16 grad read; f32 master, mean, var read and written; bf16 weight
+    # written. ~15 f32 operations per element
+    b_ms, b_by = bound(28.0 * n, 15.0 * n, torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_adam_sweep",
+           "shape": [n], "members": len(shapes), "dtype": "bfloat16-mp",
+           "bit_identical": same, "max_abs_err": err, "ok": same,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch._fused_adam_ on f32 weights and f32 grads, "
+                      "no bf16 weight written",
+           "bound_ms": b_ms, "bound_by": b_by, "gbytes": 28.0 * n / 1e9}
+    emit(rec)
+    del a, ws, gs, m1, v1, g32
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _warm_card(seconds=2.0) -> None:
     """Keep the card busy with bf16 GEMMs for ``seconds`` so its clocks
     have ramped up before anything is timed."""
@@ -434,6 +684,15 @@ def phase_kernels() -> dict:
                       (8, 12, 128, 64, False, "blhd"),
                       (2, 8, 2048, 128, True, "bhld")):
             recs.append(flash_case(*shape, dtype, flush, gen))
+        # the pretraining path's backward kernels at its shapes
+        for with_res in (True, False):
+            recs.append(ln_bwd_case(32 * 512, 768, dtype, with_res, flush,
+                                    gen))
+        recs.append(gelu_bwd_case(32 * 512, 3072, dtype, flush, gen))
+        for shape in ((32, 12, 512, 64, False, "blhd"),
+                      (2, 8, 2048, 128, True, "bhld")):
+            recs.append(flash_bwd_case(*shape, dtype, flush, gen))
+    recs.append(adam_case(flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -442,12 +701,19 @@ def phase_kernels() -> dict:
     # each kernel's main-path shape stands for it in the summary: the
     # decode step's RMS (8, 4096) and paged B = 8, and BERT-base's
     # (32 x 512) batch for LayerNorm with the residual (24 of its 25
-    # calls per forward), bias+GELU and flash attention on fused-QKV
-    # views; all bf16
-    pick = {}
+    # calls per forward, 24 of 26 backward), bias+GELU and flash
+    # attention on fused-QKV views, forward and backward; bf16, and the
+    # sweep over the bf16-mp parameter set
+    pick = {"fused_adam_sweep": recs[-1]}
     for r in recs:
         if r["dtype"] != "bfloat16":
             continue
+        if r["kernel"] == "fused_layer_norm_bwd" and r["residual"]:
+            pick["fused_layer_norm_bwd"] = r
+        if r["kernel"] == "fused_bias_gelu_bwd":
+            pick["fused_bias_gelu_bwd"] = r
+        if r["kernel"] == "flash_attention_bwd" and r["layout"] == "blhd":
+            pick["flash_attention_bwd"] = r
         if r["kernel"] == "fused_rms_norm" and r["shape"] == [8, 4096]:
             pick["fused_rms_norm"] = r
         if r["kernel"] == "paged_attention_kernel" and r["shape"]["B"] == 8:
@@ -634,11 +900,11 @@ def phase_serving() -> dict:
     return res["launches"]
 
 
-def _device_breakdown(step, steps) -> dict:
+def _device_breakdown(step, steps, n_top=8) -> dict:
     """Where ``step()``'s time goes: host wall time per call (synchronised,
     unprofiled, after one warm call) against the device time
-    torch.profiler records over as many further calls, and the device
-    events that take most of it."""
+    torch.profiler records over as many further calls, the ``n_top``
+    device events that take most of it, and device time by kind."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -653,27 +919,52 @@ def _device_breakdown(step, steps) -> dict:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    device_ms, top = _device_events(prof, steps)
+    device_ms, top, by_kind = _device_events(prof, steps, n_top)
     return {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
             "device_idle_share": 1 - device_ms / host_ms,
-            "top_device_ms_per_step": top}
+            "top_device_ms_per_step": top,
+            "device_ms_per_step_by_kind": by_kind}
 
 
-def _device_events(prof, per) -> tuple:
-    """(device ms, the 8 largest device events in ms), each divided by
-    ``per``. Device-side events only (kernels, copies, memsets): a CPU
-    op's device time repeats its kernels' time."""
+# the port's own CUDA kernels, by their __global__ names in kernels/csrc
+_PORT_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+                 "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
+                 "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
+                 "paged_decode_kernel")
+
+
+def _kind(name) -> str:
+    if any(k in name for k in _PORT_KERNELS):
+        return "port_kernels"
+    if any(k in name.lower() for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "library_gemm"
+    if "Memcpy" in name or "Memset" in name:
+        return "copy_memset"
+    return "other_library"
+
+
+def _device_events(prof, per, n_top=8) -> tuple:
+    """(device ms, the ``n_top`` largest device events in ms, device ms by
+    kind: the port's kernels, library GEMMs, copies, other library
+    kernels), each divided by ``per``. Device-side events only (kernels,
+    copies, memsets): a CPU op's device time repeats its kernels' time."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    top = sorted(events, key=dev_us, reverse=True)[:8]
-    return (sum(dev_us(e) for e in events) / 1e3 / per,
-            {e.key[:60]: dev_us(e) / 1e3 / per for e in top})
+    # device ms by event name, cut to 60 characters (names that share
+    # the cut prefix add up)
+    by_name, by_kind = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or dev_us(e) <= 0:
+            continue
+        ms = dev_us(e) / 1e3 / per
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + ms
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
+    return sum(by_name.values()), dict(top[:n_top]), by_kind
 
 
 def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
@@ -877,7 +1168,7 @@ def _profile_burst(net, samples, buckets) -> dict:
                              shape_buckets=[(b,) for b in buckets],
                              batch_buckets=(1, 2, 4, 8, 16, 32),
                              slo_ms=500.0, batch_timeout_ms=10.0)
-    device_ms, top = _device_events(prof, 1)
+    device_ms, top, _ = _device_events(prof, 1)
     wall_ms = served["wall"] * 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": device_ms,
             "device_idle_share": 1 - device_ms / wall_ms,
@@ -988,6 +1279,198 @@ def phase_bert_serving() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8-9. BERT pretraining through TrainStep
+# ---------------------------------------------------------------------------
+
+def _train_wrappers() -> dict:
+    from mxnet_tpu_torch.kernels import (flash_attention, flash_attention_bwd,
+                                         fused_adam_sweep, fused_bias_gelu,
+                                         fused_bias_gelu_bwd,
+                                         fused_layer_norm,
+                                         fused_layer_norm_bwd)
+
+    return {f.__name__: f for f in (
+        fused_layer_norm, fused_layer_norm_bwd, fused_bias_gelu,
+        fused_bias_gelu_bwd, flash_attention, flash_attention_bwd,
+        fused_adam_sweep)}
+
+
+def _reset_train_counts() -> None:
+    for f in _train_wrappers().values():
+        f.launches = 0
+
+
+def _train_counts() -> dict:
+    return {name: f.launches for name, f in _train_wrappers().items()}
+
+
+def _per_step(cfg, buckets) -> dict:
+    """Launches of each kernel in one TrainStep of BERTForPretrainFused:
+    embed_ln, two add+norms per layer and decoder_ln, forward and
+    backward; the FFN's and decoder_transform's bias+GELU; one flash
+    attention per layer; one sweep per dtype bucket."""
+    layers = cfg["num_layers"]
+    return {"fused_layer_norm": 2 * layers + 2,
+            "fused_layer_norm_bwd": 2 * layers + 2,
+            "fused_bias_gelu": layers + 1,
+            "fused_bias_gelu_bwd": layers + 1,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "fused_adam_sweep": buckets}
+
+
+def phase_train_reference() -> None:
+    """BERTForPretrainFused at BERT-base widths (768 units, 3072 FFN, 12
+    heads, vocab 30522, CE chunk 5120), depth cut to 2 layers, f32: three
+    TrainStep Adam steps (lr 1e-4) on a (4, 128) batch on the card
+    against the same weights and batch on the CPU, which runs every
+    kernel's plain version. Limits, set before the first run: each
+    step's loss within 1e-5 relative; each parameter's delta over the
+    run within 1e-3 of its norm, ‖Δw_card − Δw_cpu‖ / ‖Δw_cpu‖ (Adam
+    makes elements whose gradient is f32 noise step by ±lr either way);
+    the key third of each QKV bias, whose true gradient is 0 (softmax
+    ignores a constant added to every key), held instead to moving less
+    than 1% of 3·lr on both sides."""
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+
+    t0 = time.perf_counter()
+    lr, steps = 1e-4, 3
+    cpu_net = BERTForPretrainFused(
+        num_layers=2, dropout=0.0, ctx=mx.cpu(),
+        generator=torch.Generator().manual_seed(SEED + 3))
+    card_net = copy.deepcopy(cpu_net).cuda()
+    units = cpu_net.config["units"]
+    w0 = {k: v.detach().clone() for k, v in cpu_net.state_dict().items()}
+    rs = np.random.RandomState(SEED + 3)
+    tok = rs.randint(0, 30000, (4, 128)).astype(np.int32)
+    lab = rs.randint(0, 30000, (4, 128)).astype(np.int32)
+    losses, launches = {}, None
+    for name, net in (("cpu", cpu_net), ("card", card_net)):
+        step = mx.parallel.TrainStep(net, lambda outs, *a: outs, "adam",
+                                     loss_only=True,
+                                     optimizer_params={"learning_rate": lr})
+        _reset_train_counts()
+        losses[name] = [float(step((tok, lab), ())[0])
+                        for _ in range(steps)]
+        launches = _train_counts()            # the card's run, read last
+        buckets = len(step._buckets)
+    ratios, key_bias = {}, []
+    card_sd = card_net.state_dict()
+    for key, start in w0.items():
+        dc = (cpu_net.state_dict()[key] - start).flatten()
+        dg = (card_sd[key].cpu() - start).flatten()
+        if key.endswith("qkv_proj.bias"):
+            k_part = torch.arange(units, 2 * units)
+            key_bias.append(max(float(dc[k_part].abs().max()),
+                                float(dg[k_part].abs().max())))
+            keep = torch.ones_like(dc, dtype=torch.bool)
+            keep[k_part] = False
+            dc, dg = dc[keep], dg[keep]
+        norm = float(dc.norm())
+        if norm > 0:
+            ratios[key] = float((dg - dc).norm()) / norm
+        elif float(dg.norm()) != 0.0:
+            ratios[key] = float("inf")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                        losses["cpu"]))
+    worst = max(ratios, key=ratios.get)
+    want = {k: v * steps for k, v in _per_step(card_net.config,
+                                                buckets).items()}
+    out = {"phase": "train_reference",
+           "model": "BERTForPretrainFused(num_layers=2)", "dtype": "float32",
+           "batch": [4, 128], "steps": steps, "lr": lr,
+           "losses": losses, "loss_max_rel_diff": loss_rel,
+           "loss_tol": 1e-5, "delta_worst": [worst, ratios[worst]],
+           "delta_median": float(np.median(list(ratios.values()))),
+           "delta_tol": 1e-3, "key_bias_max_abs_delta": max(key_bias),
+           "key_bias_tol": 0.01 * steps * lr, "launches": launches,
+           "launches_expected": want,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not all(np.isfinite(losses["card"])) or loss_rel > 1e-5:
+        fail(f"f32 training losses on the card disagree with the CPU's: "
+             f"{losses}")
+    if ratios[worst] > 1e-3 or max(key_bias) > 0.01 * steps * lr:
+        fail(f"f32 parameter deltas on the card disagree with the CPU's: "
+             f"{worst} {ratios[worst]}, key bias {max(key_bias)}")
+    if launches != want:
+        fail(f"training reference launch counts {launches} are not {want}")
+    del cpu_net, card_net
+    torch.cuda.empty_cache()
+
+
+def phase_bert_train() -> dict:
+    """BERTForPretrainFused at bert_12_768_12 (12 layers, 768 units, 3072
+    FFN, 12 heads of 64, vocab 30522, max length 512, CE chunk 5120),
+    dropout 0, bf16 with multi-precision Adam (lr 1e-4), seeded random
+    weights, one (32, 512) batch of RandomState(0) tokens and labels as
+    in bench_bert.py: 3 warm-up and 20 timed TrainStep calls. The loss
+    must be finite every step and fall over the run; the launches of
+    every kernel must be exactly its per-step count times 20."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = BERTForPretrainFused(dropout=0.0, attn_dropout=0.0, ctx="cuda",
+                               dtype=torch.bfloat16, generator=gen)
+    cfg = net.config
+    if (cfg["num_layers"], cfg["units"], cfg["hidden_size"],
+            cfg["num_heads"], cfg["vocab_size"], cfg["max_length"],
+            cfg["chunk"]) != (12, 768, 3072, 12, 30522, 512, 5120):
+        fail(f"not BERT-base at full width and depth: {cfg}")
+    rs = np.random.RandomState(0)
+    tok = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
+        np.int32)).cuda()
+    lab = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
+        np.int32)).cuda()
+    step = mx.parallel.TrainStep(
+        net, lambda outs, *a: outs, "adam", loss_only=True,
+        optimizer_params={"learning_rate": 1e-4, "multi_precision": True})
+    warm = [float(step((tok, lab), ())[0]) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    timed = []
+    t1 = time.perf_counter()
+    for _ in range(20):
+        timed.append(step((tok, lab), ())[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _train_counts()
+    losses = warm + [float(x) for x in timed]
+    per_step = _per_step(cfg, len(step._buckets))
+    want = {k: v * 20 for k, v in per_step.items()}
+    samples_s = 32 * 20 / wall
+    out = {"phase": "bert_train", "model": "BERTForPretrainFused "
+           "(bert_12_768_12)", "dtype": "bfloat16, multi-precision adam",
+           "params": sum(p.numel() for p in net.parameters()),
+           "config": cfg, "batch": [32, 512], "steps": 20,
+           "ms_per_step": wall * 1e3 / 20, "samples_per_s": samples_s,
+           "mfu": samples_s * 6 * 110e6 * 512 / 989e12,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses, "launches": launches,
+           "launches_expected": want, "launches_per_step": per_step,
+           "buckets": [(len(b.members), str(b.wdtype), b.mp)
+                       for b in step._buckets]}
+    out["step_breakdown"] = _device_breakdown(lambda: step((tok, lab), ()),
+                                              2, n_top=16)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"bf16 BERT-base training loss is not finite or did not fall: "
+             f"{losses}")
+    if launches != want:
+        fail(f"BERT-base training launch counts {launches} are not {want} "
+             f"({per_step} per step)")
+    del step, net
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -995,36 +1478,52 @@ def main() -> None:
     phase_build()
     picks = phase_kernels()
     phase_reference()
-    launches = phase_serving()
+    serving = phase_serving()
     phase_bert_reference()
-    launches.update(phase_bert_serving())
+    serving.update(phase_bert_serving())
+    phase_train_reference()
+    train = phase_bert_train()
+    tpu = "mxnet_tpu/pallas_kernels/"
+    csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
-        "fused_rms_norm": ("mxnet_tpu_torch/kernels/csrc/rms_norm.cu",
-                           "mxnet_tpu/pallas_kernels/fused_layers.py:323"),
-        "paged_attention_kernel": (
-            "mxnet_tpu_torch/kernels/csrc/paged_attention.cu",
-            "mxnet_tpu/pallas_kernels/paged_attention.py:150"),
-        "fused_layer_norm": ("mxnet_tpu_torch/kernels/csrc/layer_norm.cu",
-                             "mxnet_tpu/pallas_kernels/fused_layers.py:323"),
-        "fused_bias_gelu": ("mxnet_tpu_torch/kernels/csrc/bias_gelu.cu",
-                            "mxnet_tpu/pallas_kernels/fused_layers.py:533"),
+        "fused_rms_norm": ("rms_norm.cu", "fused_layers.py:323"),
+        "paged_attention_kernel": ("paged_attention.cu",
+                                   "paged_attention.py:150"),
+        "fused_layer_norm": ("layer_norm.cu", "fused_layers.py:323"),
+        "fused_bias_gelu": ("bias_gelu.cu", "fused_layers.py:533"),
         # one kernel for both forward pallas_call sites (:552 and :590)
-        "flash_attention": (
-            "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
-            "mxnet_tpu/pallas_kernels/flash_attention.py:552"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:552"),
+        "fused_layer_norm_bwd": ("layer_norm.cu", "fused_layers.py:361"),
+        "fused_bias_gelu_bwd": ("bias_gelu.cu", "fused_layers.py:539"),
+        # one algorithm for the four backward sites (:914, :937, :959,
+        # :977)
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                "flash_attention.py:914"),
+        "fused_adam_sweep": ("fused_optimizer.cu", "fused_optimizer.py:128"),
     }
+    also = {"flash_attention": ["flash_attention.py:590"],
+            "flash_attention_bwd": ["flash_attention.py:937",
+                                    "flash_attention.py:959",
+                                    "flash_attention.py:977"]}
     kernels = []
-    for name, (src, tpu) in replaces.items():
+    for name, (src, site) in replaces.items():
         r = picks[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
-            "dtype": r["dtype"]})
-    kernels[-1]["also_replaces"] = \
-        "mxnet_tpu/pallas_kernels/flash_attention.py:590"
+        by_path = {}
+        if name in serving:
+            by_path["serving"] = serving[name]
+        if name in train:
+            by_path["bert_train"] = train[name]
+        rec = {"name": name, "route": "cuda", "source": csrc + src,
+               "replaces": tpu + site,
+               "launches": next(iter(by_path.values())),
+               "launches_by_path": by_path,
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "shape": r["shape"], "dtype": r["dtype"]}
+        if name in also:
+            rec["also_replaces"] = [tpu + x for x in also[name]]
+        kernels.append(rec)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

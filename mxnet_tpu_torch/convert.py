@@ -14,7 +14,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["llama_params_from_reference", "bert_params_from_reference"]
+__all__ = ["llama_params_from_reference", "bert_params_from_reference",
+           "bert_pretrain_params_from_reference"]
 
 _GLOBAL = {"embed_weight": "embed.weight", "norm_weight": "norm.weight",
            "lm_head_weight": "lm_head.weight"}
@@ -232,4 +233,65 @@ def bert_params_from_reference(named: Dict[str, np.ndarray]
                              f"{tuple(out[key].shape)}, expected {shape}")
     if "decoder.bias" in out:
         out["decoder.weight"] = out["word_embed.weight"]
+    return out
+
+
+# the fused-pretraining head, at the model's own scope
+_BERT_PRETRAIN_HEAD = {
+    "decoder_transform_weight": "decoder_transform.weight",
+    "decoder_transform_bias": "decoder_transform.bias",
+    "decoder_ln_gamma": "decoder_ln.gamma",
+    "decoder_ln_beta": "decoder_ln.beta",
+    "decoder_bias": "decoder_bias",
+}
+
+
+def bert_pretrain_params_from_reference(named: Dict[str, np.ndarray]
+                                        ) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``BERTForPretrainFused``'s named numpy parameters onto
+    the port's ``BERTForPretrainFused.state_dict()`` names.
+
+    The backbone's names (``<prefix>bert_*``) go through
+    :func:`bert_params_from_reference`'s table (a backbone without heads)
+    into ``bert.*``; the head's (``<prefix>decoder_transform_*``,
+    ``<prefix>decoder_ln_*``, ``<prefix>decoder_bias``) map to the
+    model's own. The output projection is the word embedding itself, so
+    there is no projection weight to carry. Raises :class:`MXNetError`
+    on a missing, unknown or mis-shaped name."""
+    heads = [n for n in named if n.endswith("bert_word_embed_weight")]
+    if len(heads) != 1:
+        raise MXNetError(f"expected exactly one '*bert_word_embed_weight' "
+                         f"parameter, found {heads}")
+    prefix = heads[0][:-len("bert_word_embed_weight")]
+    backbone, out = {}, {}
+    for name, arr in named.items():
+        if not name.startswith(prefix):
+            raise MXNetError(f"parameter {name!r} lacks the model prefix "
+                             f"{prefix!r}")
+        suffix = name[len(prefix):]
+        if suffix.startswith("bert_"):
+            backbone[name] = arr
+        elif suffix in _BERT_PRETRAIN_HEAD:
+            out[_BERT_PRETRAIN_HEAD[suffix]] = _to_tensor(np.asarray(arr))
+        else:
+            raise MXNetError(f"unexpected parameter {name!r} (suffix "
+                             f"{suffix!r}) for BERTForPretrainFused")
+    bert = bert_params_from_reference(backbone)
+    if any(k.startswith(("pooler.", "classifier.", "decoder"))
+           for k in bert):
+        raise MXNetError("the BERTForPretrainFused backbone has no pooler, "
+                         "classifier or masked-LM decoder of its own")
+    out.update({"bert." + k: v for k, v in bert.items()})
+    vocab, units = bert["word_embed.weight"].shape
+    shapes = {"decoder_transform.weight": (units, units),
+              "decoder_transform.bias": (units,),
+              "decoder_ln.gamma": (units,), "decoder_ln.beta": (units,),
+              "decoder_bias": (vocab,)}
+    missing = sorted(set(shapes) - set(out))
+    if missing:
+        raise MXNetError(f"missing parameters: {missing}")
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape:
+            raise MXNetError(f"parameter {key!r} has shape "
+                             f"{tuple(out[key].shape)}, expected {shape}")
     return out

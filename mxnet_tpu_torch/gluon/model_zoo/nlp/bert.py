@@ -1,13 +1,15 @@
-"""BERT encoder for serving.
+"""BERT: the encoder for serving and masked-LM pretraining.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/bert.py``: word +
 token-type + position embeddings, ``embed_ln``, a stack of post-LN
 encoder cells with a GELU FFN, then the pooler, the next-sentence
 classifier and the masked-LM head whose output projection is tied to the
-word embedding. Attribute names mirror the JAX blocks, so
-:func:`mxnet_tpu_torch.convert.bert_params_from_reference` carries a JAX
-model's weights across name by name. ``BERTForPretrainFused`` (the fused
-projection + cross-entropy head) comes with the training slice.
+word embedding; and ``BERTForPretrainFused``, the same backbone under the
+fused projection + cross-entropy head, for ``parallel.TrainStep``.
+Attribute names mirror the JAX blocks, so
+:func:`mxnet_tpu_torch.convert.bert_params_from_reference` and
+:func:`~mxnet_tpu_torch.convert.bert_pretrain_params_from_reference`
+carry a JAX model's weights across name by name.
 """
 from __future__ import annotations
 
@@ -16,10 +18,12 @@ from torch import nn
 
 from ....base import torch_dtype
 from ....context import resolve_device
+from ....ops.fused_loss import softmax_ce_head
 from ...nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 from .transformer import TransformerEncoderCell
 
-__all__ = ["BERTEncoder", "BERTModel", "bert_12_768_12", "bert_24_1024_16"]
+__all__ = ["BERTEncoder", "BERTModel", "BERTForPretrainFused",
+           "bert_12_768_12", "bert_24_1024_16"]
 
 
 class BERTEncoder(nn.Module):
@@ -153,3 +157,56 @@ def bert_24_1024_16(**kwargs) -> BERTModel:
     cfg = dict(num_layers=24, units=1024, hidden_size=4096, num_heads=16)
     cfg.update(kwargs)
     return BERTModel(**cfg)
+
+
+class BERTForPretrainFused(nn.Module):
+    """BERT masked-LM pretraining with the fused projection + CE head
+    (``bert.py:145-200`` of the JAX package).
+
+    A ``BERTModel(use_pooler=False, use_classifier=False,
+    use_decoder=False)`` backbone named ``bert``, then ``decoder_ln(
+    decoder_transform(seq))`` (Dense with GELU, LayerNorm) and
+    :func:`~mxnet_tpu_torch.ops.fused_loss.softmax_ce_head` over the word
+    embedding table (the tied projection: the lookup's and the head's
+    gradients add up on ``bert.word_embed.weight``) with this block's own
+    ``decoder_bias``. The (B, L, vocab) logits never exist at once.
+
+    ``forward(token_ids, mlm_labels)`` returns the (B, L) f32
+    per-position loss; train it with ``parallel.TrainStep(net, lambda
+    outs, *a: outs, "adam", loss_only=True)``, the labels riding as the
+    second data input. ``ctx``, ``dtype`` and ``generator`` are as for
+    :class:`BERTModel`; the head is drawn after the backbone (N(0, 0.02)
+    weight, zero biases and beta, unit gamma).
+    """
+
+    def __init__(self, vocab_size=30522, token_type_vocab_size=2,
+                 max_length=512, num_layers=12, units=768, hidden_size=3072,
+                 num_heads=12, dropout=0.1, attn_dropout=0.0, chunk=5120,
+                 ctx=None, dtype=torch.float32, generator=None):
+        super().__init__()
+        device = resolve_device(ctx)
+        self._chunk = int(chunk)
+        self.bert = BERTModel(
+            vocab_size=vocab_size,
+            token_type_vocab_size=token_type_vocab_size,
+            max_length=max_length, num_layers=num_layers, units=units,
+            hidden_size=hidden_size, num_heads=num_heads, dropout=dropout,
+            attn_dropout=attn_dropout, use_pooler=False,
+            use_classifier=False, use_decoder=False, ctx=device,
+            dtype=dtype, generator=generator)
+        self.config = dict(self.bert.config, chunk=self._chunk)
+        kw = {"device": device, "dtype": torch_dtype(dtype)}
+        self.decoder_transform = Dense(units, units, flatten=False,
+                                       activation="gelu", **kw)
+        self.decoder_ln = LayerNorm(units, **kw)
+        self.decoder_bias = nn.Parameter(torch.zeros(vocab_size, **kw))
+        with torch.no_grad():
+            self.decoder_transform.weight.normal_(0.0, 0.02,
+                                                  generator=generator)
+
+    def forward(self, token_ids, mlm_labels):
+        seq = self.bert(token_ids)
+        h = self.decoder_ln(self.decoder_transform(seq))
+        return softmax_ce_head(h, self.bert.word_embed.weight,
+                               self.decoder_bias, mlm_labels,
+                               chunk=self._chunk)

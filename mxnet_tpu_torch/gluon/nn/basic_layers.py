@@ -80,8 +80,9 @@ class Embedding(nn.Module):
 
 class Dropout(nn.Module):
     """Dropout as MXNet runs it outside ``autograd.record()``: the
-    identity. The port has no training mode yet; the training slice
-    brings ``record`` and the position-hash dropout."""
+    identity. ``parallel.TrainStep`` refuses a model with a rate > 0
+    until the position-hash dropout slice (ROADMAP.md, port queue 2,
+    item 0) brings training-mode dropout."""
 
     def __init__(self, rate):
         super().__init__()

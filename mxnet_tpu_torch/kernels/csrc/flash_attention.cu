@@ -33,13 +33,11 @@
 //
 // This is the simple first design: no cp.async/TMA double buffering, no
 // wgmma, no warp specialisation. PERF.md keeps its time beside its bound.
-#include <cstdint>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using mxflash::bf16;
 
 constexpr int kBM = 64;               // query rows per CTA
 constexpr int kWarps = kBM / 16;      // 16 query rows per warp
@@ -60,8 +58,7 @@ struct Params {
   float scale2;                        // scale * log2(e)
 };
 
-// Shared-memory plan of one CTA. Rows are padded by 16 bytes so that the
-// fragment reads of neighbouring rows fall in different banks.
+// Shared-memory plan of one CTA (rows padded by 16 bytes, flash_common.cuh).
 template <typename T, int DP, int BN>
 struct Smem {
   static constexpr int kLd = DP + 16 / static_cast<int>(sizeof(T));
@@ -72,156 +69,6 @@ struct Smem {
       sizeof(T) == 4 ? size_t(kWarps) * 16 * kPld * sizeof(float) : 0;
   static constexpr size_t kTotal = kQ + 2 * kKV + kP;
 };
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// rows x DP tile from global (row stride ``stride`` elements) into shared
-// memory (row stride ``ld``), 16 bytes per access; rows >= n_valid and
-// columns >= d are zero.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          long long stride, int rows,
-                                          int n_valid, int d) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  constexpr int kPerRow = DP / kVec;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid && c < d)
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// The accumulator layout of mma.sync m16n8 is used on both paths: in a
-// warp's 16 x 8 tile, lane (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8 at columns 2t and 2t + 1, as c[0], c[1] (row g) and c[2], c[3]
-// (row g + 8).
-
-// s[nt] = Q[r0 rows] . K[nt*8 .. nt*8+7]^T over the padded head dim.
-template <typename T, int DP, int BN>
-__device__ __forceinline__ void scores(float (&s)[BN / 8][4], const T* qs,
-                                       const T* ks, int r0, int g, int t) {
-  constexpr int kLd = Smem<T, DP, BN>::kLd;
-#pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qs + r0 * kLd + c),
-                             ld32(qs + (r0 + 8) * kLd + c),
-                             ld32(qs + r0 * kLd + c + 8),
-                             ld32(qs + (r0 + 8) * kLd + c + 8)};
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const T* kr = ks + (nt * 8 + g) * kLd + c;
-        const uint32_t b[2] = {ld32(kr), ld32(kr + 8)};
-        mma_bf16(s[nt], a, b);
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int c = 0; c < DP; c += 4) {
-      const float4 q0 = *reinterpret_cast<const float4*>(qs + r0 * kLd + c);
-      const float4 q1 =
-          *reinterpret_cast<const float4*>(qs + (r0 + 8) * kLd + c);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const float* kr = ks + (nt * 8 + 2 * t) * kLd + c;
-        const float4 k0 = *reinterpret_cast<const float4*>(kr);
-        const float4 k1 = *reinterpret_cast<const float4*>(kr + kLd);
-        s[nt][0] += q0.x * k0.x + q0.y * k0.y + q0.z * k0.z + q0.w * k0.w;
-        s[nt][1] += q0.x * k1.x + q0.y * k1.y + q0.z * k1.z + q0.w * k1.w;
-        s[nt][2] += q1.x * k0.x + q1.y * k0.y + q1.z * k0.z + q1.w * k0.w;
-        s[nt][3] += q1.x * k1.x + q1.y * k1.y + q1.z * k1.z + q1.w * k1.w;
-      }
-    }
-  }
-}
-
-// acc += P . V for this warp's 16 rows; p holds the probabilities in the
-// accumulator layout.
-template <typename T, int DP, int BN>
-__device__ __forceinline__ void accumulate_pv(float (&acc)[DP / 8][4],
-                                              const float (&p)[BN / 8][4],
-                                              const T* vs, float* pw, int g,
-                                              int t) {
-  constexpr int kLd = Smem<T, DP, BN>::kLd;
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const uint32_t a[4] = {mxk::pack_bf16x2(p[2 * j][0], p[2 * j][1]),
-                             mxk::pack_bf16x2(p[2 * j][2], p[2 * j][3]),
-                             mxk::pack_bf16x2(p[2 * j + 1][0], p[2 * j + 1][1]),
-                             mxk::pack_bf16x2(p[2 * j + 1][2], p[2 * j + 1][3])};
-      const T* v0 = vs + (j * 16 + 2 * t) * kLd + g;
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const T* vp = v0 + dt * 8;
-        const uint32_t b[2] = {pack_bf16(vp[0], vp[kLd]),
-                               pack_bf16(vp[8 * kLd], vp[9 * kLd])};
-        mma_bf16(acc[dt], a, b);
-      }
-    }
-  } else {
-    constexpr int kPld = Smem<T, DP, BN>::kPld;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      pw[g * kPld + c] = p[nt][0];
-      pw[g * kPld + c + 1] = p[nt][1];
-      pw[(g + 8) * kPld + c] = p[nt][2];
-      pw[(g + 8) * kPld + c + 1] = p[nt][3];
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int kk = 0; kk < BN; ++kk) {
-      const float p0 = pw[g * kPld + kk];
-      const float p1 = pw[(g + 8) * kPld + kk];
-      const float* vr = vs + kk * kLd + 2 * t;
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const float2 v = *reinterpret_cast<const float2*>(vr + dt * 8);
-        acc[dt][0] += p0 * v.x;
-        acc[dt][1] += p0 * v.y;
-        acc[dt][2] += p1 * v.x;
-        acc[dt][3] += p1 * v.y;
-      }
-    }
-    __syncwarp();
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b) {
-  if constexpr (sizeof(T) == 2) {
-    *reinterpret_cast<uint32_t*>(p) = mxk::pack_bf16x2(a, b);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-}
 
 template <typename T, int DP, int BN>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
@@ -246,7 +93,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
                q0 * p.q_sl;
   const T* k = static_cast<const T*>(p.k) + bi * p.k_sb + hi * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  load_tile<T, DP>(qs, S::kLd, q, p.q_sl, kBM, min(kBM, p.lq - q0), p.d);
+  mxflash::load_tile<T, DP, kThreads>(qs, S::kLd, q, p.q_sl, kBM,
+                                      min(kBM, p.lq - q0), p.d);
 
   float acc[DP / 8][4];
 #pragma unroll
@@ -263,12 +111,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int k0 = 0; k0 < k_end; k0 += BN) {
     __syncthreads();                   // the previous tile is consumed
     const int n_valid = min(BN, p.lk - k0);
-    load_tile<T, DP>(ks, S::kLd, k + k0 * p.k_sl, p.k_sl, BN, n_valid, p.d);
-    load_tile<T, DP>(vs, S::kLd, v + k0 * p.v_sl, p.v_sl, BN, n_valid, p.d);
+    mxflash::load_tile<T, DP, kThreads>(ks, S::kLd, k + k0 * p.k_sl, p.k_sl,
+                                        BN, n_valid, p.d);
+    mxflash::load_tile<T, DP, kThreads>(vs, S::kLd, v + k0 * p.v_sl, p.v_sl,
+                                        BN, n_valid, p.d);
     __syncthreads();
 
     float s[BN / 8][4];
-    scores<T, DP, BN>(s, qs, ks, r0, g, t);
+    mxflash::row_products<T, DP, BN, S::kLd>(s, qs, ks, r0, g, t);
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
@@ -307,7 +157,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       }
       m[i] = m_new;
     }
-    accumulate_pv<T, DP, BN>(acc, s, vs, ps + warp * 16 * S::kPld, g, t);
+    mxflash::accumulate<T, DP, BN, S::kLd, S::kPld>(
+        acc, s, vs, ps + warp * 16 * S::kPld, g, t);
   }
 
   T* o = static_cast<T*>(p.o) + bi * p.o_sb + hi * p.o_sh;
@@ -323,7 +174,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     for (int dt = 0; dt < DP / 8; ++dt) {
       const int c = dt * 8 + 2 * t;
       if (c < p.d)
-        store2<T>(orow + c, acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
+        mxflash::store2<T>(orow + c, acc[dt][2 * i] * inv,
+                           acc[dt][2 * i + 1] * inv);
     }
     if (t == 0)
       p.lse[static_cast<long long>(bh) * p.lq + row] =

@@ -18,8 +18,23 @@
 // Numerics follow `_norm_fwd_kernel` (fused_layers.py:208-233): f32
 // statistics, rstd = rsqrt(var + eps), out = (h - mean) * rstd * gamma +
 // beta in f32, rounded once to x's dtype. The optional f32 (mean, rstd)
-// row outputs are what a backward recomputes xhat from; a null pointer
+// row outputs are what the backward recomputes xhat from; a null pointer
 // skips each.
+//
+// The backward (mx_layer_norm_bwd) replaces `_norm_bwd_pallas` /
+// `_norm_bwd_kernel` (fused_layers.py:237-291, :361) in LayerNorm mode,
+// dropout off. It is bound by bytes as well: it reads x (and the
+// residual) and dy once and writes dx once. One CTA walks a strided set of
+// rows; each thread owns the same chunk of columns in every row, so it
+// recomputes xhat = (h - mean) * rstd from the saved f32 statistics in
+// registers, reduces mean(dy * gamma) and mean(dy * gamma * xhat) over
+// the row with one block reduction each, and keeps its columns' f32
+// dgamma/dbeta sums in registers across rows. Each CTA writes one f32
+// partial row of each; the wrapper sums the partials, as the TPU path
+// sums its per-block partials outside the kernel (:369-370). Numerics
+// follow the Pallas kernel: wdy = dy * gamma, dh = rstd * (wdy -
+// mean(wdy) - xhat * mean(wdy * xhat)), dx = dh in x's dtype (and the
+// residual's gradient is the same dx).
 #include "common.cuh"
 
 namespace {
@@ -151,6 +166,117 @@ cudaError_t launch(const void* x, const void* res, const void* gamma,
   return cudaGetLastError();
 }
 
+// Backward over rows blockIdx.x, blockIdx.x + gridDim.x, ...: each thread
+// owns chunks threadIdx.x + i * blockDim.x (i < CPT) of C elements (C = 8
+// with 16-byte accesses, or 1 for any D and alignment).
+template <typename TX, typename TW, int C, int CPT>
+__global__ void __launch_bounds__(kMaxThreads)
+    ln_bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
+                  const TW* __restrict__ gamma,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ rstd, const TX* __restrict__ dy,
+                  TX* __restrict__ dx, float* __restrict__ dg_part,
+                  float* __restrict__ db_part, int rows, int d) {
+  __shared__ float scratch1[32];
+  __shared__ float scratch2[32];
+  const int chunks = d / C;
+  float dg[CPT][C], db[CPT][C];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i)
+#pragma unroll
+    for (int e = 0; e < C; ++e) dg[i][e] = db[i][e] = 0.f;
+
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const size_t row = static_cast<size_t>(r) * d;
+    const float mu = mean[r];
+    const float rs = rstd[r];
+    float xh[CPT][C], w[CPT][C];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < chunks) {
+        float h[C], g[C], gy[C];
+        mxk::load_f<TX, C>(x + row + c * C, h);
+        if (res != nullptr) {
+          float rv[C];
+          mxk::load_f<TX, C>(res + row + c * C, rv);
+#pragma unroll
+          for (int e = 0; e < C; ++e) h[e] += rv[e];
+        }
+        mxk::load_f<TX, C>(dy + row + c * C, gy);
+        mxk::load_f<TW, C>(gamma + c * C, g);
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          xh[i][e] = (h[e] - mu) * rs;
+          w[i][e] = gy[e] * g[e];
+          s1 += w[i][e];
+          s2 += w[i][e] * xh[i][e];
+          dg[i][e] += gy[e] * xh[i][e];
+          db[i][e] += gy[e];
+        }
+      }
+    }
+    const float m1 = mxk::block_sum(s1, scratch1) / static_cast<float>(d);
+    const float m2 = mxk::block_sum(s2, scratch2) / static_cast<float>(d);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < chunks) {
+        float o[C];
+#pragma unroll
+        for (int e = 0; e < C; ++e)
+          o[e] = rs * (w[i][e] - m1 - xh[i][e] * m2);
+        mxk::store_f<TX, C>(dx + row + c * C, o);
+      }
+    }
+    __syncthreads();                   // the scratches are read
+  }
+  const size_t part = static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < chunks) {
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
+        dg_part[part + c * C + e] = dg[i][e];
+        db_part[part + c * C + e] = db[i][e];
+      }
+    }
+  }
+}
+
+template <typename TX, typename TW>
+cudaError_t launch_bwd(const void* x, const void* res, const void* gamma,
+                       const float* mean, const float* rstd, const void* dy,
+                       void* dx, float* dg_part, float* db_part, int rows,
+                       int d, int n_blocks, bool vec, cudaStream_t stream) {
+  const TX* xp = static_cast<const TX*>(x);
+  const TX* rp = static_cast<const TX*>(res);
+  const TW* gp = static_cast<const TW*>(gamma);
+  const TX* dyp = static_cast<const TX*>(dy);
+  TX* dxp = static_cast<TX*>(dx);
+  // at most 256 threads, each with CPT chunks: the fewest chunks per
+  // thread that cover the row (d <= 8192)
+  const int chunks = vec ? d / kChunk : d;
+#define MX_LN_BWD(C, CPT)                                                   \
+  ln_bwd_kernel<TX, TW, C, CPT>                                             \
+      <<<n_blocks, mxk::row_threads((chunks + CPT - 1) / CPT, kMaxThreads), \
+         0, stream>>>(xp, rp, gp, mean, rstd, dyp, dxp, dg_part, db_part,   \
+                      rows, d)
+  if (vec && chunks <= kMaxThreads) {
+    MX_LN_BWD(kChunk, 1);
+  } else if (vec && chunks <= 2 * kMaxThreads) {
+    MX_LN_BWD(kChunk, 2);
+  } else if (vec) {
+    MX_LN_BWD(kChunk, 4);
+  } else {
+    MX_LN_BWD(1, 32);
+  }
+#undef MX_LN_BWD
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, res: (rows, d) contiguous in x's dtype (res may be null); gamma,
@@ -178,5 +304,38 @@ extern "C" int mx_layer_norm_fwd(const void* x, const void* res,
   if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16)
     return launch<float, bf16>(x, res, gamma, beta, out, mean, rstd, rows,
                                d, eps, v, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Backward. x, res, dy, dx: (rows, d) contiguous in x's dtype (res may be
+// null); gamma: (d,); mean, rstd: (rows,) f32 from the forward;
+// dg_part, db_part: (n_blocks, d) f32, one partial row per CTA (the
+// caller sums them). vec != 0 requires d % 8 == 0, d <= 8192 and 16-byte
+// aligned x, res, gamma, dy and dx; otherwise d <= 8192. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mx_layer_norm_bwd(const void* x, const void* res,
+                                 const void* gamma, const float* mean,
+                                 const float* rstd, const void* dy, void* dx,
+                                 float* dg_part, float* db_part, int rows,
+                                 int d, int n_blocks, int x_dtype,
+                                 int w_dtype, int vec, void* stream) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool v = vec != 0;
+  if (d < 1 || d > 8192 || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32)
+    return launch_bwd<float, float>(x, res, gamma, mean, rstd, dy, dx,
+                                    dg_part, db_part, rows, d, n_blocks, v,
+                                    s);
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16)
+    return launch_bwd<bf16, bf16>(x, res, gamma, mean, rstd, dy, dx, dg_part,
+                                  db_part, rows, d, n_blocks, v, s);
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32)
+    return launch_bwd<bf16, float>(x, res, gamma, mean, rstd, dy, dx,
+                                   dg_part, db_part, rows, d, n_blocks, v, s);
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16)
+    return launch_bwd<float, bf16>(x, res, gamma, mean, rstd, dy, dx,
+                                   dg_part, db_part, rows, d, n_blocks, v, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

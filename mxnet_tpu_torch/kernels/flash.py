@@ -1,17 +1,22 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels
+and their plain PyTorch versions.
 
-Counterpart of ``mxnet_tpu/pallas_kernels/flash_attention.py``'s forward
-(``_flash_fwd_pallas``: the whole-head ``pallas_call`` at ``:552`` and
-the streaming one at ``:590``, one algorithm). The kernel is
-``csrc/flash_attention.cu``; its header comment says what bounds it on
-an H100 and how its design answers that.
+Counterpart of ``mxnet_tpu/pallas_kernels/flash_attention.py``: the
+forward ``_flash_fwd_pallas`` (the whole-head ``pallas_call`` at ``:552``
+and the streaming one at ``:590``, one algorithm; ``csrc/
+flash_attention.cu``) and the backward ``_flash_bwd_pallas`` (the fused
+whole-head sites ``:914``/``:937`` and the streaming dK/dV and dQ pair
+``:959``/``:977``, one algorithm; ``csrc/flash_attention_bwd.cu``). Each
+source's header comment says what bounds it on an H100 and how its design
+answers that. :func:`flash_attention` is differentiable: with autograd
+recording, its backward recomputes P from the saved base-2 lse, as
+``_flash_bwd`` (``:1018``) does.
 
 Contract, as in the JAX kernel: softmax in base 2 (``scale * log2(e)``
 folded into the f32 scores), f32 statistics, the output in the input
 dtype, and the per-row logsumexp in base 2, ``m + log2(l)``, as f32 —
-the residual the training slice's backward and ring attention read as
-it is. Two differences of form from the TPU kernel:
+the residual the backward and ring attention read as it is. Two
+differences of form from the TPU kernel:
 
 * the lse comes back as ``(B * H, Lq)``, not the TPU's sublane tile
   ``(B * H, nq, 8, bq)``;
@@ -23,8 +28,9 @@ Causal masking is bottom-right aligned (key ``j`` is visible to query
 ``flash_shape_supported`` rejects it. A row that sees no key gives zeros
 and lse ``-1e30``. ``layout`` is ``"bhld"`` (B, H, L, D) or ``"blhd"``
 (B, L, H, D); the kernel reads either through strides, so the per-head
-views of a fused QKV projection need no copy. ``dropout > 0`` raises
-until the training slice brings the position-hash dropout.
+views of a fused QKV projection need no copy. The backward takes head
+dims up to 128. ``dropout > 0`` raises until the position-hash dropout
+slice (ROADMAP.md, port queue 2, item 0).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -40,16 +46,21 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_reference", "LOG2E", "NO_KEY_LSE"]
+           "flash_attention_reference", "flash_attention_bwd",
+           "flash_attention_bwd_reference", "LOG2E", "NO_KEY_LSE"]
 
 LOG2E = 1.4426950408889634
 NO_KEY_LSE = -1e30
 MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 128
 _BLOCK_Q = 64                     # query rows per CTA (csrc kBM)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p]
 
 
 def _dims(q, k, v, layout):
@@ -86,8 +97,8 @@ def _check(q, k, v, causal, layout):
 def _no_dropout(dropout):
     if dropout > 0.0:
         raise MXNetError("flash_attention: dropout > 0 needs the "
-                         "position-hash dropout of the training slice "
-                         "(ROADMAP.md, port queue 2, item 0)")
+                         "position-hash dropout slice (ROADMAP.md, port "
+                         "queue 2, item 0)")
 
 
 def _bhld(x, layout):
@@ -142,6 +153,26 @@ def _strides(x, layout):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
+def _strides_ok(t) -> bool:
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+        and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _c_strides(tensors, layout):
+    """The (batch, head, seq) strides of ``tensors`` as one ctypes
+    array, after checking the layout the kernels read."""
+    strides = []
+    for t in tensors:
+        if not _strides_ok(t):
+            raise MXNetError(
+                f"flash_attention: a tensor with strides {t.stride()} and "
+                f"address {t.data_ptr():#x}: the head dim must be "
+                "contiguous, the other strides multiples of 8 and the "
+                "base 16-byte aligned (call .contiguous())")
+        strides.extend(_strides(t, layout))
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
 def _launch(q, k, v, scale, causal, causal_offset, layout):
     """Launch the kernel on CUDA tensors already shape-checked; returns
     ``(out, lse)``."""
@@ -161,19 +192,8 @@ def _launch(q, k, v, scale, causal, causal_offset, layout):
         raise MXNetError(f"flash_attention: Lq {lq} exceeds the grid "
                          f"({65535 * _BLOCK_Q} rows)")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = []
-    for t in (q, k, v, out):
-        st = _strides(t, layout)
-        if t.stride(3) != 1 or any(s % 8 for s in st) \
-                or t.data_ptr() % 16:
-            raise MXNetError(
-                f"flash_attention: a tensor with strides {t.stride()} and "
-                f"address {t.data_ptr():#x}: the head dim must be "
-                "contiguous, the other strides multiples of 8 and the "
-                "base 16-byte aligned (call .contiguous())")
-        strides.extend(st)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
-    c_strides = (ctypes.c_longlong * 12)(*strides)
+    c_strides = _c_strides((q, k, v, out), layout)
     with torch.cuda.device(q.device):
         _build.call(
             "flash_attention.cu", "mx_flash_attention_fwd", _ARGS,
@@ -202,11 +222,150 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False, layout="bhld",
     return _launch(q, k, v, scale, causal, lk - lq, layout)
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _bwd_reference(q, k, v, o, lse, do, scale, causal, causal_offset,
+                   layout):
+    """The plain backward with an explicit causal offset: P recomputed
+    densely in base 2 from the saved lse, f32 products, P rounded to v's
+    dtype before P^T.dO and dS to q's dtype before dS.K and dS^T.Q, as in
+    the kernels and ``_bwd_fused_kernel`` (``flash_attention.py:743``)."""
+    qh, kh, vh, oh, doh = (_bhld(t, layout).float()
+                           for t in (q, k, v, o, do))
+    b, h, lq, d = qh.shape
+    lk = kh.shape[2]
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (float(scale) * LOG2E)
+    if causal:
+        qpos = torch.arange(lq, device=q.device)[:, None]
+        kpos = torch.arange(lk, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos + causal_offset, float("-inf"))
+    p = torch.exp2(s - lse.reshape(b, h, lq, 1))
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), doh)
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta) * float(scale)
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    outs = []
+    for g, like in ((dq, q), (dk, k), (dv, v)):
+        g = g.to(like.dtype)
+        if layout == "blhd":
+            g = g.transpose(1, 2)
+        outs.append(g.contiguous())
+    return tuple(outs)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale=None,
+                                  causal=False, layout="bhld"):
+    """Plain PyTorch version of :func:`flash_attention_bwd`."""
+    _, _, lq, lk, d = _check(q, k, v, causal, layout)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return _bwd_reference(q, k, v, o, lse, do, scale, causal, lk - lq,
+                          layout)
+
+
+def _launch_bwd(q, k, v, o, lse, do, scale, causal, causal_offset, layout):
+    """Launch the backward kernels on CUDA tensors already shape-checked;
+    returns ``(dq, dk, dv)``, each contiguous in ``layout``."""
+    b, h, lq, lk, d = _dims(q, k, v, layout)
+    if any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise MXNetError("flash_attention_bwd: every input must be on one "
+                         "CUDA device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in (k, v, o, do)):
+        raise MXNetError(f"flash_attention_bwd: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}/{o.dtype}/{do.dtype}: need one of "
+                         "float32, bfloat16 for all five")
+    if d % 8 or d > MAX_BWD_HEAD_DIM:
+        raise MXNetError(f"flash_attention_bwd: head dim {d} must be a "
+                         f"multiple of 8 and <= {MAX_BWD_HEAD_DIM}")
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (b * h, lq) or lse.dtype != torch.float32:
+        raise MXNetError(
+            f"flash_attention_bwd: o {tuple(o.shape)}, do "
+            f"{tuple(do.shape)} must be shaped as q {tuple(q.shape)}, and "
+            f"lse {tuple(lse.shape)} float32 ({b * h}, {lq})")
+    if -(-max(lq, lk) // _BLOCK_Q) > 65535:
+        raise MXNetError(f"flash_attention_bwd: L {max(lq, lk)} exceeds "
+                         f"the grid ({65535 * _BLOCK_Q} rows)")
+    if not _strides_ok(do):
+        do = do.contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    delta = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    c_strides = _c_strides((q, k, v, o, do, dq, dk, dv), layout)
+    with torch.cuda.device(q.device):
+        _build.call(
+            "flash_attention_bwd.cu", "mx_flash_attention_bwd", _BWD_ARGS,
+            "flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ctypes.addressof(c_strides), b, h, lq, lk, d, float(scale),
+            float(scale) * LOG2E, int(bool(causal)), int(causal_offset),
+            _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False,
+                        layout="bhld"):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` for the
+    output gradient ``do``, from the forward's inputs, output ``o`` and
+    base-2 ``lse`` (B * H, Lq). Each gradient has its input's shape and
+    dtype, contiguous in ``layout``. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernels (delta pre-pass, dK/dV, dQ; one
+    count) or raises."""
+    _, _, lq, lk, d = _check(q, k, v, causal, layout)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return _bwd_reference(q, k, v, o, lse, do, scale, causal, lk - lq,
+                              layout)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    return _launch_bwd(q, k, v, o, lse, do, scale, causal, lk - lq, layout)
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward saves q, k, v,
+    the output and the base-2 lse (``_flash_fwd``, ``:1012``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, layout):
+        out, lse = flash_attention_fwd(q, k, v, scale, causal, layout)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (scale, causal, layout)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, scale=None, causal=False, layout="bhld",
                     dropout=0.0):
     """Scaled dot-product attention without a mask (see the module
-    docstring); the output only."""
-    return flash_attention_fwd(q, k, v, scale, causal, layout, dropout)[0]
+    docstring); the output only. Differentiable: with autograd recording
+    and an input that requires grad it goes through
+    :func:`flash_attention_bwd` in the backward; otherwise (serving under
+    ``torch.inference_mode()``) it launches the forward alone."""
+    _no_dropout(dropout)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        return _FlashAttention.apply(q, k, v, scale, causal, layout)
+    return flash_attention_fwd(q, k, v, scale, causal, layout)[0]
 
 
 flash_attention.launches = 0

@@ -2,13 +2,19 @@
 epilogue, each a hand-written CUDA kernel beside its plain PyTorch
 version.
 
-Counterpart of ``mxnet_tpu/pallas_kernels/fused_layers.py`` on its
-forward paths: ``_norm_fwd_kernel`` in RMS mode (``csrc/rms_norm.cu``)
-and in LayerNorm mode with and without the residual
-(``csrc/layer_norm.cu``), and ``_bias_gelu_fwd_kernel``
-(``csrc/bias_gelu.cu``). The backward kernels and the position-hash
-dropout come with the training slice; ``dropout > 0`` raises until then.
-Each source's header comment says what bounds it on an H100 and how its
+Counterpart of ``mxnet_tpu/pallas_kernels/fused_layers.py``:
+``_norm_fwd_kernel`` in RMS mode (``csrc/rms_norm.cu``, forward only),
+``_norm_fwd_kernel`` and ``_norm_bwd_kernel`` in LayerNorm mode with and
+without the residual (``csrc/layer_norm.cu``), and
+``_bias_gelu_fwd_kernel`` / ``_bias_gelu_bwd_kernel``
+(``csrc/bias_gelu.cu``). ``fused_layer_norm`` and ``fused_bias_gelu``
+are differentiable: with autograd recording and an input that requires
+grad they go through a ``torch.autograd.Function`` whose backward is the
+backward kernel (the JAX ``custom_vjp``s ``_ln_res``/``_ln_plain`` and
+``_bias_gelu``); otherwise (serving under ``torch.inference_mode()``)
+they launch the forward alone. ``dropout > 0`` raises until the
+position-hash dropout slice (ROADMAP.md, port queue 2, item 0). Each
+source's header comment says what bounds it on an H100 and how its
 design answers that.
 
 Routing is by device only: a CPU tensor takes the plain version (the CPU
@@ -26,13 +32,19 @@ from . import _build
 
 __all__ = ["fused_rms_norm", "fused_rms_norm_reference",
            "fused_layer_norm", "fused_layer_norm_reference",
-           "fused_bias_gelu", "fused_bias_gelu_reference", "MAX_D"]
+           "fused_layer_norm_bwd", "fused_layer_norm_bwd_reference",
+           "fused_bias_gelu", "fused_bias_gelu_reference",
+           "fused_bias_gelu_bwd", "fused_bias_gelu_bwd_reference", "MAX_D"]
 
 MAX_D = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INV_SQRT2 = 0.7071067811865476
-_NO_DROPOUT = ("dropout > 0 needs the position-hash dropout of the "
-               "training slice (ROADMAP.md, port queue 2, item 0)")
+_INV_SQRT2PI = 0.3989422804014327
+_NO_DROPOUT = ("dropout > 0 needs the position-hash dropout slice "
+               "(ROADMAP.md, port queue 2, item 0)")
+# CTAs per SM of the backward kernels' grids: each CTA writes one f32
+# partial row of the parameter gradients, summed by the wrapper
+_BWD_CTAS_PER_SM = 8
 
 
 def _aligned(*tensors) -> bool:
@@ -41,6 +53,16 @@ def _aligned(*tensors) -> bool:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _bwd_ctas(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count \
+        * _BWD_CTAS_PER_SM
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +167,17 @@ def fused_layer_norm(x, gamma, beta, residual=None, *, eps: float = 1e-5,
     ``residual``: None or x's shape and dtype; ``gamma``/``beta``: (D,),
     both float32 or both bfloat16. The output has x's dtype.
     ``return_stats`` also returns the f32 per-row ``(mean, rstd)`` the
-    backward of the training slice recomputes xhat from."""
+    backward recomputes xhat from (and is not differentiable). With
+    autograd recording and an input that requires grad, the backward is
+    :func:`fused_layer_norm_bwd`."""
     if dropout > 0.0:
         raise MXNetError(f"fused_layer_norm: {_NO_DROPOUT}")
+    if not return_stats and _needs_grad(x, gamma, beta, residual):
+        return _LayerNorm.apply(x, gamma, beta, residual, eps)
+    return _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats)
+
+
+def _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats):
     if x.device.type == "cpu":
         return fused_layer_norm_reference(x, gamma, beta, residual, eps=eps,
                                           return_stats=return_stats)
@@ -204,6 +234,119 @@ def fused_layer_norm(x, gamma, beta, residual=None, *, eps: float = 1e-5,
 fused_layer_norm.launches = 0
 
 
+def fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
+                                   residual=None):
+    """Plain PyTorch LayerNorm backward with the JAX kernel's numerics
+    (``_norm_bwd_kernel``, ``fused_layers.py:237-291``, dropout 0): xhat
+    recomputed from the saved f32 ``(mean, rstd)``, ``wdy = dy * gamma``,
+    ``dh = rstd * (wdy - mean(wdy) - xhat * mean(wdy * xhat))`` in f32,
+    ``dx = dh`` in x's dtype, ``dgamma = sum(dy * xhat)`` and ``dbeta =
+    sum(dy)`` over the rows in f32, then in gamma's dtype. Returns
+    ``(dx, dgamma, dbeta)``; with a residual its gradient is ``dx`` too."""
+    d = x.shape[-1]
+    h = x.float()
+    if residual is not None:
+        h = h + residual.float()
+    rs = rstd.unsqueeze(-1)
+    xhat = (h - mean.unsqueeze(-1)) * rs
+    dyf = dy.float()
+    wdy = dyf * gamma.float()
+    m2 = (wdy * xhat).mean(dim=-1, keepdim=True)
+    m1 = wdy.mean(dim=-1, keepdim=True)
+    dx = (rs * (wdy - m1 - xhat * m2)).to(x.dtype)
+    dgamma = (dyf * xhat).reshape(-1, d).sum(dim=0).to(gamma.dtype)
+    dbeta = dyf.reshape(-1, d).sum(dim=0).to(gamma.dtype)
+    return dx, dgamma, dbeta
+
+
+_LN_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
+
+
+def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None):
+    """Gradients ``(dx, dgamma, dbeta)`` of ``LayerNorm(x + residual)``
+    for the output gradient ``dy``, from the forward's inputs and its f32
+    per-row ``(mean, rstd)`` (``return_stats``); the residual's gradient
+    is ``dx`` too. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (f32 partial rows of dgamma/dbeta per CTA, summed
+    here, as ``_norm_bwd_pallas`` sums its partials) or raises."""
+    if x.device.type == "cpu":
+        return fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
+                                              residual)
+    tensors = [x, gamma, mean, rstd, dy] + (
+        [residual] if residual is not None else [])
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in tensors):
+        raise MXNetError("fused_layer_norm_bwd: every input must be on one "
+                         f"CUDA device (x on {x.device})")
+    d = x.shape[-1] if x.dim() else 0
+    if x.dtype not in _DTYPE_CODE or gamma.dtype not in _DTYPE_CODE \
+            or dy.dtype != x.dtype \
+            or (residual is not None and residual.dtype != x.dtype) \
+            or mean.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise MXNetError("fused_layer_norm_bwd: need x, dy (and the "
+                         "residual) in one of float32/bfloat16, gamma in "
+                         "one of them, mean and rstd float32")
+    if x.dim() < 1 or not 0 < d <= MAX_D or gamma.shape != (d,) \
+            or dy.shape != x.shape or mean.shape != x.shape[:-1] \
+            or rstd.shape != x.shape[:-1] \
+            or (residual is not None and residual.shape != x.shape):
+        raise MXNetError(
+            f"fused_layer_norm_bwd: x {tuple(x.shape)}, gamma "
+            f"{tuple(gamma.shape)}, dy {tuple(dy.shape)}, mean/rstd "
+            f"{tuple(mean.shape)}: need dy shaped as x, (D,) gamma, "
+            f"0 < D <= {MAX_D}, row statistics shaped x.shape[:-1]")
+    dy = dy.contiguous()
+    if not all(t.is_contiguous() for t in tensors[:4] + tensors[5:]):
+        raise MXNetError("fused_layer_norm_bwd: inputs must be contiguous")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    if rows == 0:
+        zeros = torch.zeros(d, dtype=gamma.dtype, device=x.device)
+        return dx, zeros, zeros.clone()
+    n_blocks = min(rows, _bwd_ctas(x.device))
+    # the dgamma and dbeta partial rows, summed by one reduction
+    parts = torch.empty((2, n_blocks, d), dtype=torch.float32,
+                        device=x.device)
+    vec = d % 8 == 0 and _aligned(x, residual, gamma, dy, dx)
+    with torch.cuda.device(x.device):
+        _build.call(
+            "layer_norm.cu", "mx_layer_norm_bwd", _LN_BWD_ARGS,
+            "fused_layer_norm_bwd", x.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), rows, d, n_blocks, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[gamma.dtype], int(vec), _stream(x.device))
+    fused_layer_norm_bwd.launches += 1
+    dgamma, dbeta = parts.sum(dim=1).to(gamma.dtype)
+    return dx, dgamma, dbeta
+
+
+fused_layer_norm_bwd.launches = 0
+
+
+class _LayerNorm(torch.autograd.Function):
+    """``LayerNorm(x + residual)`` with its backward kernel; the forward
+    saves x, the residual, gamma and the f32 row statistics
+    (``_ln_res_fwd``/``_ln_plain_fwd``, ``fused_layers.py:384``, ``:411``)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, residual, eps):
+        out, mean, rstd = _layer_norm_fwd(x, gamma, beta, residual, eps,
+                                          True)
+        ctx.save_for_backward(x, gamma, mean, rstd, residual)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd, residual = ctx.saved_tensors
+        dx, dgamma, dbeta = fused_layer_norm_bwd(x, gamma, mean, rstd, dy,
+                                                 residual)
+        return dx, dgamma, dbeta, (dx if residual is not None else None), \
+            None
+
+
 # ---------------------------------------------------------------------------
 # bias + GELU
 # ---------------------------------------------------------------------------
@@ -226,7 +369,15 @@ _GELU_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 def fused_bias_gelu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``gelu(x + bias)`` (exact erf form), the Dense matmul epilogue.
     ``x``: (..., D) float32 or bfloat16, contiguous; ``bias``: (D,)
-    float32 or bfloat16. The output has x's dtype."""
+    float32 or bfloat16. The output has x's dtype. With autograd
+    recording and an input that requires grad, the backward is
+    :func:`fused_bias_gelu_bwd`."""
+    if _needs_grad(x, bias):
+        return _BiasGelu.apply(x, bias)
+    return _bias_gelu_fwd(x, bias)
+
+
+def _bias_gelu_fwd(x, bias):
     if x.device.type == "cpu":
         return fused_bias_gelu_reference(x, bias)
     if x.device.type != "cuda" or bias.device != x.device:
@@ -257,3 +408,90 @@ def fused_bias_gelu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 
 fused_bias_gelu.launches = 0
+
+
+def fused_bias_gelu_bwd_reference(x, bias, dy):
+    """Plain PyTorch bias+GELU backward with the JAX kernel's numerics
+    (``_bias_gelu_bwd_kernel``, ``fused_layers.py:511-519``): ``u = x +
+    bias``, ``gelu'(u) = cdf + u * pdf`` and ``dx = dy * gelu'(u)`` in
+    f32, dx in x's dtype, ``dbias = sum(dx)`` over the rows in f32, then
+    in bias's dtype. Returns ``(dx, dbias)``."""
+    u = x.float() + bias.float()
+    cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * u * u) * _INV_SQRT2PI
+    dx = dy.float() * (cdf + u * pdf)
+    db = dx.reshape(-1, x.shape[-1]).sum(dim=0).to(bias.dtype)
+    return dx.to(x.dtype), db
+
+
+_GELU_BWD_ARGS = [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_GELU_BWD_COLS = 32      # column chunks per CTA (csrc kBwdCols)
+_GELU_BWD_ROWS = 8       # row lanes per CTA (csrc kBwdRows)
+
+
+def fused_bias_gelu_bwd(x, bias, dy):
+    """Gradients ``(dx, dbias)`` of ``gelu(x + bias)`` for the output
+    gradient ``dy``, recomputed from ``(x, bias)``. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (f32 partial rows
+    of dbias per row block of CTAs, summed here, as ``_bias_gelu_pallas``
+    sums its partials) or raises."""
+    if x.device.type == "cpu":
+        return fused_bias_gelu_bwd_reference(x, bias, dy)
+    if x.device.type != "cuda" or bias.device != x.device \
+            or dy.device != x.device:
+        raise MXNetError("fused_bias_gelu_bwd: x, bias and dy must be on "
+                         f"one CUDA device (x on {x.device})")
+    if x.dtype not in _DTYPE_CODE or bias.dtype not in _DTYPE_CODE \
+            or dy.dtype != x.dtype:
+        raise MXNetError(f"fused_bias_gelu_bwd: dtypes {x.dtype}/"
+                         f"{bias.dtype}/{dy.dtype}: need x and dy in one "
+                         "of float32/bfloat16, bias in one of them")
+    d = x.shape[-1] if x.dim() else 0
+    if x.dim() < 1 or d < 1 or bias.shape != (d,) or dy.shape != x.shape:
+        raise MXNetError(f"fused_bias_gelu_bwd: x {tuple(x.shape)}, bias "
+                         f"{tuple(bias.shape)}, dy {tuple(dy.shape)}: need "
+                         "bias (D,) and dy shaped as x")
+    dy = dy.contiguous()
+    if not (x.is_contiguous() and bias.is_contiguous()):
+        raise MXNetError("fused_bias_gelu_bwd: x and bias must be "
+                         "contiguous")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros(d, dtype=bias.dtype, device=x.device)
+    vec = d % 8 == 0 and _aligned(x, bias, dy, dx)
+    col_blocks = -(-(d // 8 if vec else d) // _GELU_BWD_COLS)
+    row_blocks = max(1, min(-(-rows // _GELU_BWD_ROWS),
+                            _bwd_ctas(x.device) // col_blocks, 65535))
+    db_part = torch.empty((row_blocks, d), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        _build.call(
+            "bias_gelu.cu", "mx_bias_gelu_bwd", _GELU_BWD_ARGS,
+            "fused_bias_gelu_bwd", x.data_ptr(), bias.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), db_part.data_ptr(), rows, d,
+            row_blocks, _DTYPE_CODE[x.dtype], _DTYPE_CODE[bias.dtype],
+            int(vec), _stream(x.device))
+    fused_bias_gelu_bwd.launches += 1
+    return dx, db_part.sum(dim=0).to(bias.dtype)
+
+
+fused_bias_gelu_bwd.launches = 0
+
+
+class _BiasGelu(torch.autograd.Function):
+    """``gelu(x + bias)`` with its backward kernel; the forward saves
+    ``(x, bias)`` and nothing else (``_bias_gelu_fwd``,
+    ``fused_layers.py:554``)."""
+
+    @staticmethod
+    def forward(ctx, x, bias):
+        ctx.save_for_backward(x, bias)
+        return _bias_gelu_fwd(x, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bias = ctx.saved_tensors
+        return fused_bias_gelu_bwd(x, bias, dy)

@@ -1,0 +1,160 @@
+"""Fused multi-tensor Adam sweep: the hand-written CUDA kernel and its
+plain PyTorch version.
+
+Counterpart of ``mxnet_tpu/pallas_kernels/fused_optimizer.py``
+(``sweep_pallas``, the ``pallas_call`` at ``:128``) running the Adam
+formula ``_adam_elem`` of ``mxnet_tpu/optimizer/multi_tensor.py``
+(``:342-353``), with the multi-precision downcast (``w_low``, ``:545``)
+in the same pass. The kernel is ``csrc/fused_optimizer.cu``; its header
+comment says what bounds it on an H100 and why it walks the members
+through a small device table of their addresses instead of packing them
+into flat buffers.
+
+Both versions update their arguments in place (the JAX sweep returns new
+arrays): the update target ``w`` (the f32 master of a multi-precision
+bucket), the moments ``m`` and ``v``, and, when given, the low-precision
+weights. They agree bit for bit on the card: the kernel rounds each step
+of the formula explicitly, the plain version runs one torch op per step.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from . import _build
+
+__all__ = ["fused_adam_sweep", "adam_sweep_reference"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CHUNK = 4096              # elements per CTA (csrc kChunk)
+_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7 \
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def adam_sweep_reference(ws, gs, means, vars_, lows, lrs, wds, *,
+                         beta1, beta2, epsilon, rescale_grad,
+                         clip_gradient=None) -> None:
+    """Plain PyTorch Adam over members ``j``: ``ws[j]``, ``means[j]``,
+    ``vars_[j]`` (and ``lows[j]`` when ``lows`` is given) are updated in
+    place from ``gs[j]``, the per-member ``lrs[j]`` (bias correction
+    folded in) and ``wds[j]``. One op per step of ``_adam_elem``, in its
+    order, everything in f32."""
+    for j, (w, g, m, v) in enumerate(zip(ws, gs, means, vars_)):
+        g32 = g.float() * rescale_grad
+        if clip_gradient is not None and clip_gradient >= 0:
+            g32 = torch.clamp(g32, -clip_gradient, clip_gradient)
+        w32 = w.float()
+        g32 = g32 + float(wds[j]) * w32
+        m32 = beta1 * m.float() + (1 - beta1) * g32
+        v32 = beta2 * v.float() + (1 - beta2) * (g32 * g32)
+        w32 = w32 - float(lrs[j]) * m32 / (torch.sqrt(v32) + epsilon)
+        w.copy_(w32)
+        m.copy_(m32)
+        v.copy_(v32)
+        if lows is not None:
+            lows[j].copy_(w32)
+
+
+def _check(ws, gs, means, vars_, lows):
+    dev = ws[0].device
+    groups = [ws, gs, means, vars_] + ([lows] if lows is not None else [])
+    if any(len(grp) != len(ws) for grp in groups):
+        raise MXNetError("fused_adam_sweep: the member lists differ in "
+                         "length")
+    wdt, gdt = ws[0].dtype, gs[0].dtype
+    for j in range(len(ws)):
+        members = [grp[j] for grp in groups]
+        if any(t.device != dev for t in members):
+            raise MXNetError("fused_adam_sweep: every tensor must be on "
+                             f"one CUDA device ({dev})")
+        if any(t.shape != ws[j].shape for t in members):
+            raise MXNetError(f"fused_adam_sweep: member {j} has shapes "
+                             f"{[tuple(t.shape) for t in members]}")
+        if not all(t.is_contiguous() for t in members):
+            raise MXNetError(f"fused_adam_sweep: member {j} is not "
+                             "contiguous")
+        if ws[j].dtype != wdt or means[j].dtype != wdt \
+                or vars_[j].dtype != wdt or gs[j].dtype != gdt:
+            raise MXNetError("fused_adam_sweep: one bucket has one weight "
+                             "dtype (shared by the moments) and one grad "
+                             "dtype")
+    combos = {(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16)}
+    if (wdt, gdt) not in combos:
+        raise MXNetError(f"fused_adam_sweep: weight/grad dtypes {wdt}/{gdt} "
+                         f"not supported ({sorted(map(str, combos))})")
+    if lows is not None and (wdt != torch.float32 or any(
+            t.dtype != torch.bfloat16 for t in lows)):
+        raise MXNetError("fused_adam_sweep: low-precision weights are "
+                         "bfloat16 beside an f32 master")
+
+
+def _table(ws, gs, means, vars_, lows):
+    """The (n_members, 7) int64 member table the kernel reads (five
+    addresses, the size, the first chunk), and the total chunk count."""
+    sizes = np.asarray([w.numel() for w in ws], np.int64)
+    chunks = -(-sizes // _CHUNK)
+    first = np.cumsum(chunks) - chunks
+    lows = lows if lows is not None else [None] * len(ws)
+    rows = [[w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+             lo.data_ptr() if lo is not None else 0, int(n), int(f)]
+            for w, g, m, v, lo, n, f in zip(ws, gs, means, vars_, lows,
+                                            sizes, first)]
+    return torch.tensor(rows, dtype=torch.int64), int(chunks.sum())
+
+
+def fused_adam_sweep(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
+                     means: Sequence[torch.Tensor],
+                     vars_: Sequence[torch.Tensor],
+                     lows: Optional[Sequence[torch.Tensor]], lrs, wds, *,
+                     beta1: float, beta2: float, epsilon: float,
+                     rescale_grad: float, clip_gradient=None) -> None:
+    """One Adam sweep over a dtype bucket, in place: see
+    :func:`adam_sweep_reference` for the arguments and the formula.
+
+    Bucket dtypes: f32 weights and moments with f32 or bf16 grads (a
+    multi-precision bucket passes its f32 masters as ``ws`` and its bf16
+    weights as ``lows``), or bf16 weights, moments and grads. On the
+    card: one launch per call, the members read where they lie through a
+    small device table of their addresses, made anew each call."""
+    if not ws:
+        return
+    if ws[0].device.type == "cpu":
+        return adam_sweep_reference(ws, gs, means, vars_, lows, lrs, wds,
+                                    beta1=beta1, beta2=beta2,
+                                    epsilon=epsilon,
+                                    rescale_grad=rescale_grad,
+                                    clip_gradient=clip_gradient)
+    if ws[0].device.type != "cuda":
+        raise MXNetError(f"fused_adam_sweep: unsupported device "
+                         f"{ws[0].device}")
+    _check(ws, gs, means, vars_, lows)
+    members, n_blocks = _table(ws, gs, means, vars_, lows)
+    lr_wd = torch.from_numpy(np.stack(
+        [np.asarray(lrs, np.float32), np.asarray(wds, np.float32)], 1))
+    # from pinned memory the copies queue behind the stream's work
+    # without stalling the host
+    dev = ws[0].device
+    members = members.pin_memory().to(dev, non_blocking=True)
+    lr_wd = lr_wd.pin_memory().to(dev, non_blocking=True)
+    clip = -1.0 if clip_gradient is None or clip_gradient < 0 \
+        else float(clip_gradient)
+    with torch.cuda.device(dev):
+        _build.call(
+            "fused_optimizer.cu", "mx_adam_sweep", _ARGS, "fused_adam_sweep",
+            members.data_ptr(), lr_wd.data_ptr(), len(ws), n_blocks,
+            float(beta1), float(1 - beta1), float(beta2),
+            float(1 - beta2), float(epsilon), float(rescale_grad), clip,
+            _DTYPE_CODE[ws[0].dtype], _DTYPE_CODE[gs[0].dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    fused_adam_sweep.launches += 1
+
+
+fused_adam_sweep.launches = 0

@@ -51,15 +51,17 @@ def sdp_attention(query, key, value, mask=None, *, scale=None,
     "blhd" (B, L, H, D), output in the same layout.
 
     Mask-free calls go to :func:`~mxnet_tpu_torch.kernels.flash_attention`
-    (the kernel on a CUDA tensor); a ``mask`` (1 = attend, broadcastable
-    to (B, H, Lq, Lk)) and causal attention with Lq > Lk go to
-    :func:`_sdpa_reference`, the JAX package's own route for them.
-    ``dropout > 0`` raises until the training slice; ``ring_axis``
+    (the kernels on a CUDA tensor, differentiable through the flash
+    backward); a ``mask`` (1 = attend, broadcastable to (B, H, Lq, Lk))
+    and causal attention with Lq > Lk go to :func:`_sdpa_reference`, the
+    JAX package's own route for them, which torch autograd
+    differentiates. ``dropout > 0`` raises until the position-hash
+    dropout slice (ROADMAP.md, port queue 2, item 0); ``ring_axis``
     (sequence parallelism) waits for the parallelism queue."""
     if dropout > 0.0:
         raise MXNetError("sdp_attention: attention dropout needs the "
-                         "position-hash dropout of the training slice "
-                         "(ROADMAP.md, port queue 2, item 0)")
+                         "position-hash dropout slice (ROADMAP.md, port "
+                         "queue 2, item 0)")
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     seq_ax = 1 if layout == "blhd" else 2

@@ -1,12 +1,14 @@
-"""Neural-network ops of the BERT serving path.
+"""Neural-network ops of the BERT serving and pretraining paths.
 
-Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the path runs:
+Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the paths run:
 ``fully_connected`` (``:36``), ``embedding`` (``:1030``), ``layer_norm``
 (``:707``), ``fused_layer_norm_op`` (``:742``), ``fused_bias_gelu_op``
 (``:775``) and ``activation`` (``:835``). A CUDA tensor takes the port's
-kernels, a CPU tensor their plain versions; the matrix products go to
-the library GEMM (``torch.nn.functional.linear``), as the JAX package
-leaves them to XLA outside any kernel.
+kernels, a CPU tensor their plain versions; under autograd the fused
+ops go through the kernels' differentiable wrappers (their backward
+kernels on the card). The matrix products go to the library GEMM
+(``torch.nn.functional.linear``), as the JAX package leaves them to XLA
+outside any kernel.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def fused_layer_norm_op(data, gamma, beta, residual=None, *, eps=1e-5,
                         dropout=0.0):
     """``LayerNorm(dropout(data) + residual)`` over the last axis: the
     post-LN transformer cell's add+norm in one kernel. ``dropout > 0``
-    raises until the training slice brings the position-hash dropout."""
+    raises until the position-hash dropout slice (ROADMAP.md, port queue
+    2, item 0)."""
     return fused_layer_norm(data, gamma, beta, residual, eps=eps,
                             dropout=dropout)
 

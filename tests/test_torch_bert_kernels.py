@@ -317,15 +317,15 @@ def test_dropout_above_zero_raises_on_every_entry_point():
     x = torch.ones(2, 8)
     g = torch.ones(8)
     q = torch.ones(1, 1, 4, 8)
-    with pytest.raises(MXNetError, match="training slice"):
+    with pytest.raises(MXNetError, match="position-hash dropout slice"):
         fused_layer_norm(x, g, g, dropout=0.1)
-    with pytest.raises(MXNetError, match="training slice"):
+    with pytest.raises(MXNetError, match="position-hash dropout slice"):
         fused_layer_norm_reference(x, g, g, dropout=0.1)
-    with pytest.raises(MXNetError, match="training slice"):
+    with pytest.raises(MXNetError, match="position-hash dropout slice"):
         pnn.fused_layer_norm_op(x, g, g, x, dropout=0.1)
-    with pytest.raises(MXNetError, match="training slice"):
+    with pytest.raises(MXNetError, match="position-hash dropout slice"):
         flash_attention(q, q, q, dropout=0.1)
-    with pytest.raises(MXNetError, match="training slice"):
+    with pytest.raises(MXNetError, match="position-hash dropout slice"):
         flash_attention_reference(q, q, q, dropout=0.1)
-    with pytest.raises(MXNetError, match="training slice"):
+    with pytest.raises(MXNetError, match="position-hash dropout slice"):
         pattn.sdp_attention(q, q, q, dropout=0.1)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the Llama-3-8B and BERT serving paths' shapes and at ragged
+card, at the Llama-3-8B and BERT serving paths' shapes, the BERT
+pretraining path's (backward kernels and the Adam sweep), and at ragged
 ones.
 
 Marked ``cuda``: each test skips where there is no CUDA card (the CPU
@@ -15,16 +16,23 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch.kernels import (flash_attention_fwd,
+from mxnet_tpu_torch.kernels import (adam_sweep_reference, flash_attention,
+                                     flash_attention_bwd,
+                                     flash_attention_bwd_reference,
+                                     flash_attention_fwd,
                                      flash_attention_reference,
-                                     fused_bias_gelu,
+                                     fused_adam_sweep, fused_bias_gelu,
+                                     fused_bias_gelu_bwd,
+                                     fused_bias_gelu_bwd_reference,
                                      fused_bias_gelu_reference,
-                                     fused_layer_norm,
+                                     fused_layer_norm, fused_layer_norm_bwd,
+                                     fused_layer_norm_bwd_reference,
                                      fused_layer_norm_reference,
                                      fused_rms_norm, fused_rms_norm_reference,
                                      paged_attention_kernel,
                                      paged_attention_reference)
-from mxnet_tpu_torch.kernels.flash import NO_KEY_LSE, _launch, _reference
+from mxnet_tpu_torch.kernels.flash import (NO_KEY_LSE, _bwd_reference,
+                                           _launch, _launch_bwd, _reference)
 
 # bf16 keeps 8 significant bits, so one ulp is at most 2**-7 of a
 # value's magnitude. The kernel and its plain version sum the squares in
@@ -235,3 +243,230 @@ def test_flash_kernel_on_fused_qkv_views_on_card(b, l, h, d, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the pretraining path: backward kernels and the Adam sweep
+# ---------------------------------------------------------------------------
+
+# backward kernels against their plain versions, as max |kernel - plain|
+# over max |plain|. f32: sums in other orders. bf16: the kernel rounds P
+# and dS to bf16 from f32 values summed in another order than the plain
+# version's, so a value near a rounding boundary may round the other
+# way, and each gradient rounds once more: two ulps of the largest
+# magnitude
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+
+
+def _close_to_max(got, want, tol, what=""):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape, what
+    assert torch.isfinite(got).all(), what
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), (what, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (B, H, Lq, Lk, D, causal, layout)
+    (2, 8, 2048, 2048, 128, True, "bhld"),      # the streaming case
+    (2, 3, 77, 200, 40, True, "bhld"),          # ragged L and D
+    (2, 3, 130, 70, 64, False, "blhd"),
+    (3, 2, 50, 50, 8, True, "blhd"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain_on_card(shape, dtype):
+    _require_card()
+    b, h, lq, lk, d, causal, layout = shape
+    g = torch.Generator(device="cuda").manual_seed(lq * d + 1)
+    qs = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+    ks = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+    tdt = getattr(torch, dtype)
+    q, do = (torch.randn(*qs, device="cuda", generator=g).to(tdt)
+             for _ in range(2))
+    k, v = (torch.randn(*ks, device="cuda", generator=g).to(tdt)
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, layout=layout)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              layout=layout)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                         layout=layout)
+    for name, x, y, like in zip("qkv", got, want, (q, k, v)):
+        assert x.shape == like.shape and x.dtype == like.dtype
+        assert x.is_contiguous()
+        _close_to_max(x, y, BWD_TOL[dtype], f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_on_fused_qkv_views_on_card(dtype):
+    """BERT-base's heads as (B, L, H, D) views of one (B, L, 3*H*D)
+    projection output, through autograd: the gradient of the whole
+    projection output against the plain backward's."""
+    _require_card()
+    b, l, h, d = 32, 512, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(17)
+    tdt = getattr(torch, dtype)
+    qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=g).to(tdt)
+    do = torch.randn(b, l, h, d, device="cuda", generator=g).to(tdt)
+    leaf = qkv.clone().requires_grad_()
+    q, k, v = (t.view(b, l, h, d) for t in leaf.split(h * d, dim=-1))
+    before = flash_attention_bwd.launches
+    flash_attention(q, k, v, layout="blhd").backward(do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+    o, lse = flash_attention_fwd(q, k, v, layout="blhd")
+    want = torch.cat([t.reshape(b, l, h * d) for t in
+                      flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                    layout="blhd")], -1)
+    _close_to_max(leaf.grad, want, BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_rows_with_no_visible_key_on_card(dtype):
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tdt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(2, 2, 70, 64, device="cuda", generator=g)
+                   .to(tdt) for _ in range(4))
+    o, lse = _launch(q, k, v, 0.125, True, -10, "bhld")
+    got = _launch_bwd(q, k, v, o, lse, do, 0.125, True, -10, "bhld")
+    torch.cuda.synchronize()
+    want = _bwd_reference(q, k, v, o, lse, do, 0.125, True, -10, "bhld")
+    assert torch.count_nonzero(got[0][:, :, :10]) == 0
+    for x, y in zip(got, want):
+        _close_to_max(x, y, BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(32 * 512, 768), (7, 100), (5, 8192),
+                                    (3, 3000)])
+@pytest.mark.parametrize("xdt,gdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+@pytest.mark.parametrize("with_res", [True, False])
+def test_layer_norm_bwd_kernel_matches_plain_on_card(rows, d, xdt, gdt,
+                                                     with_res):
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(rows + d + 1)
+    xt, gt = getattr(torch, xdt), getattr(torch, gdt)
+    x = (2 + torch.randn(rows, d, device="cuda", generator=g)).to(xt)
+    r = torch.randn(rows, d, device="cuda", generator=g).to(xt) \
+        if with_res else None
+    gamma = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    beta = (0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(xt)
+    _, mean, rstd = fused_layer_norm(x, gamma, beta, r, return_stats=True)
+    before = fused_layer_norm_bwd.launches
+    got = fused_layer_norm_bwd(x, gamma, mean, rstd, dy, r)
+    torch.cuda.synchronize()
+    assert fused_layer_norm_bwd.launches == before + 1
+    want = fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy, r)
+    # dx: one rounding of f32 sums taken in another order; dgamma/dbeta:
+    # f32 column sums over the rows in another order, rounded once
+    tol = 1e-5 if xdt == "float32" and gdt == "float32" else 2.0 ** -7
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert a.dtype == b.dtype
+        _close_to_max(a, b, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(32 * 512, 3072), (9, 100), (3, 8)])
+@pytest.mark.parametrize("xdt,bdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+def test_bias_gelu_bwd_kernel_matches_plain_on_card(rows, d, xdt, bdt):
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(rows * d + 1)
+    x = (2 * torch.randn(rows, d, device="cuda", generator=g)).to(
+        getattr(torch, xdt))
+    b = torch.randn(d, device="cuda", generator=g).to(getattr(torch, bdt))
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(x.dtype)
+    before = fused_bias_gelu_bwd.launches
+    got = fused_bias_gelu_bwd(x, b, dy)
+    torch.cuda.synchronize()
+    assert fused_bias_gelu_bwd.launches == before + 1
+    want = fused_bias_gelu_bwd_reference(x, b, dy)
+    tol = 1e-5 if xdt == "float32" and bdt == "float32" else 2.0 ** -7
+    for name, a, c in zip(("dx", "db"), got, want):
+        assert a.dtype == c.dtype
+        _close_to_max(a, c, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,gdt,mp", [("float32", "float32", False),
+                                        ("float32", "bfloat16", True),
+                                        ("bfloat16", "bfloat16", False)])
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_adam_sweep_kernel_bit_identical_on_card(wdt, gdt, mp, clip):
+    """The sweep kernel against its plain version, bit for bit, over
+    members of ragged sizes (below one 4096-element chunk, an empty one,
+    exactly one chunk, one past it, BERT-base's word embedding)."""
+    _require_card()
+    sizes = [5, 0, 4096, 4097, 30522 * 768, 768]
+
+    def members():
+        g = torch.Generator(device="cuda").manual_seed(3)
+        ws = [torch.randn(n, device="cuda", generator=g).to(
+            getattr(torch, wdt)) for n in sizes]
+        gs = [torch.randn(n, device="cuda", generator=g).to(
+            getattr(torch, gdt)) for n in sizes]
+        ms = [0.1 * torch.randn(n, device="cuda", generator=g).to(
+            getattr(torch, wdt)) for n in sizes]
+        vs = [torch.rand(n, device="cuda", generator=g).to(
+            getattr(torch, wdt)) for n in sizes]
+        lows = [w.to(torch.bfloat16) for w in ws] if mp else None
+        return ws, gs, ms, vs, lows
+
+    lrs = [1e-4 * (1 + j) for j in range(len(sizes))]
+    wds = [0.0, 0.0, 0.01, 0.0, 0.02, 0.0]
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, rescale_grad=0.5,
+              clip_gradient=clip)
+    a, b = members(), members()
+    before = fused_adam_sweep.launches
+    for _ in range(2):
+        fused_adam_sweep(*a, lrs, wds, **kw)
+        adam_sweep_reference(*b, lrs, wds, **kw)
+    torch.cuda.synchronize()
+    assert fused_adam_sweep.launches == before + 2
+    for grp in range(5 if mp else 4):
+        for x, y in zip(a[grp], b[grp]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_trainstep_on_card_matches_cpu():
+    """Three f32 TrainStep Adam steps of a narrow 2-layer
+    BERTForPretrainFused on the card (every backward kernel and the
+    sweep) against the same model and batch on the CPU (the plain
+    versions): the losses to 1e-5 relative."""
+    _require_card()
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = BERTForPretrainFused(vocab_size=512, max_length=128,
+                               num_layers=2, units=64, hidden_size=128,
+                               num_heads=4, dropout=0.0, chunk=128,
+                               ctx=mx.cpu(),
+                               generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(net).cuda()
+    rs = np.random.RandomState(0)
+    tok = rs.randint(0, 512, (4, 128))
+    lab = rs.randint(0, 512, (4, 128))
+    losses = []
+    for model in (net, card):
+        step = mx.parallel.TrainStep(model, lambda o, *a: o, "adam",
+                                     loss_only=True,
+                                     optimizer_params={"learning_rate": 1e-3})
+        before = fused_adam_sweep.launches
+        losses.append([float(step((tok, lab), ())[0]) for _ in range(3)])
+    assert fused_adam_sweep.launches == before + 3
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
