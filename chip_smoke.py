@@ -16,10 +16,14 @@ package. Phases, each printing JSON lines and failing loudly:
              backward kernels on BERT-base's (32 x 512) batch, flash on
              its fused-QKV views and a causal (2, 8, 2048, 128); the Adam
              sweep over BERTForPretrainFused's bf16 multi-precision
-             parameter set, bit for bit); kernel, plain and library-call
-             times from CUDA events (cold L2), and the least time the
-             card could take (bound_ms) from this run's bytes and
-             operations;
+             parameter set, bit for bit; the dropout modes at p = 0.1:
+             the hash-dropout kernel bit for bit, LayerNorm ± residual
+             forward and backward with dx's zeros equal to the mask,
+             flash forward and backward, and flash's mask bit for bit
+             through lk = d with V the identity); kernel, plain and
+             library-call times from CUDA events (cold L2), and the
+             least time the card could take (bound_ms) from this run's
+             bytes and operations;
 4. reference — the Llama decode path at Llama-3-8B widths, depth cut to
              2 layers, in f32: each stream's last decode-step logits
              against forward_full over the same tokens, to f32 noise;
@@ -48,17 +52,21 @@ package. Phases, each printing JSON lines and failing loudly:
              busy share of the wall time, its top device events);
 8. train_reference — BERTForPretrainFused at BERT-base widths, depth
              cut to 2 layers, f32: three TrainStep Adam steps on the card
-             against the same weights and batch on the CPU (the plain
-             versions): each loss, and each parameter's delta over the
-             run by norm ratio;
-9. bert_train — BERTForPretrainFused at bert_12_768_12, not cut
-             (dropout 0, bf16, multi-precision Adam at lr 1e-4, seeded
-             random weights), one (32, 512) batch: 3 warm-up and 20 timed
-             TrainStep calls; ms per step, samples/s, MFU, peak memory,
-             the loss (finite, falling), exactly 26/26 LayerNorm, 13/13
-             bias+GELU and 12/12 flash launches forward/backward and one
+             against the same weights, batch and step seeds on the CPU
+             (the plain versions): each loss, and each parameter's delta
+             over the run by norm ratio; at dropout 0, then at 0.1 / 0.1;
+9. bert_train — BERTForPretrainFused at bert_12_768_12, not cut (bf16,
+             multi-precision Adam at lr 1e-4, seeded random weights), one
+             (32, 512) batch, at dropout 0 and BERT's published 0.1 /
+             0.1 in turns (0, 0.1, 0.1, 0) in the same process: 3
+             warm-up and 20 timed TrainStep calls each; ms per step,
+             samples/s, MFU, peak memory, the loss (finite, falling),
+             exactly 26/26 LayerNorm (12 with dropout), 13/13
+             bias+GELU, 12/12 flash (dropping with attention dropout)
+             and 25/25 hash-dropout launches forward/backward and one
              sweep per dtype bucket per step, and a profiled step (host
-             vs device ms, idle share, top device events);
+             vs device ms, idle share, top device events, each port
+             kernel's device time per launch);
 10. summary — one {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
@@ -574,6 +582,243 @@ def gelu_bwd_case(rows, d, dtype, flush, gen) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the dropout modes (position-hash dropout) against their plain versions
+# ---------------------------------------------------------------------------
+
+DROP_P = 0.1
+# integer operations of the murmur hash and the keep test per element;
+# counted at the CUDA cores' f32 rate (the card's table has no int32 row)
+HASH_OPS = 12.0
+
+
+def bound_mixed(n_bytes: float, ops) -> tuple:
+    """(least time in ms, what bounds it) for work on several units at
+    once: ``ops`` is [(operations, dtype), ...], each over its own peak
+    rate; the least time is the largest of those and the bytes' time."""
+    best = (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    for n_ops, dtype in ops:
+        t = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+        if t > best[0]:
+            best = (t, "operations")
+    return best
+
+
+def hash_dropout_case(shape, dtype, flush, gen) -> dict:
+    """The Dropout op's kernel at p = 0.1 against its plain version: bit
+    for bit, so its zeros are the plain version's mask. Library
+    yardstick: F.dropout (it draws its own Philox mask; the work is the
+    same)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import hash_dropout, hash_dropout_reference
+
+    x = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    seed = 0x5EED
+    out = hash_dropout(x, DROP_P, seed)
+    torch.cuda.synchronize()
+    ref = hash_dropout_reference(x, DROP_P, seed)
+    same = torch.equal(out, ref)
+    mask_same = torch.equal(out == 0, ref == 0)
+    n = x.numel()
+    b_ms, b_by = bound_mixed(2.0 * n * _size(dtype),
+                             [(HASH_OPS * n, torch.float32)])
+    rec = {"phase": "kernels", "kernel": "hash_dropout", "shape": list(shape),
+           "dtype": _dname(dtype), "p": DROP_P, "bit_identical": same,
+           "mask_identical": mask_same,
+           "drop_share": float((ref == 0).float().mean()),
+           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+           "ok": same and mask_same,
+           "ms": time_ms(lambda: hash_dropout(x, DROP_P, seed), flush),
+           "plain_ms": time_ms(lambda: hash_dropout_reference(x, DROP_P,
+                                                              seed), flush),
+           "library_ms": time_ms(lambda: F.dropout(x, DROP_P, training=True),
+                                 flush),
+           "library": "F.dropout (its own Philox mask)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    return rec
+
+
+def ln_drop_cases(rows, d, dtype, with_res, flush, gen) -> list:
+    """LayerNorm(dropout(x) + residual) at p = 0.1, forward and backward,
+    against the plain versions (LN_TOL forward; BWD_TOL backward, dres
+    included); the zeros of dx must be the mask of the flat (row, col)
+    ids bit for bit. No single PyTorch call drops and normalises, so
+    library_ms is null."""
+    from mxnet_tpu_torch.kernels import (fused_layer_norm,
+                                         fused_layer_norm_bwd,
+                                         fused_layer_norm_bwd_reference,
+                                         fused_layer_norm_reference)
+    from mxnet_tpu_torch.kernels.dropout import dropout_thresh, row_keep_mask
+
+    x = (2 + torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    r = (torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+         if with_res else None)
+    g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    dy = torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+    seed = 0xD0D0 + int(with_res)
+    kw = {"dropout": DROP_P, "seed": seed}
+    out, mean, rstd = fused_layer_norm(x, g, b, r, return_stats=True, **kw)
+    got = fused_layer_norm_bwd(x, g, mean, rstd, dy, r, DROP_P, seed)
+    torch.cuda.synchronize()
+    f_err, f_ok = within(out, fused_layer_norm_reference(x, g, b, r, **kw),
+                         *LN_TOL[dtype])
+    want = fused_layer_norm_bwd_reference(x, g, mean, rstd, dy, r, DROP_P,
+                                          seed)
+    b_err, rel = max_rel(got, want)
+    keep = row_keep_mask(rows, d, seed, dropout_thresh(DROP_P), "cuda")
+    mask_same = bool(torch.equal(got[0] != 0, keep)
+                     and torch.equal(want[0] != 0, keep))
+    size = _size(dtype)
+    f_ms, f_by = bound_mixed(
+        rows * d * size * (3 if with_res else 2) + 2 * d * size,
+        [(7.0 * rows * d, torch.float32), (HASH_OPS * rows * d,
+                                            torch.float32)])
+    # x, dy (and the residual) read; dx (and dres) written
+    bw_ms, bw_by = bound_mixed(
+        rows * d * size * (5 if with_res else 3) + 8 * rows + 3 * d * size,
+        [(12.0 * rows * d, torch.float32), (HASH_OPS * rows * d,
+                                             torch.float32)])
+    common = {"phase": "kernels", "shape": [rows, d], "residual": with_res,
+              "dtype": _dname(dtype), "p": DROP_P, "library_ms": None,
+              "library": "null: no single PyTorch call drops and "
+                         "normalises"}
+    fwd = dict(common, kernel="fused_layer_norm[dropout]",
+               max_abs_err=f_err, rtol_atol=list(LN_TOL[dtype]), ok=f_ok,
+               ms=time_ms(lambda: fused_layer_norm(x, g, b, r, **kw), flush),
+               plain_ms=time_ms(lambda: fused_layer_norm_reference(
+                   x, g, b, r, **kw), flush),
+               bound_ms=f_ms, bound_by=f_by)
+    bwd = dict(common, kernel="fused_layer_norm_bwd[dropout]",
+               max_abs_err=b_err, max_err_over_max_ref=rel,
+               tol=BWD_TOL[dtype], mask_identical=mask_same,
+               ok=rel <= BWD_TOL[dtype] and mask_same,
+               ms=time_ms(lambda: fused_layer_norm_bwd(
+                   x, g, mean, rstd, dy, r, DROP_P, seed), flush),
+               plain_ms=time_ms(lambda: fused_layer_norm_bwd_reference(
+                   x, g, mean, rstd, dy, r, DROP_P, seed), flush),
+               bound_ms=bw_ms, bound_by=bw_by)
+    emit(fwd)
+    emit(bwd)
+    return [fwd, bwd]
+
+
+def flash_drop_cases(b, h, l, d, causal, layout, dtype, flush,
+                     gen) -> list:
+    """Flash attention forward and backward at p = 0.1 against the plain
+    versions, "blhd" on BERT's fused-QKV views as flash_case builds them.
+    Library yardstick: F.scaled_dot_product_attention with dropout_p=0.1
+    and its autograd backward (SDPA draws its own mask; only the work is
+    the same). Operations: the products as without dropout, plus one
+    hash per score, forward and backward."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (flash_attention_bwd,
+                                         flash_attention_bwd_reference,
+                                         flash_attention_fwd,
+                                         flash_attention_reference)
+
+    if layout == "blhd":
+        qkv = torch.randn(b, l, 3 * h * d, device="cuda",
+                          generator=gen).to(dtype)
+        q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+        do = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
+        to_sdpa = lambda t: t.transpose(1, 2)           # noqa: E731
+    else:
+        q, k, v, do = (torch.randn(b, h, l, d, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
+        to_sdpa = lambda t: t                           # noqa: E731
+    kw = {"causal": causal, "layout": layout, "dropout": DROP_P,
+          "seed": 0xF1A5 + l}
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    ref, rlse = flash_attention_reference(q, k, v, **kw)
+    f_err, f_ok = within(o, ref, *FLASH_TOL[dtype])
+    lse_err, lse_ok = within(lse, rlse, *LSE_TOL)
+    b_err, rel = max_rel(got, flash_attention_bwd_reference(q, k, v, o, lse,
+                                                            do, **kw))
+    leaves = [to_sdpa(t).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              dropout_p=DROP_P)
+    pairs = l * (l + 1) // 2 if causal else l * l
+    scores = b * h * pairs
+    size = _size(dtype)
+    f_ms, f_by = bound_mixed(4 * b * h * l * d * size + 4 * b * h * l,
+                             [(4.0 * scores * d, dtype),
+                              (HASH_OPS * scores, torch.float32)])
+    bw_ms, bw_by = bound_mixed(8 * b * h * l * d * size + 4 * b * h * l,
+                               [(10.0 * scores * d, dtype),
+                                (HASH_OPS * scores, torch.float32)])
+    common = {"phase": "kernels", "shape": [b, h, l, d], "layout": layout,
+              "causal": causal, "dtype": _dname(dtype), "p": DROP_P}
+    fwd = dict(common, kernel="flash_attention[dropout]", max_abs_err=f_err,
+               lse_max_abs_err=lse_err, rtol_atol=list(FLASH_TOL[dtype]),
+               ok=f_ok and lse_ok,
+               ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), flush),
+               plain_ms=time_ms(lambda: flash_attention_reference(
+                   q, k, v, **kw), flush),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   *[to_sdpa(t) for t in (q, k, v)], is_causal=causal,
+                   dropout_p=DROP_P), flush),
+               library="F.scaled_dot_product_attention(dropout_p=0.1)",
+               bound_ms=f_ms, bound_by=f_by)
+    bwd = dict(common, kernel="flash_attention_bwd[dropout]",
+               max_abs_err=b_err, max_err_over_max_ref=rel,
+               tol=BWD_TOL[dtype], ok=rel <= BWD_TOL[dtype],
+               ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                      **kw), flush),
+               plain_ms=time_ms(lambda: flash_attention_bwd_reference(
+                   q, k, v, o, lse, do, **kw), flush),
+               library_ms=time_ms(_grad_timer(sdpa_out, leaves, to_sdpa(do)),
+                                  flush),
+               library="autograd backward of F.scaled_dot_product_attention"
+                       "(dropout_p=0.1)",
+               bound_ms=bw_ms, bound_by=bw_by)
+    emit(fwd)
+    emit(bwd)
+    return [fwd, bwd]
+
+
+def flash_mask_case(d, dtype, flush, gen) -> dict:
+    """The flash forward's mask, bit for bit: with lk = d and V the
+    identity, O is the dropped, normalised P, so its zeros are the mask;
+    the kernel's zeros must be the plain version's (q and k are small,
+    so no kept P underflows to 0)."""
+    from mxnet_tpu_torch.kernels import (flash_attention_fwd,
+                                         flash_attention_reference)
+
+    b, h, lq = 32, 12, 512
+    q = (0.1 * torch.randn(b, h, lq, d, device="cuda",
+                           generator=gen)).to(dtype)
+    k = (0.1 * torch.randn(b, h, d, d, device="cuda",
+                           generator=gen)).to(dtype)
+    v = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous().to(
+        dtype)
+    kw = {"dropout": DROP_P, "seed": 0xA5A5 + d}
+    out, _ = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref, _ = flash_attention_reference(q, k, v, **kw)
+    same = bool(torch.equal(out == 0, ref == 0))
+    scores = b * h * lq * d
+    b_ms, b_by = bound_mixed(
+        (2 * b * h * lq * d + 2 * b * h * d * d) * _size(dtype) + 4 * b * h
+        * lq, [(4.0 * scores * d, dtype), (HASH_OPS * scores,
+                                            torch.float32)])
+    rec = {"phase": "kernels", "kernel": "flash_attention[dropout, mask]",
+           "shape": [b, h, lq, d], "lk": d, "v": "identity",
+           "dtype": _dname(dtype), "p": DROP_P, "mask_identical": same,
+           "drop_share": float((ref == 0).float().mean()), "ok": same,
+           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw), flush),
+           "plain_ms": time_ms(lambda: flash_attention_reference(
+               q, k, v, **kw), flush), "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(rec)
+    return rec
+
+
 def _pretrain_shapes() -> list:
     """The trainable parameter shapes of BERTForPretrainFused at
     bert_12_768_12's widths (the tied projection counted once)."""
@@ -692,6 +937,16 @@ def phase_kernels() -> dict:
         for shape in ((32, 12, 512, 64, False, "blhd"),
                       (2, 8, 2048, 128, True, "bhld")):
             recs.append(flash_bwd_case(*shape, dtype, flush, gen))
+        # the dropout modes at p = 0.1, at the pretraining path's shapes
+        recs.append(hash_dropout_case((32, 512, 768), dtype, flush, gen))
+        for with_res in (True, False):
+            recs.extend(ln_drop_cases(32 * 512, 768, dtype, with_res, flush,
+                                      gen))
+        for shape in ((32, 12, 512, 64, False, "blhd"),
+                      (2, 8, 2048, 128, True, "bhld")):
+            recs.extend(flash_drop_cases(*shape, dtype, flush, gen))
+        for d in (64, 128):
+            recs.append(flash_mask_case(d, dtype, flush, gen))
     recs.append(adam_case(flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
@@ -726,6 +981,18 @@ def phase_kernels() -> dict:
                                                                64] \
                 and r["layout"] == "blhd":
             pick["flash_attention"] = r
+        # the dropout modes: the residual LayerNorm (the 12 add+norms
+        # that drop), flash on the fused-QKV views, the Dropout op
+        if r["kernel"] in ("fused_layer_norm[dropout]",
+                           "fused_layer_norm_bwd[dropout]") \
+                and r["residual"]:
+            pick[r["kernel"]] = r
+        if r["kernel"] in ("flash_attention[dropout]",
+                           "flash_attention_bwd[dropout]") \
+                and r["layout"] == "blhd":
+            pick[r["kernel"]] = r
+        if r["kernel"] == "hash_dropout":
+            pick["hash_dropout"] = r
     return pick
 
 
@@ -923,14 +1190,15 @@ def _device_breakdown(step, steps, n_top=8) -> dict:
     return {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
             "device_idle_share": 1 - device_ms / host_ms,
             "top_device_ms_per_step": top,
-            "device_ms_per_step_by_kind": by_kind}
+            "device_ms_per_step_by_kind": by_kind,
+            "port_kernels_per_step": _port_kernel_times(prof, steps)}
 
 
 # the port's own CUDA kernels, by their __global__ names in kernels/csrc
 _PORT_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
                  "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
                  "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
-                 "paged_decode_kernel")
+                 "paged_decode_kernel", "dropout_kernel")
 
 
 def _kind(name) -> str:
@@ -965,6 +1233,30 @@ def _device_events(prof, per, n_top=8) -> tuple:
         by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
     return sum(by_name.values()), dict(top[:n_top]), by_kind
+
+
+def _port_kernel_times(prof, per) -> dict:
+    """Each of the port's kernels (its name with the template arguments,
+    so a dropout instance stands apart) by device ms and launches per
+    step, and device microseconds per launch: the kernel's own time,
+    without the wrapper's host time that an event-timed call may
+    include."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type != DeviceType.CUDA or us <= 0 \
+                or _kind(e.key) != "port_kernels":
+            continue
+        name = e.key.split("(anonymous namespace)::", 1)[-1].split("(")[0]
+        rec = out.setdefault(name, {"ms": 0.0, "launches": 0})
+        rec["ms"] += us / 1e3 / per
+        rec["launches"] += e.count / per
+    for rec in out.values():
+        rec["us_per_launch"] = 1e3 * rec["ms"] / rec["launches"]
+    return out
 
 
 def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
@@ -1287,45 +1579,69 @@ def _train_wrappers() -> dict:
                                          fused_adam_sweep, fused_bias_gelu,
                                          fused_bias_gelu_bwd,
                                          fused_layer_norm,
-                                         fused_layer_norm_bwd)
+                                         fused_layer_norm_bwd, hash_dropout,
+                                         hash_dropout_bwd)
 
     return {f.__name__: f for f in (
         fused_layer_norm, fused_layer_norm_bwd, fused_bias_gelu,
         fused_bias_gelu_bwd, flash_attention, flash_attention_bwd,
-        fused_adam_sweep)}
+        fused_adam_sweep, hash_dropout, hash_dropout_bwd)}
 
 
 def _reset_train_counts() -> None:
     for f in _train_wrappers().values():
         f.launches = 0
+        if hasattr(f, "dropout_launches"):
+            f.dropout_launches = 0
 
 
 def _train_counts() -> dict:
-    return {name: f.launches for name, f in _train_wrappers().items()}
+    """Each wrapper's launches, and for the LayerNorm and flash wrappers
+    also their launches with dropout, as "<name>[dropout]"."""
+    out = {}
+    for name, f in _train_wrappers().items():
+        out[name] = f.launches
+        if hasattr(f, "dropout_launches"):
+            out[name + "[dropout]"] = f.dropout_launches
+    return out
 
 
-def _per_step(cfg, buckets) -> dict:
+def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0) -> dict:
     """Launches of each kernel in one TrainStep of BERTForPretrainFused:
     embed_ln, two add+norms per layer and decoder_ln, forward and
-    backward; the FFN's and decoder_transform's bias+GELU; one flash
-    attention per layer; one sweep per dtype bucket."""
+    backward (the first add+norm of each layer drops, with dropout); the
+    FFN's and decoder_transform's bias+GELU; one flash attention per
+    layer (dropping with attention dropout); the Dropout op after
+    embed_ln and after each layer's attention and FFN, forward and
+    backward; one sweep per dtype bucket."""
     layers = cfg["num_layers"]
+    drop_ln = layers if dropout > 0 else 0
+    drop_attn = layers if attn_dropout > 0 else 0
+    drop_op = 2 * layers + 1 if dropout > 0 else 0
     return {"fused_layer_norm": 2 * layers + 2,
+            "fused_layer_norm[dropout]": drop_ln,
             "fused_layer_norm_bwd": 2 * layers + 2,
+            "fused_layer_norm_bwd[dropout]": drop_ln,
             "fused_bias_gelu": layers + 1,
             "fused_bias_gelu_bwd": layers + 1,
-            "flash_attention": layers, "flash_attention_bwd": layers,
-            "fused_adam_sweep": buckets}
+            "flash_attention": layers,
+            "flash_attention[dropout]": drop_attn,
+            "flash_attention_bwd": layers,
+            "flash_attention_bwd[dropout]": drop_attn,
+            "fused_adam_sweep": buckets,
+            "hash_dropout": drop_op, "hash_dropout_bwd": drop_op}
 
 
-def phase_train_reference() -> None:
+def phase_train_reference(dropout=0.0, attn_dropout=0.0) -> None:
     """BERTForPretrainFused at BERT-base widths (768 units, 3072 FFN, 12
     heads, vocab 30522, CE chunk 5120), depth cut to 2 layers, f32: three
     TrainStep Adam steps (lr 1e-4) on a (4, 128) batch on the card
     against the same weights and batch on the CPU, which runs every
-    kernel's plain version. Limits, set before the first run: each
-    step's loss within 1e-5 relative; each parameter's delta over the
-    run within 1e-3 of its norm, ‖Δw_card − Δw_cpu‖ / ‖Δw_cpu‖ (Adam
+    kernel's plain version; at ``dropout`` / ``attn_dropout``, each
+    device's seed stream is seeded alike, so both runs draw the same step
+    seeds and drop the same elements. Limits, set before the first run:
+    each step's loss within 1e-5 relative; each parameter's delta over
+    the run within 1e-3 of its norm, ‖Δw_card − Δw_cpu‖ / ‖Δw_cpu‖ (Adam
     makes elements whose gradient is f32 noise step by ±lr either way);
     the key third of each QKV bias, whose true gradient is 0 (softmax
     ignores a constant added to every key), held instead to moving less
@@ -1338,8 +1654,8 @@ def phase_train_reference() -> None:
     t0 = time.perf_counter()
     lr, steps = 1e-4, 3
     cpu_net = BERTForPretrainFused(
-        num_layers=2, dropout=0.0, ctx=mx.cpu(),
-        generator=torch.Generator().manual_seed(SEED + 3))
+        num_layers=2, dropout=dropout, attn_dropout=attn_dropout,
+        ctx=mx.cpu(), generator=torch.Generator().manual_seed(SEED + 3))
     card_net = copy.deepcopy(cpu_net).cuda()
     units = cpu_net.config["units"]
     w0 = {k: v.detach().clone() for k, v in cpu_net.state_dict().items()}
@@ -1351,6 +1667,7 @@ def phase_train_reference() -> None:
         step = mx.parallel.TrainStep(net, lambda outs, *a: outs, "adam",
                                      loss_only=True,
                                      optimizer_params={"learning_rate": lr})
+        mx.random.seed(SEED + 3, ctx=step._device)
         _reset_train_counts()
         losses[name] = [float(step((tok, lab), ())[0])
                         for _ in range(steps)]
@@ -1376,10 +1693,11 @@ def phase_train_reference() -> None:
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                         losses["cpu"]))
     worst = max(ratios, key=ratios.get)
-    want = {k: v * steps for k, v in _per_step(card_net.config,
-                                                buckets).items()}
+    want = {k: v * steps for k, v in _per_step(
+        card_net.config, buckets, dropout, attn_dropout).items()}
     out = {"phase": "train_reference",
            "model": "BERTForPretrainFused(num_layers=2)", "dtype": "float32",
+           "dropout": dropout, "attn_dropout": attn_dropout,
            "batch": [4, 128], "steps": steps, "lr": lr,
            "losses": losses, "loss_max_rel_diff": loss_rel,
            "loss_tol": 1e-5, "delta_worst": [worst, ratios[worst]],
@@ -1401,26 +1719,36 @@ def phase_train_reference() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_bert_train() -> dict:
+def phase_bert_train(dropout=0.0, attn_dropout=0.0) -> dict:
     """BERTForPretrainFused at bert_12_768_12 (12 layers, 768 units, 3072
     FFN, 12 heads of 64, vocab 30522, max length 512, CE chunk 5120),
-    dropout 0, bf16 with multi-precision Adam (lr 1e-4), seeded random
-    weights, one (32, 512) batch of RandomState(0) tokens and labels as
-    in bench_bert.py: 3 warm-up and 20 timed TrainStep calls. The loss
-    must be finite every step and fall over the run; the launches of
-    every kernel must be exactly its per-step count times 20."""
+    at ``dropout`` / ``attn_dropout`` (BERT's published 0.1 / 0.1, or 0),
+    bf16 with multi-precision Adam (lr 1e-4), seeded random weights, one
+    (32, 512) batch of RandomState(0) tokens and labels as in
+    bench_bert.py: 3 warm-up and 20 timed TrainStep calls. The loss must
+    be finite every step and fall over the run; the launches of every
+    kernel must be exactly its per-step count times 20."""
+    import gc
+
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
 
+    # an earlier phase's model may still be held by a reference cycle
+    # (the Llama-3-8B server's 16 GB of weights): collect it, or the
+    # peak below counts it
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    net = BERTForPretrainFused(dropout=0.0, attn_dropout=0.0, ctx="cuda",
-                               dtype=torch.bfloat16, generator=gen)
+    net = BERTForPretrainFused(dropout=dropout, attn_dropout=attn_dropout,
+                               ctx="cuda", dtype=torch.bfloat16,
+                               generator=gen)
     cfg = net.config
     if (cfg["num_layers"], cfg["units"], cfg["hidden_size"],
             cfg["num_heads"], cfg["vocab_size"], cfg["max_length"],
             cfg["chunk"]) != (12, 768, 3072, 12, 30522, 512, 5120):
         fail(f"not BERT-base at full width and depth: {cfg}")
+    mx.random.seed(SEED)
     rs = np.random.RandomState(0)
     tok = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
         np.int32)).cuda()
@@ -1433,19 +1761,21 @@ def phase_bert_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_train_counts()
-    timed = []
+    timed, enq = [], []
     t1 = time.perf_counter()
     for _ in range(20):
         timed.append(step((tok, lab), ())[0])
+        enq.append(time.perf_counter())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = _train_counts()
     losses = warm + [float(x) for x in timed]
-    per_step = _per_step(cfg, len(step._buckets))
+    per_step = _per_step(cfg, len(step._buckets), dropout, attn_dropout)
     want = {k: v * 20 for k, v in per_step.items()}
     samples_s = 32 * 20 / wall
     out = {"phase": "bert_train", "model": "BERTForPretrainFused "
            "(bert_12_768_12)", "dtype": "bfloat16, multi-precision adam",
+           "dropout": dropout, "attn_dropout": attn_dropout,
            "params": sum(p.numel() for p in net.parameters()),
            "config": cfg, "batch": [32, 512], "steps": 20,
            "ms_per_step": wall * 1e3 / 20, "samples_per_s": samples_s,
@@ -1453,6 +1783,8 @@ def phase_bert_train() -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "losses": losses, "launches": launches,
            "launches_expected": want, "launches_per_step": per_step,
+           # host ms each timed call took to return (no synchronise)
+           "enqueue_ms": [1e3 * (b - a) for a, b in zip([t1] + enq, enq)],
            "buckets": [(len(b.members), str(b.wdtype), b.mp)
                        for b in step._buckets]}
     out["step_breakdown"] = _device_breakdown(lambda: step((tok, lab), ()),
@@ -1482,7 +1814,13 @@ def main() -> None:
     phase_bert_reference()
     serving.update(phase_bert_serving())
     phase_train_reference()
+    phase_train_reference(dropout=0.1, attn_dropout=0.1)
+    # in turns (0, 0.1, 0.1, 0), so the cost of dropout is read on one
+    # card in one process, twice
     train = phase_bert_train()
+    train_drop = phase_bert_train(dropout=0.1, attn_dropout=0.1)
+    phase_bert_train(dropout=0.1, attn_dropout=0.1)
+    phase_bert_train()
     tpu = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -1500,22 +1838,45 @@ def main() -> None:
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:914"),
         "fused_adam_sweep": ("fused_optimizer.cu", "fused_optimizer.py:128"),
+        # the dropout modes of rows 1', 9, 3-4 and 5-8
+        "fused_layer_norm[dropout]": ("layer_norm.cu", "fused_layers.py:323"),
+        "fused_layer_norm_bwd[dropout]": ("layer_norm.cu",
+                                          "fused_layers.py:361"),
+        "flash_attention[dropout]": ("flash_attention.cu",
+                                     "flash_attention.py:552"),
+        "flash_attention_bwd[dropout]": ("flash_attention_bwd.cu",
+                                         "flash_attention.py:914"),
+        # not a Pallas site: dropout_op's hash branch, which XLA fuses
+        "hash_dropout": ("dropout.cu", None),
     }
     also = {"flash_attention": ["flash_attention.py:590"],
             "flash_attention_bwd": ["flash_attention.py:937",
                                     "flash_attention.py:959",
-                                    "flash_attention.py:977"]}
+                                    "flash_attention.py:977"],
+            "flash_attention[dropout]": ["flash_attention.py:590"],
+            "flash_attention_bwd[dropout]": ["flash_attention.py:937",
+                                             "flash_attention.py:959",
+                                             "flash_attention.py:977"]}
     kernels = []
     for name, (src, site) in replaces.items():
         r = picks[name]
         by_path = {}
         if name in serving:
             by_path["serving"] = serving[name]
-        if name in train:
+        if name in train and train[name]:
             by_path["bert_train"] = train[name]
+        if name in train_drop:
+            by_path["bert_train_dropout"] = train_drop[name]
+        launches = next(iter(by_path.values()))
+        if name == "hash_dropout":
+            # one kernel for the op's forward and backward wrappers
+            by_path["bert_train_dropout"] = {
+                "hash_dropout": train_drop["hash_dropout"],
+                "hash_dropout_bwd": train_drop["hash_dropout_bwd"]}
+            launches = sum(by_path["bert_train_dropout"].values())
         rec = {"name": name, "route": "cuda", "source": csrc + src,
-               "replaces": tpu + site,
-               "launches": next(iter(by_path.values())),
+               "replaces": tpu + site if site else
+               "mxnet_tpu/ops/nn.py:1079", "launches": launches,
                "launches_by_path": by_path,
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1523,6 +1884,9 @@ def main() -> None:
                "shape": r["shape"], "dtype": r["dtype"]}
         if name in also:
             rec["also_replaces"] = [tpu + x for x in also[name]]
+        if name == "hash_dropout":
+            rec["note"] = ("not a Pallas site: dropout_op's hash branch, "
+                           "which XLA fuses into its neighbours")
         kernels.append(rec)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})

@@ -12,13 +12,15 @@ serving, ``mx.serving.Server(net, shape_buckets=...).submit(...)`` over
 ``mx.serving.Server(net, decode_pages=...).submit_generate(...)`` over
 ``mx.gluon.model_zoo.nlp.llama_3_8b``; and BERT masked-LM pretraining,
 ``mx.parallel.TrainStep(net, lambda outs, *a: outs, "adam",
-loss_only=True)`` over ``mx.gluon.model_zoo.nlp.BERTForPretrainFused``.
+loss_only=True)`` over ``mx.gluon.model_zoo.nlp.BERTForPretrainFused``,
+at BERT's published dropout (0.1 hidden, 0.1 attention) through the
+position-hash dropout, seeded by ``mx.random.seed``.
 """
-from . import (base, context, convert, gluon, kernels, ops, optimizer,
-               parallel, serving)
+from . import (autograd, base, context, convert, gluon, kernels, ops,
+               optimizer, parallel, random, random_state, serving)
 from .base import MXNetError
 from .context import cpu, gpu, num_gpus
 
-__all__ = ["MXNetError", "cpu", "gpu", "num_gpus", "base", "context",
-           "convert", "gluon", "kernels", "ops", "optimizer", "parallel",
-           "serving"]
+__all__ = ["MXNetError", "cpu", "gpu", "num_gpus", "autograd", "base",
+           "context", "convert", "gluon", "kernels", "ops", "optimizer",
+           "parallel", "random", "random_state", "serving"]

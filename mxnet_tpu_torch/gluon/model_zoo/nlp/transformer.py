@@ -3,8 +3,13 @@
 Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/transformer.py``'s
 ``PositionwiseFFN`` and ``TransformerEncoderCell``. The post-LN cell
 always takes the fused add+norm (``_fused_add_norm``, one LayerNorm
-kernel over ``h + residual``), the JAX cell's ``MXNET_PALLAS_FUSED=1``
-route; the decoder cell and the NMT ``Transformer`` come later.
+kernel over ``dropout(h) + residual``), the JAX cell's
+``MXNET_PALLAS_FUSED=1`` route, with the dropout sites of that route in
+its order: the attention block's own output dropout, then the add+norm's
+dropout of the same output (so, as in the reference, the attention
+output is dropped twice; GluonNLP drops it once), then the FFN's output
+dropout; the second add+norm does not drop. The decoder cell and the
+NMT ``Transformer`` come later.
 """
 from __future__ import annotations
 
@@ -56,19 +61,17 @@ class TransformerEncoderCell(nn.Module):
         self.dropout = Dropout(dropout) if dropout else None
 
     @staticmethod
-    def _fused_add_norm(h, residual, ln):
-        """``LN(h + residual)`` in one kernel; the LayerNorm child keeps
-        its gamma/beta (and their names)."""
+    def _fused_add_norm(h, residual, ln, dropout=0.0):
+        """``LN(dropout(h) + residual)`` in one kernel; the LayerNorm
+        child keeps its gamma/beta (and their names)."""
         return fused_layer_norm_op(h, ln.gamma, ln.beta, residual,
-                                   eps=ln._epsilon)
+                                   eps=ln._epsilon, dropout=dropout)
 
     def forward(self, x, mask=None):
         if self._pre_norm:
             h = self.attention(self.ln1(x), mask)
             x = x + (self.dropout(h) if self.dropout is not None else h)
             return x + self.ffn(self.ln2(x))
-        # dropout is the identity outside training (Dropout's docstring),
-        # so the fused add+norm takes h as it is
         h = self.attention(x, mask)
-        x = self._fused_add_norm(h, x, self.ln1)
+        x = self._fused_add_norm(h, x, self.ln1, dropout=self._drop_rate)
         return self._fused_add_norm(self.ffn(x), x, self.ln2)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ... import autograd
 from ...ops import nn as ops
 
 __all__ = ["Dense", "LayerNorm", "Embedding", "Dropout", "HybridSequential"]
@@ -79,20 +80,22 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout as MXNet runs it outside ``autograd.record()``: the
-    identity. ``parallel.TrainStep`` refuses a model with a rate > 0
-    until the position-hash dropout slice (ROADMAP.md, port queue 2,
-    item 0) brings training-mode dropout."""
+    """Dropout at ``rate``, broadcast along ``axes``: ``ops.dropout`` in
+    training mode (``autograd.is_training()``, which ``parallel.TrainStep``
+    turns on), the identity otherwise (``basic_layers.py:81-95``)."""
 
-    def __init__(self, rate):
+    def __init__(self, rate, axes=()):
         super().__init__()
         self._rate = float(rate)
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        return x
+        if not autograd.is_training():
+            return x
+        return ops.dropout(x, p=self._rate, axes=self._axes)
 
     def extra_repr(self):
-        return f"p={self._rate}"
+        return f"p={self._rate}, axes={self._axes}"
 
 
 class HybridSequential(nn.Sequential):

@@ -1,5 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (counterpart of ``mxnet_tpu/pallas_kernels``)."""
+from .dropout import (hash_dropout, hash_dropout_bwd,
+                      hash_dropout_reference)
 from .flash import (flash_attention, flash_attention_bwd,
                     flash_attention_bwd_reference, flash_attention_fwd,
                     flash_attention_reference)
@@ -14,7 +16,8 @@ from .fused_optimizer import adam_sweep_reference, fused_adam_sweep
 from .paged_attention import (paged_attention_kernel,
                               paged_attention_reference)
 
-__all__ = ["fused_rms_norm", "fused_rms_norm_reference",
+__all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
+           "fused_rms_norm", "fused_rms_norm_reference",
            "fused_layer_norm", "fused_layer_norm_reference",
            "fused_layer_norm_bwd", "fused_layer_norm_bwd_reference",
            "fused_bias_gelu", "fused_bias_gelu_reference",

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "layer_norm.cu",
            "bias_gelu.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "fused_optimizer.cu")
+           "fused_optimizer.cu", "dropout.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -29,11 +29,19 @@
 //    to v's dtype. f32: FMA on the CUDA cores, P staged through shared
 //    memory per warp;
 //  * causal masking is bottom-right aligned (key <= query + lk - lq) and
-//    key tiles wholly above the diagonal are not visited.
+//    key tiles wholly above the diagonal are not visited;
+//  * dropout (the Drop instances, `_drop_mask` / `_drop_mask_g` of the
+//    TPU kernels): the online max, the row sum l and the base-2 lse stay
+//    pre-dropout; only the P that enters P.V is masked, keep from the
+//    two-level position hash of (b * h + head, query, key) with the true
+//    lk and no causal offset (hash_dropout.cuh; the head seed once per
+//    CTA), and 1 - p folds into the final normalize, which divides by
+//    l * f32(1 - p) as the TPU kernels do (:341, :414, :456).
 //
 // This is the simple first design: no cp.async/TMA double buffering, no
 // wgmma, no warp specialisation. PERF.md keeps its time beside its bound.
 #include "flash_common.cuh"
+#include "hash_dropout.cuh"
 
 namespace {
 
@@ -56,6 +64,7 @@ struct Params {
   int b, h, lq, lk, d;
   int causal, causal_offset;           // key visible iff key <= q + offset
   float scale2;                        // scale * log2(e)
+  mxk::Dropout drop;                   // drop.scale = f32(1 - p)
 };
 
 // Shared-memory plan of one CTA (rows padded by 16 bytes, flash_common.cuh).
@@ -70,7 +79,7 @@ struct Smem {
   static constexpr size_t kTotal = kQ + 2 * kKV + kP;
 };
 
-template <typename T, int DP, int BN>
+template <typename T, int DP, int BN, bool Drop>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   using S = Smem<T, DP, BN>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -89,6 +98,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int t = lane & 3;
   const int r0 = warp * 16 + g;        // this lane's rows: r0 and r0 + 8
 
+  const uint32_t head_seed =
+      Drop ? mxk::mx_attn_head_seed(static_cast<uint32_t>(bh), p.drop.seed)
+           : 0u;
   const T* q = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh +
                q0 * p.q_sl;
   const T* k = static_cast<const T*>(p.k) + bi * p.k_sb + hi * p.k_sh;
@@ -157,6 +169,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       }
       m[i] = m_new;
     }
+    if constexpr (Drop) {
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t key = k0 + nt * 8 + 2 * t + (e & 1);
+          const uint32_t row = q0 + r0 + 8 * (e >> 1);
+          if (!mxk::mx_attn_keep_in_head(head_seed, row, key, p.lk,
+                                         p.drop.thresh))
+            s[nt][e] = 0.f;
+        }
+    }
     mxflash::accumulate<T, DP, BN, S::kLd, S::kPld>(
         acc, s, vs, ps + warp * 16 * S::kPld, g, t);
   }
@@ -168,7 +192,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = q0 + r0 + 8 * i;
     if (row >= p.lq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    const float inv =
+        l[i] > 0.f ? 1.f / (Drop ? l[i] * p.drop.scale : l[i]) : 0.f;
     T* orow = o + row * p.o_sl;
 #pragma unroll
     for (int dt = 0; dt < DP / 8; ++dt) {
@@ -183,10 +208,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int DP, int BN>
+template <typename T, int DP, int BN, bool Drop>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using S = Smem<T, DP, BN>;
-  auto kernel = flash_fwd_kernel<T, DP, BN>;
+  auto kernel = flash_fwd_kernel<T, DP, BN, Drop>;
   const cudaError_t e = mxk::allow_smem(kernel, S::kTotal);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.b * p.h, (p.lq + kBM - 1) / kBM);
@@ -194,12 +219,17 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Drop>
 cudaError_t launch_d(const Params& p, cudaStream_t stream) {
-  if (p.d <= 32) return launch<T, 32, 64>(p, stream);
-  if (p.d <= 64) return launch<T, 64, 64>(p, stream);
-  if (p.d <= 128) return launch<T, 128, 64>(p, stream);
-  return launch<T, 256, 32>(p, stream);
+  if (p.d <= 32) return launch<T, 32, 64, Drop>(p, stream);
+  if (p.d <= 64) return launch<T, 64, 64, Drop>(p, stream);
+  if (p.d <= 128) return launch<T, 128, 64, Drop>(p, stream);
+  return launch<T, 256, 32, Drop>(p, stream);
+}
+
+template <typename T>
+cudaError_t launch_t(const Params& p, bool drop, cudaStream_t stream) {
+  return drop ? launch_d<T, true>(p, stream) : launch_d<T, false>(p, stream);
 }
 
 }  // namespace
@@ -208,13 +238,16 @@ cudaError_t launch_d(const Params& p, cudaStream_t stream) {
 // strides[12] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
 // o_sb, o_sh, o_sl} (the head-dim stride is 1); lse: (b*h, lq) f32.
 // Requires d % 8 == 0, d <= 256, every stride a multiple of 8 and 16-byte
-// aligned base pointers. Returns cudaGetLastError() after the launch.
+// aligned base pointers. drop != 0 drops P under (seed, thresh) and
+// divides by l * one_minus_p. Returns cudaGetLastError() after the launch.
 extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       const long long* strides, int b, int h,
                                       int lq, int lk, int d, float scale2,
                                       int causal, int causal_offset,
-                                      int dtype, void* stream) {
+                                      int dtype, int drop, unsigned seed,
+                                      unsigned thresh, float one_minus_p,
+                                      void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -241,10 +274,11 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
   p.causal = causal;
   p.causal_offset = causal_offset;
   p.scale2 = scale2;
+  p.drop = mxk::Dropout{seed, thresh, one_minus_p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 8 || d > 256 || d % 8 != 0 || lq < 1 || lk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == mxk::kBFloat16) return launch_d<bf16>(p, s);
-  if (dtype == mxk::kFloat32) return launch_d<float>(p, s);
+  if (dtype == mxk::kBFloat16) return launch_t<bf16>(p, drop != 0, s);
+  if (dtype == mxk::kFloat32) return launch_t<float>(p, drop != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

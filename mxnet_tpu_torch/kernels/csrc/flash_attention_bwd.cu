@@ -16,7 +16,17 @@
 //   dK  += dS^T . Q,  dQ += dS . K           (dS rounded to q's dtype)
 //
 // dS takes the natural scale, not the base-2 one: the base-2 exponent
-// only re-expresses exp. Causal masking is bottom-right (key j visible to
+// only re-expresses exp. With dropout (the Drop instances) both kernels
+// regenerate the forward's mask from the seed and the absolute (b * h +
+// head, query, key) ids (hash_dropout.cuh; the dK/dV kernel holds keys
+// as rows, so it reads the mask transposed, `_drop_mask_2d(...,
+// transposed=True)`), as the TPU kernels do:
+//
+//   dV  += (keep ? P * inv_keep : 0)^T . dO      (inv_keep = f32(1/(1-p)))
+//   dP   = keep ? dP * inv_keep : 0,  dS = P * (dP - delta) * scale
+//
+// and the delta pre-pass is unchanged (delta = rowsum(dO * O) of the
+// dropped output). Causal masking is bottom-right (key j visible to
 // query i iff j <= i + lk - lq); a row that sees no key (lse = -1e30) has
 // p = 0 everywhere and so zero gradients.
 //
@@ -46,6 +56,7 @@
 // wgmma, P recomputed in both kernels. PERF.md keeps its time beside its
 // bound.
 #include "flash_common.cuh"
+#include "hash_dropout.cuh"
 
 namespace {
 
@@ -74,6 +85,7 @@ struct Params {
   int causal, causal_offset;           // key visible iff key <= q + offset
   float scale2;                        // scale * log2(e)
   float scale;
+  mxk::Dropout drop;                   // drop.scale = f32(1 / (1 - p))
 };
 
 // Shared-memory plan: two tiles of the owned rows, two of the streamed
@@ -114,7 +126,7 @@ __global__ void __launch_bounds__(256) delta_kernel(Params p) {
 }
 
 // dK, dV for one (batch*head, 64-key block), walking query blocks of BQ.
-template <typename T, int DP, int BQ>
+template <typename T, int DP, int BQ, bool Drop>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
   using S = Smem<T, DP, BQ>;
   constexpr int LD = S::kLd;
@@ -138,6 +150,9 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
   const int r0 = warp * 16 + g;        // this lane's keys: r0 and r0 + 8
   pw += warp * 16 * S::kPld;
 
+  const uint32_t head_seed =
+      Drop ? mxk::mx_attn_head_seed(static_cast<uint32_t>(bh), p.drop.seed)
+           : 0u;
   const T* k = static_cast<const T*>(p.k) + bi * p.k_sb + hi * p.k_sh +
                k0 * p.k_sl;
   const T* v = static_cast<const T*>(p.v) + bi * p.v_sb + hi * p.v_sh +
@@ -187,7 +202,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
         pt[nt][e] = hidden ? 0.f : exp2f(pt[nt][e] * p.scale2 - lse_s[qi]);
       }
     }
-    mxflash::accumulate<T, DP, BQ, LD, S::kPld>(dv, pt, dos, pw, g, t);
+    if constexpr (!Drop)
+      mxflash::accumulate<T, DP, BQ, LD, S::kPld>(dv, pt, dos, pw, g, t);
 
     // dS^T = P^T * (dP^T - delta) * scale, dP^T = V . dO^T
     float ds[BQ / 8][4];
@@ -197,9 +213,22 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = nt * 8 + 2 * t + (e & 1);
-        ds[nt][e] = pt[nt][e] * (ds[nt][e] - delta_s[qi]) * p.scale;
+        if constexpr (Drop) {
+          // the forward's mask, transposed: same absolute ids; P^T then
+          // becomes the dropped P^T that dV reads
+          const bool keep = mxk::mx_attn_keep_in_head(
+              head_seed, q0 + qi, k0 + r0 + 8 * (e >> 1), p.lk,
+              p.drop.thresh);
+          const float dp = keep ? ds[nt][e] * p.drop.scale : 0.f;
+          ds[nt][e] = pt[nt][e] * (dp - delta_s[qi]) * p.scale;
+          pt[nt][e] = keep ? pt[nt][e] * p.drop.scale : 0.f;
+        } else {
+          ds[nt][e] = pt[nt][e] * (ds[nt][e] - delta_s[qi]) * p.scale;
+        }
       }
     }
+    if constexpr (Drop)
+      mxflash::accumulate<T, DP, BQ, LD, S::kPld>(dv, pt, dos, pw, g, t);
     mxflash::accumulate<T, DP, BQ, LD, S::kPld>(dk, ds, qs, pw, g, t);
   }
 
@@ -210,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
 }
 
 // dQ for one (batch*head, 64-query block), walking key blocks of BK.
-template <typename T, int DP, int BK>
+template <typename T, int DP, int BK, bool Drop>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   using S = Smem<T, DP, BK>;
   constexpr int LD = S::kLd;
@@ -233,6 +262,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   const int r0 = warp * 16 + g;        // this lane's queries: r0, r0 + 8
   pw += warp * 16 * S::kPld;
 
+  const uint32_t head_seed =
+      Drop ? mxk::mx_attn_head_seed(static_cast<uint32_t>(bh), p.drop.seed)
+           : 0u;
   const T* q = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh +
                q0 * p.q_sl;
   const T* dout = static_cast<const T*>(p.dout) + bi * p.do_sb +
@@ -281,7 +313,13 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
             (p.causal && key > q0 + r0 + 8 * i + p.causal_offset);
         const float pe =
             hidden ? 0.f : exp2f(pr[nt][e] * p.scale2 - lse_r[i]);
-        ds[nt][e] = pe * (ds[nt][e] - delta_r[i]) * p.scale;
+        float dp = ds[nt][e];
+        if constexpr (Drop)
+          dp = mxk::mx_attn_keep_in_head(head_seed, q0 + r0 + 8 * i, key,
+                                         p.lk, p.drop.thresh)
+                   ? dp * p.drop.scale
+                   : 0.f;
+        ds[nt][e] = pe * (dp - delta_r[i]) * p.scale;
       }
     }
     mxflash::accumulate<T, DP, BK, LD, S::kPld>(dq, ds, ks, pw, g, t);
@@ -291,7 +329,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   mxflash::store_rows<T, DP>(dqp, p.dq_sl, dq, r0, n_q, p.d, t);
 }
 
-template <typename T, int DP, int BS>
+template <typename T, int DP, int BS, bool Drop>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using S = Smem<T, DP, BS>;
   const long long rows = static_cast<long long>(p.b) * p.h * p.lq;
@@ -299,14 +337,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
       p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto dkdv = dkdv_kernel<T, DP, BS>;
+  auto dkdv = dkdv_kernel<T, DP, BS, Drop>;
   e = mxk::allow_smem(dkdv, S::kTotal);
   if (e != cudaSuccess) return e;
   dkdv<<<dim3(p.b * p.h, (p.lk + kRows - 1) / kRows), kThreads, S::kTotal,
          stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto dq = dq_kernel<T, DP, BS>;
+  auto dq = dq_kernel<T, DP, BS, Drop>;
   e = mxk::allow_smem(dq, S::kTotal);
   if (e != cudaSuccess) return e;
   dq<<<dim3(p.b * p.h, (p.lq + kRows - 1) / kRows), kThreads, S::kTotal,
@@ -316,11 +354,16 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // the streamed tile is 64 rows, 32 at head dim 128 (register budget of
 // the owned rows' two D-wide accumulators)
-template <typename T>
+template <typename T, bool Drop>
 cudaError_t launch_d(const Params& p, cudaStream_t stream) {
-  if (p.d <= 32) return launch<T, 32, 64>(p, stream);
-  if (p.d <= 64) return launch<T, 64, 64>(p, stream);
-  return launch<T, 128, 32>(p, stream);
+  if (p.d <= 32) return launch<T, 32, 64, Drop>(p, stream);
+  if (p.d <= 64) return launch<T, 64, 64, Drop>(p, stream);
+  return launch<T, 128, 32, Drop>(p, stream);
+}
+
+template <typename T>
+cudaError_t launch_t(const Params& p, bool drop, cudaStream_t stream) {
+  return drop ? launch_d<T, true>(p, stream) : launch_d<T, false>(p, stream);
 }
 
 }  // namespace
@@ -329,9 +372,10 @@ cudaError_t launch_d(const Params& p, cudaStream_t stream) {
 // element strides[24] = {q, k, v, o, dout, dq, dk, dv} x {batch, head,
 // seq} (the head-dim stride is 1); lse: (b*h, lq) f32 from the forward;
 // delta: (b*h, lq) f32 scratch. Requires d % 8 == 0, d <= 128, every
-// stride a multiple of 8 and 16-byte aligned base pointers. Runs the
-// delta pre-pass, then the dK/dV and the dQ kernels on ``stream``;
-// returns the first launch error.
+// stride a multiple of 8 and 16-byte aligned base pointers. drop != 0:
+// the forward's dropout (seed, thresh), inv_keep = f32(1 / (1 - p)).
+// Runs the delta pre-pass, then the dK/dV and the dQ kernels on
+// ``stream``; returns the first launch error.
 extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const float* lse,
@@ -339,8 +383,9 @@ extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
                                       void* dv, const long long* strides,
                                       int b, int h, int lq, int lk, int d,
                                       float scale, float scale2, int causal,
-                                      int causal_offset, int dtype,
-                                      void* stream) {
+                                      int causal_offset, int dtype, int drop,
+                                      unsigned seed, unsigned thresh,
+                                      float inv_keep, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -367,10 +412,11 @@ extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
   p.causal_offset = causal_offset;
   p.scale = scale;
   p.scale2 = scale2;
+  p.drop = mxk::Dropout{seed, thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 8 || d > 128 || d % 8 != 0 || lq < 1 || lk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == mxk::kBFloat16) return launch_d<bf16>(p, s);
-  if (dtype == mxk::kFloat32) return launch_d<float>(p, s);
+  if (dtype == mxk::kBFloat16) return launch_t<bf16>(p, drop != 0, s);
+  if (dtype == mxk::kFloat32) return launch_t<float>(p, drop != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel mxnet_tpu/pallas_kernels/fused_layers.py
 // `_norm_fwd_pallas` / `_norm_fwd_kernel` in LayerNorm mode (rms=False),
-// with and without the residual, dropout off: the post-LN transformer
-// cell's add+norm and BERT's embedding norm.
+// with and without the residual, with and without dropout: the post-LN
+// transformer cell's add+norm and BERT's embedding norm.
 //
 // What bounds it on an H100: device-memory bytes. Per element it reads x
 // (and the residual) once and writes the output once, for ~8 flops: far
@@ -21,6 +21,12 @@
 // row outputs are what the backward recomputes xhat from; a null pointer
 // skips each.
 //
+// Dropout (the Drop instances): x only is dropped, before the residual
+// add, h = (keep ? x * f32(1 / (1 - p)) : 0) + res in f32, keep from the
+// position hash of the element's flat id row * d + col under the seed
+// (`_row_keep_mask`, fused_layers.py:113; hash_dropout.cuh), the row
+// being the global row index. The backward regenerates the same bits.
+//
 // The backward (mx_layer_norm_bwd) replaces `_norm_bwd_pallas` /
 // `_norm_bwd_kernel` (fused_layers.py:237-291, :361) in LayerNorm mode,
 // dropout off. It is bound by bytes as well: it reads x (and the
@@ -34,8 +40,12 @@
 // sums its per-block partials outside the kernel (:369-370). Numerics
 // follow the Pallas kernel: wdy = dy * gamma, dh = rstd * (wdy -
 // mean(wdy) - xhat * mean(wdy * xhat)), dx = dh in x's dtype (and the
-// residual's gradient is the same dx).
+// residual's gradient is the same dx). With dropout, dx = keep ? dh *
+// f32(1 / (1 - p)) : 0 and the residual's gradient dh is a separate
+// output, dres (`_norm_bwd_kernel`'s dres, :257, :290-291); the keep bits
+// of a thread's columns stay in one register between the two passes.
 #include "common.cuh"
+#include "hash_dropout.cuh"
 
 namespace {
 
@@ -43,12 +53,27 @@ constexpr int kChunk = 8;          // elements per vector chunk
 constexpr int kMaxChunksPerThread = 4;
 constexpr int kMaxThreads = 256;   // 256 * 4 * 8 = 8192 = max D
 
-template <typename TX, typename TW>
+// Dropout of x's element (row, col) for a Drop instance; the identity
+// otherwise.
+template <bool Drop>
+__device__ __forceinline__ float drop_at(float h, int row, int col, int d,
+                                         const mxk::Dropout& dr) {
+  if constexpr (Drop) {
+    const uint32_t flat =
+        static_cast<uint32_t>(row) * static_cast<uint32_t>(d) +
+        static_cast<uint32_t>(col);
+    return mxk::mx_row_keep(flat, dr.seed, dr.thresh) ? h * dr.scale : 0.f;
+  }
+  return h;
+}
+
+template <typename TX, typename TW, bool Drop>
 __global__ void __launch_bounds__(kMaxThreads)
     ln_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                   const TW* __restrict__ gamma, const TW* __restrict__ beta,
                   TX* __restrict__ out, float* __restrict__ mean_out,
-                  float* __restrict__ rstd_out, int d, float eps) {
+                  float* __restrict__ rstd_out, int d, float eps,
+                  mxk::Dropout dr) {
   __shared__ float scratch_mean[32];
   __shared__ float scratch_var[32];
   const int chunks = d / kChunk;
@@ -61,6 +86,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int c = threadIdx.x + i * blockDim.x;
     if (c < chunks) {
       mxk::load_f<TX, kChunk>(x + row + c * kChunk, v[i]);
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        v[i][e] = drop_at<Drop>(v[i][e], blockIdx.x, c * kChunk + e, d, dr);
       if (res != nullptr) {
         float r[kChunk];
         mxk::load_f<TX, kChunk>(res + row + c * kChunk, r);
@@ -107,18 +135,19 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // Any D (not a multiple of 8, or unaligned rows): scalar loads, the row
 // read three times (the later reads hit L1/L2, not device memory).
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool Drop>
 __global__ void __launch_bounds__(kMaxThreads)
     ln_scalar_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                      const TW* __restrict__ gamma,
                      const TW* __restrict__ beta, TX* __restrict__ out,
                      float* __restrict__ mean_out,
-                     float* __restrict__ rstd_out, int d, float eps) {
+                     float* __restrict__ rstd_out, int d, float eps,
+                     mxk::Dropout dr) {
   __shared__ float scratch_mean[32];
   __shared__ float scratch_var[32];
   const size_t row = static_cast<size_t>(blockIdx.x) * d;
   auto h_at = [&](int j) {
-    float h = mxk::to_f(x[row + j]);
+    float h = drop_at<Drop>(mxk::to_f(x[row + j]), blockIdx.x, j, d, dr);
     if (res != nullptr) h += mxk::to_f(res[row + j]);
     return h;
   };
@@ -144,24 +173,24 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool Drop>
 cudaError_t launch(const void* x, const void* res, const void* gamma,
                    const void* beta, void* out, float* mean, float* rstd,
                    int rows, int d, float eps, bool vec,
-                   cudaStream_t stream) {
+                   const mxk::Dropout& dr, cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TX* rp = static_cast<const TX*>(res);
   const TW* gp = static_cast<const TW*>(gamma);
   const TW* bp = static_cast<const TW*>(beta);
   TX* op = static_cast<TX*>(out);
   if (vec) {
-    ln_vec_kernel<TX, TW>
+    ln_vec_kernel<TX, TW, Drop>
         <<<rows, mxk::row_threads(d / kChunk, kMaxThreads), 0, stream>>>(
-            xp, rp, gp, bp, op, mean, rstd, d, eps);
+            xp, rp, gp, bp, op, mean, rstd, d, eps, dr);
   } else {
-    ln_scalar_kernel<TX, TW>
+    ln_scalar_kernel<TX, TW, Drop>
         <<<rows, mxk::row_threads(d, kMaxThreads), 0, stream>>>(
-            xp, rp, gp, bp, op, mean, rstd, d, eps);
+            xp, rp, gp, bp, op, mean, rstd, d, eps, dr);
   }
   return cudaGetLastError();
 }
@@ -169,14 +198,18 @@ cudaError_t launch(const void* x, const void* res, const void* gamma,
 // Backward over rows blockIdx.x, blockIdx.x + gridDim.x, ...: each thread
 // owns chunks threadIdx.x + i * blockDim.x (i < CPT) of C elements (C = 8
 // with 16-byte accesses, or 1 for any D and alignment).
-template <typename TX, typename TW, int C, int CPT>
+// Drop: dx is the dropped dh and dres (if not null) gets dh; the keep
+// bits of the thread's CPT * C <= 32 elements are kept in ``kbits``.
+template <typename TX, typename TW, int C, int CPT, bool Drop>
 __global__ void __launch_bounds__(kMaxThreads)
     ln_bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                   const TW* __restrict__ gamma,
                   const float* __restrict__ mean,
                   const float* __restrict__ rstd, const TX* __restrict__ dy,
-                  TX* __restrict__ dx, float* __restrict__ dg_part,
-                  float* __restrict__ db_part, int rows, int d) {
+                  TX* __restrict__ dx, TX* __restrict__ dres,
+                  float* __restrict__ dg_part, float* __restrict__ db_part,
+                  int rows, int d, mxk::Dropout dr) {
+  static_assert(!Drop || CPT * C <= 32, "keep bits exceed one register");
   __shared__ float scratch1[32];
   __shared__ float scratch2[32];
   const int chunks = d / C;
@@ -192,12 +225,24 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float rs = rstd[r];
     float xh[CPT][C], w[CPT][C];
     float s1 = 0.f, s2 = 0.f;
+    uint32_t kbits = 0;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int c = threadIdx.x + i * blockDim.x;
       if (c < chunks) {
         float h[C], g[C], gy[C];
         mxk::load_f<TX, C>(x + row + c * C, h);
+        if constexpr (Drop) {
+#pragma unroll
+          for (int e = 0; e < C; ++e) {
+            const uint32_t flat = static_cast<uint32_t>(r) *
+                                      static_cast<uint32_t>(d) +
+                                  static_cast<uint32_t>(c * C + e);
+            const bool keep = mxk::mx_row_keep(flat, dr.seed, dr.thresh);
+            kbits |= static_cast<uint32_t>(keep) << (i * C + e);
+            h[e] = keep ? h[e] * dr.scale : 0.f;
+          }
+        }
         if (res != nullptr) {
           float rv[C];
           mxk::load_f<TX, C>(res + row + c * C, rv);
@@ -227,6 +272,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
         for (int e = 0; e < C; ++e)
           o[e] = rs * (w[i][e] - m1 - xh[i][e] * m2);
+        if constexpr (Drop) {
+          if (dres != nullptr) mxk::store_f<TX, C>(dres + row + c * C, o);
+#pragma unroll
+          for (int e = 0; e < C; ++e)
+            o[e] = (kbits >> (i * C + e)) & 1u ? o[e] * dr.scale : 0.f;
+        }
         mxk::store_f<TX, C>(dx + row + c * C, o);
       }
     }
@@ -246,24 +297,26 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool Drop>
 cudaError_t launch_bwd(const void* x, const void* res, const void* gamma,
                        const float* mean, const float* rstd, const void* dy,
-                       void* dx, float* dg_part, float* db_part, int rows,
-                       int d, int n_blocks, bool vec, cudaStream_t stream) {
+                       void* dx, void* dres, float* dg_part, float* db_part,
+                       int rows, int d, int n_blocks, bool vec,
+                       const mxk::Dropout& dr, cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TX* rp = static_cast<const TX*>(res);
   const TW* gp = static_cast<const TW*>(gamma);
   const TX* dyp = static_cast<const TX*>(dy);
   TX* dxp = static_cast<TX*>(dx);
+  TX* drp = static_cast<TX*>(dres);
   // at most 256 threads, each with CPT chunks: the fewest chunks per
   // thread that cover the row (d <= 8192)
   const int chunks = vec ? d / kChunk : d;
 #define MX_LN_BWD(C, CPT)                                                   \
-  ln_bwd_kernel<TX, TW, C, CPT>                                             \
+  ln_bwd_kernel<TX, TW, C, CPT, Drop>                                       \
       <<<n_blocks, mxk::row_threads((chunks + CPT - 1) / CPT, kMaxThreads), \
-         0, stream>>>(xp, rp, gp, mean, rstd, dyp, dxp, dg_part, db_part,   \
-                      rows, d)
+         0, stream>>>(xp, rp, gp, mean, rstd, dyp, dxp, drp, dg_part,       \
+                      db_part, rows, d, dr)
   if (vec && chunks <= kMaxThreads) {
     MX_LN_BWD(kChunk, 1);
   } else if (vec && chunks <= 2 * kMaxThreads) {
@@ -282,60 +335,83 @@ cudaError_t launch_bwd(const void* x, const void* res, const void* gamma,
 // x, res: (rows, d) contiguous in x's dtype (res may be null); gamma,
 // beta: (d,) in one dtype; out: (rows, d) in x's dtype; mean, rstd:
 // (rows,) f32 or null. vec != 0 requires d % 8 == 0, d <= 8192 and
-// 16-byte aligned x, res, gamma, beta and out. Returns cudaGetLastError()
-// after the launch.
+// 16-byte aligned x, res, gamma, beta and out. drop != 0 drops x under
+// (seed, thresh) with keep scale ``scale`` = f32(1 / (1 - p)). Returns
+// cudaGetLastError() after the launch.
 extern "C" int mx_layer_norm_fwd(const void* x, const void* res,
                                  const void* gamma, const void* beta,
                                  void* out, float* mean, float* rstd,
                                  int rows, int d, float eps, int x_dtype,
-                                 int w_dtype, int vec, void* stream) {
+                                 int w_dtype, int vec, int drop,
+                                 unsigned seed, unsigned thresh, float scale,
+                                 void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool v = vec != 0;
-  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32)
-    return launch<float, float>(x, res, gamma, beta, out, mean, rstd, rows,
-                                d, eps, v, s);
-  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16)
-    return launch<bf16, bf16>(x, res, gamma, beta, out, mean, rstd, rows, d,
-                              eps, v, s);
-  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32)
-    return launch<bf16, float>(x, res, gamma, beta, out, mean, rstd, rows,
-                               d, eps, v, s);
-  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16)
-    return launch<float, bf16>(x, res, gamma, beta, out, mean, rstd, rows,
-                               d, eps, v, s);
+  const mxk::Dropout dr{seed, thresh, scale};
+#define MX_LN_FWD(TX, TW)                                                    \
+  return drop ? launch<TX, TW, true>(x, res, gamma, beta, out, mean, rstd,   \
+                                     rows, d, eps, v, dr, s)                 \
+              : launch<TX, TW, false>(x, res, gamma, beta, out, mean, rstd,  \
+                                      rows, d, eps, v, dr, s)
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32) {
+    MX_LN_FWD(float, float);
+  }
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16) {
+    MX_LN_FWD(bf16, bf16);
+  }
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32) {
+    MX_LN_FWD(bf16, float);
+  }
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16) {
+    MX_LN_FWD(float, bf16);
+  }
+#undef MX_LN_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Backward. x, res, dy, dx: (rows, d) contiguous in x's dtype (res may be
 // null); gamma: (d,); mean, rstd: (rows,) f32 from the forward;
 // dg_part, db_part: (n_blocks, d) f32, one partial row per CTA (the
-// caller sums them). vec != 0 requires d % 8 == 0, d <= 8192 and 16-byte
-// aligned x, res, gamma, dy and dx; otherwise d <= 8192. Returns
-// cudaGetLastError() after the launch.
+// caller sums them). drop != 0: the forward's dropout (same seed,
+// thresh, scale); dx is then the dropped gradient of x, and dres (rows,
+// d) in x's dtype, or null, receives the residual's gradient. vec != 0
+// requires d % 8 == 0, d <= 8192 and 16-byte aligned x, res, gamma, dy,
+// dx and dres; otherwise d <= 8192. Returns cudaGetLastError() after
+// the launch.
 extern "C" int mx_layer_norm_bwd(const void* x, const void* res,
                                  const void* gamma, const float* mean,
                                  const float* rstd, const void* dy, void* dx,
-                                 float* dg_part, float* db_part, int rows,
-                                 int d, int n_blocks, int x_dtype,
-                                 int w_dtype, int vec, void* stream) {
+                                 void* dres, float* dg_part, float* db_part,
+                                 int rows, int d, int n_blocks, int x_dtype,
+                                 int w_dtype, int vec, int drop,
+                                 unsigned seed, unsigned thresh, float scale,
+                                 void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool v = vec != 0;
+  const mxk::Dropout dr{seed, thresh, scale};
   if (d < 1 || d > 8192 || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32)
-    return launch_bwd<float, float>(x, res, gamma, mean, rstd, dy, dx,
-                                    dg_part, db_part, rows, d, n_blocks, v,
-                                    s);
-  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16)
-    return launch_bwd<bf16, bf16>(x, res, gamma, mean, rstd, dy, dx, dg_part,
-                                  db_part, rows, d, n_blocks, v, s);
-  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32)
-    return launch_bwd<bf16, float>(x, res, gamma, mean, rstd, dy, dx,
-                                   dg_part, db_part, rows, d, n_blocks, v, s);
-  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16)
-    return launch_bwd<float, bf16>(x, res, gamma, mean, rstd, dy, dx,
-                                   dg_part, db_part, rows, d, n_blocks, v, s);
+#define MX_LN_BWD_T(TX, TW)                                                 \
+  return drop ? launch_bwd<TX, TW, true>(x, res, gamma, mean, rstd, dy, dx, \
+                                         dres, dg_part, db_part, rows, d,   \
+                                         n_blocks, v, dr, s)                \
+              : launch_bwd<TX, TW, false>(x, res, gamma, mean, rstd, dy,    \
+                                          dx, dres, dg_part, db_part, rows, \
+                                          d, n_blocks, v, dr, s)
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32) {
+    MX_LN_BWD_T(float, float);
+  }
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16) {
+    MX_LN_BWD_T(bf16, bf16);
+  }
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32) {
+    MX_LN_BWD_T(bf16, float);
+  }
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16) {
+    MX_LN_BWD_T(float, bf16);
+  }
+#undef MX_LN_BWD_T
   return static_cast<int>(cudaErrorInvalidValue);
 }

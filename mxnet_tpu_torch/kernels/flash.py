@@ -29,8 +29,19 @@ Causal masking is bottom-right aligned (key ``j`` is visible to query
 and lse ``-1e30``. ``layout`` is ``"bhld"`` (B, H, L, D) or ``"blhd"``
 (B, L, H, D); the kernel reads either through strides, so the per-head
 views of a fused QKV projection need no copy. The backward takes head
-dims up to 128. ``dropout > 0`` raises until the position-hash dropout
-slice (ROADMAP.md, port queue 2, item 0).
+dims up to 128.
+
+Dropout on the attention probabilities (``dropout > 0`` with a u32
+``seed``), as the TPU kernels drop: the online max, the row sum ``l``
+and the lse stay pre-dropout, only the P that enters P.V is masked, and
+the output divides by ``l * f32(1 - p)``; the backward regenerates the
+mask from the seed (``dV`` from ``keep ? P / (1 - p) : 0``, ``dP``
+masked and scaled by f32(1 / (1 - p)) before ``dS = P * (dP -
+delta)``), so the autograd node keeps the seed and no mask. The mask is
+the two-level position hash of ``kernels/dropout.py``'s
+:func:`~mxnet_tpu_torch.kernels.dropout.drop_mask` over the absolute
+``(b * H + h, q, k)`` ids with the true ``Lk`` and no causal offset, in
+every layout.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -44,6 +55,8 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .dropout import attn_keep_mask, check_dropout, dropout_thresh, f32, \
+    kernel_args
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_reference", "flash_attention_bwd",
@@ -55,12 +68,13 @@ MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128
 _BLOCK_Q = 64                     # query rows per CTA (csrc kBM)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DROP_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int] + _DROP_ARGS \
+    + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int] + _DROP_ARGS + [ctypes.c_void_p]
 
 
 def _dims(q, k, v, layout):
@@ -94,21 +108,15 @@ def _check(q, k, v, causal, layout):
     return b, h, lq, lk, d
 
 
-def _no_dropout(dropout):
-    if dropout > 0.0:
-        raise MXNetError("flash_attention: dropout > 0 needs the "
-                         "position-hash dropout slice (ROADMAP.md, port "
-                         "queue 2, item 0)")
-
-
 def _bhld(x, layout):
     return x.transpose(1, 2) if layout == "blhd" else x
 
 
-def _reference(q, k, v, scale, causal, causal_offset, layout):
+def _reference(q, k, v, scale, causal, causal_offset, layout, dropout=0.0,
+               seed=None):
     """The plain version with an explicit causal offset (the public
     functions use ``Lk - Lq``; a negative offset makes rows with no
-    visible key)."""
+    visible key) and the kernels' dropout."""
     qh, kh, vh = (_bhld(t, layout) for t in (q, k, v))
     b, h, lq, d = qh.shape
     lk = kh.shape[2]
@@ -122,9 +130,15 @@ def _reference(q, k, v, scale, causal, causal_offset, layout):
     m_use = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp2(s - m_use)
     l = p.sum(dim=-1, keepdim=True)
+    div = l
+    if dropout > 0.0:
+        keep = attn_keep_mask(b, h, lq, lk, seed, dropout_thresh(dropout),
+                              q.device)
+        p = torch.where(keep, p, torch.zeros((), device=q.device))
+        div = l * torch.tensor(f32(1.0 - dropout))
     # P rounds to v's dtype before the product, as in the kernels
     o = torch.matmul(p.to(v.dtype).float(), vh.float())
-    o = o / torch.where(l > 0, l, torch.ones_like(l))
+    o = o / torch.where(l > 0, div, torch.ones_like(l))
     lse = torch.where(l > 0, m + torch.log2(torch.where(l > 0, l,
                                                         torch.ones_like(l))),
                       torch.full_like(l, NO_KEY_LSE))
@@ -135,15 +149,17 @@ def _reference(q, k, v, scale, causal, causal_offset, layout):
 
 
 def flash_attention_reference(q, k, v, scale=None, causal=False,
-                              layout="bhld", dropout=0.0):
+                              layout="bhld", dropout=0.0, seed=None):
     """Plain PyTorch version of :func:`flash_attention_fwd`: dense f32
-    scores in base 2, the masked softmax, P rounded to v's dtype, f32
-    P.V. Returns ``(out, lse)``."""
-    _no_dropout(dropout)
+    scores in base 2, the masked softmax, P dropped (``dropout > 0``) and
+    rounded to v's dtype, f32 P.V divided by ``l`` (times f32(1 - p)
+    with dropout). Returns ``(out, lse)``."""
+    dropout, seed = check_dropout(dropout, seed, "flash_attention")
     _, _, lq, lk, d = _check(q, k, v, causal, layout)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    return _reference(q, k, v, scale, causal, lk - lq, layout)
+    return _reference(q, k, v, scale, causal, lk - lq, layout, dropout,
+                      seed)
 
 
 def _strides(x, layout):
@@ -173,7 +189,8 @@ def _c_strides(tensors, layout):
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def _launch(q, k, v, scale, causal, causal_offset, layout):
+def _launch(q, k, v, scale, causal, causal_offset, layout, dropout=0.0,
+            seed=None):
     """Launch the kernel on CUDA tensors already shape-checked; returns
     ``(out, lse)``."""
     b, h, lq, lk, d = _dims(q, k, v, layout)
@@ -201,25 +218,29 @@ def _launch(q, k, v, scale, causal, causal_offset, layout):
             out.data_ptr(), lse.data_ptr(), ctypes.addressof(c_strides), b,
             h, lq, lk, d, float(scale) * LOG2E, int(bool(causal)),
             int(causal_offset), _DTYPE_CODE[q.dtype],
+            *kernel_args(dropout, seed, f32(1.0 - dropout)),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    flash_attention.dropout_launches += int(dropout > 0.0)
     return out, lse
 
 
 def flash_attention_fwd(q, k, v, scale=None, causal=False, layout="bhld",
-                        dropout=0.0):
+                        dropout=0.0, seed=None):
     """Attention and its base-2 logsumexp: returns ``(out, lse)`` with
     ``out`` shaped and laid out as ``q`` (contiguous) in q's dtype and
-    ``lse`` (B * H, Lq) float32. See the module docstring."""
-    _no_dropout(dropout)
+    ``lse`` (B * H, Lq) float32; ``dropout`` in [0, 1) with a u32
+    ``seed`` when above 0. See the module docstring."""
+    dropout, seed = check_dropout(dropout, seed, "flash_attention")
     _, _, lq, lk, d = _check(q, k, v, causal, layout)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return _reference(q, k, v, scale, causal, lk - lq, layout)
+        return _reference(q, k, v, scale, causal, lk - lq, layout, dropout,
+                          seed)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, scale, causal, lk - lq, layout)
+    return _launch(q, k, v, scale, causal, lk - lq, layout, dropout, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -227,11 +248,13 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False, layout="bhld",
 # ---------------------------------------------------------------------------
 
 def _bwd_reference(q, k, v, o, lse, do, scale, causal, causal_offset,
-                   layout):
+                   layout, dropout=0.0, seed=None):
     """The plain backward with an explicit causal offset: P recomputed
-    densely in base 2 from the saved lse, f32 products, P rounded to v's
-    dtype before P^T.dO and dS to q's dtype before dS.K and dS^T.Q, as in
-    the kernels and ``_bwd_fused_kernel`` (``flash_attention.py:743``)."""
+    densely in base 2 from the saved lse, f32 products, the dropped P
+    (``keep ? P * f32(1 / (1 - p)) : 0``) rounded to v's dtype before
+    P^T.dO, dP dropped the same way, and dS to q's dtype before dS.K and
+    dS^T.Q, as in the kernels and ``_bwd_fused_kernel``
+    (``flash_attention.py:743``)."""
     qh, kh, vh, oh, doh = (_bhld(t, layout).float()
                            for t in (q, k, v, o, do))
     b, h, lq, d = qh.shape
@@ -243,8 +266,17 @@ def _bwd_reference(q, k, v, o, lse, do, scale, causal, causal_offset,
         s = s.masked_fill(kpos > qpos + causal_offset, float("-inf"))
     p = torch.exp2(s - lse.reshape(b, h, lq, 1))
     delta = (doh * oh).sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), doh)
-    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta) * float(scale)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    pd = p
+    if dropout > 0.0:
+        keep = attn_keep_mask(b, h, lq, lk, seed, dropout_thresh(dropout),
+                              q.device)
+        inv = torch.tensor(f32(1.0 / (1.0 - dropout)))
+        zero = torch.zeros((), device=q.device)
+        pd = torch.where(keep, p * inv, zero)
+        dp = torch.where(keep, dp * inv, zero)
+    dv = torch.matmul(pd.to(v.dtype).float().transpose(-1, -2), doh)
+    ds = p * (dp - delta) * float(scale)
     ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
@@ -258,16 +290,19 @@ def _bwd_reference(q, k, v, o, lse, do, scale, causal, causal_offset,
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, scale=None,
-                                  causal=False, layout="bhld"):
+                                  causal=False, layout="bhld", dropout=0.0,
+                                  seed=None):
     """Plain PyTorch version of :func:`flash_attention_bwd`."""
+    dropout, seed = check_dropout(dropout, seed, "flash_attention_bwd")
     _, _, lq, lk, d = _check(q, k, v, causal, layout)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     return _bwd_reference(q, k, v, o, lse, do, scale, causal, lk - lq,
-                          layout)
+                          layout, dropout, seed)
 
 
-def _launch_bwd(q, k, v, o, lse, do, scale, causal, causal_offset, layout):
+def _launch_bwd(q, k, v, o, lse, do, scale, causal, causal_offset, layout,
+                dropout=0.0, seed=None):
     """Launch the backward kernels on CUDA tensors already shape-checked;
     returns ``(dq, dk, dv)``, each contiguous in ``layout``."""
     b, h, lq, lk, d = _dims(q, k, v, layout)
@@ -307,65 +342,77 @@ def _launch_bwd(q, k, v, o, lse, do, scale, causal, causal_offset, layout):
             ctypes.addressof(c_strides), b, h, lq, lk, d, float(scale),
             float(scale) * LOG2E, int(bool(causal)), int(causal_offset),
             _DTYPE_CODE[q.dtype],
+            *kernel_args(dropout, seed, f32(1.0 / (1.0 - dropout))),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.dropout_launches += int(dropout > 0.0)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False,
-                        layout="bhld"):
+                        layout="bhld", dropout=0.0, seed=None):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` for the
-    output gradient ``do``, from the forward's inputs, output ``o`` and
-    base-2 ``lse`` (B * H, Lq). Each gradient has its input's shape and
-    dtype, contiguous in ``layout``. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernels (delta pre-pass, dK/dV, dQ; one
-    count) or raises."""
+    output gradient ``do``, from the forward's inputs, output ``o``,
+    base-2 ``lse`` (B * H, Lq) and dropout rate and seed. Each gradient
+    has its input's shape and dtype, contiguous in ``layout``. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernels
+    (delta pre-pass, dK/dV, dQ; one count) or raises."""
+    dropout, seed = check_dropout(dropout, seed, "flash_attention_bwd")
     _, _, lq, lk, d = _check(q, k, v, causal, layout)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return _bwd_reference(q, k, v, o, lse, do, scale, causal, lk - lq,
-                              layout)
+                              layout, dropout, seed)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    return _launch_bwd(q, k, v, o, lse, do, scale, causal, lk - lq, layout)
+    return _launch_bwd(q, k, v, o, lse, do, scale, causal, lk - lq, layout,
+                       dropout, seed)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.dropout_launches = 0    # the launches with dropout
 
 
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its backward: the forward saves q, k, v,
-    the output and the base-2 lse (``_flash_fwd``, ``:1012``)."""
+    the output, the base-2 lse and the dropout seed, not a mask
+    (``_flash_fwd``, ``:1012``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, layout):
-        out, lse = flash_attention_fwd(q, k, v, scale, causal, layout)
+    def forward(ctx, q, k, v, scale, causal, layout, dropout, seed):
+        out, lse = flash_attention_fwd(q, k, v, scale, causal, layout,
+                                       dropout, seed)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (scale, causal, layout)
+        ctx.cfg = (scale, causal, layout, dropout, seed)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.cfg)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, scale=None, causal=False, layout="bhld",
-                    dropout=0.0):
+                    dropout=0.0, seed=None):
     """Scaled dot-product attention without a mask (see the module
-    docstring); the output only. Differentiable: with autograd recording
-    and an input that requires grad it goes through
-    :func:`flash_attention_bwd` in the backward; otherwise (serving under
-    ``torch.inference_mode()``) it launches the forward alone."""
-    _no_dropout(dropout)
+    docstring), with attention-probability ``dropout`` under the u32
+    ``seed`` (required when ``dropout > 0``); the output only.
+    Differentiable: with autograd recording and an input that requires
+    grad it goes through :func:`flash_attention_bwd` in the backward;
+    otherwise (serving under ``torch.inference_mode()``) it launches the
+    forward alone."""
+    dropout, seed = check_dropout(dropout, seed, "flash_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if scale is None:
             scale = 1.0 / math.sqrt(q.shape[-1])
-        return _FlashAttention.apply(q, k, v, scale, causal, layout)
-    return flash_attention_fwd(q, k, v, scale, causal, layout)[0]
+        return _FlashAttention.apply(q, k, v, scale, causal, layout,
+                                     dropout, seed)
+    return flash_attention_fwd(q, k, v, scale, causal, layout, dropout,
+                               seed)[0]
 
 
 flash_attention.launches = 0
+flash_attention.dropout_launches = 0    # the launches with dropout > 0

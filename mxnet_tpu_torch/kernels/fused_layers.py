@@ -12,10 +12,12 @@ are differentiable: with autograd recording and an input that requires
 grad they go through a ``torch.autograd.Function`` whose backward is the
 backward kernel (the JAX ``custom_vjp``s ``_ln_res``/``_ln_plain`` and
 ``_bias_gelu``); otherwise (serving under ``torch.inference_mode()``)
-they launch the forward alone. ``dropout > 0`` raises until the
-position-hash dropout slice (ROADMAP.md, port queue 2, item 0). Each
-source's header comment says what bounds it on an H100 and how its
-design answers that.
+they launch the forward alone. The LayerNorm's dropout (``dropout > 0``
+with a u32 ``seed``) drops x before the residual add with the
+position hash of ``kernels/dropout.py`` (``_row_keep_mask``); the
+backward regenerates the mask from the seed, which is all the autograd
+node keeps of it. Each source's header comment says what bounds it on
+an H100 and how its design answers that.
 
 Routing is by device only: a CPU tensor takes the plain version (the CPU
 tests' path), a CUDA tensor launches the kernel or raises. There is no
@@ -29,6 +31,8 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .dropout import check_dropout, dropout_thresh, f32, kernel_args, \
+    row_keep_mask
 
 __all__ = ["fused_rms_norm", "fused_rms_norm_reference",
            "fused_layer_norm", "fused_layer_norm_reference",
@@ -40,8 +44,6 @@ MAX_D = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
-_NO_DROPOUT = ("dropout > 0 needs the position-hash dropout slice "
-               "(ROADMAP.md, port queue 2, item 0)")
 # CTAs per SM of the backward kernels' grids: each CTA writes one f32
 # partial row of the parameter gradients, summed by the wrapper
 _BWD_CTAS_PER_SM = 8
@@ -129,18 +131,32 @@ fused_rms_norm.launches = 0
 # LayerNorm (+ residual)
 # ---------------------------------------------------------------------------
 
+def _drop_rows(h, dropout, seed):
+    """``h`` (f32, (..., D)) with the row kernels' dropout: kept elements
+    times f32(1 / (1 - p)), dropped ones 0; the mask over the flat
+    (row, col) ids. Returns ``(h, keep)`` (``keep`` None at p = 0)."""
+    if dropout == 0.0:
+        return h, None
+    d = h.shape[-1]
+    keep = row_keep_mask(h.numel() // d, d, seed, dropout_thresh(dropout),
+                         h.device).reshape(h.shape)
+    inv = torch.tensor(f32(1.0 / (1.0 - dropout)))
+    return torch.where(keep, h * inv, torch.zeros((), device=h.device)), keep
+
+
 def fused_layer_norm_reference(x, gamma, beta, residual=None, *,
                                eps: float = 1e-5, dropout: float = 0.0,
-                               return_stats: bool = False):
-    """Plain PyTorch ``LayerNorm(x + residual)`` with the JAX kernel's
-    numerics (``_norm_fwd_kernel``, ``fused_layers.py:208-233``): the sum
-    in f32, two-pass f32 statistics (the mean, then the mean of
-    ``(h - mean)**2``), ``(h - mean) * rstd * gamma + beta`` in f32,
-    rounded once to x's dtype. ``return_stats`` also returns the f32
+                               seed=None, return_stats: bool = False):
+    """Plain PyTorch ``LayerNorm(dropout(x) + residual)`` with the JAX
+    kernel's numerics (``_norm_fwd_kernel``, ``fused_layers.py:190-233``):
+    x in f32, dropped under ``seed`` when ``dropout > 0`` (kept elements
+    times f32(1 / (1 - p)), the mask over the flat (row, col) ids), the
+    residual added in f32, two-pass f32 statistics (the mean, then the
+    mean of ``(h - mean)**2``), ``(h - mean) * rstd * gamma + beta`` in
+    f32, rounded once to x's dtype. ``return_stats`` also returns the f32
     per-row ``(mean, rstd)``, shaped ``x.shape[:-1]``."""
-    if dropout > 0.0:
-        raise MXNetError(f"fused_layer_norm: {_NO_DROPOUT}")
-    h = x.float()
+    dropout, seed = check_dropout(dropout, seed, "fused_layer_norm")
+    h, _ = _drop_rows(x.float(), dropout, seed)
     if residual is not None:
         h = h + residual.float()
     mean = h.mean(dim=-1, keepdim=True)
@@ -152,34 +168,38 @@ def fused_layer_norm_reference(x, gamma, beta, residual=None, *,
     return out
 
 
-_LN_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
+_LN_ARGS = [ctypes.c_void_p] * 7 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+    ctypes.c_void_p]
 
 
 def fused_layer_norm(x, gamma, beta, residual=None, *, eps: float = 1e-5,
-                     dropout: float = 0.0, return_stats: bool = False):
-    """``LayerNorm(x + residual)`` over the last axis (the post-LN
+                     dropout: float = 0.0, seed=None,
+                     return_stats: bool = False):
+    """``LayerNorm(dropout(x) + residual)`` over the last axis (the post-LN
     transformer cell's add+norm; ``residual=None`` is a plain LayerNorm).
 
     ``x``: (..., D) float32 or bfloat16, contiguous, 0 < D <= 8192;
     ``residual``: None or x's shape and dtype; ``gamma``/``beta``: (D,),
     both float32 or both bfloat16. The output has x's dtype.
-    ``return_stats`` also returns the f32 per-row ``(mean, rstd)`` the
-    backward recomputes xhat from (and is not differentiable). With
-    autograd recording and an input that requires grad, the backward is
-    :func:`fused_layer_norm_bwd`."""
-    if dropout > 0.0:
-        raise MXNetError(f"fused_layer_norm: {_NO_DROPOUT}")
+    ``dropout`` in [0, 1) drops x only, under the u32 ``seed`` (required
+    when ``dropout > 0``). ``return_stats`` also returns the f32 per-row
+    ``(mean, rstd)`` the backward recomputes xhat from (and is not
+    differentiable). With autograd recording and an input that requires
+    grad, the backward is :func:`fused_layer_norm_bwd`."""
+    dropout, seed = check_dropout(dropout, seed, "fused_layer_norm")
     if not return_stats and _needs_grad(x, gamma, beta, residual):
-        return _LayerNorm.apply(x, gamma, beta, residual, eps)
-    return _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats)
+        return _LayerNorm.apply(x, gamma, beta, residual, eps, dropout, seed)
+    return _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats,
+                           dropout, seed)
 
 
-def _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats):
+def _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats, dropout,
+                    seed):
     if x.device.type == "cpu":
         return fused_layer_norm_reference(x, gamma, beta, residual, eps=eps,
+                                          dropout=dropout, seed=seed,
                                           return_stats=return_stats)
     tensors = [x, gamma, beta] + ([residual] if residual is not None else [])
     if x.device.type != "cuda" or any(t.device != x.device
@@ -224,27 +244,37 @@ def _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats):
                 mean.data_ptr() if mean is not None else None,
                 rstd.data_ptr() if rstd is not None else None,
                 rows, d, float(eps), _DTYPE_CODE[x.dtype],
-                _DTYPE_CODE[gamma.dtype], int(vec), _stream(x.device))
+                _DTYPE_CODE[gamma.dtype], int(vec),
+                *kernel_args(dropout, seed, f32(1.0 / (1.0 - dropout))),
+                _stream(x.device))
         fused_layer_norm.launches += 1
+        fused_layer_norm.dropout_launches += int(dropout > 0.0)
     if return_stats:
         return out, mean, rstd
     return out
 
 
 fused_layer_norm.launches = 0
+fused_layer_norm.dropout_launches = 0    # the launches with dropout > 0
 
 
 def fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
-                                   residual=None):
+                                   residual=None, dropout: float = 0.0,
+                                   seed=None):
     """Plain PyTorch LayerNorm backward with the JAX kernel's numerics
-    (``_norm_bwd_kernel``, ``fused_layers.py:237-291``, dropout 0): xhat
-    recomputed from the saved f32 ``(mean, rstd)``, ``wdy = dy * gamma``,
-    ``dh = rstd * (wdy - mean(wdy) - xhat * mean(wdy * xhat))`` in f32,
-    ``dx = dh`` in x's dtype, ``dgamma = sum(dy * xhat)`` and ``dbeta =
-    sum(dy)`` over the rows in f32, then in gamma's dtype. Returns
-    ``(dx, dgamma, dbeta)``; with a residual its gradient is ``dx`` too."""
+    (``_norm_bwd_kernel``, ``fused_layers.py:237-291``): h recomputed as
+    the forward formed it (x dropped under ``seed``, plus the residual),
+    xhat from the saved f32 ``(mean, rstd)``, ``wdy = dy * gamma``, ``dh
+    = rstd * (wdy - mean(wdy) - xhat * mean(wdy * xhat))`` in f32,
+    ``dgamma = sum(dy * xhat)`` and ``dbeta = sum(dy)`` over the rows in
+    f32, then in gamma's dtype. Without dropout, ``dx = dh`` in x's dtype
+    and returns ``(dx, dgamma, dbeta)``, the residual's gradient being
+    ``dx`` too. With dropout, ``dx = keep ? dh * f32(1 / (1 - p)) : 0``
+    and, with a residual, its gradient ``dres = dh`` in x's dtype comes
+    fourth: ``(dx, dgamma, dbeta, dres)``."""
+    dropout, seed = check_dropout(dropout, seed, "fused_layer_norm_bwd")
     d = x.shape[-1]
-    h = x.float()
+    h, keep = _drop_rows(x.float(), dropout, seed)
     if residual is not None:
         h = h + residual.float()
     rs = rstd.unsqueeze(-1)
@@ -253,26 +283,36 @@ def fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
     wdy = dyf * gamma.float()
     m2 = (wdy * xhat).mean(dim=-1, keepdim=True)
     m1 = wdy.mean(dim=-1, keepdim=True)
-    dx = (rs * (wdy - m1 - xhat * m2)).to(x.dtype)
+    dh = rs * (wdy - m1 - xhat * m2)
     dgamma = (dyf * xhat).reshape(-1, d).sum(dim=0).to(gamma.dtype)
     dbeta = dyf.reshape(-1, d).sum(dim=0).to(gamma.dtype)
-    return dx, dgamma, dbeta
+    if keep is None:
+        return dh.to(x.dtype), dgamma, dbeta
+    dx, _ = _drop_rows(dh, dropout, seed)
+    if residual is None:
+        return dx.to(x.dtype), dgamma, dbeta
+    return dx.to(x.dtype), dgamma, dbeta, dh.to(x.dtype)
 
 
-_LN_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p]
+_LN_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
 
 
-def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None):
-    """Gradients ``(dx, dgamma, dbeta)`` of ``LayerNorm(x + residual)``
-    for the output gradient ``dy``, from the forward's inputs and its f32
-    per-row ``(mean, rstd)`` (``return_stats``); the residual's gradient
-    is ``dx`` too. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (f32 partial rows of dgamma/dbeta per CTA, summed
-    here, as ``_norm_bwd_pallas`` sums its partials) or raises."""
+def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None,
+                         dropout: float = 0.0, seed=None):
+    """Gradients ``(dx, dgamma, dbeta)`` of ``LayerNorm(dropout(x) +
+    residual)`` for the output gradient ``dy``, from the forward's inputs,
+    its f32 per-row ``(mean, rstd)`` (``return_stats``) and its dropout
+    rate and seed; without dropout the residual's gradient is ``dx`` too,
+    with dropout and a residual it comes fourth, ``(dx, dgamma, dbeta,
+    dres)`` (see :func:`fused_layer_norm_bwd_reference`). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (f32
+    partial rows of dgamma/dbeta per CTA, summed here, as
+    ``_norm_bwd_pallas`` sums its partials) or raises."""
+    dropout, seed = check_dropout(dropout, seed, "fused_layer_norm_bwd")
     if x.device.type == "cpu":
         return fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
-                                              residual)
+                                              residual, dropout, seed)
     tensors = [x, gamma, mean, rstd, dy] + (
         [residual] if residual is not None else [])
     if x.device.type != "cuda" or any(t.device != x.device
@@ -301,50 +341,63 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None):
         raise MXNetError("fused_layer_norm_bwd: inputs must be contiguous")
     rows = x.numel() // d
     dx = torch.empty_like(x)
+    dres = (torch.empty_like(x) if dropout > 0.0 and residual is not None
+            else None)
+    extra = () if dres is None else (dres,)
     if rows == 0:
         zeros = torch.zeros(d, dtype=gamma.dtype, device=x.device)
-        return dx, zeros, zeros.clone()
+        return (dx, zeros, zeros.clone()) + extra
     n_blocks = min(rows, _bwd_ctas(x.device))
     # the dgamma and dbeta partial rows, summed by one reduction
     parts = torch.empty((2, n_blocks, d), dtype=torch.float32,
                         device=x.device)
-    vec = d % 8 == 0 and _aligned(x, residual, gamma, dy, dx)
+    vec = d % 8 == 0 and _aligned(x, residual, gamma, dy, dx, dres)
     with torch.cuda.device(x.device):
         _build.call(
             "layer_norm.cu", "mx_layer_norm_bwd", _LN_BWD_ARGS,
             "fused_layer_norm_bwd", x.data_ptr(),
             residual.data_ptr() if residual is not None else None,
             gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), rows, d, n_blocks, _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[gamma.dtype], int(vec), _stream(x.device))
+            dy.data_ptr(), dx.data_ptr(),
+            dres.data_ptr() if dres is not None else None,
+            parts[0].data_ptr(), parts[1].data_ptr(), rows, d, n_blocks,
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[gamma.dtype], int(vec),
+            *kernel_args(dropout, seed, f32(1.0 / (1.0 - dropout))),
+            _stream(x.device))
     fused_layer_norm_bwd.launches += 1
+    fused_layer_norm_bwd.dropout_launches += int(dropout > 0.0)
     dgamma, dbeta = parts.sum(dim=1).to(gamma.dtype)
-    return dx, dgamma, dbeta
+    return (dx, dgamma, dbeta) + extra
 
 
 fused_layer_norm_bwd.launches = 0
+fused_layer_norm_bwd.dropout_launches = 0
 
 
 class _LayerNorm(torch.autograd.Function):
-    """``LayerNorm(x + residual)`` with its backward kernel; the forward
-    saves x, the residual, gamma and the f32 row statistics
-    (``_ln_res_fwd``/``_ln_plain_fwd``, ``fused_layers.py:384``, ``:411``)."""
+    """``LayerNorm(dropout(x) + residual)`` with its backward kernel; the
+    forward saves x, the residual, gamma, the f32 row statistics and the
+    dropout seed, not a mask (``_ln_res_fwd``/``_ln_plain_fwd``,
+    ``fused_layers.py:384``, ``:411``)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, residual, eps):
+    def forward(ctx, x, gamma, beta, residual, eps, dropout, seed):
         out, mean, rstd = _layer_norm_fwd(x, gamma, beta, residual, eps,
-                                          True)
+                                          True, dropout, seed)
         ctx.save_for_backward(x, gamma, mean, rstd, residual)
+        ctx.dropout = (dropout, seed)
         return out
 
     @staticmethod
     def backward(ctx, dy):
         x, gamma, mean, rstd, residual = ctx.saved_tensors
-        dx, dgamma, dbeta = fused_layer_norm_bwd(x, gamma, mean, rstd, dy,
-                                                 residual)
-        return dx, dgamma, dbeta, (dx if residual is not None else None), \
-            None
+        dx, dgamma, dbeta, *dres = fused_layer_norm_bwd(
+            x, gamma, mean, rstd, dy, residual, *ctx.dropout)
+        if residual is None:
+            dres = None
+        else:
+            dres = dres[0] if dres else dx
+        return dx, dgamma, dbeta, dres, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -12,20 +12,24 @@ import math
 
 import torch
 
-from ..base import MXNetError
+from .. import autograd, random_state
 from ..kernels import flash_attention, fused_rms_norm, paged_attention_kernel
+from ..kernels.dropout import attn_keep_mask, dropout_thresh, f32
 
 __all__ = ["sdp_attention", "rms_norm", "rope", "rope_at",
            "paged_attention"]
 
 
-def _sdpa_reference(q, k, v, mask, scale, causal, layout="bhld"):
-    """Dense f32-softmax attention (``mxnet_tpu/ops/attention.py:21-62``,
-    dropout off): the score product in the input dtype, then f32 scores
-    times ``scale``, causal bottom-right (``tril(k=Lk-Lq)``) and ``mask``
-    (1 = attend, broadcastable to (B, H, Lq, Lk)) filled with -1e9, the
-    softmax, the probabilities in the input dtype, and the value product.
-    ``layout``: "bhld" (B, H, L, D) or "blhd" (B, L, H, D)."""
+def _sdpa_reference(q, k, v, mask, scale, causal, layout="bhld",
+                    dropout=0.0, seed=None):
+    """Dense f32-softmax attention (``mxnet_tpu/ops/attention.py:21-62``):
+    the score product in the input dtype, then f32 scores times
+    ``scale``, causal bottom-right (``tril(k=Lk-Lq)``) and ``mask`` (1 =
+    attend, broadcastable to (B, H, Lq, Lk)) filled with -1e9, the
+    softmax, with ``dropout`` the position-hash mask of the flash kernels
+    (kept probabilities times f32(1 / (1 - p))), the probabilities in the
+    input dtype, and the value product. ``layout``: "bhld" (B, H, L, D)
+    or "blhd" (B, L, H, D)."""
     if layout == "blhd":
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
     else:
@@ -39,7 +43,14 @@ def _sdpa_reference(q, k, v, mask, scale, causal, layout="bhld"):
     if mask is not None:
         keep = torch.broadcast_to(mask.to(torch.bool), scores.shape)
         scores = scores.masked_fill(~keep, -1e9)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout > 0.0:
+        keep = attn_keep_mask(*probs.shape, seed, dropout_thresh(dropout),
+                              q.device)
+        inv = torch.tensor(f32(1.0 / (1.0 - dropout)))
+        probs = torch.where(keep, probs * inv, torch.zeros(
+            (), device=q.device))
+    probs = probs.to(q.dtype)
     if layout == "blhd":
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
@@ -55,22 +66,23 @@ def sdp_attention(query, key, value, mask=None, *, scale=None,
     backward); a ``mask`` (1 = attend, broadcastable to (B, H, Lq, Lk))
     and causal attention with Lq > Lk go to :func:`_sdpa_reference`, the
     JAX package's own route for them, which torch autograd
-    differentiates. ``dropout > 0`` raises until the position-hash
-    dropout slice (ROADMAP.md, port queue 2, item 0); ``ring_axis``
-    (sequence parallelism) waits for the parallelism queue."""
-    if dropout > 0.0:
-        raise MXNetError("sdp_attention: attention dropout needs the "
-                         "position-hash dropout slice (ROADMAP.md, port "
-                         "queue 2, item 0)")
+    differentiates. ``dropout`` drops attention probabilities in
+    training mode only (``autograd.is_training()``), under a seed drawn
+    from ``random_state`` only then; both routes drop the same elements
+    for a seed. ``ring_axis`` (sequence parallelism) waits for the
+    parallelism queue."""
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
+    p = float(dropout) if autograd.is_training() else 0.0
+    seed = random_state.next_seed(query.device) if p > 0.0 else None
     seq_ax = 1 if layout == "blhd" else 2
     if mask is None and not (causal
                              and query.shape[seq_ax] > key.shape[seq_ax]):
         return flash_attention(query, key, value, scale=scale,
-                               causal=causal, layout=layout)
+                               causal=causal, layout=layout, dropout=p,
+                               seed=seed)
     return _sdpa_reference(query, key, value, mask, scale, causal,
-                           layout=layout)
+                           layout=layout, dropout=p, seed=seed)
 
 
 def rms_norm(data: torch.Tensor, weight: torch.Tensor, *,

@@ -3,7 +3,8 @@
 Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the paths run:
 ``fully_connected`` (``:36``), ``embedding`` (``:1030``), ``layer_norm``
 (``:707``), ``fused_layer_norm_op`` (``:742``), ``fused_bias_gelu_op``
-(``:775``) and ``activation`` (``:835``). A CUDA tensor takes the port's
+(``:775``), ``activation`` (``:835``) and ``dropout`` (``dropout_op``,
+``:1079``, its position-hash branch). A CUDA tensor takes the port's
 kernels, a CPU tensor their plain versions; under autograd the fused
 ops go through the kernels' differentiable wrappers (their backward
 kernels on the card). The matrix products go to the library GEMM
@@ -15,11 +16,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import autograd, random_state
 from ..base import MXNetError
-from ..kernels import fused_bias_gelu, fused_layer_norm
+from ..kernels import fused_bias_gelu, fused_layer_norm, hash_dropout
 
 __all__ = ["fully_connected", "embedding", "layer_norm",
-           "fused_layer_norm_op", "fused_bias_gelu_op", "activation"]
+           "fused_layer_norm_op", "fused_bias_gelu_op", "activation",
+           "dropout"]
 
 
 def fully_connected(data, weight, bias=None, *, flatten=True):
@@ -50,11 +53,33 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5):
 def fused_layer_norm_op(data, gamma, beta, residual=None, *, eps=1e-5,
                         dropout=0.0):
     """``LayerNorm(dropout(data) + residual)`` over the last axis: the
-    post-LN transformer cell's add+norm in one kernel. ``dropout > 0``
-    raises until the position-hash dropout slice (ROADMAP.md, port queue
-    2, item 0)."""
+    post-LN transformer cell's add+norm in one kernel. ``dropout`` drops
+    ``data`` (not the residual) in training mode only
+    (``autograd.is_training()``), under a seed drawn from
+    ``random_state`` only then (the reference's ``rng_gate``)."""
+    p = float(dropout) if autograd.is_training() else 0.0
+    seed = random_state.next_seed(data.device) if p > 0.0 else None
     return fused_layer_norm(data, gamma, beta, residual, eps=eps,
-                            dropout=dropout)
+                            dropout=p, seed=seed)
+
+
+def dropout(data, p=0.5, mode="training", axes=()):
+    """``Dropout``: in training mode (``autograd.is_training()``), or
+    always with ``mode="always"``, each element of the mask shape
+    (data's shape with ``axes`` set to 1) is kept with probability
+    ``1 - p`` by the position hash under a seed drawn from
+    ``random_state`` (only when it applies), and kept elements are scaled
+    by ``dtype(1 / (1 - p))``; otherwise, or at ``p = 0``, the identity.
+    The reference's ``dropout_op`` draws ``jax.random.bits`` unless
+    ``MXNET_TPU_HASH_DROPOUT=1`` or ``MXNET_PALLAS_FUSED=1``; the port
+    always takes that hash branch (``ops/nn.py:1093-1121``)."""
+    if mode not in ("training", "always"):
+        raise MXNetError(f"dropout: mode {mode!r} is not 'training' or "
+                         "'always'")
+    if not (autograd.is_training() or mode == "always") or p == 0.0:
+        return data
+    return hash_dropout(data.contiguous(), p,
+                        random_state.next_seed(data.device), axes)
 
 
 def fused_bias_gelu_op(data, bias):

@@ -2,13 +2,19 @@
 
 Counterpart of ``mxnet_tpu/parallel/step.py`` (``TrainStep``,
 ``:48-118`` and ``:894-976``) for a single card: one call advances the
-optimizer's update counts, runs the forward under autograd, reduces the
-loss by the mean in f32, runs the backward (the port's backward kernels
-on a CUDA tensor), and updates every trainable parameter with one fused
-optimizer sweep per dtype bucket (``optimizer/multi_tensor.py``), the
-states created as ``create_state_multi_precision`` creates them. Where
-the JAX step is one compiled program, the port runs eagerly; the
-parameters and states are updated in place.
+optimizer's update counts, draws the step's seed from the device's
+stream (``random_state.next_seed``, as the JAX step draws its key,
+``:921``), runs the forward under autograd in training mode with every
+dropout site's seed drawn from that step seed in call order
+(``random_state.scoped_seed``, as the JAX step's trace splits its ops'
+keys off the step key), reduces the loss by the mean in f32, runs the
+backward (the port's backward kernels on a CUDA tensor; each dropout
+backward regenerates its mask from its seed), and updates every
+trainable parameter with one fused optimizer sweep per dtype bucket
+(``optimizer/multi_tensor.py``), the states created as
+``create_state_multi_precision`` creates them. Where the JAX step is
+one compiled program, the port runs eagerly; the parameters and states
+are updated in place.
 
 Meshes over more than one device, sharding rules, sequence sharding,
 rematerialisation and input donation raise :class:`MXNetError` naming
@@ -23,7 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import autograd
 from .. import optimizer as opt_mod
+from .. import random_state
 from ..base import MXNetError
 from ..optimizer import multi_tensor as mt
 
@@ -66,21 +74,6 @@ def _refuse(mesh, rules, seq_axis, remat, donate_inputs):
                          "(ROADMAP.md, port queue 1, item 8)")
 
 
-def _refuse_dropout(net):
-    """Dropout in training needs the position-hash dropout; the port's
-    ``Dropout`` is the identity, so a rate > 0 would silently train
-    without it."""
-    for name, m in net.named_modules():
-        rates = [getattr(m, "_rate", 0.0), getattr(m, "_attn_dropout", 0.0)]
-        if any(r > 0.0 for r in rates):
-            raise MXNetError(
-                f"TrainStep: {name or type(net).__name__} has dropout "
-                f"{max(rates)}; training with dropout > 0 needs the "
-                "position-hash dropout slice (ROADMAP.md, port queue 2, "
-                "item 0): build the model with dropout=0.0 and "
-                "attn_dropout=0.0")
-
-
 class TrainStep:
     """Forward, loss, backward and the fused optimizer sweep of ``net``.
 
@@ -105,7 +98,6 @@ class TrainStep:
                  rules=None, seq_axis=None, optimizer_params=None,
                  loss_only=False, donate_inputs=False, remat=None):
         _refuse(mesh, rules, seq_axis, remat, donate_inputs)
-        _refuse_dropout(net)
         self.net = net
         self.loss = loss
         self.loss_only = bool(loss_only)
@@ -158,7 +150,9 @@ class TrainStep:
 
         for p in self._params:
             p.grad = None
-        with torch.enable_grad():
+        step_seed = random_state.next_seed(self._device)
+        with torch.enable_grad(), autograd.train_mode(), \
+                random_state.scoped_seed(step_seed):
             outs = self.net(*data_t)
             loss_out = self.loss(outs, *label_t)
             if isinstance(loss_out, (list, tuple)):

@@ -11,9 +11,11 @@ paths. One scheduler thread serves both:
   (SLO minus ``close_margin_ms``) arrives (``deadline``), when the oldest
   request has waited ``batch_timeout_ms`` (``timeout``), or on a
   draining stop (``drain``). ``_dispatch`` pads the batch to a batch
-  bucket, runs the model once under ``torch.inference_mode()``, copies
-  each output leaf to the host once and resolves every future with its
-  own row.
+  bucket, runs the model once under ``torch.inference_mode()`` in
+  predict mode (``autograd.predict_mode()``: every dropout site is the
+  identity, so a model built with dropout serves what it serves at
+  dropout 0), copies each output leaf to the host once and resolves
+  every future with its own row.
 * :meth:`Server.submit_generate` (with ``decode_pages``): an
   autoregressive greedy-decode request over a paged KV cache. Each turn
   admits pending requests with all-or-nothing page allocation, prefills
@@ -41,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import autograd
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from .buckets import DEFAULT_LEN_BUCKETS, BucketGrid
@@ -344,7 +347,7 @@ class Server:
         build and load."""
         if not self._warmup or self.grid.shape_buckets is None:
             return
-        with torch.inference_mode():
+        with torch.inference_mode(), autograd.predict_mode():
             for sig in self.grid.input_signatures():
                 self._block(torch.zeros(sig, dtype=self.input_dtype,
                                         device=self.device))
@@ -547,7 +550,7 @@ class Server:
             payload[i] = r.sample
         try:
             x = torch.from_numpy(payload).to(self.device, self.input_dtype)
-            with torch.inference_mode():
+            with torch.inference_mode(), autograd.predict_mode():
                 out = self._block(x)
             leaves, tree = _flatten(out)
             # one host copy per leaf per batch; futures get row copies (a

@@ -314,18 +314,37 @@ def test_sdp_attention_without_mask_takes_flash_and_matches_jax():
 
 
 def test_dropout_above_zero_raises_on_every_entry_point():
+    """Each entry point takes dropout now. The kernel-level functions
+    raise without a seed (as the JAX kernels do) and drop with one; the
+    op-level ones draw their seed only in training mode and are the
+    identity outside it."""
+    from mxnet_tpu_torch import autograd, random_state
+    from mxnet_tpu_torch.kernels.dropout import hash_u32
+
     x = torch.ones(2, 8)
     g = torch.ones(8)
     q = torch.ones(1, 1, 4, 8)
-    with pytest.raises(MXNetError, match="position-hash dropout slice"):
-        fused_layer_norm(x, g, g, dropout=0.1)
-    with pytest.raises(MXNetError, match="position-hash dropout slice"):
-        fused_layer_norm_reference(x, g, g, dropout=0.1)
-    with pytest.raises(MXNetError, match="position-hash dropout slice"):
-        pnn.fused_layer_norm_op(x, g, g, x, dropout=0.1)
-    with pytest.raises(MXNetError, match="position-hash dropout slice"):
-        flash_attention(q, q, q, dropout=0.1)
-    with pytest.raises(MXNetError, match="position-hash dropout slice"):
-        flash_attention_reference(q, q, q, dropout=0.1)
-    with pytest.raises(MXNetError, match="position-hash dropout slice"):
-        pattn.sdp_attention(q, q, q, dropout=0.1)
+    for fn, args in ((fused_layer_norm, (x, g, g)),
+                     (fused_layer_norm_reference, (x, g, g)),
+                     (flash_attention, (q, q, q)),
+                     (flash_attention_reference, (q, q, q))):
+        with pytest.raises(MXNetError, match="requires a seed"):
+            fn(*args, dropout=0.1)
+    assert not torch.equal(fused_layer_norm(x + torch.arange(8.0), g, g,
+                                            dropout=0.5, seed=3),
+                           fused_layer_norm(x + torch.arange(8.0), g, g))
+    assert torch.equal(flash_attention(q, q, q, dropout=0.5, seed=3),
+                       flash_attention_reference(q, q, q, dropout=0.5,
+                                                 seed=3)[0])
+    # op level: the identity in predict mode, one drawn seed in training
+    assert torch.equal(pnn.fused_layer_norm_op(x, g, g, x, dropout=0.1),
+                       fused_layer_norm(x, g, g, x))
+    assert torch.equal(pattn.sdp_attention(q, q, q, dropout=0.1),
+                       flash_attention(q, q, q))
+    with autograd.train_mode(), random_state.scoped_seed(9):
+        ln = pnn.fused_layer_norm_op(x, g, g, x, dropout=0.1)
+        att = pattn.sdp_attention(q, q, q, dropout=0.1)
+    assert torch.equal(ln, fused_layer_norm(x, g, g, x, dropout=0.1,
+                                            seed=hash_u32(0, 9)))
+    assert torch.equal(att, flash_attention(q, q, q, dropout=0.1,
+                                            seed=hash_u32(1, 9)))

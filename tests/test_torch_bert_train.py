@@ -7,8 +7,8 @@ weights.
 Weights are drawn once with numpy, set on a narrow 2-layer JAX model
 (64 units, 4 heads, vocab 512, sequence 128, CE chunk 128) and carried
 into the port by ``mxnet_tpu_torch.convert``; tokens and labels come
-from ``RandomState``. Dropout is 0: training-mode dropout waits for the
-position-hash dropout slice.
+from ``RandomState``. Dropout is 0 here; tests/test_torch_dropout.py
+holds a step at dropout 0.1 / 0.1 against the JAX step.
 """
 import numpy as np
 import pytest
@@ -311,10 +311,17 @@ def test_trainstep_refuses_what_needs_a_later_slice(kwargs, item):
 
 
 def test_trainstep_refuses_dropout_and_unported_optimizers():
-    with pytest.raises(mx.MXNetError, match="queue 2, item 0"):
-        TrainStep(_tiny(dropout=0.1), lambda o, *a: o, "adam")
-    with pytest.raises(mx.MXNetError, match="queue 2, item 0"):
-        TrainStep(_tiny(attn_dropout=0.1), lambda o, *a: o, "adam")
+    """A model with dropout is no longer refused: TrainStep trains it,
+    with its dropout sites drawing from the step's scoped seeds (tests/
+    test_torch_dropout.py holds the step against the JAX one). The
+    optimizers without a fused sweep are still refused."""
+    for kw in ({"dropout": 0.1}, {"attn_dropout": 0.1}):
+        step = TrainStep(_tiny(**kw), lambda o, *a: o, "adam",
+                         loss_only=True)
+        rs = np.random.RandomState(0)
+        tok = rs.randint(0, 64, (2, 16)).astype(np.int32)
+        loss = step((tok, tok), ())[0]
+        assert torch.isfinite(loss)
     with pytest.raises(mx.MXNetError, match="queue 1, item 7"):
         TrainStep(_tiny(), lambda o, *a: o, "sgd")
     with pytest.raises(mx.MXNetError, match="unknown optimizer"):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at the Llama-3-8B and BERT serving paths' shapes, the BERT
-pretraining path's (backward kernels and the Adam sweep), and at ragged
-ones.
+pretraining path's (backward kernels and the Adam sweep), its dropout
+modes (the hash-dropout kernel, LayerNorm and flash attention with
+dropout, each with its mask held bit for bit), and at ragged ones.
 
 Marked ``cuda``: each test skips where there is no CUDA card (the CPU
 test runs) and runs on a machine with one. This file imports neither JAX
@@ -29,8 +30,11 @@ from mxnet_tpu_torch.kernels import (adam_sweep_reference, flash_attention,
                                      fused_layer_norm_bwd_reference,
                                      fused_layer_norm_reference,
                                      fused_rms_norm, fused_rms_norm_reference,
+                                     hash_dropout, hash_dropout_bwd,
+                                     hash_dropout_reference,
                                      paged_attention_kernel,
                                      paged_attention_reference)
+from mxnet_tpu_torch.kernels.dropout import dropout_thresh, row_keep_mask
 from mxnet_tpu_torch.kernels.flash import (NO_KEY_LSE, _bwd_reference,
                                            _launch, _launch_bwd, _reference)
 
@@ -470,3 +474,158 @@ def test_trainstep_on_card_matches_cpu():
         losses.append([float(step((tok, lab), ())[0]) for _ in range(3)])
     assert fused_adam_sweep.launches == before + 3
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the dropout modes: hash dropout, LayerNorm and flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axes", [((32, 512, 768), ()),
+                                        ((7, 13), ()),
+                                        ((4, 6, 40), (1,)),
+                                        ((3, 5, 7, 9), (0, 2))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_dropout_kernel_bit_identical_on_card(shape, axes, dtype):
+    """The Dropout kernel and its backward against the plain version:
+    the same bits (the same integer hash, one rounding of the same
+    product in the data's dtype), so the zero pattern is the mask."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(len(shape))
+    x = torch.randn(*shape, device="cuda", generator=g).to(
+        getattr(torch, dtype))
+    seed = 0xC0FFEE + len(shape)
+    before = hash_dropout.launches, hash_dropout_bwd.launches
+    leaf = x.clone().requires_grad_()
+    out = hash_dropout(leaf, 0.1, seed, axes)
+    out.backward(x)
+    torch.cuda.synchronize()
+    assert (hash_dropout.launches, hash_dropout_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = hash_dropout_reference(x, 0.1, seed, axes)
+    assert out.dtype == x.dtype
+    assert torch.equal(out.detach(), want)
+    assert torch.equal(out.detach() == 0, want == 0)
+    assert torch.equal(leaf.grad, want)
+    if x.numel() > 10 ** 6:
+        assert 0.09 < float((want == 0).float().mean()) < 0.11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(32 * 512, 768), (7, 100), (5, 8192)])
+@pytest.mark.parametrize("xdt,gdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+@pytest.mark.parametrize("with_res", [True, False])
+def test_layer_norm_dropout_kernels_match_plain_on_card(rows, d, xdt, gdt,
+                                                        with_res):
+    """LN(dropout(x) + res) forward and backward at p = 0.1 against the
+    plain versions (the tolerances of the dropout-free tests above); the
+    zeros of dx are the mask of the element's flat (row, col) id, bit for
+    bit, and the residual's gradient comes out separately."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(rows + d + 2)
+    xt, gt = getattr(torch, xdt), getattr(torch, gdt)
+    x = (2 + torch.randn(rows, d, device="cuda", generator=g)).to(xt)
+    r = torch.randn(rows, d, device="cuda", generator=g).to(xt) \
+        if with_res else None
+    gamma = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    beta = (0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(xt)
+    seed = 1234 + rows
+    before = (fused_layer_norm.dropout_launches,
+              fused_layer_norm_bwd.dropout_launches)
+    out, mean, rstd = fused_layer_norm(x, gamma, beta, r, dropout=0.1,
+                                       seed=seed, return_stats=True)
+    got = fused_layer_norm_bwd(x, gamma, mean, rstd, dy, r, 0.1, seed)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm.dropout_launches,
+            fused_layer_norm_bwd.dropout_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref, rmean, rrstd = fused_layer_norm_reference(
+        x, gamma, beta, r, dropout=0.1, seed=seed, return_stats=True)
+    rtol = 1e-5 if xdt == "float32" else BF16_RTOL
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
+    want = fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy, r, 0.1,
+                                          seed)
+    assert len(got) == len(want) == (4 if with_res else 3)
+    tol = 1e-5 if xdt == "float32" and gdt == "float32" else 2.0 ** -7
+    for name, a, b in zip(("dx", "dgamma", "dbeta", "dres"), got, want):
+        assert a.dtype == b.dtype
+        _close_to_max(a, b, tol, name)
+    keep = row_keep_mask(rows, d, seed, dropout_thresh(0.1), "cuda")
+    assert torch.equal(got[0] != 0, keep)
+    assert torch.equal(want[0] != 0, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (B, H, Lq, Lk, D, causal, layout)
+    (32, 12, 512, 512, 64, False, "blhd"),      # BERT-base, QKV views
+    (2, 8, 2048, 2048, 128, True, "bhld"),      # the streaming case
+    (2, 3, 77, 200, 40, True, "bhld"),          # ragged L and D
+    (3, 2, 50, 50, 8, False, "blhd"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dropout_kernels_match_plain_on_card(shape, dtype):
+    """Flash forward and backward at p = 0.1 against the plain versions
+    (forward: FLASH_TOL and the lse to 1e-5, which dropout does not
+    touch; backward: BWD_TOL); "blhd" at BERT's shape takes the heads as
+    views of one fused QKV output."""
+    _require_card()
+    b, h, lq, lk, d, causal, layout = shape
+    g = torch.Generator(device="cuda").manual_seed(lq * d + 3)
+    tdt = getattr(torch, dtype)
+    if layout == "blhd" and lq == lk:
+        qkv = torch.randn(b, lq, 3 * h * d, device="cuda",
+                          generator=g).to(tdt)
+        q, k, v = (t.view(b, lq, h, d) for t in qkv.split(h * d, dim=-1))
+    else:
+        qs = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+        ks = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+        q = torch.randn(*qs, device="cuda", generator=g).to(tdt)
+        k, v = (torch.randn(*ks, device="cuda", generator=g).to(tdt)
+                for _ in range(2))
+    do = torch.randn(q.shape, device="cuda", generator=g).to(tdt)
+    kw = dict(causal=causal, layout=layout, dropout=0.1, seed=99 + lq)
+    before = (flash_attention.dropout_launches,
+              flash_attention_bwd.dropout_launches)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.dropout_launches,
+            flash_attention_bwd.dropout_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref, rlse = flash_attention_reference(q, k, v, **kw)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    for name, x, y in zip("qkv", got, want):
+        _close_to_max(x, y, BWD_TOL[dtype], f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dropout_mask_is_bit_identical_on_card(d, dtype):
+    """With lk = d and V the identity, O is the dropped, normalised P,
+    so its zeros are the mask: the kernel's zeros must be the plain
+    version's, element for element (scores are small, so no kept P is
+    0)."""
+    _require_card()
+    b, h, lq = 4, 12, 512
+    g = torch.Generator(device="cuda").manual_seed(d)
+    tdt = getattr(torch, dtype)
+    q = (0.1 * torch.randn(b, h, lq, d, device="cuda", generator=g)).to(tdt)
+    k = (0.1 * torch.randn(b, h, d, d, device="cuda", generator=g)).to(tdt)
+    v = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous().to(tdt)
+    out, _ = flash_attention_fwd(q, k, v, dropout=0.1, seed=7 + d)
+    torch.cuda.synchronize()
+    ref, _ = flash_attention_reference(q, k, v, dropout=0.1, seed=7 + d)
+    assert torch.equal(out == 0, ref == 0)
+    assert 0.08 < float((ref == 0).float().mean()) < 0.12
