@@ -14,9 +14,12 @@ package. Phases, each printing JSON lines and failing loudly:
 3. kernels — each kernel against its plain PyTorch version at its
              path's shapes, bf16 and f32, with its stated tolerance (the
              backward kernels on BERT-base's (32 x 512) batch, flash on
-             its fused-QKV views and a causal (2, 8, 2048, 128); the Adam
-             sweep over BERTForPretrainFused's bf16 multi-precision
-             parameter set, bit for bit; the dropout modes at p = 0.1:
+             its fused-QKV views and a causal (2, 8, 2048, 128); the
+             RMSNorm forward with its rstd and backward at the proxy1b
+             step's (8 x 2048, 2048), causal flash at its (8, 16, 2048,
+             128); the Adam sweep over BERTForPretrainFused's bf16
+             multi-precision parameter set and the AdamW scan and sweep
+             over proxy1b's, bit for bit; the dropout modes at p = 0.1:
              the hash-dropout kernel bit for bit, LayerNorm ± residual
              forward and backward with dx's zeros equal to the mask,
              flash forward and backward, and flash's mask bit for bit
@@ -67,7 +70,21 @@ package. Phases, each printing JSON lines and failing loudly:
              sweep per dtype bucket per step, and a profiled step (host
              vs device ms, idle share, top device events, each port
              kernel's device time per launch);
-10. summary — one {"kernels": [...]} line.
+10. llama_train_reference — LlamaModel(fused_ce=True) at proxy1b
+             widths, depth cut to 2 layers, f32: three TrainStep AdamW
+             steps on the card against the same weights and batch on the
+             CPU (each loss to 1e-5, each parameter's delta by norm ratio
+             to 1e-3) and the launch counts;
+11. llama_train — the proxy1b Llama (700.5M parameters) not cut, built
+             by mxnet_tpu_torch.tools.pretrain_llama (bf16, fused CE
+             head, multi-precision AdamW at lr 3e-4, wd 0.1, beta 0.9 /
+             0.95, seeded random weights), one (8, 2048) batch of
+             RandomState(0) tokens: 3 warm-up and 10 timed TrainStep
+             calls; ms per step, tokens/s, MFU, peak memory, the loss
+             (finite, falling), exactly 21/21 RMSNorm and 10/10 flash
+             launches forward/backward, one AdamW scan and one sweep per
+             step and no other training kernel, and a profiled step;
+12. summary — one {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -213,31 +230,91 @@ def _dname(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def rms_case(rows, d, dtype, flush, gen) -> dict:
+def rms_case(rows, d, dtype, flush, gen, rstd=False) -> dict:
+    """The RMSNorm forward; with ``rstd`` the training path's call, which
+    also writes the f32 row rstd (held against the plain version's to
+    1e-5 relative; the output must equal the serving call's bit for
+    bit)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.kernels import (fused_rms_norm,
                                          fused_rms_norm_reference)
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
 
     x = torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
     w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
     eps = 1e-5
     out = fused_rms_norm(x, w, eps=eps)
     torch.cuda.synchronize()
-    ref = fused_rms_norm_reference(x, w, eps=eps)
+    ref, ref_rstd = fused_rms_norm_reference(x, w, eps=eps,
+                                             return_rstd=True)
     err, ok = within(out, ref, *RMS_TOL[dtype])
-    size = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = rows * d * size * 2 + d * size
-    b_ms, b_by = bound(n_bytes, 4.0 * rows * d, torch.float32)
     rec = {"phase": "kernels", "kernel": "fused_rms_norm",
            "shape": [rows, d], "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err, "rtol_atol": list(RMS_TOL[dtype]), "ok": ok,
-           "ms": time_ms(lambda: fused_rms_norm(x, w, eps=eps), flush),
-           "plain_ms": time_ms(lambda: fused_rms_norm_reference(x, w,
-                                                                 eps=eps),
-                               flush),
-           "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, eps),
-                                 flush),
+           "rstd": rstd}
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = rows * d * size * 2 + d * size
+    if rstd:
+        out2, got_rstd = _rms_norm_fwd(x, w, eps, True)
+        torch.cuda.synchronize()
+        rstd_err, rstd_ok = within(got_rstd, ref_rstd, 1e-5, 0.0)
+        ok = ok and rstd_ok and torch.equal(out2, out)
+        rec["rstd_max_abs_err"] = rstd_err
+        n_bytes += 4 * rows
+        kern = lambda: _rms_norm_fwd(x, w, eps, True)      # noqa: E731
+    else:
+        kern = lambda: fused_rms_norm(x, w, eps=eps)        # noqa: E731
+    b_ms, b_by = bound(n_bytes, 4.0 * rows * d, torch.float32)
+    rec.update({
+        "max_abs_err": err, "rtol_atol": list(RMS_TOL[dtype]), "ok": ok,
+        "ms": time_ms(kern, flush),
+        "plain_ms": time_ms(lambda: fused_rms_norm_reference(
+            x, w, eps=eps, return_rstd=rstd), flush),
+        "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, eps), flush),
+        "bound_ms": b_ms, "bound_by": b_by})
+    emit(rec)
+    return rec
+
+
+def rms_bwd_case(rows, d, dtype, flush, gen) -> dict:
+    """The RMSNorm backward from the forward's saved rstd, dx and dw
+    against the plain version (BWD_TOL of each one's largest magnitude).
+    Library yardstick: F.rms_norm forward and its autograd backward on
+    the same inputs (timed only; no single call gives the backward
+    alone). Bytes: x and dy read, dx written, the rstd and the weight
+    once; ~10 f32 operations per element (xhat, wdy, two products and a
+    sum for the row mean, the dx expression, the dw sum)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (fused_rms_norm_bwd,
+                                         fused_rms_norm_bwd_reference)
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
+
+    x = (1.5 * torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+    dy = torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+    _, rstd = _rms_norm_fwd(x, w, 1e-5, True)
+    got = fused_rms_norm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    err, rel = max_rel(got, fused_rms_norm_bwd_reference(x, w, rstd, dy))
+    leaves = [t.detach().requires_grad_() for t in (x, w)]
+
+    def library():
+        y = F.rms_norm(leaves[0], (d,), leaves[1], 1e-5)
+        torch.autograd.grad(y, leaves, dy)
+
+    size = _size(dtype)
+    n_bytes = 3 * rows * d * size + 4 * rows + 2 * d * size
+    b_ms, b_by = bound(n_bytes, 10.0 * rows * d, torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_rms_norm_bwd",
+           "shape": [rows, d], "dtype": _dname(dtype), "max_abs_err": err,
+           "max_err_over_max_ref": rel, "tol": BWD_TOL[dtype],
+           "ok": rel <= BWD_TOL[dtype],
+           "ms": time_ms(lambda: fused_rms_norm_bwd(x, w, rstd, dy), flush),
+           "plain_ms": time_ms(lambda: fused_rms_norm_bwd_reference(
+               x, w, rstd, dy), flush),
+           "library_ms": time_ms(library, flush),
+           "library": "F.rms_norm forward + its autograd backward",
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
     return rec
@@ -374,12 +451,31 @@ def gelu_case(rows, d, dtype, flush, gen) -> dict:
     return rec
 
 
-def flash_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
+def _flash_inputs(b, h, l, d, layout, dtype, gen, n, views):
+    """``n`` tensors in ``layout``: "blhd" with ``views`` as
+    MultiHeadAttention makes q, k and v, (b, l, h, d) views into one
+    (b, l, 3*h*d) fused QKV output (sequence stride 3*h*d, k and v h*d
+    and 2*h*d elements in), and any further ones contiguous; "blhd"
+    without ``views`` contiguous (b, l, h, d) tensors, as the Llama path
+    hands them over (rope's outputs and the repeated KV heads); "bhld"
+    contiguous (b, h, l, d) tensors."""
+    if layout == "blhd" and views:
+        qkv = torch.randn(b, l, 3 * h * d, device="cuda",
+                          generator=gen).to(dtype)
+        out = [t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1)]
+        return out + [torch.randn(b, l, h, d, device="cuda",
+                                  generator=gen).to(dtype)
+                      for _ in range(n - 3)]
+    shape = (b, l, h, d) if layout == "blhd" else (b, h, l, d)
+    return [torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+            for _ in range(n)]
+
+
+def flash_case(b, h, l, d, causal, layout, dtype, flush, gen,
+               views=True) -> dict:
     """Flash attention forward, output and lse against the plain version
-    on the same inputs. "blhd" builds them as MultiHeadAttention does:
-    (b, l, h, d) views into one (b, l, 3*h*d) fused QKV output, so the
-    sequence stride is 3*h*d and k and v start h*d and 2*h*d elements in;
-    "bhld" draws three contiguous (b, h, l, d) tensors. Library
+    on the same inputs (``_flash_inputs``: "blhd" on fused-QKV views, or
+    contiguous with ``views`` False; "bhld" contiguous). Library
     yardstick: F.scaled_dot_product_attention on the same inputs (timed
     only; the port never calls it). Operations count the key positions
     this run visits: all l for every row, or the causal triangle."""
@@ -388,15 +484,9 @@ def flash_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
     from mxnet_tpu_torch.kernels import (flash_attention_fwd,
                                          flash_attention_reference)
 
-    if layout == "blhd":
-        qkv = torch.randn(b, l, 3 * h * d, device="cuda",
-                          generator=gen).to(dtype)
-        q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
-        sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
-    else:
-        q, k, v = (torch.randn(b, h, l, d, device="cuda", generator=gen)
-                   .to(dtype) for _ in range(3))
-        sdpa_in = [q, k, v]
+    q, k, v = _flash_inputs(b, h, l, d, layout, dtype, gen, 3, views)
+    sdpa_in = [t.transpose(1, 2) for t in (q, k, v)] \
+        if layout == "blhd" else [q, k, v]
     kw = {"causal": causal, "layout": layout}
     out, lse = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -408,7 +498,7 @@ def flash_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
     n_bytes = 4 * b * h * l * d * _size(dtype) + 4 * b * h * l
     b_ms, b_by = bound(n_bytes, n_ops, dtype)
     rec = {"phase": "kernels", "kernel": "flash_attention",
-           "shape": [b, h, l, d], "layout": layout,
+           "shape": [b, h, l, d], "layout": layout, "views": views,
            "q_strides": list(q.stride()), "causal": causal,
            "dtype": _dname(dtype), "max_abs_err": err,
            "lse_max_abs_err": lse_err, "rtol_atol": list(FLASH_TOL[dtype]),
@@ -451,28 +541,24 @@ def _grad_timer(out, inputs, grad):
     return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
 
 
-def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
+def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen,
+                   views=True) -> dict:
     """Flash attention backward (dq, dk, dv) against its plain version on
-    the forward's own output and lse. "blhd" takes BERT's fused-QKV
-    views, as flash_case does. Library yardstick: the autograd backward
-    of F.scaled_dot_product_attention on the same inputs (timed only).
-    Operations: the five products of the causal triangle or the full
-    square; bytes: q, k, v, o, dO and lse read, dq, dk, dv written."""
+    the forward's own output and lse, on flash_case's inputs. Library
+    yardstick: the autograd backward of F.scaled_dot_product_attention on
+    the same inputs (timed only). Operations: the five products of the
+    causal triangle or the full square; bytes: q, k, v, o, dO and lse
+    read, dq, dk, dv written."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.kernels import (flash_attention_bwd,
                                          flash_attention_bwd_reference,
                                          flash_attention_fwd)
 
+    q, k, v, do = _flash_inputs(b, h, l, d, layout, dtype, gen, 4, views)
     if layout == "blhd":
-        qkv = torch.randn(b, l, 3 * h * d, device="cuda",
-                          generator=gen).to(dtype)
-        q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
-        do = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
         to_sdpa = lambda t: t.transpose(1, 2)           # noqa: E731
     else:
-        q, k, v, do = (torch.randn(b, h, l, d, device="cuda", generator=gen)
-                       .to(dtype) for _ in range(4))
         to_sdpa = lambda t: t                           # noqa: E731
     kw = {"causal": causal, "layout": layout}
     o, lse = flash_attention_fwd(q, k, v, **kw)
@@ -487,7 +573,8 @@ def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen) -> dict:
     n_bytes = 8 * b * h * l * d * _size(dtype) + 4 * b * h * l
     b_ms, b_by = bound(n_bytes, n_ops, dtype)
     rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
-           "shape": [b, h, l, d], "layout": layout, "causal": causal,
+           "shape": [b, h, l, d], "layout": layout, "views": views,
+           "causal": causal,
            "dtype": _dname(dtype), "max_abs_err": err,
            "max_err_over_max_ref": rel, "tol": BWD_TOL[dtype],
            "ok": rel <= BWD_TOL[dtype],
@@ -894,6 +981,97 @@ def adam_case(flush, gen) -> dict:
     return rec
 
 
+def _proxy1b_shapes() -> list:
+    """The trainable parameter shapes of the proxy1b Llama (tools/
+    pretrain_llama.py's config, 700.5M parameters)."""
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import llama_proxy1b
+
+    net = llama_proxy1b(ctx="cuda", dtype=torch.bfloat16)
+    shapes = [tuple(p.shape) for p in net.parameters()]
+    del net
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def adamw_case(flush, gen) -> dict:
+    """The AdamW scan and sweep over the proxy1b Llama's bf16
+    multi-precision parameter set (f32 masters and moments, bf16 grads,
+    the bf16 weights written in the same pass), with the pretraining tool's
+    hyperparameters, held bit for bit against the plain version from the
+    same state. The final norm's gradient holds a NaN and the first
+    attn_norm's an inf: both members must keep their weights and moments
+    bit for bit (no clip). Library yardstick: torch._fused_adamw_ over
+    the same members as f32 weights and f32 grads, with no bf16 weight
+    to write and no overflow scan (24 bytes per element against 30), and
+    torch.optim.AdamW's semantics (wd times the uncorrected lr, eps
+    inside the bias correction): the nearest single call, timed only.
+    Bytes: the scan reads the bf16 grad (2 per element), the sweep 28."""
+    from mxnet_tpu_torch.kernels import (adamw_sweep_reference,
+                                         fused_adamw_sweep)
+
+    shapes = _proxy1b_shapes()
+    n = sum(int(np.prod(s)) for s in shapes)
+    nan_j, inf_j = len(shapes) - 2, 1       # norm.weight, blocks.0.attn_norm
+
+    def members(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ws = [0.02 * torch.randn(s, device="cuda", generator=g)
+              for s in shapes]
+        gs = [(1e-3 * torch.randn(s, device="cuda", generator=g)).to(
+            torch.bfloat16) for s in shapes]
+        gs[nan_j].view(-1)[7] = float("nan")
+        gs[inf_j].view(-1)[3] = float("inf")
+        ms = [1e-4 * torch.randn(s, device="cuda", generator=g)
+              for s in shapes]
+        vs = [1e-8 * torch.rand(s, device="cuda", generator=g)
+              for s in shapes]
+        return ws, gs, ms, vs, [w.to(torch.bfloat16) for w in ws]
+
+    lrs = [3e-4 * (1 - 0.95 ** 3) ** 0.5 / (1 - 0.9 ** 3)] * len(shapes)
+    wds = [0.1] * len(shapes)
+    kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-6, rescale_grad=1.0)
+    a = members(6)
+    start = [[t.clone() for t in (a[0][j], a[2][j], a[3][j])]
+             for j in (nan_j, inf_j)]
+    fused_adamw_sweep(*a, lrs, wds, **kw)
+    b = members(6)
+    adamw_sweep_reference(*b, lrs, wds, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for grp in (0, 2, 3, 4)
+               for x, y in zip(a[grp], b[grp]))
+    kept = all(torch.equal(x, y) for j, old in zip((nan_j, inf_j), start)
+               for x, y in zip((a[0][j], a[2][j], a[3][j]), old))
+    err = max(float((x.float() - y.float()).abs().nan_to_num().max())
+              for grp in (0, 2, 3, 4) for x, y in zip(a[grp], b[grp]))
+    del b, start
+    ms = time_ms(lambda: fused_adamw_sweep(*a, lrs, wds, **kw), flush)
+    plain_ms = time_ms(lambda: adamw_sweep_reference(*a, lrs, wds, **kw),
+                       flush, iters=5, warmup=1)
+    ws, gs, m1, v1, _ = a
+    g32 = [g.float().nan_to_num() for g in gs]
+    steps = [torch.ones((), device="cuda") for _ in shapes]
+    library_ms = time_ms(lambda: torch._fused_adamw_(
+        ws, g32, m1, v1, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-6, amsgrad=False, maximize=False), flush)
+    # ~15 f32 operations per element in the sweep, 3 in the scan
+    b_ms, b_by = bound(30.0 * n, 18.0 * n, torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_adamw_sweep",
+           "shape": [n], "members": len(shapes), "dtype": "bfloat16-mp",
+           "bit_identical": same, "overflowed_members_kept": kept,
+           "max_abs_err": err, "ok": same and kept,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch._fused_adamw_ on f32 weights and f32 grads, "
+                      "no bf16 weight written, no scan, torch's AdamW "
+                      "semantics",
+           "bound_ms": b_ms, "bound_by": b_by, "gbytes": 30.0 * n / 1e9,
+           "bound_ms_scan": 2.0 * n / HBM_BYTES_PER_S * 1e3,
+           "bound_ms_sweep": 28.0 * n / HBM_BYTES_PER_S * 1e3}
+    emit(rec)
+    del a, ws, gs, m1, v1, g32
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _warm_card(seconds=2.0) -> None:
     """Keep the card busy with bf16 GEMMs for ``seconds`` so its clocks
     have ramped up before anything is timed."""
@@ -947,7 +1125,17 @@ def phase_kernels() -> dict:
             recs.extend(flash_drop_cases(*shape, dtype, flush, gen))
         for d in (64, 128):
             recs.append(flash_mask_case(d, dtype, flush, gen))
+        # the Llama pretraining path's shapes (proxy1b at 8 x 2048): the
+        # RMSNorm forward with its rstd and its backward, and causal
+        # flash on contiguous (8, 2048, 16, 128) heads, GQA repeated
+        recs.append(rms_case(8 * 2048, 2048, dtype, flush, gen, rstd=True))
+        recs.append(rms_bwd_case(8 * 2048, 2048, dtype, flush, gen))
+        recs.append(flash_case(8, 16, 2048, 128, True, "blhd", dtype, flush,
+                               gen, views=False))
+        recs.append(flash_bwd_case(8, 16, 2048, 128, True, "blhd", dtype,
+                                   flush, gen, views=False))
     recs.append(adam_case(flush, gen))
+    recs.append(adamw_case(flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -958,16 +1146,21 @@ def phase_kernels() -> dict:
     # (32 x 512) batch for LayerNorm with the residual (24 of its 25
     # calls per forward, 24 of 26 backward), bias+GELU and flash
     # attention on fused-QKV views, forward and backward; bf16, and the
-    # sweep over the bf16-mp parameter set
-    pick = {"fused_adam_sweep": recs[-1]}
+    # sweeps over the bf16-mp parameter sets; the RMSNorm backward at the
+    # proxy1b step's (8 x 2048, 2048)
+    pick = {r["kernel"]: r for r in recs
+            if r["kernel"] in ("fused_adam_sweep", "fused_adamw_sweep")}
     for r in recs:
         if r["dtype"] != "bfloat16":
             continue
+        if r["kernel"] == "fused_rms_norm_bwd":
+            pick["fused_rms_norm_bwd"] = r
         if r["kernel"] == "fused_layer_norm_bwd" and r["residual"]:
             pick["fused_layer_norm_bwd"] = r
         if r["kernel"] == "fused_bias_gelu_bwd":
             pick["fused_bias_gelu_bwd"] = r
-        if r["kernel"] == "flash_attention_bwd" and r["layout"] == "blhd":
+        if r["kernel"] == "flash_attention_bwd" and r["layout"] == "blhd" \
+                and r["views"]:
             pick["flash_attention_bwd"] = r
         if r["kernel"] == "fused_rms_norm" and r["shape"] == [8, 4096]:
             pick["fused_rms_norm"] = r
@@ -1198,7 +1391,8 @@ def _device_breakdown(step, steps, n_top=8) -> dict:
 _PORT_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
                  "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
                  "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
-                 "paged_decode_kernel", "dropout_kernel")
+                 "paged_decode_kernel", "dropout_kernel", "adamw_kernel",
+                 "adamw_scan_kernel")
 
 
 def _kind(name) -> str:
@@ -1576,33 +1770,43 @@ def phase_bert_serving() -> dict:
 
 def _train_wrappers() -> dict:
     from mxnet_tpu_torch.kernels import (flash_attention, flash_attention_bwd,
-                                         fused_adam_sweep, fused_bias_gelu,
+                                         fused_adam_sweep, fused_adamw_sweep,
+                                         fused_bias_gelu,
                                          fused_bias_gelu_bwd,
                                          fused_layer_norm,
-                                         fused_layer_norm_bwd, hash_dropout,
-                                         hash_dropout_bwd)
+                                         fused_layer_norm_bwd,
+                                         fused_rms_norm, fused_rms_norm_bwd,
+                                         hash_dropout, hash_dropout_bwd)
 
     return {f.__name__: f for f in (
         fused_layer_norm, fused_layer_norm_bwd, fused_bias_gelu,
         fused_bias_gelu_bwd, flash_attention, flash_attention_bwd,
-        fused_adam_sweep, hash_dropout, hash_dropout_bwd)}
+        fused_adam_sweep, hash_dropout, hash_dropout_bwd, fused_rms_norm,
+        fused_rms_norm_bwd, fused_adamw_sweep)}
+
+
+# the second counters some wrappers keep beside ``launches``
+_SUB_COUNTS = (("dropout_launches", "[dropout]"), ("scan_launches", "[scan]"))
 
 
 def _reset_train_counts() -> None:
     for f in _train_wrappers().values():
         f.launches = 0
-        if hasattr(f, "dropout_launches"):
-            f.dropout_launches = 0
+        for attr, _ in _SUB_COUNTS:
+            if hasattr(f, attr):
+                setattr(f, attr, 0)
 
 
 def _train_counts() -> dict:
-    """Each wrapper's launches, and for the LayerNorm and flash wrappers
-    also their launches with dropout, as "<name>[dropout]"."""
+    """Each training wrapper's launches; for the LayerNorm and flash
+    wrappers also their launches with dropout, as "<name>[dropout]", and
+    for the AdamW sweep its scans, as "fused_adamw_sweep[scan]"."""
     out = {}
     for name, f in _train_wrappers().items():
         out[name] = f.launches
-        if hasattr(f, "dropout_launches"):
-            out[name + "[dropout]"] = f.dropout_launches
+        for attr, suffix in _SUB_COUNTS:
+            if hasattr(f, attr):
+                out[name + suffix] = getattr(f, attr)
     return out
 
 
@@ -1618,7 +1822,8 @@ def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0) -> dict:
     drop_ln = layers if dropout > 0 else 0
     drop_attn = layers if attn_dropout > 0 else 0
     drop_op = 2 * layers + 1 if dropout > 0 else 0
-    return {"fused_layer_norm": 2 * layers + 2,
+    return {**dict.fromkeys(_train_counts(), 0),
+            "fused_layer_norm": 2 * layers + 2,
             "fused_layer_norm[dropout]": drop_ln,
             "fused_layer_norm_bwd": 2 * layers + 2,
             "fused_layer_norm_bwd[dropout]": drop_ln,
@@ -1803,6 +2008,197 @@ def phase_bert_train(dropout=0.0, attn_dropout=0.0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11-12. Llama pretraining through TrainStep with AdamW
+# ---------------------------------------------------------------------------
+
+# the pretraining tool's optimizer (mxnet_tpu_torch/tools/pretrain_llama.py)
+LLAMA_OPT = {"learning_rate": 3e-4, "wd": 0.1, "beta1": 0.9, "beta2": 0.95,
+             "multi_precision": True}
+
+
+def _llama_per_step(cfg, buckets) -> dict:
+    """Launches of each training kernel in one TrainStep of a Llama with
+    the fused CE head: two RMSNorms per layer and the final one, forward
+    and backward; one causal flash attention per layer, forward and
+    backward; one AdamW scan and sweep per dtype bucket; nothing else."""
+    layers = cfg["num_layers"]
+    return {**dict.fromkeys(_train_counts(), 0),
+            "fused_rms_norm": 2 * layers + 1,
+            "fused_rms_norm_bwd": 2 * layers + 1,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "fused_adamw_sweep": buckets, "fused_adamw_sweep[scan]": buckets}
+
+
+def _llama_glue_ms(batch=8, seq=2048, heads=16, kv_heads=8, d=128) -> dict:
+    """Device ms of two pieces of plain PyTorch glue around the kernels of
+    one proxy1b layer, forward and backward through autograd, event-timed
+    with a cold L2: rope on q and k (f32 inside, the JAX op's numerics)
+    and the repeat of k and v up to the query heads (GQA). Neither is a
+    Pallas site; this says what each costs per layer."""
+    from mxnet_tpu_torch.ops.attention import rope
+
+    def leaf(h):
+        return torch.randn(batch, seq, h, d, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+
+    q, k, v = leaf(heads), leaf(kv_heads), leaf(kv_heads)
+    gq, gk = torch.randn_like(q), torch.randn_like(k)
+    rep = heads // kv_heads
+
+    def rope_step():
+        outs = (rope(q, theta=500000.0), rope(k, theta=500000.0))
+        torch.autograd.grad(outs, (q, k), (gq, gk))
+
+    def repeat_step():
+        outs = (k.repeat_interleave(rep, dim=2),
+                v.repeat_interleave(rep, dim=2))
+        torch.autograd.grad(outs, (k, v), (gq, gq))
+
+    flush = _L2Flush()
+    return {"rope_q_k_fwd_bwd_ms": time_ms(rope_step, flush),
+            "repeat_k_v_fwd_bwd_ms": time_ms(repeat_step, flush)}
+
+
+def phase_llama_train_reference() -> None:
+    """LlamaModel(fused_ce=True) at proxy1b widths (2048 units, 7168 FFN,
+    16 heads of 128 over 8 KV heads, vocab 32768, CE chunk 8192), depth
+    cut to 2 layers, f32: three TrainStep AdamW steps with the pretraining tool's
+    optimizer on a (2, 128) batch on the card against the same weights
+    and batch on the CPU, which runs every kernel's plain version.
+    Limits, set before the first run: each step's loss within 1e-5
+    relative; each parameter's delta over the run within 1e-3 of its
+    norm, ||dw_card - dw_cpu|| / ||dw_cpu||."""
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import llama_proxy1b
+    from mxnet_tpu_torch.tools.pretrain_llama import _FusedLossPassthrough
+
+    t0 = time.perf_counter()
+    steps = 3
+    cpu_net = llama_proxy1b(num_layers=2, fused_ce=True, ctx=mx.cpu(),
+                            generator=torch.Generator().manual_seed(SEED + 5))
+    card_net = copy.deepcopy(cpu_net).cuda()
+    w0 = {k: v.detach().clone() for k, v in cpu_net.state_dict().items()}
+    toks = np.random.RandomState(SEED + 5).randint(0, 32768, (2, 129))
+    batch = ((toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)),
+             ())
+    losses, launches = {}, None
+    for name, net in (("cpu", cpu_net), ("card", card_net)):
+        step = mx.parallel.TrainStep(net, _FusedLossPassthrough(), "adamw",
+                                     loss_only=True,
+                                     optimizer_params=dict(LLAMA_OPT))
+        _reset_train_counts()
+        losses[name] = [float(step(*batch)[0]) for _ in range(steps)]
+        launches = _train_counts()            # the card's run, read last
+        buckets = len(step._buckets)
+    ratios = {}
+    card_sd = card_net.state_dict()
+    for key, start in w0.items():
+        dc = (cpu_net.state_dict()[key] - start).flatten()
+        dg = (card_sd[key].cpu() - start).flatten()
+        ratios[key] = float((dg - dc).norm()) / float(dc.norm())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                        losses["cpu"]))
+    worst = max(ratios, key=ratios.get)
+    want = {k: v * steps for k, v in _llama_per_step(
+        {"num_layers": 2}, buckets).items()}
+    emit({"phase": "llama_train_reference",
+          "model": "llama_proxy1b(num_layers=2, fused_ce=True)",
+          "dtype": "float32", "optimizer": LLAMA_OPT, "batch": [2, 128],
+          "steps": steps, "losses": losses, "loss_max_rel_diff": loss_rel,
+          "loss_tol": 1e-5, "delta_worst": [worst, ratios[worst]],
+          "delta_median": float(np.median(list(ratios.values()))),
+          "delta_tol": 1e-3, "launches": launches,
+          "launches_expected": want, "seconds": time.perf_counter() - t0})
+    if not all(np.isfinite(losses["card"])) or loss_rel > 1e-5:
+        fail(f"f32 Llama training losses on the card disagree with the "
+             f"CPU's: {losses}")
+    if not ratios[worst] <= 1e-3:
+        fail(f"f32 Llama parameter deltas on the card disagree with the "
+             f"CPU's: {worst} {ratios[worst]}")
+    if launches != want:
+        fail(f"Llama training reference launch counts {launches} are not "
+             f"{want}")
+    del cpu_net, card_net, step
+    torch.cuda.empty_cache()
+
+
+def phase_llama_train() -> dict:
+    """The proxy1b Llama (tools/pretrain_llama.py's config: 10 layers,
+    2048 units, 7168 FFN, 16 heads of 128 over 8 KV heads, vocab 32768,
+    700.5M parameters), not cut, built by the port's pretraining tool: bf16
+    weights from seed 0, fused CE head, multi-precision AdamW (lr 3e-4,
+    wd 0.1, beta 0.9 / 0.95), one (8, 2048) batch of RandomState(0)
+    tokens as the pretraining tool's _make_data draws them (bench_llama.py's
+    shape): 3 warm-up and 10 timed TrainStep calls. The loss must be
+    finite every step and fall over the run; the launches of every
+    training kernel must be exactly its per-step count times 10."""
+    import gc
+
+    from mxnet_tpu_torch.tools import pretrain_llama
+
+    # the serving and BERT phases' models may still be held by reference
+    # cycles: collect them, or the peak below counts them
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, seq, timed_steps = 8, 2048, 10
+    cfg = pretrain_llama.CONFIGS["proxy1b"]
+    net, step = pretrain_llama.build("proxy1b", ctx="cuda")
+    if net._decode_cfg["num_layers"] != 10 or net._ce_chunk != 8192:
+        fail(f"not proxy1b at full depth: {net._decode_cfg}")
+    n_params = pretrain_llama.param_count(cfg)
+    tok, lab = next(pretrain_llama._make_data(
+        "synthetic", batch, seq, cfg["vocab_size"], torch.device("cuda")))
+    warm = [float(step((tok, lab), ())[0]) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    timed, enq = [], []
+    t1 = time.perf_counter()
+    for _ in range(timed_steps):
+        timed.append(step((tok, lab), ())[0])
+        enq.append(time.perf_counter())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _train_counts()
+    losses = warm + [float(x) for x in timed]
+    per_step = _llama_per_step(cfg, len(step._buckets))
+    want = {k: v * timed_steps for k, v in per_step.items()}
+    tokens_s = batch * seq * timed_steps / wall
+    out = {"phase": "llama_train", "model": "LlamaModel(fused_ce=True), "
+           "proxy1b", "dtype": "bfloat16, multi-precision adamw",
+           "optimizer": LLAMA_OPT, "params": n_params,
+           "params_counted": sum(p.numel() for p in net.parameters()),
+           "config": cfg, "batch": [batch, seq], "steps": timed_steps,
+           "ms_per_step": wall * 1e3 / timed_steps,
+           "tokens_per_s": tokens_s,
+           "mfu": 6.0 * n_params * tokens_s / 989e12,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses, "launches": launches,
+           "launches_expected": want, "launches_per_step": per_step,
+           "enqueue_ms": [1e3 * (b - a) for a, b in zip([t1] + enq, enq)],
+           "buckets": [(len(b.members), str(b.wdtype), b.mp)
+                       for b in step._buckets]}
+    out["step_breakdown"] = _device_breakdown(lambda: step((tok, lab), ()),
+                                              2, n_top=16)
+    out["glue_per_layer"] = _llama_glue_ms()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"bf16 proxy1b training loss is not finite or did not fall: "
+             f"{losses}")
+    if launches != want:
+        fail(f"proxy1b training launch counts {launches} are not {want} "
+             f"({per_step} per step)")
+    del step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -1821,6 +2217,8 @@ def main() -> None:
     train_drop = phase_bert_train(dropout=0.1, attn_dropout=0.1)
     phase_bert_train(dropout=0.1, attn_dropout=0.1)
     phase_bert_train()
+    phase_llama_train_reference()
+    llama = phase_llama_train()
     tpu = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -1838,6 +2236,11 @@ def main() -> None:
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:914"),
         "fused_adam_sweep": ("fused_optimizer.cu", "fused_optimizer.py:128"),
+        # row 9 in RMS mode, reached through _rms_bwd (:479)
+        "fused_rms_norm_bwd": ("layer_norm.cu", "fused_layers.py:361"),
+        # row 12 for the adamw family: its scan and its sweep
+        "fused_adamw_sweep": ("fused_optimizer.cu",
+                              "fused_optimizer.py:128"),
         # the dropout modes of rows 1', 9, 3-4 and 5-8
         "fused_layer_norm[dropout]": ("layer_norm.cu", "fused_layers.py:323"),
         "fused_layer_norm_bwd[dropout]": ("layer_norm.cu",
@@ -1857,6 +2260,14 @@ def main() -> None:
             "flash_attention_bwd[dropout]": ["flash_attention.py:937",
                                              "flash_attention.py:959",
                                              "flash_attention.py:977"]}
+    notes = {
+        "hash_dropout": "not a Pallas site: dropout_op's hash branch, "
+                        "which XLA fuses into its neighbours",
+        "fused_rms_norm_bwd": "_norm_bwd_pallas in RMS mode, reached "
+                              "through _rms_bwd (fused_layers.py:479)",
+        "fused_adamw_sweep": "the adamw family: one overflow scan and one "
+                             "sweep per bucket; ms and bound_ms cover both "
+                             "launches"}
     kernels = []
     for name, (src, site) in replaces.items():
         r = picks[name]
@@ -1865,8 +2276,12 @@ def main() -> None:
             by_path["serving"] = serving[name]
         if name in train and train[name]:
             by_path["bert_train"] = train[name]
-        if name in train_drop:
+        if train_drop.get(name):
             by_path["bert_train_dropout"] = train_drop[name]
+        if llama.get(name):
+            by_path["llama_train"] = llama[name]
+        if name == "fused_adamw_sweep":
+            by_path["llama_train[scan]"] = llama[name + "[scan]"]
         launches = next(iter(by_path.values()))
         if name == "hash_dropout":
             # one kernel for the op's forward and backward wrappers
@@ -1884,9 +2299,8 @@ def main() -> None:
                "shape": r["shape"], "dtype": r["dtype"]}
         if name in also:
             rec["also_replaces"] = [tpu + x for x in also[name]]
-        if name == "hash_dropout":
-            rec["note"] = ("not a Pallas site: dropout_op's hash branch, "
-                           "which XLA fuses into its neighbours")
+        if name in notes:
+            rec["note"] = notes[name]
         kernels.append(rec)
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})

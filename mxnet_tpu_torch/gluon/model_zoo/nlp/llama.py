@@ -7,28 +7,31 @@ Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/llama.py``. The blocks are
 (out, in), the same as ``nn.Linear``'s, so :mod:`mxnet_tpu_torch.convert`
 carries weights across unchanged.
 
-This slice ports the serving path only: :class:`LlamaDecodeEngine` and
-:func:`_paged_forward`. The full-sequence ``forward`` (causal flash
-attention, the training path) comes with the training slice and raises
-until then.
+Two paths: the serving path, :class:`LlamaDecodeEngine` over
+:func:`_paged_forward`, and the full-sequence causal ``forward`` that
+pretraining runs under autograd (``parallel.TrainStep``): causal flash
+attention in the "blhd" layout with the KV heads repeated up to the
+query heads, RMSNorm through its forward and backward kernels, and with
+``fused_ce`` the fused projection + cross-entropy head.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ....base import torch_dtype
+from ....base import MXNetError, torch_dtype
 from ....context import resolve_device
-from ....ops.attention import paged_attention, rms_norm, rope_at
+from ....ops.attention import (paged_attention, rms_norm, rope, rope_at,
+                               sdp_attention)
+from ....ops.fused_loss import softmax_ce_head
 
 __all__ = ["RMSNorm", "LlamaAttention", "LlamaMLP", "LlamaBlock",
-           "LlamaModel", "LlamaDecodeEngine", "llama_tiny", "llama_3_8b"]
-
-_TRAINING_SLICE = ("the full-sequence forward (causal flash attention) "
-                   "comes with the training slice: ROADMAP.md, port "
-                   "queue 1, item 'Training path'")
+           "LlamaModel", "LlamaDecodeEngine", "llama_tiny", "llama_3_8b",
+           "llama_proxy1b"]
 
 
 class RMSNorm(nn.Module):
@@ -63,7 +66,23 @@ class LlamaAttention(nn.Module):
         self.out_proj = nn.Linear(units, units, **kw)
 
     def forward(self, x):
-        raise NotImplementedError(_TRAINING_SLICE)
+        """(B, L, units) -> (B, L, units), causal, with rope on q and k
+        (the JAX ``LlamaAttention.hybrid_forward``, ``llama.py:65-83``);
+        the (B, L, H, D) heads go to attention as they are ("blhd")."""
+        b, l = x.shape[0], x.shape[1]
+        d = self.head_dim
+        q = self.q_proj(x).reshape(b, l, self.num_heads, d)
+        kv = self.kv_proj(x).reshape(b, l, 2 * self.num_kv_heads, d)
+        k, v = kv[:, :, :self.num_kv_heads], kv[:, :, self.num_kv_heads:]
+        q = rope(q, theta=self.rope_theta)
+        k = rope(k, theta=self.rope_theta)
+        if self.num_kv_heads != self.num_heads:
+            # F.repeat(k, repeats=rep, axis=1) in the JAX (B, H, L, D)
+            rep = self.num_heads // self.num_kv_heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = sdp_attention(q, k, v, causal=True, layout="blhd")
+        return self.out_proj(out.reshape(b, l, self.num_heads * d))
 
 
 class LlamaMLP(nn.Module):
@@ -96,6 +115,20 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+def _best_ce_chunk(vocab, target=8192):
+    """Largest divisor of ``vocab`` <= target (the fused-CE tile that
+    keeps the head free of vocabulary padding, e.g. 8192 for 32768 and
+    8016 for Llama-3's 128256); a vocab <= target is its own chunk. Only
+    when every divisor is degenerate (< target/4, a large near-prime
+    vocab) fall back to ``target`` and the padded head (the JAX
+    ``_best_ce_chunk``, ``llama.py:122-132``)."""
+    if vocab <= target:
+        return vocab
+    for c in range(target, 0, -1):
+        if vocab % c == 0:  # c=1 always divides, so this always returns
+            return c if c >= target // 4 else target
+
+
 class LlamaModel(nn.Module):
     """Decoder-only causal LM.
 
@@ -105,13 +138,36 @@ class LlamaModel(nn.Module):
     draws the initial weights, N(0, 0.02) for the projections and the
     embedding and ones for the norms; ``None`` uses torch's default
     generator. The modules are built on the meta device first, so a
-    Llama-3-8B in bf16 is materialised once, on its device."""
+    Llama-3-8B in bf16 is materialised once, on its device.
+
+    ``fused_ce``: ``forward(tokens, labels)`` returns the per-token loss
+    through the fused projection + CE head over vocabulary chunks of
+    ``ce_chunk`` (default: the largest divisor of the vocabulary up to
+    8192), and the (B, L, vocab) logits never exist; otherwise
+    ``forward(tokens)`` returns the logits. ``remat`` (per-block
+    rematerialisation) is not ported: only False or None."""
 
     def __init__(self, vocab_size=128256, num_layers=32, units=4096,
                  hidden_size=14336, num_heads=32, num_kv_heads=8,
-                 rope_theta=500000.0, eps=1e-5, ctx=None,
+                 rope_theta=500000.0, eps=1e-5, remat=False,
+                 fused_ce=False, ce_chunk=None, ctx=None,
                  dtype=torch.float32, generator=None):
         super().__init__()
+        if remat not in (False, None):
+            raise MXNetError(f"LlamaModel: remat={remat!r} is not ported "
+                             "yet (ROADMAP.md, port queue 1, item 8)")
+        self._fused_ce = bool(fused_ce)
+        if ce_chunk and vocab_size % int(ce_chunk):
+            best = _best_ce_chunk(vocab_size)
+            warnings.warn(
+                f"ce_chunk={ce_chunk} does not divide vocab_size="
+                f"{vocab_size}: the fused CE head takes the padded "
+                "fallback with a vocab-sized synthetic-bias gradient"
+                + (f"; a dividing chunk exists ({best})"
+                   if vocab_size % best == 0 else ""),
+                stacklevel=2)
+        self._ce_chunk = int(ce_chunk) if ce_chunk else \
+            _best_ce_chunk(vocab_size)
         device = resolve_device(ctx)
         num_kv = num_kv_heads or num_heads
         # architecture record for the paged decode engine
@@ -141,8 +197,22 @@ class LlamaModel(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, tokens):
-        raise NotImplementedError(_TRAINING_SLICE)
+    def forward(self, tokens, labels=None):
+        """``tokens`` (B, L) integer ids; the (B, L, vocab) logits, or
+        with ``fused_ce`` the (B, L) f32 per-token loss against
+        ``labels`` (B, L)."""
+        x = self.embed(tokens)
+        for blk in self.blocks:
+            x = blk(x)
+        h = self.norm(x)
+        if self._fused_ce:
+            if labels is None:
+                raise ValueError(
+                    "LlamaModel(fused_ce=True) takes (tokens, labels) and "
+                    "returns the per-token loss")
+            return softmax_ce_head(h, self.lm_head.weight, None, labels,
+                                   chunk=self._ce_chunk)
+        return self.lm_head(h)
 
     def decode_engine(self, pool, dtype="float32") -> "LlamaDecodeEngine":
         """The paged-KV decode engine for serving (the seam
@@ -319,6 +389,17 @@ def llama_tiny(**kwargs) -> LlamaModel:
     """Test-sized config (the JAX package's ``llama_tiny``)."""
     cfg = dict(vocab_size=256, num_layers=2, units=64, hidden_size=128,
                num_heads=4, num_kv_heads=2, rope_theta=10000.0)
+    cfg.update(kwargs)
+    return LlamaModel(**cfg)
+
+
+def llama_proxy1b(**kwargs) -> LlamaModel:
+    """The ~0.7B single-card proxy of the Llama-3-8B recipe (the JAX
+    ``tools/pretrain_llama.py`` config ``proxy1b``): GQA 2:1 over heads
+    of 128, SwiGLU, an untied head, rope theta 5e5."""
+    cfg = dict(vocab_size=32768, num_layers=10, units=2048,
+               hidden_size=7168, num_heads=16, num_kv_heads=8,
+               rope_theta=500000.0)
     cfg.update(kwargs)
     return LlamaModel(**cfg)
 

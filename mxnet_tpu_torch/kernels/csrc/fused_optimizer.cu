@@ -31,6 +31,29 @@
 // the formula): every product, sum, square root and quotient is an
 // explicitly rounded intrinsic (__fmul_rn, __fadd_rn, __fsqrt_rn,
 // __fdiv_rn), so nvcc cannot contract a*b+c into an FMA.
+//
+// The AdamW family (mx_adamw_scan + mx_adamw_sweep) replaces the same
+// pallas_call running `_adamw_elem` (multi_tensor.py:356-372) after the
+// per-member overflow scan (:474-491), MXNet's contrib adamw.cc
+// semantics rather than torch.optim.AdamW's:
+//
+//   g  = g * rescale  (clipped when clip >= 0; no wd term)
+//   ok = every element of the member's g is finite      (the scan)
+//   m  = b1 * m + (1 - b1) * g
+//   v  = b2 * v + (1 - b2) * g * g
+//   w  = w - 1.0 * (lr * m / (sqrt(v) + eps) + wd * lr * w)
+//   where !ok: w, m and v keep their old values      [w_low = bf16(w)]
+//
+// lr is the bias-corrected rate (the correction folded in per member),
+// so wd multiplies it. The states are f32 whatever the weight's dtype
+// (AdamW.create_state). Two launches per bucket over the same member
+// table: the scan, where a CTA that sees a non-finite g stores 0 into
+// its member's on-device int32 flag (started at 1; every writer writes
+// the same value, so the race is benign), then the sweep, which reads
+// the flag. Clipping maps +-inf to +-clip, which passes; NaN passes the
+// clip and fails, as jnp.clip then jnp.isfinite do. The flags stay on
+// the card. The scan reads 2 bytes per element of a bf16-mp bucket, the
+// sweep 28, as Adam's.
 #include <cstdint>
 
 #include "common.cuh"
@@ -45,12 +68,10 @@ struct Hyper {
   float b1, omb1, b2, omb2, eps, rescale, clip;  // clip < 0: none
 };
 
-template <typename TW, typename TG>
-__global__ void __launch_bounds__(kThreads)
-    adam_kernel(const long long* __restrict__ members,
-                const float* __restrict__ lr_wd, int n_members, Hyper hp) {
-  // this CTA's member: the last one whose first chunk is <= blockIdx.x
-  // (an empty member shares its first chunk with the next one)
+// This CTA's member: the last one whose first chunk is <= blockIdx.x
+// (an empty member shares its first chunk with the next one).
+__device__ __forceinline__ int find_member(
+    const long long* __restrict__ members, int n_members) {
   int j = 0;
   for (int hi = n_members - 1; j < hi;) {
     const int mid = (j + hi + 1) / 2;
@@ -59,6 +80,21 @@ __global__ void __launch_bounds__(kThreads)
     else
       hi = mid - 1;
   }
+  return j;
+}
+
+__device__ __forceinline__ float rescale_clip(float g, const Hyper& hp) {
+  float gi = __fmul_rn(g, hp.rescale);
+  if (hp.clip >= 0.f)  // NaN passes through, as jnp.clip / torch.clamp
+    gi = gi < -hp.clip ? -hp.clip : (gi > hp.clip ? hp.clip : gi);
+  return gi;
+}
+
+template <typename TW, typename TG>
+__global__ void __launch_bounds__(kThreads)
+    adam_kernel(const long long* __restrict__ members,
+                const float* __restrict__ lr_wd, int n_members, Hyper hp) {
+  const int j = find_member(members, n_members);
   const long long* mem = members + kFields * j;
   const long long start = (blockIdx.x - mem[6]) * kChunk;
   TW* w = reinterpret_cast<TW*>(mem[0]);
@@ -72,9 +108,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long end = min(n, start + kChunk);
 #pragma unroll 4
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    float gi = __fmul_rn(mxk::to_f(g[i]), hp.rescale);
-    if (hp.clip >= 0.f)  // NaN passes through, as jnp.clip / torch.clamp
-      gi = gi < -hp.clip ? -hp.clip : (gi > hp.clip ? hp.clip : gi);
+    float gi = rescale_clip(mxk::to_f(g[i]), hp);
     const float wi = mxk::to_f(w[i]);
     gi = __fadd_rn(gi, __fmul_rn(wd, wi));
     const float mi = __fadd_rn(__fmul_rn(hp.b1, mxk::to_f(m[i])),
@@ -86,6 +120,65 @@ __global__ void __launch_bounds__(kThreads)
     w[i] = mxk::from_f<TW>(wn);
     m[i] = mxk::from_f<TW>(mi);
     v[i] = mxk::from_f<TW>(vi);
+    if (low != nullptr) low[i] = __float2bfloat16_rn(wn);
+  }
+}
+
+// The AdamW overflow scan: ok[j] = 0 when this CTA's chunk of member j
+// holds a g that is not finite after the rescale and the clip.
+template <typename TG>
+__global__ void __launch_bounds__(kThreads)
+    adamw_scan_kernel(const long long* __restrict__ members,
+                      int* __restrict__ ok, int n_members, Hyper hp) {
+  const int j = find_member(members, n_members);
+  const long long* mem = members + kFields * j;
+  const long long start = (blockIdx.x - mem[6]) * kChunk;
+  const TG* g = reinterpret_cast<const TG*>(mem[1]);
+  const long long end = min(mem[5], start + kChunk);
+  int bad = 0;
+#pragma unroll 4
+  for (long long i = start + threadIdx.x; i < end; i += kThreads)
+    bad |= !isfinite(rescale_clip(mxk::to_f(g[i]), hp));
+  if (__syncthreads_or(bad) && threadIdx.x == 0) ok[j] = 0;
+}
+
+// The AdamW sweep; the states m and v are f32 whatever TW is.
+template <typename TW, typename TG>
+__global__ void __launch_bounds__(kThreads)
+    adamw_kernel(const long long* __restrict__ members,
+                 const float* __restrict__ lr_wd,
+                 const int* __restrict__ ok, int n_members, Hyper hp) {
+  const int j = find_member(members, n_members);
+  const long long* mem = members + kFields * j;
+  const long long start = (blockIdx.x - mem[6]) * kChunk;
+  TW* w = reinterpret_cast<TW*>(mem[0]);
+  const TG* g = reinterpret_cast<const TG*>(mem[1]);
+  float* m = reinterpret_cast<float*>(mem[2]);
+  float* v = reinterpret_cast<float*>(mem[3]);
+  __nv_bfloat16* low = reinterpret_cast<__nv_bfloat16*>(mem[4]);
+  const long long n = mem[5];
+  const float lr = lr_wd[2 * j];
+  const float wd_lr = __fmul_rn(lr_wd[2 * j + 1], lr);
+  const bool keep = ok[j] == 0;      // an overflowed member stays as it is
+  const long long end = min(n, start + kChunk);
+#pragma unroll 4
+  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
+    const float wi = mxk::to_f(w[i]);
+    if (keep) {
+      if (low != nullptr) low[i] = __float2bfloat16_rn(wi);
+      continue;
+    }
+    const float gi = rescale_clip(mxk::to_f(g[i]), hp);
+    const float mi = __fadd_rn(__fmul_rn(hp.b1, m[i]), __fmul_rn(hp.omb1, gi));
+    const float vi = __fadd_rn(__fmul_rn(hp.b2, v[i]),
+                               __fmul_rn(hp.omb2, __fmul_rn(gi, gi)));
+    const float step = __fadd_rn(
+        __fdiv_rn(__fmul_rn(lr, mi), __fadd_rn(__fsqrt_rn(vi), hp.eps)),
+        __fmul_rn(wd_lr, wi));
+    const float wn = __fsub_rn(wi, step);
+    w[i] = mxk::from_f<TW>(wn);
+    m[i] = mi;
+    v[i] = vi;
     if (low != nullptr) low[i] = __float2bfloat16_rn(wn);
   }
 }
@@ -120,6 +213,60 @@ extern "C" int mx_adam_sweep(const long long* members, const float* lr_wd,
   else if (w_dtype == mxk::kBFloat16 && g_dtype == mxk::kBFloat16)
     adam_kernel<bf16, bf16>
         <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, n_members, hp);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The AdamW scan. members: the table mx_adam_sweep reads (w, g, m, v,
+// w_low, n, first chunk); ok: (n_members,) int32 on the device, all 1 on
+// entry, 0 on return for each member whose g holds a value that is not
+// finite after the rescale and the clip (clip < 0: none). Returns
+// cudaGetLastError() after the launch.
+extern "C" int mx_adamw_scan(const long long* members, int* ok,
+                             int n_members, int n_blocks, float rescale,
+                             float clip, int g_dtype, void* stream) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_blocks < 1 || n_members < 1) return static_cast<int>(cudaSuccess);
+  const Hyper hp{0.f, 0.f, 0.f, 0.f, 0.f, rescale, clip};
+  if (g_dtype == mxk::kFloat32)
+    adamw_scan_kernel<float>
+        <<<n_blocks, kThreads, 0, s>>>(members, ok, n_members, hp);
+  else if (g_dtype == mxk::kBFloat16)
+    adamw_scan_kernel<bf16>
+        <<<n_blocks, kThreads, 0, s>>>(members, ok, n_members, hp);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The AdamW sweep, after mx_adamw_scan filled ``ok``. members, lr_wd,
+// n_blocks and the hyperparameters as for mx_adam_sweep (lr with the
+// bias correction folded in); the states m and v are f32, w is f32 (the
+// master of a multi-precision bucket) with f32 or bf16 grads, or bf16
+// with bf16 grads. Updates in place; returns cudaGetLastError() after
+// the launch.
+extern "C" int mx_adamw_sweep(const long long* members, const float* lr_wd,
+                              const int* ok, int n_members, int n_blocks,
+                              float beta1, float one_minus_beta1,
+                              float beta2, float one_minus_beta2, float eps,
+                              float rescale, float clip, int w_dtype,
+                              int g_dtype, void* stream) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_blocks < 1 || n_members < 1) return static_cast<int>(cudaSuccess);
+  const Hyper hp{beta1, one_minus_beta1, beta2, one_minus_beta2,
+                 eps,   rescale,         clip};
+  if (w_dtype == mxk::kFloat32 && g_dtype == mxk::kFloat32)
+    adamw_kernel<float, float>
+        <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, ok, n_members, hp);
+  else if (w_dtype == mxk::kFloat32 && g_dtype == mxk::kBFloat16)
+    adamw_kernel<float, bf16>
+        <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, ok, n_members, hp);
+  else if (w_dtype == mxk::kBFloat16 && g_dtype == mxk::kBFloat16)
+    adamw_kernel<bf16, bf16>
+        <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, ok, n_members, hp);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

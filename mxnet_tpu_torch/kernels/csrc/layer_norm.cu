@@ -44,6 +44,17 @@
 // f32(1 / (1 - p)) : 0 and the residual's gradient dh is a separate
 // output, dres (`_norm_bwd_kernel`'s dres, :257, :290-291); the keep bits
 // of a thread's columns stay in one register between the two passes.
+//
+// mx_rms_norm_bwd is the same kernel in RMS mode (the `Rms` instances),
+// replacing `_norm_bwd_kernel` with rms=True, no residual, no dropout
+// (reached through `_rms_bwd`, fused_layers.py:479-486), the backward of
+// rms_norm.cu's forward: xhat = x * rstd from the forward's saved f32
+// rstd, in f32 and not rounded to x's dtype (the forward rounds it, the
+// Pallas backward does not); wdy = dy * w; dx = rstd * (wdy - xhat *
+// mean(wdy * xhat)) in x's dtype; one f32 partial row of dw = sum(dy *
+// xhat) per CTA. dy comes in the forward output's dtype, result_type(x,
+// w). Its bytes bound it as the LayerNorm backward's do: x and dy read,
+// dx written, once.
 #include "common.cuh"
 #include "hash_dropout.cuh"
 
@@ -200,16 +211,20 @@ cudaError_t launch(const void* x, const void* res, const void* gamma,
 // with 16-byte accesses, or 1 for any D and alignment).
 // Drop: dx is the dropped dh and dres (if not null) gets dh; the keep
 // bits of the thread's CPT * C <= 32 elements are kept in ``kbits``.
-template <typename TX, typename TW, int C, int CPT, bool Drop>
+// Rms: no mean, no mean(wdy) term and no db (mean and db_part unread);
+// dy is TY, the forward output's dtype (TX in LayerNorm mode).
+template <typename TX, typename TW, typename TY, int C, int CPT, bool Drop,
+          bool Rms>
 __global__ void __launch_bounds__(kMaxThreads)
     ln_bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                   const TW* __restrict__ gamma,
                   const float* __restrict__ mean,
-                  const float* __restrict__ rstd, const TX* __restrict__ dy,
+                  const float* __restrict__ rstd, const TY* __restrict__ dy,
                   TX* __restrict__ dx, TX* __restrict__ dres,
                   float* __restrict__ dg_part, float* __restrict__ db_part,
                   int rows, int d, mxk::Dropout dr) {
   static_assert(!Drop || CPT * C <= 32, "keep bits exceed one register");
+  static_assert(!(Drop && Rms), "RMS mode has no dropout");
   __shared__ float scratch1[32];
   __shared__ float scratch2[32];
   const int chunks = d / C;
@@ -221,7 +236,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int r = blockIdx.x; r < rows; r += gridDim.x) {
     const size_t row = static_cast<size_t>(r) * d;
-    const float mu = mean[r];
+    const float mu = Rms ? 0.f : mean[r];
     const float rs = rstd[r];
     float xh[CPT][C], w[CPT][C];
     float s1 = 0.f, s2 = 0.f;
@@ -249,20 +264,23 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
           for (int e = 0; e < C; ++e) h[e] += rv[e];
         }
-        mxk::load_f<TX, C>(dy + row + c * C, gy);
+        mxk::load_f<TY, C>(dy + row + c * C, gy);
         mxk::load_f<TW, C>(gamma + c * C, g);
 #pragma unroll
         for (int e = 0; e < C; ++e) {
           xh[i][e] = (h[e] - mu) * rs;
           w[i][e] = gy[e] * g[e];
-          s1 += w[i][e];
           s2 += w[i][e] * xh[i][e];
           dg[i][e] += gy[e] * xh[i][e];
-          db[i][e] += gy[e];
+          if constexpr (!Rms) {
+            s1 += w[i][e];
+            db[i][e] += gy[e];
+          }
         }
       }
     }
-    const float m1 = mxk::block_sum(s1, scratch1) / static_cast<float>(d);
+    const float m1 =
+        Rms ? 0.f : mxk::block_sum(s1, scratch1) / static_cast<float>(d);
     const float m2 = mxk::block_sum(s2, scratch2) / static_cast<float>(d);
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
@@ -291,13 +309,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int e = 0; e < C; ++e) {
         dg_part[part + c * C + e] = dg[i][e];
-        db_part[part + c * C + e] = db[i][e];
+        if constexpr (!Rms) db_part[part + c * C + e] = db[i][e];
       }
     }
   }
 }
 
-template <typename TX, typename TW, bool Drop>
+template <typename TX, typename TW, typename TY, bool Drop, bool Rms>
 cudaError_t launch_bwd(const void* x, const void* res, const void* gamma,
                        const float* mean, const float* rstd, const void* dy,
                        void* dx, void* dres, float* dg_part, float* db_part,
@@ -306,14 +324,14 @@ cudaError_t launch_bwd(const void* x, const void* res, const void* gamma,
   const TX* xp = static_cast<const TX*>(x);
   const TX* rp = static_cast<const TX*>(res);
   const TW* gp = static_cast<const TW*>(gamma);
-  const TX* dyp = static_cast<const TX*>(dy);
+  const TY* dyp = static_cast<const TY*>(dy);
   TX* dxp = static_cast<TX*>(dx);
   TX* drp = static_cast<TX*>(dres);
   // at most 256 threads, each with CPT chunks: the fewest chunks per
   // thread that cover the row (d <= 8192)
   const int chunks = vec ? d / kChunk : d;
 #define MX_LN_BWD(C, CPT)                                                   \
-  ln_bwd_kernel<TX, TW, C, CPT, Drop>                                       \
+  ln_bwd_kernel<TX, TW, TY, C, CPT, Drop, Rms>                              \
       <<<n_blocks, mxk::row_threads((chunks + CPT - 1) / CPT, kMaxThreads), \
          0, stream>>>(xp, rp, gp, mean, rstd, dyp, dxp, drp, dg_part,       \
                       db_part, rows, d, dr)
@@ -394,12 +412,12 @@ extern "C" int mx_layer_norm_bwd(const void* x, const void* res,
   if (d < 1 || d > 8192 || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
 #define MX_LN_BWD_T(TX, TW)                                                 \
-  return drop ? launch_bwd<TX, TW, true>(x, res, gamma, mean, rstd, dy, dx, \
-                                         dres, dg_part, db_part, rows, d,   \
-                                         n_blocks, v, dr, s)                \
-              : launch_bwd<TX, TW, false>(x, res, gamma, mean, rstd, dy,    \
-                                          dx, dres, dg_part, db_part, rows, \
-                                          d, n_blocks, v, dr, s)
+  return drop ? launch_bwd<TX, TW, TX, true, false>(                        \
+                   x, res, gamma, mean, rstd, dy, dx, dres, dg_part,        \
+                   db_part, rows, d, n_blocks, v, dr, s)                    \
+              : launch_bwd<TX, TW, TX, false, false>(                       \
+                    x, res, gamma, mean, rstd, dy, dx, dres, dg_part,       \
+                    db_part, rows, d, n_blocks, v, dr, s)
   if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32) {
     MX_LN_BWD_T(float, float);
   }
@@ -413,5 +431,43 @@ extern "C" int mx_layer_norm_bwd(const void* x, const void* res,
     MX_LN_BWD_T(float, bf16);
   }
 #undef MX_LN_BWD_T
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// RMSNorm backward (the Rms instances). x, dx: (rows, d) contiguous in
+// x's dtype; w: (d,); rstd: (rows,) f32 from mx_rms_norm_fwd; dy: (rows,
+// d) in result_type(x, w); dw_part: (n_blocks, d) f32, one partial row
+// per CTA (the caller sums them). vec != 0 requires d % 8 == 0 and
+// 16-byte aligned x, w, dy and dx; d <= 8192 either way. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mx_rms_norm_bwd(const void* x, const void* w,
+                               const float* rstd, const void* dy, void* dx,
+                               float* dw_part, int rows, int d, int n_blocks,
+                               int x_dtype, int w_dtype, int vec,
+                               void* stream) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool v = vec != 0;
+  const mxk::Dropout none{0u, 0u, 1.f};
+  if (d < 1 || d > 8192 || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define MX_RMS_BWD_T(TX, TW, TY)                                          \
+  return launch_bwd<TX, TW, TY, false, true>(x, nullptr, w, nullptr, rstd, \
+                                             dy, dx, nullptr, dw_part,     \
+                                             nullptr, rows, d, n_blocks, v, \
+                                             none, s)
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32) {
+    MX_RMS_BWD_T(float, float, float);
+  }
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16) {
+    MX_RMS_BWD_T(bf16, bf16, bf16);
+  }
+  if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32) {
+    MX_RMS_BWD_T(bf16, float, float);
+  }
+  if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16) {
+    MX_RMS_BWD_T(float, bf16, float);
+  }
+#undef MX_RMS_BWD_T
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,7 +18,12 @@
 // Numerics match the JAX kernel exactly in structure: f32 statistics,
 // rstd = rsqrt(mean(x^2) + eps), xhat rounded to x's dtype BEFORE the
 // multiply by weight (fused_layers.py:218-223), output in
-// result_type(x, weight) (fused_layers.py:312-314).
+// result_type(x, weight) (fused_layers.py:312-314). The optional f32
+// per-row rstd output is what the backward recomputes xhat from (the
+// JAX `_rms_fwd` saves the same, :473-476); serving passes a null
+// pointer and writes nothing more. The backward is the `Rms` instance of
+// layer_norm.cu's ln_bwd_kernel (mx_rms_norm_bwd), as the JAX package
+// has one `_norm_bwd_kernel` with an rms flag.
 #include "common.cuh"
 
 namespace {
@@ -30,7 +35,8 @@ constexpr int kMaxThreads = 256;   // 256 * 4 * 8 = 8192 = max D
 template <typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kMaxThreads)
     rms_norm_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                        TO* __restrict__ out, int d, float eps) {
+                        TO* __restrict__ out, float* __restrict__ rstd_out,
+                        int d, float eps) {
   __shared__ float scratch[32];
   const int chunks = d / kChunk;
   const TX* xr = x + static_cast<size_t>(blockIdx.x) * d;
@@ -62,6 +68,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       mxk::store_f<TO, kChunk>(orow + c * kChunk, o);
     }
   }
+  if (rstd_out != nullptr && threadIdx.x == 0) rstd_out[blockIdx.x] = rstd;
 }
 
 // Any D (not a multiple of 8, or unaligned rows): scalar loads, the row
@@ -70,7 +77,7 @@ template <typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kMaxThreads)
     rms_norm_scalar_kernel(const TX* __restrict__ x,
                            const TW* __restrict__ w, TO* __restrict__ out,
-                           int d, float eps) {
+                           float* __restrict__ rstd_out, int d, float eps) {
   __shared__ float scratch[32];
   const TX* xr = x + static_cast<size_t>(blockIdx.x) * d;
   TO* orow = out + static_cast<size_t>(blockIdx.x) * d;
@@ -86,11 +93,13 @@ __global__ void __launch_bounds__(kMaxThreads)
         mxk::round_to<TX>(mxk::to_f(xr[j]) * rstd) * mxk::to_f(w[j]);
     orow[j] = mxk::from_f<TO>(o);
   }
+  if (rstd_out != nullptr && threadIdx.x == 0) rstd_out[blockIdx.x] = rstd;
 }
 
 template <typename TX, typename TW, typename TO>
-cudaError_t launch(const void* x, const void* w, void* out, int rows, int d,
-                   float eps, bool vec, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, void* out, float* rstd,
+                   int rows, int d, float eps, bool vec,
+                   cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TW* wp = static_cast<const TW*>(w);
   TO* op = static_cast<TO*>(out);
@@ -99,34 +108,36 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int d,
     int threads = ((chunks + 31) / 32) * 32;
     if (threads > kMaxThreads) threads = kMaxThreads;
     rms_norm_vec_kernel<TX, TW, TO>
-        <<<rows, threads, 0, stream>>>(xp, wp, op, d, eps);
+        <<<rows, threads, 0, stream>>>(xp, wp, op, rstd, d, eps);
   } else {
     int threads = ((d + 31) / 32) * 32;
     if (threads > kMaxThreads) threads = kMaxThreads;
     rms_norm_scalar_kernel<TX, TW, TO>
-        <<<rows, threads, 0, stream>>>(xp, wp, op, d, eps);
+        <<<rows, threads, 0, stream>>>(xp, wp, op, rstd, d, eps);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (rows, d) contiguous; w: (d,); out: (rows, d) in result_type(x, w).
-// vec != 0 requires d % 8 == 0, d <= 8192 and 16-byte aligned x, w, out.
-// Returns cudaGetLastError() after the launch.
+// x: (rows, d) contiguous; w: (d,); out: (rows, d) in result_type(x, w);
+// rstd: (rows,) f32, or null to skip it. vec != 0 requires d % 8 == 0,
+// d <= 8192 and 16-byte aligned x, w, out. Returns cudaGetLastError()
+// after the launch.
 extern "C" int mx_rms_norm_fwd(const void* x, const void* w, void* out,
-                               int rows, int d, float eps, int x_dtype,
-                               int w_dtype, int vec, void* stream) {
+                               float* rstd, int rows, int d, float eps,
+                               int x_dtype, int w_dtype, int vec,
+                               void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool v = vec != 0;
   if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kFloat32)
-    return launch<float, float, float>(x, w, out, rows, d, eps, v, s);
+    return launch<float, float, float>(x, w, out, rstd, rows, d, eps, v, s);
   if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kBFloat16)
-    return launch<bf16, bf16, bf16>(x, w, out, rows, d, eps, v, s);
+    return launch<bf16, bf16, bf16>(x, w, out, rstd, rows, d, eps, v, s);
   if (x_dtype == mxk::kBFloat16 && w_dtype == mxk::kFloat32)
-    return launch<bf16, float, float>(x, w, out, rows, d, eps, v, s);
+    return launch<bf16, float, float>(x, w, out, rstd, rows, d, eps, v, s);
   if (x_dtype == mxk::kFloat32 && w_dtype == mxk::kBFloat16)
-    return launch<float, bf16, float>(x, w, out, rows, d, eps, v, s);
+    return launch<float, bf16, float>(x, w, out, rstd, rows, d, eps, v, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

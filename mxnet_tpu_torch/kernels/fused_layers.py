@@ -3,14 +3,16 @@ epilogue, each a hand-written CUDA kernel beside its plain PyTorch
 version.
 
 Counterpart of ``mxnet_tpu/pallas_kernels/fused_layers.py``:
-``_norm_fwd_kernel`` in RMS mode (``csrc/rms_norm.cu``, forward only),
-``_norm_fwd_kernel`` and ``_norm_bwd_kernel`` in LayerNorm mode with and
-without the residual (``csrc/layer_norm.cu``), and
-``_bias_gelu_fwd_kernel`` / ``_bias_gelu_bwd_kernel``
-(``csrc/bias_gelu.cu``). ``fused_layer_norm`` and ``fused_bias_gelu``
-are differentiable: with autograd recording and an input that requires
-grad they go through a ``torch.autograd.Function`` whose backward is the
-backward kernel (the JAX ``custom_vjp``s ``_ln_res``/``_ln_plain`` and
+``_norm_fwd_kernel`` in RMS mode (``csrc/rms_norm.cu``) and
+``_norm_bwd_kernel`` in RMS mode (the ``Rms`` instances of
+``csrc/layer_norm.cu``'s backward), ``_norm_fwd_kernel`` and
+``_norm_bwd_kernel`` in LayerNorm mode with and without the residual
+(``csrc/layer_norm.cu``), and ``_bias_gelu_fwd_kernel`` /
+``_bias_gelu_bwd_kernel`` (``csrc/bias_gelu.cu``). ``fused_rms_norm``,
+``fused_layer_norm`` and ``fused_bias_gelu`` are differentiable: with
+autograd recording and an input that requires grad they go through a
+``torch.autograd.Function`` whose backward is the backward kernel (the
+JAX ``custom_vjp``s ``_rms``, ``_ln_res``/``_ln_plain`` and
 ``_bias_gelu``); otherwise (serving under ``torch.inference_mode()``)
 they launch the forward alone. The LayerNorm's dropout (``dropout > 0``
 with a u32 ``seed``) drops x before the residual add with the
@@ -35,6 +37,7 @@ from .dropout import check_dropout, dropout_thresh, f32, kernel_args, \
     row_keep_mask
 
 __all__ = ["fused_rms_norm", "fused_rms_norm_reference",
+           "fused_rms_norm_bwd", "fused_rms_norm_bwd_reference",
            "fused_layer_norm", "fused_layer_norm_reference",
            "fused_layer_norm_bwd", "fused_layer_norm_bwd_reference",
            "fused_bias_gelu", "fused_bias_gelu_reference",
@@ -72,28 +75,41 @@ def _needs_grad(*tensors) -> bool:
 # ---------------------------------------------------------------------------
 
 def fused_rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, *,
-                             eps: float = 1e-6) -> torch.Tensor:
+                             eps: float = 1e-6, return_rstd: bool = False):
     """Plain PyTorch RMSNorm with the JAX kernel's numerics
     (``fused_layers.py:172-176``): f32 statistics, the normalised value
     rounded to x's dtype, then the weight multiply, whose promotion sets
-    the output dtype."""
+    the output dtype. ``return_rstd`` also returns the f32 per-row
+    ``rstd``, shaped ``x.shape[:-1]``."""
     x32 = x.float()
     inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * inv).to(x.dtype) * weight
+    out = (x32 * inv).to(x.dtype) * weight
+    if return_rstd:
+        return out, inv.squeeze(-1)
+    return out
 
 
-_RMS_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_RMS_ARGS = [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p]
 
 
 def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
                    eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis. ``x``: (..., D) float32 or bfloat16,
     contiguous, D <= 8192; ``weight``: (D,) float32 or bfloat16. Output
-    dtype is ``promote_types(x.dtype, weight.dtype)``."""
+    dtype is ``promote_types(x.dtype, weight.dtype)``. With autograd
+    recording and an input that requires grad, the backward is
+    :func:`fused_rms_norm_bwd`."""
+    if _needs_grad(x, weight):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_norm_fwd(x, weight, eps, False)
+
+
+def _rms_norm_fwd(x, weight, eps, return_rstd):
     if x.device.type == "cpu":
-        return fused_rms_norm_reference(x, weight, eps=eps)
+        return fused_rms_norm_reference(x, weight, eps=eps,
+                                        return_rstd=return_rstd)
     if x.device.type != "cuda" or weight.device != x.device:
         raise MXNetError(f"fused_rms_norm: x on {x.device}, weight on "
                          f"{weight.device}; both must be on one CUDA device")
@@ -110,21 +126,122 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
     out = torch.empty(x.shape, dtype=torch.promote_types(x.dtype,
                                                          weight.dtype),
                       device=x.device)
+    rstd = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+            if return_rstd else None)
     rows = x.numel() // d
-    if rows == 0:
-        return out
-    vec = d % 8 == 0 and _aligned(x, weight, out)
-    with torch.cuda.device(x.device):
-        _build.call(
-            "rms_norm.cu", "mx_rms_norm_fwd", _RMS_ARGS, "fused_rms_norm",
-            x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d,
-            float(eps), _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype],
-            int(vec), _stream(x.device))
-    fused_rms_norm.launches += 1
+    if rows > 0:
+        vec = d % 8 == 0 and _aligned(x, weight, out)
+        with torch.cuda.device(x.device):
+            _build.call(
+                "rms_norm.cu", "mx_rms_norm_fwd", _RMS_ARGS,
+                "fused_rms_norm", x.data_ptr(), weight.data_ptr(),
+                out.data_ptr(), rstd.data_ptr() if rstd is not None else None,
+                rows, d, float(eps), _DTYPE_CODE[x.dtype],
+                _DTYPE_CODE[weight.dtype], int(vec), _stream(x.device))
+        fused_rms_norm.launches += 1
+    if return_rstd:
+        return out, rstd
     return out
 
 
 fused_rms_norm.launches = 0
+
+
+def fused_rms_norm_bwd_reference(x, weight, rstd, dy):
+    """Plain PyTorch RMSNorm backward with the JAX kernel's numerics
+    (``_norm_bwd_kernel`` with ``rms=True``, ``fused_layers.py:261-283``):
+    ``xhat = x * rstd`` in f32 from the forward's saved f32 ``rstd`` (not
+    rounded to x's dtype, unlike the forward's), ``wdy = dy * weight``,
+    ``dx = rstd * (wdy - xhat * mean(wdy * xhat))`` in x's dtype, ``dw =
+    sum(dy * xhat)`` over the rows in f32, then in weight's dtype.
+    Returns ``(dx, dw)``."""
+    d = x.shape[-1]
+    rs = rstd.unsqueeze(-1)
+    xhat = x.float() * rs
+    dyf = dy.float()
+    wdy = dyf * weight.float()
+    m2 = (wdy * xhat).mean(dim=-1, keepdim=True)
+    dx = rs * (wdy - xhat * m2)
+    dw = (dyf * xhat).reshape(-1, d).sum(dim=0).to(weight.dtype)
+    return dx.to(x.dtype), dw
+
+
+_RMS_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
+
+
+def fused_rms_norm_bwd(x, weight, rstd, dy):
+    """Gradients ``(dx, dw)`` of :func:`fused_rms_norm` for the output
+    gradient ``dy`` (in the output's dtype), from the forward's input,
+    weight and f32 per-row ``rstd``; see
+    :func:`fused_rms_norm_bwd_reference`. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (f32 partial rows of dw
+    per CTA, summed here, as ``_norm_bwd_pallas`` sums its partials) or
+    raises."""
+    if x.device.type == "cpu":
+        return fused_rms_norm_bwd_reference(x, weight, rstd, dy)
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in (weight, rstd, dy)):
+        raise MXNetError("fused_rms_norm_bwd: every input must be on one "
+                         f"CUDA device (x on {x.device})")
+    d = x.shape[-1] if x.dim() else 0
+    if x.dtype not in _DTYPE_CODE or weight.dtype not in _DTYPE_CODE \
+            or dy.dtype != torch.promote_types(x.dtype, weight.dtype) \
+            or rstd.dtype != torch.float32:
+        raise MXNetError(
+            f"fused_rms_norm_bwd: dtypes x {x.dtype}, weight "
+            f"{weight.dtype}, rstd {rstd.dtype}, dy {dy.dtype}: need x and "
+            "weight in float32/bfloat16, rstd float32 and dy in their "
+            "promoted dtype")
+    if x.dim() < 1 or not 0 < d <= MAX_D or weight.shape != (d,) \
+            or dy.shape != x.shape or rstd.shape != x.shape[:-1]:
+        raise MXNetError(
+            f"fused_rms_norm_bwd: x {tuple(x.shape)}, weight "
+            f"{tuple(weight.shape)}, rstd {tuple(rstd.shape)}, dy "
+            f"{tuple(dy.shape)}: need dy shaped as x, (D,) weight, "
+            f"0 < D <= {MAX_D}, rstd shaped x.shape[:-1]")
+    dy = dy.contiguous()
+    if not all(t.is_contiguous() for t in (x, weight, rstd)):
+        raise MXNetError("fused_rms_norm_bwd: inputs must be contiguous")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros(d, dtype=weight.dtype, device=x.device)
+    n_blocks = min(rows, _bwd_ctas(x.device))
+    dw_part = torch.empty((n_blocks, d), dtype=torch.float32,
+                          device=x.device)
+    vec = d % 8 == 0 and _aligned(x, weight, dy, dx)
+    with torch.cuda.device(x.device):
+        _build.call(
+            "layer_norm.cu", "mx_rms_norm_bwd", _RMS_BWD_ARGS,
+            "fused_rms_norm_bwd", x.data_ptr(), weight.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dw_part.data_ptr(), rows, d, n_blocks, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[weight.dtype], int(vec), _stream(x.device))
+    fused_rms_norm_bwd.launches += 1
+    return dx, dw_part.sum(dim=0).to(weight.dtype)
+
+
+fused_rms_norm_bwd.launches = 0
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with its backward kernel; the forward saves x, the weight
+    and the f32 row ``rstd`` (``_rms_fwd``, ``fused_layers.py:473-476``).
+    On the CPU both passes are the plain versions, so the two devices
+    differentiate the same formula."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        out, rstd = _rms_norm_fwd(x, weight, eps, True)
+        ctx.save_for_backward(x, weight, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = fused_rms_norm_bwd(x, weight, rstd, dy)
+        return dx, dw, None
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
-"""Fused multi-tensor Adam sweep: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""Fused multi-tensor Adam and AdamW sweeps: the hand-written CUDA
+kernels and their plain PyTorch versions.
 
 Counterpart of ``mxnet_tpu/pallas_kernels/fused_optimizer.py``
 (``sweep_pallas``, the ``pallas_call`` at ``:128``) running the Adam
 formula ``_adam_elem`` of ``mxnet_tpu/optimizer/multi_tensor.py``
-(``:342-353``), with the multi-precision downcast (``w_low``, ``:545``)
-in the same pass. The kernel is ``csrc/fused_optimizer.cu``; its header
-comment says what bounds it on an H100 and why it walks the members
-through a small device table of their addresses instead of packing them
-into flat buffers.
+(``:342-353``), or AdamW's ``_adamw_elem`` (``:356-372``) after its
+per-member overflow scan (``:474-491``), with the multi-precision
+downcast (``w_low``, ``:545``) in the same pass. The kernels are
+``csrc/fused_optimizer.cu``; its header comment says what bounds them on
+an H100 and why they walk the members through a small device table of
+their addresses instead of packing them into flat buffers.
 
 Both versions update their arguments in place (the JAX sweep returns new
 arrays): the update target ``w`` (the f32 master of a multi-precision
@@ -30,12 +31,20 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["fused_adam_sweep", "adam_sweep_reference"]
+__all__ = ["fused_adam_sweep", "adam_sweep_reference", "fused_adamw_sweep",
+           "adamw_sweep_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = 4096              # elements per CTA (csrc kChunk)
 _ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7 \
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_SCAN_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_ADAMW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+    + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# (weight, grad) dtypes a bucket may have
+_COMBOS = {(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+           (torch.bfloat16, torch.bfloat16)}
 
 
 def adam_sweep_reference(ws, gs, means, vars_, lows, lrs, wds, *,
@@ -62,38 +71,37 @@ def adam_sweep_reference(ws, gs, means, vars_, lows, lrs, wds, *,
             lows[j].copy_(w32)
 
 
-def _check(ws, gs, means, vars_, lows):
+def _check(what, ws, gs, means, vars_, lows, state_dtype=None):
+    """Raise unless the members form one bucket the kernels take: one
+    device, matching shapes, contiguous, one weight and one grad dtype,
+    the moments in ``state_dtype`` (None: the weight's dtype)."""
     dev = ws[0].device
     groups = [ws, gs, means, vars_] + ([lows] if lows is not None else [])
     if any(len(grp) != len(ws) for grp in groups):
-        raise MXNetError("fused_adam_sweep: the member lists differ in "
-                         "length")
+        raise MXNetError(f"{what}: the member lists differ in length")
     wdt, gdt = ws[0].dtype, gs[0].dtype
+    sdt = state_dtype or wdt
     for j in range(len(ws)):
         members = [grp[j] for grp in groups]
         if any(t.device != dev for t in members):
-            raise MXNetError("fused_adam_sweep: every tensor must be on "
-                             f"one CUDA device ({dev})")
+            raise MXNetError(f"{what}: every tensor must be on one CUDA "
+                             f"device ({dev})")
         if any(t.shape != ws[j].shape for t in members):
-            raise MXNetError(f"fused_adam_sweep: member {j} has shapes "
+            raise MXNetError(f"{what}: member {j} has shapes "
                              f"{[tuple(t.shape) for t in members]}")
         if not all(t.is_contiguous() for t in members):
-            raise MXNetError(f"fused_adam_sweep: member {j} is not "
-                             "contiguous")
-        if ws[j].dtype != wdt or means[j].dtype != wdt \
-                or vars_[j].dtype != wdt or gs[j].dtype != gdt:
-            raise MXNetError("fused_adam_sweep: one bucket has one weight "
-                             "dtype (shared by the moments) and one grad "
-                             "dtype")
-    combos = {(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-              (torch.bfloat16, torch.bfloat16)}
-    if (wdt, gdt) not in combos:
-        raise MXNetError(f"fused_adam_sweep: weight/grad dtypes {wdt}/{gdt} "
-                         f"not supported ({sorted(map(str, combos))})")
+            raise MXNetError(f"{what}: member {j} is not contiguous")
+        if ws[j].dtype != wdt or means[j].dtype != sdt \
+                or vars_[j].dtype != sdt or gs[j].dtype != gdt:
+            raise MXNetError(f"{what}: one bucket has one weight dtype, one "
+                             f"grad dtype and moments in {sdt}")
+    if (wdt, gdt) not in _COMBOS:
+        raise MXNetError(f"{what}: weight/grad dtypes {wdt}/{gdt} not "
+                         f"supported ({sorted(map(str, _COMBOS))})")
     if lows is not None and (wdt != torch.float32 or any(
             t.dtype != torch.bfloat16 for t in lows)):
-        raise MXNetError("fused_adam_sweep: low-precision weights are "
-                         "bfloat16 beside an f32 master")
+        raise MXNetError(f"{what}: low-precision weights are bfloat16 "
+                         "beside an f32 master")
 
 
 def _table(ws, gs, means, vars_, lows):
@@ -108,6 +116,24 @@ def _table(ws, gs, means, vars_, lows):
             for w, g, m, v, lo, n, f in zip(ws, gs, means, vars_, lows,
                                             sizes, first)]
     return torch.tensor(rows, dtype=torch.int64), int(chunks.sum())
+
+
+def _device_tables(ws, gs, means, vars_, lows, lrs, wds):
+    """The member table and the (n_members, 2) f32 lr/wd table on the
+    members' device, and the total chunk count. They go up from pinned
+    memory, so the copies queue behind the stream's work without
+    stalling the host."""
+    members, n_blocks = _table(ws, gs, means, vars_, lows)
+    lr_wd = torch.from_numpy(np.stack(
+        [np.asarray(lrs, np.float32), np.asarray(wds, np.float32)], 1))
+    dev = ws[0].device
+    return (members.pin_memory().to(dev, non_blocking=True),
+            lr_wd.pin_memory().to(dev, non_blocking=True), n_blocks)
+
+
+def _clip_arg(clip_gradient) -> float:
+    return -1.0 if clip_gradient is None or clip_gradient < 0 \
+        else float(clip_gradient)
 
 
 def fused_adam_sweep(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
@@ -135,17 +161,11 @@ def fused_adam_sweep(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
     if ws[0].device.type != "cuda":
         raise MXNetError(f"fused_adam_sweep: unsupported device "
                          f"{ws[0].device}")
-    _check(ws, gs, means, vars_, lows)
-    members, n_blocks = _table(ws, gs, means, vars_, lows)
-    lr_wd = torch.from_numpy(np.stack(
-        [np.asarray(lrs, np.float32), np.asarray(wds, np.float32)], 1))
-    # from pinned memory the copies queue behind the stream's work
-    # without stalling the host
+    _check("fused_adam_sweep", ws, gs, means, vars_, lows)
     dev = ws[0].device
-    members = members.pin_memory().to(dev, non_blocking=True)
-    lr_wd = lr_wd.pin_memory().to(dev, non_blocking=True)
-    clip = -1.0 if clip_gradient is None or clip_gradient < 0 \
-        else float(clip_gradient)
+    members, lr_wd, n_blocks = _device_tables(ws, gs, means, vars_, lows,
+                                              lrs, wds)
+    clip = _clip_arg(clip_gradient)
     with torch.cuda.device(dev):
         _build.call(
             "fused_optimizer.cu", "mx_adam_sweep", _ARGS, "fused_adam_sweep",
@@ -158,3 +178,94 @@ def fused_adam_sweep(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
 
 
 fused_adam_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw_sweep_reference(ws, gs, means, vars_, lows, lrs, wds, *,
+                          beta1, beta2, epsilon, rescale_grad,
+                          clip_gradient=None) -> None:
+    """Plain PyTorch AdamW over members ``j``, in place, with MXNet's
+    semantics (``_adamw_elem``, ``multi_tensor.py:356-372``): the grad
+    rescaled and clipped, no wd term in it; the moments (f32) updated;
+    ``w - 1.0 * (lr * m / (sqrt(v) + eps) + wd * lr * w)`` with the
+    bias-corrected ``lrs[j]``; a member whose rescaled, clipped grad
+    holds a value that is not finite (``torch.isfinite(...).all()``,
+    kept on the device) keeps its weight and moments. ``lows[j]``, when
+    given, gets the resulting weight. One op per step, in order, in
+    f32."""
+    for j, (w, g, m, v) in enumerate(zip(ws, gs, means, vars_)):
+        g32 = g.float() * rescale_grad
+        if clip_gradient is not None and clip_gradient >= 0:
+            g32 = torch.clamp(g32, -clip_gradient, clip_gradient)
+        ok = torch.isfinite(g32).all()
+        m32 = beta1 * m + (1 - beta1) * g32
+        v32 = beta2 * v + (1 - beta2) * (g32 * g32)
+        w32 = w.float()
+        wd_lr = float(np.float32(wds[j]) * np.float32(lrs[j]))
+        w_new = w32 - (float(lrs[j]) * m32 / (torch.sqrt(v32) + epsilon)
+                       + wd_lr * w32)
+        w_new = torch.where(ok, w_new, w32)
+        w.copy_(w_new)
+        m.copy_(torch.where(ok, m32, m))
+        v.copy_(torch.where(ok, v32, v))
+        if lows is not None:
+            lows[j].copy_(w_new)
+
+
+def fused_adamw_sweep(ws: Sequence[torch.Tensor],
+                      gs: Sequence[torch.Tensor],
+                      means: Sequence[torch.Tensor],
+                      vars_: Sequence[torch.Tensor],
+                      lows: Optional[Sequence[torch.Tensor]], lrs, wds, *,
+                      beta1: float, beta2: float, epsilon: float,
+                      rescale_grad: float, clip_gradient=None) -> None:
+    """One AdamW sweep over a dtype bucket, in place: see
+    :func:`adamw_sweep_reference` for the arguments and the formula.
+
+    Bucket dtypes: f32 moments always; f32 weights with f32 or bf16
+    grads (a multi-precision bucket passes its f32 masters as ``ws`` and
+    its bf16 weights as ``lows``), or bf16 weights and grads. On the
+    card: two launches per call over one device table of the members,
+    the overflow scan into per-member int32 flags on the device, then
+    the sweep, which reads them (``launches`` counts the sweeps,
+    ``scan_launches`` the scans)."""
+    if not ws:
+        return
+    if ws[0].device.type == "cpu":
+        return adamw_sweep_reference(ws, gs, means, vars_, lows, lrs, wds,
+                                     beta1=beta1, beta2=beta2,
+                                     epsilon=epsilon,
+                                     rescale_grad=rescale_grad,
+                                     clip_gradient=clip_gradient)
+    if ws[0].device.type != "cuda":
+        raise MXNetError(f"fused_adamw_sweep: unsupported device "
+                         f"{ws[0].device}")
+    _check("fused_adamw_sweep", ws, gs, means, vars_, lows, torch.float32)
+    dev = ws[0].device
+    members, lr_wd, n_blocks = _device_tables(ws, gs, means, vars_, lows,
+                                              lrs, wds)
+    ok = torch.ones(len(ws), dtype=torch.int32, device=dev)
+    clip = _clip_arg(clip_gradient)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _build.call(
+            "fused_optimizer.cu", "mx_adamw_scan", _SCAN_ARGS,
+            "fused_adamw_sweep (scan)", members.data_ptr(), ok.data_ptr(),
+            len(ws), n_blocks, float(rescale_grad), clip,
+            _DTYPE_CODE[gs[0].dtype], stream)
+        fused_adamw_sweep.scan_launches += 1
+        _build.call(
+            "fused_optimizer.cu", "mx_adamw_sweep", _ADAMW_ARGS,
+            "fused_adamw_sweep", members.data_ptr(), lr_wd.data_ptr(),
+            ok.data_ptr(), len(ws), n_blocks, float(beta1),
+            float(1 - beta1), float(beta2), float(1 - beta2),
+            float(epsilon), float(rescale_grad), clip,
+            _DTYPE_CODE[ws[0].dtype], _DTYPE_CODE[gs[0].dtype], stream)
+    fused_adamw_sweep.launches += 1
+
+
+fused_adamw_sweep.launches = 0
+fused_adamw_sweep.scan_launches = 0

@@ -1,6 +1,7 @@
 """Optimizers of the port (counterpart of ``mxnet_tpu/optimizer``):
-``Adam`` and the fused multi-tensor sweep ``parallel.TrainStep`` runs."""
+``Adam``, ``AdamW`` and the fused multi-tensor sweeps ``parallel.TrainStep``
+runs."""
 from . import multi_tensor
-from .optimizer import Adam, Optimizer, create
+from .optimizer import Adam, AdamW, Optimizer, create
 
-__all__ = ["Optimizer", "Adam", "create", "multi_tensor"]
+__all__ = ["Optimizer", "Adam", "AdamW", "create", "multi_tensor"]

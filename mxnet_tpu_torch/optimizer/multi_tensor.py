@@ -1,19 +1,22 @@
-"""Horizontally-fused multi-tensor optimizer sweeps (the Adam family).
+"""Horizontally-fused multi-tensor optimizer sweeps (the Adam and AdamW
+families).
 
 Counterpart of ``mxnet_tpu/optimizer/multi_tensor.py``: the family
 routing (``family_of``, ``family_static``, ``state_roles``), the
-per-member scalar prep with Adam's bias correction folded into the
-learning rate (``collect_scalars``, ``:137-185``), the dtype-bucket
-planner with its "one sweep per dtype bucket" contract (``plan_buckets``,
-``:213``), and ``packed_apply`` (``:431``), which runs one bucket's
-sweep: :func:`~mxnet_tpu_torch.kernels.fused_adam_sweep`, the hand-written
-kernel on a CUDA tensor and its plain version on a CPU one.
+per-member scalar prep with the bias correction folded into the learning
+rate (``collect_scalars``, ``:137-185``), the dtype-bucket planner with
+its "one sweep per dtype bucket" contract (``plan_buckets``, ``:213``),
+and ``packed_apply`` (``:431``), which runs one bucket's sweep:
+:func:`~mxnet_tpu_torch.kernels.fused_adam_sweep` or
+:func:`~mxnet_tpu_torch.kernels.fused_adamw_sweep` (its per-member
+overflow scan, then the sweep), the hand-written kernels on a CUDA
+tensor and their plain versions on a CPU one.
 
 Unlike the JAX sweep, which packs each bucket into flat buffers and
 returns new arrays, the port's sweep updates the members in place where
-they lie (the kernel's header comment says why). SGD, AdamW and LAMB,
-and the eager Trainer's consumer of this module, come with the Trainer
-slice (ROADMAP.md, port queue 1, item 7).
+they lie (the kernel's header comment says why). SGD and LAMB, and the
+eager Trainer's consumer of this module, come with the Trainer slice
+(ROADMAP.md, port queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -22,28 +25,34 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..base import MXNetError
-from ..kernels import fused_adam_sweep
+from ..kernels import fused_adam_sweep, fused_adamw_sweep
 
 __all__ = ["family_of", "family_static", "state_roles", "collect_scalars",
            "plan_buckets", "packed_apply", "Bucket"]
 
-_NOT_PORTED = ("the sgd, adamw and lamb sweeps come with the Trainer "
-               "slice (ROADMAP.md, port queue 1, item 7)")
+_NOT_PORTED = ("the sgd and lamb sweeps come with the Trainer slice "
+               "(ROADMAP.md, port queue 1, item 7)")
+_SWEEPS = {"adam": fused_adam_sweep, "adamw": fused_adamw_sweep}
+
+
+def _known(family: str) -> None:
+    if family not in _SWEEPS:
+        raise MXNetError(f"unknown sweep family {family!r}: {_NOT_PORTED}")
 
 
 def family_of(optimizer) -> Optional[str]:
     """The sweep family of ``optimizer``: ``"adam"`` for exactly
-    :class:`~.optimizer.Adam` (a subclass may override the update), else
+    :class:`~.optimizer.Adam`, ``"adamw"`` for exactly
+    :class:`~.optimizer.AdamW` (a subclass may override the update), else
     None."""
-    from .optimizer import Adam
+    from .optimizer import Adam, AdamW
 
-    return "adam" if type(optimizer) is Adam else None
+    return {Adam: "adam", AdamW: "adamw"}.get(type(optimizer))
 
 
 def family_static(optimizer, family: str) -> tuple:
     """The family's hyperparameters fixed for the run, as sorted items."""
-    if family != "adam":
-        raise MXNetError(f"unknown sweep family {family!r}: {_NOT_PORTED}")
+    _known(family)
     items = {"beta1": float(optimizer.beta1),
              "beta2": float(optimizer.beta2),
              "epsilon": float(optimizer.epsilon),
@@ -54,25 +63,27 @@ def family_static(optimizer, family: str) -> tuple:
 def state_roles(family: str, static: dict) -> Tuple[str, ...]:
     """Names of the family's state leaves in ``create_state`` order (the
     f32 master of a multi-precision member is the separate ``w`` role)."""
-    if family != "adam":
-        raise MXNetError(f"unknown sweep family {family!r}: {_NOT_PORTED}")
+    _known(family)
     return ("mean", "var")
 
 
 def collect_scalars(optimizer, family: str,
                     ks: Sequence[int]) -> Dict[str, list]:
-    """Per-member ``lr`` (Adam's bias correction folded in) and ``wd``,
-    with the expressions of ``Adam.update``. The bias correction is
-    computed in double precision, as the JAX step computes it from its
-    traced int32 t with ``jax_enable_x64`` on (``step.py:913-920``); the
-    sweep reads each value as f32, as the JAX sweep's ``_as_vec`` does."""
-    if family != "adam":
-        raise MXNetError(f"unknown sweep family {family!r}: {_NOT_PORTED}")
+    """Per-member ``lr`` (the bias correction folded in: always for
+    Adam, with ``correct_bias`` for AdamW) and ``wd``, with the
+    expressions of ``Adam.update`` and ``AdamW.update`` (the JAX
+    ``collect_scalars``, ``:154-158``). The bias correction is computed
+    in double precision, as the JAX step computes it from its traced
+    int32 t with ``jax_enable_x64`` on (``step.py:913-920``); the sweep
+    reads each value as f32, as the JAX sweep's ``_as_vec`` does."""
+    _known(family)
     lrs, wds = [], []
     for k in ks:
-        t = int(optimizer._t(k))
-        lr = float(optimizer._get_lr(k)) * (
-            (1.0 - optimizer.beta2 ** t) ** 0.5 / (1.0 - optimizer.beta1 ** t))
+        lr = float(optimizer._get_lr(k))
+        if family == "adam" or optimizer.correct_bias:
+            t = int(optimizer._t(k))
+            lr *= ((1.0 - optimizer.beta2 ** t) ** 0.5
+                   / (1.0 - optimizer.beta1 ** t))
         lrs.append(lr)
         wds.append(float(optimizer._get_wd(k)))
     return {"lr": lrs, "wd": wds}
@@ -111,15 +122,15 @@ def packed_apply(family, static, ins, vecs, rescale, low=None):
     ``lr`` and ``wd`` per member (:func:`collect_scalars`). ``rescale``:
     the grad rescale factor. ``low``: a multi-precision bucket's
     low-precision weights, written in the same pass. Returns ``ins``
-    (with ``w_low`` = ``low`` when given), updated in place."""
-    if family != "adam":
-        raise MXNetError(f"unknown sweep family {family!r}: {_NOT_PORTED}")
+    (with ``w_low`` = ``low`` when given), updated in place. AdamW's
+    overflow flags stay on the device."""
+    _known(family)
     static = dict(static)
-    fused_adam_sweep(ins["w"], ins["g"], ins["mean"], ins["var"], low,
-                     vecs["lr"], vecs["wd"], beta1=static["beta1"],
-                     beta2=static["beta2"], epsilon=static["epsilon"],
-                     rescale_grad=rescale,
-                     clip_gradient=static["clip_gradient"])
+    _SWEEPS[family](ins["w"], ins["g"], ins["mean"], ins["var"], low,
+                    vecs["lr"], vecs["wd"], beta1=static["beta1"],
+                    beta2=static["beta2"], epsilon=static["epsilon"],
+                    rescale_grad=rescale,
+                    clip_gradient=static["clip_gradient"])
     out = dict(ins)
     if low is not None:
         out["w_low"] = low

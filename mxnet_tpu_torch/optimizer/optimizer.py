@@ -1,14 +1,14 @@
-"""Optimizers: the ``Optimizer`` base and ``Adam``.
+"""Optimizers: the ``Optimizer`` base, ``Adam`` and ``AdamW``.
 
-Counterpart of ``mxnet_tpu/optimizer/optimizer.py:37-265``, as far as
+Counterpart of ``mxnet_tpu/optimizer/optimizer.py:37-292``, as far as
 the fused train step needs it: learning rate and weight decay,
 ``rescale_grad``, ``clip_gradient``, multi-precision f32 masters,
 per-index update counts and the dynamic mode a fused step runs the
 optimizer in. The update itself is the fused sweep of
 :mod:`.multi_tensor`, which ``parallel.TrainStep`` drives; the
 per-parameter ``update`` methods, learning-rate schedules and multipliers
-and the other optimizers (SGD, AdamW, LAMB, ...) wait for the Trainer
-slice (ROADMAP.md, port queue 1, item 7).
+and the other optimizers (SGD, LAMB, ...) wait for the Trainer slice
+(ROADMAP.md, port queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -19,9 +19,9 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "Adam", "create"]
+__all__ = ["Optimizer", "Adam", "AdamW", "create"]
 
-_NOT_PORTED = ("sgd", "nag", "adamw", "rmsprop", "adagrad", "adadelta",
+_NOT_PORTED = ("sgd", "nag", "rmsprop", "adagrad", "adadelta",
                "ftrl", "signum", "sgld", "dcasgd", "lamb", "ftml", "adamax",
                "nadam", "lbsgd")
 
@@ -101,7 +101,26 @@ class Adam(Optimizer):
         return (torch.zeros_like(weight), torch.zeros_like(weight))
 
 
-_REGISTRY = {"adam": Adam}
+class AdamW(Optimizer):
+    """Decoupled weight decay with MXNet's semantics (reference: contrib
+    ``adamw.cc``; the JAX ``AdamW``): with ``correct_bias`` the bias
+    correction is folded into the learning rate, and the weight decay
+    multiplies that corrected rate; a parameter whose gradient is not
+    finite is left as it is. Its state is ``(mean, var)`` in f32 whatever
+    the weight's dtype."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, correct_bias=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.correct_bias = correct_bias
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, dtype=torch.float32),
+                torch.zeros_like(weight, dtype=torch.float32))
+
+
+_REGISTRY = {"adam": Adam, "adamw": AdamW}
 
 
 def create(name, **kwargs):

@@ -46,6 +46,14 @@ def _as_tuple(x):
     return (x,)
 
 
+def _detach(outs):
+    """``outs`` (a tensor or a tuple or list of them) cut from the
+    graph."""
+    if isinstance(outs, (list, tuple)):
+        return type(outs)(_detach(o) for o in outs)
+    return outs.detach()
+
+
 def _mesh_size(mesh) -> int:
     if isinstance(mesh, dict):
         return math.prod(int(v) for v in mesh.values())
@@ -83,15 +91,18 @@ class TrainStep:
     loss : callable ``loss(outputs, *labels)``; its first output is
         reduced by the mean, in f32.
     optimizer : an :class:`~mxnet_tpu_torch.optimizer.Optimizer` or a
-        name (``"adam"``) built with ``optimizer_params``.
+        name (``"adam"``, ``"adamw"``) built with ``optimizer_params``.
     loss_only : return ``(loss, None)`` instead of ``(loss, outputs)``.
     mesh : None, or a mesh of one device; ``rules``, ``seq_axis``,
         ``remat`` and ``donate_inputs`` must keep their defaults (see the
         module docstring).
 
     ``step(data, label)``: ``data`` and ``label`` are a tensor, a numpy
-    array or a tuple of them (moved to the parameters' device); returns
-    ``(loss, outputs)`` with the loss a 0-d f32 tensor.
+    array or a tuple of them (moved to the parameters' device); a model
+    that takes its labels as data (a fused CE head) is called as
+    ``step((tokens, labels), ())``. Returns ``(loss, outputs)`` with the
+    loss a 0-d f32 tensor and the outputs, a tensor or a tuple,
+    detached.
     """
 
     def __init__(self, net: nn.Module, loss, optimizer, mesh=None,
@@ -166,7 +177,7 @@ class TrainStep:
                 self._sweep(b, static)
         if self.loss_only:
             return loss_val.detach(), None
-        return loss_val.detach(), outs.detach()
+        return loss_val.detach(), _detach(outs)
 
     def _sweep(self, b, static):
         params = [self._params[k] for k in b.members]

@@ -2,7 +2,9 @@
 card, at the Llama-3-8B and BERT serving paths' shapes, the BERT
 pretraining path's (backward kernels and the Adam sweep), its dropout
 modes (the hash-dropout kernel, LayerNorm and flash attention with
-dropout, each with its mask held bit for bit), and at ragged ones.
+dropout, each with its mask held bit for bit), the Llama pretraining
+path's (the RMSNorm backward, RMSNorm under autograd, the AdamW scan and
+sweep), and at ragged ones.
 
 Marked ``cuda``: each test skips where there is no CUDA card (the CPU
 test runs) and runs on a machine with one. This file imports neither JAX
@@ -17,19 +19,23 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch.kernels import (adam_sweep_reference, flash_attention,
+from mxnet_tpu_torch.kernels import (adam_sweep_reference,
+                                     adamw_sweep_reference, flash_attention,
                                      flash_attention_bwd,
                                      flash_attention_bwd_reference,
                                      flash_attention_fwd,
                                      flash_attention_reference,
-                                     fused_adam_sweep, fused_bias_gelu,
+                                     fused_adam_sweep, fused_adamw_sweep,
+                                     fused_bias_gelu,
                                      fused_bias_gelu_bwd,
                                      fused_bias_gelu_bwd_reference,
                                      fused_bias_gelu_reference,
                                      fused_layer_norm, fused_layer_norm_bwd,
                                      fused_layer_norm_bwd_reference,
                                      fused_layer_norm_reference,
-                                     fused_rms_norm, fused_rms_norm_reference,
+                                     fused_rms_norm, fused_rms_norm_bwd,
+                                     fused_rms_norm_bwd_reference,
+                                     fused_rms_norm_reference,
                                      hash_dropout, hash_dropout_bwd,
                                      hash_dropout_reference,
                                      paged_attention_kernel,
@@ -629,3 +635,187 @@ def test_flash_dropout_mask_is_bit_identical_on_card(d, dtype):
     ref, _ = flash_attention_reference(q, k, v, dropout=0.1, seed=7 + d)
     assert torch.equal(out == 0, ref == 0)
     assert 0.08 < float((ref == 0).float().mean()) < 0.12
+
+
+# ---------------------------------------------------------------------------
+# the Llama pretraining path: the RMSNorm backward and the AdamW sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(8, 4096), (16384, 2048), (5, 100)])
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+def test_rms_forward_with_rstd_on_card(rows, d, xdt, wdt):
+    """The forward that also writes the f32 row rstd gives the same output
+    as the one that does not, and its rstd matches the plain version's
+    (f32 sums of squares in another order)."""
+    _require_card()
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(rows + d + 2)
+    x = torch.randn(rows, d, device="cuda", generator=g).to(
+        getattr(torch, xdt))
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(
+        getattr(torch, wdt))
+    before = fused_rms_norm.launches
+    plain_out = fused_rms_norm(x, w, eps=1e-5)
+    out, rstd = _rms_norm_fwd(x, w, 1e-5, True)
+    torch.cuda.synchronize()
+    assert fused_rms_norm.launches == before + 2
+    assert torch.equal(out, plain_out)
+    _, ref = fused_rms_norm_reference(x, w, eps=1e-5, return_rstd=True)
+    assert rstd.shape == (rows,) and rstd.dtype == torch.float32
+    torch.testing.assert_close(rstd, ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(16384, 2048), (8, 4096), (5, 100),
+                                    (3, 8192)])
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+def test_rms_bwd_kernel_matches_plain_on_card(rows, d, xdt, wdt):
+    """dx and dw of the RMSNorm backward kernel against its plain version
+    from the same saved rstd: dx rounds once from f32 values summed in
+    another order, dw sums the rows' f32 partials in another order."""
+    _require_card()
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(rows * d + 3)
+    xt, wt = getattr(torch, xdt), getattr(torch, wdt)
+    x = (1.5 * torch.randn(rows, d, device="cuda", generator=g)).to(xt)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(wt)
+    _, rstd = _rms_norm_fwd(x, w, 1e-5, True)
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(
+        torch.promote_types(xt, wt))
+    before = fused_rms_norm_bwd.launches
+    got = fused_rms_norm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    assert fused_rms_norm_bwd.launches == before + 1
+    want = fused_rms_norm_bwd_reference(x, w, rstd, dy)
+    tol = 1e-5 if xdt == "float32" and wdt == "float32" else 2.0 ** -7
+    for name, a, b in zip(("dx", "dw"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close_to_max(a, b, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_module_trains_its_weight_on_card(dtype):
+    """``RMSNorm(...)(x).sum().backward()`` on the card leaves
+    ``weight.grad`` set (the forward kernel alone has no grad_fn) and
+    equal to the plain version's on the CPU, and x's gradient too; one
+    forward and one backward kernel launch."""
+    _require_card()
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import RMSNorm
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(9)
+    x = (1.5 * torch.randn(4, 64, 2048, generator=g)).to(dt)
+    grads = []
+    before = (fused_rms_norm.launches, fused_rms_norm_bwd.launches)
+    for dev in ("cuda", "cpu"):
+        norm = RMSNorm(2048, eps=1e-5, device=dev, dtype=dt)
+        with torch.no_grad():
+            norm.weight.copy_((1 + 0.1 * torch.randn(2048, generator=g)))
+        xi = x.to(dev).requires_grad_()
+        norm(xi).float().sum().backward()
+        assert norm.weight.grad is not None and xi.grad is not None
+        grads.append((xi.grad.cpu(), norm.weight.grad.cpu()))
+        g.manual_seed(9)
+        torch.randn(4, 64, 2048, generator=g)
+    torch.cuda.synchronize()
+    assert (fused_rms_norm.launches, fused_rms_norm_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for a, b, name in zip(grads[0], grads[1], ("dx", "dw")):
+        _close_to_max(a, b, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,gdt,mp", [("float32", "float32", False),
+                                        ("float32", "bfloat16", True),
+                                        ("bfloat16", "bfloat16", False)])
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_adamw_scan_and_sweep_bit_identical_on_card(wdt, gdt, mp, clip):
+    """The AdamW scan and sweep against their plain version, bit for bit,
+    over members of ragged sizes (below one 4096-element chunk, an empty
+    one, exactly one chunk, one past it, proxy1b's embedding, one
+    holding a NaN past its first chunk, one holding an inf): the NaN
+    member keeps its weight and moments bit for bit, the inf member too
+    without a clip, and is updated with clip 1.0."""
+    _require_card()
+    sizes = [5, 0, 4096, 4097, 32768 * 2048, 9000, 768]
+    nan_j, inf_j = 5, 6
+
+    def members():
+        g = torch.Generator(device="cuda").manual_seed(4)
+        ws = [torch.randn(n, device="cuda", generator=g).to(
+            getattr(torch, wdt)) for n in sizes]
+        gs = [torch.randn(n, device="cuda", generator=g).to(
+            getattr(torch, gdt)) for n in sizes]
+        gs[nan_j][8000] = float("nan")
+        gs[inf_j][17] = float("inf")
+        ms = [0.1 * torch.randn(n, device="cuda", generator=g)
+              for n in sizes]
+        vs = [torch.rand(n, device="cuda", generator=g) for n in sizes]
+        lows = [w.to(torch.bfloat16) for w in ws] if mp else None
+        return ws, gs, ms, vs, lows
+
+    lrs = [3e-4 * (1 + j) for j in range(len(sizes))]
+    wds = [0.1, 0.0, 0.1, 0.01, 0.1, 0.1, 0.1]
+    kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-6, rescale_grad=0.5,
+              clip_gradient=clip)
+    a, b = members(), members()
+    start = [t.clone() for t in a[0] + a[2] + a[3]]
+    before = (fused_adamw_sweep.launches, fused_adamw_sweep.scan_launches)
+    for _ in range(2):
+        fused_adamw_sweep(*a, lrs, wds, **kw)
+        adamw_sweep_reference(*b, lrs, wds, **kw)
+    torch.cuda.synchronize()
+    assert (fused_adamw_sweep.launches, fused_adamw_sweep.scan_launches) \
+        == (before[0] + 2, before[1] + 2)
+    # the updated groups: weights, moments and the bf16 weights (the
+    # grads, one holding a NaN, are inputs)
+    for grp in (0, 2, 3, 4) if mp else (0, 2, 3):
+        for x, y in zip(a[grp], b[grp]):
+            assert torch.equal(x, y)
+    n = len(sizes)
+    skipped = {nan_j} | ({inf_j} if clip is None else set())
+    for j in range(n):
+        same = all(torch.equal(a[grp][j], start[k * n + j])
+                   for k, grp in enumerate((0, 2, 3)))
+        assert same == (j in skipped or sizes[j] == 0), j
+
+
+@pytest.mark.cuda
+def test_llama_trainstep_on_card_matches_cpu():
+    """Three f32 AdamW TrainStep steps of a 2-layer llama_tiny with the
+    fused CE head on the card (RMSNorm forward and backward, causal flash
+    under GQA, the AdamW scan and sweep) against the same model and batch
+    on the CPU (the plain versions): the losses to 1e-5 relative."""
+    _require_card()
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import llama_tiny
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = llama_tiny(fused_ce=True, ctx=mx.cpu(),
+                     generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(net).cuda()
+    rs = np.random.RandomState(0)
+    toks = rs.randint(0, 256, (2, 129))
+    batch = ((toks[:, :-1], toks[:, 1:]), ())
+    losses = []
+    for model in (net, card):
+        step = mx.parallel.TrainStep(model, lambda o, *a: o, "adamw",
+                                     loss_only=True,
+                                     optimizer_params={"learning_rate": 1e-3,
+                                                       "wd": 0.1})
+        before = (fused_adamw_sweep.launches, fused_rms_norm_bwd.launches)
+        losses.append([float(step(*batch)[0]) for _ in range(3)])
+    assert (fused_adamw_sweep.launches, fused_rms_norm_bwd.launches) \
+        == (before[0] + 3, before[1] + 3 * 5)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)

@@ -325,7 +325,8 @@ def test_default_device_entry_points_raise_without_cuda(nets):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, mxnet_tpu_torch\n"
+    code = ("import sys, mxnet_tpu_torch, "
+            "mxnet_tpu_torch.tools.pretrain_llama\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "assert not bad, bad\n")
