@@ -19,7 +19,8 @@ package. Phases, each printing JSON lines and failing loudly:
              step's (8 x 2048, 2048), causal flash at its (8, 16, 2048,
              128); the Adam sweep over BERTForPretrainFused's bf16
              multi-precision parameter set and the AdamW scan and sweep
-             over proxy1b's, bit for bit; the dropout modes at p = 0.1:
+             over proxy1b's and the SGD sweep over ResNet-50's two
+             buckets, bit for bit; the dropout modes at p = 0.1:
              the hash-dropout kernel bit for bit, LayerNorm ± residual
              forward and backward with dx's zeros equal to the mask,
              flash forward and backward, and flash's mask bit for bit
@@ -1072,6 +1073,127 @@ def adamw_case(flush, gen) -> dict:
     return rec
 
 
+def _resnet50_members() -> list:
+    """ResNet-50 v1's trainable parameters as the main path holds them
+    (``resnet50_v1(layout="NHWC")`` in bf16: channels-last convolution
+    weights, f32 BatchNorm), one empty tensor of each's shape, dtype and
+    memory layout."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1(layout="NHWC", ctx="cuda", dtype=torch.bfloat16)
+    like = [torch.empty_like(p.detach()) for p in net.parameters()]
+    del net
+    torch.cuda.empty_cache()
+    return like
+
+
+def _bits(t):
+    """``t``'s bits as integers, so NaNs compare equal bit for bit."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def sgd_case(flush, gen) -> dict:
+    """The fused SGD sweep over ResNet-50's parameter set in the step's
+    two buckets, with the path's hyperparameters (lr 0.1, momentum 0.9,
+    wd 0): the bf16 multi-precision bucket (25.50M elements: f32 masters
+    and momenta, bf16 grads, the bf16 weights written in the same pass,
+    the convolution weights channels-last) and the f32 BatchNorm bucket
+    (53k elements, f32 momenta), held bit for bit against the plain
+    version from the same state, with momentum 0.9 and with none (the
+    momentum-free form), and with one member's grad holding a NaN and
+    another's an inf (compared as bits: SGD propagates them, as the
+    reference). ms: both buckets' launches, as a step runs them.
+    Library yardstick: torch._fused_sgd_ over the same f32 masters with
+    f32 grads and its own momentum convention (buf = m * buf + g, w -=
+    lr * buf), no bf16 weight written: the nearest single PyTorch call,
+    timed only. Bytes per element: bf16-mp 20 (read g 2, w 4, mom 4;
+    write w 4, mom 4, w_low 2), f32 20 (read g, w, mom; write w, mom)."""
+    from mxnet_tpu_torch.kernels import fused_sgd_sweep, sgd_sweep_reference
+
+    like = _resnet50_members()
+    low_like = [t for t in like if t.dtype == torch.bfloat16]
+    f32_like = [t for t in like if t.dtype == torch.float32]
+    n_mp = sum(t.numel() for t in low_like)
+    n_f32 = sum(t.numel() for t in f32_like)
+    nan_j, inf_j = 3, len(low_like) - 1      # a 1x1 conv, the Dense bias
+
+    def members(seed, momentum):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def rand(t, dtype, scale):
+            out = torch.empty_like(t, dtype=torch.float32)
+            return (scale * out.normal_(generator=g)).to(dtype)
+
+        mp = [[rand(t, torch.float32, 0.05) for t in low_like],
+              [rand(t, torch.bfloat16, 1e-2) for t in low_like],
+              [rand(t, torch.float32, 1e-3) for t in low_like]
+              if momentum else None]
+        mp.append([w.to(torch.bfloat16) for w in mp[0]])
+        mp[1][nan_j].view(-1)[5] = float("nan")
+        mp[1][inf_j].view(-1)[2] = float("inf")
+        f32 = [[1.0 + rand(t, torch.float32, 0.1) for t in f32_like],
+               [rand(t, torch.float32, 1e-2) for t in f32_like],
+               [rand(t, torch.float32, 1e-3) for t in f32_like]
+               if momentum else None, None]
+        return mp, f32
+
+    def run(fn, buckets, momentum):
+        for ws, gs, moms, lows in buckets:
+            fn(ws, gs, moms, lows, [0.1] * len(ws), [0.0] * len(ws),
+               momentum=momentum, rescale_grad=1.0)
+
+    same, err = True, 0.0
+    for momentum in (0.9, 0.0):
+        a, b = members(9, momentum), members(9, momentum)
+        run(fused_sgd_sweep, a, momentum)
+        run(sgd_sweep_reference, b, momentum)
+        torch.cuda.synchronize()
+        for ba, bb in zip(a, b):
+            for grp in (0, 2, 3):
+                if ba[grp] is None:
+                    continue
+                for x, y in zip(ba[grp], bb[grp]):
+                    same &= torch.equal(_bits(x), _bits(y))
+                    err = max(err, float((x.float() - y.float()).abs()
+                                         .nan_to_num().max()))
+        del b
+    nan_kept = bool(torch.isnan(a[0][0][nan_j]).any()
+                    and torch.isinf(a[0][0][inf_j]).any())
+    a = members(9, 0.9)
+    ms = time_ms(lambda: run(fused_sgd_sweep, a, 0.9), flush)
+    ms_mp = time_ms(lambda: run(fused_sgd_sweep, a[:1], 0.9), flush)
+    ms_f32 = time_ms(lambda: run(fused_sgd_sweep, a[1:], 0.9), flush)
+    plain_ms = time_ms(lambda: run(sgd_sweep_reference, a, 0.9), flush,
+                       iters=5, warmup=1)
+    ws = [w.contiguous() for w in a[0][0] + a[1][0]]
+    gs = [g.float().nan_to_num().contiguous() for g in a[0][1] + a[1][1]]
+    bufs = [m.contiguous() for m in a[0][2] + a[1][2]]
+    library_ms = time_ms(lambda: torch._fused_sgd_(
+        ws, gs, bufs, weight_decay=0.0, momentum=0.9, lr=0.1,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False),
+        flush)
+    n = n_mp + n_f32
+    # ~6 f32 operations per element
+    b_ms, b_by = bound(20.0 * n, 6.0 * n, torch.float32)
+    rec = {"phase": "kernels", "kernel": "fused_sgd_sweep",
+           "shape": [n_mp, n_f32], "members": [len(low_like),
+                                               len(f32_like)],
+           "dtype": "bfloat16-mp + float32",
+           "bit_identical": same, "nonfinite_propagated": nan_kept,
+           "max_abs_err": err, "ok": same and nan_kept,
+           "ms": ms, "ms_bf16_mp_bucket": ms_mp, "ms_f32_bucket": ms_f32,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch._fused_sgd_ on the f32 masters and f32 "
+                      "grads of both buckets, torch's momentum "
+                      "convention, no bf16 weight written",
+           "bound_ms": b_ms, "bound_by": b_by, "gbytes": 20.0 * n / 1e9,
+           "bound_ms_bf16_mp_bucket": 20.0 * n_mp / HBM_BYTES_PER_S * 1e3}
+    emit(rec)
+    del a, ws, gs, bufs
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _warm_card(seconds=2.0) -> None:
     """Keep the card busy with bf16 GEMMs for ``seconds`` so its clocks
     have ramped up before anything is timed."""
@@ -1136,6 +1258,7 @@ def phase_kernels() -> dict:
                                    flush, gen, views=False))
     recs.append(adam_case(flush, gen))
     recs.append(adamw_case(flush, gen))
+    recs.append(sgd_case(flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -1149,7 +1272,8 @@ def phase_kernels() -> dict:
     # sweeps over the bf16-mp parameter sets; the RMSNorm backward at the
     # proxy1b step's (8 x 2048, 2048)
     pick = {r["kernel"]: r for r in recs
-            if r["kernel"] in ("fused_adam_sweep", "fused_adamw_sweep")}
+            if r["kernel"] in ("fused_adam_sweep", "fused_adamw_sweep",
+                               "fused_sgd_sweep")}
     for r in recs:
         if r["dtype"] != "bfloat16":
             continue
@@ -1360,11 +1484,12 @@ def phase_serving() -> dict:
     return res["launches"]
 
 
-def _device_breakdown(step, steps, n_top=8) -> dict:
+def _device_breakdown(step, steps, n_top=8, kind=None) -> dict:
     """Where ``step()``'s time goes: host wall time per call (synchronised,
     unprofiled, after one warm call) against the device time
     torch.profiler records over as many further calls, the ``n_top``
-    device events that take most of it, and device time by kind."""
+    device events that take most of it, and device time by kind
+    (``kind(name)``, default :func:`_kind`)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1379,7 +1504,8 @@ def _device_breakdown(step, steps, n_top=8) -> dict:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    device_ms, top, by_kind = _device_events(prof, steps, n_top)
+    device_ms, top, by_kind = _device_events(prof, steps, n_top,
+                                             kind or _kind)
     return {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
             "device_idle_share": 1 - device_ms / host_ms,
             "top_device_ms_per_step": top,
@@ -1392,7 +1518,7 @@ _PORT_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
                  "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
                  "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
                  "paged_decode_kernel", "dropout_kernel", "adamw_kernel",
-                 "adamw_scan_kernel")
+                 "adamw_scan_kernel", "sgd_kernel")
 
 
 def _kind(name) -> str:
@@ -1405,7 +1531,7 @@ def _kind(name) -> str:
     return "other_library"
 
 
-def _device_events(prof, per, n_top=8) -> tuple:
+def _device_events(prof, per, n_top=8, kind=None) -> tuple:
     """(device ms, the ``n_top`` largest device events in ms, device ms by
     kind: the port's kernels, library GEMMs, copies, other library
     kernels), each divided by ``per``. Device-side events only (kernels,
@@ -1424,7 +1550,8 @@ def _device_events(prof, per, n_top=8) -> tuple:
             continue
         ms = dev_us(e) / 1e3 / per
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + ms
-        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + ms
+        k = (kind or _kind)(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
     return sum(by_name.values()), dict(top[:n_top]), by_kind
 
@@ -1771,7 +1898,7 @@ def phase_bert_serving() -> dict:
 def _train_wrappers() -> dict:
     from mxnet_tpu_torch.kernels import (flash_attention, flash_attention_bwd,
                                          fused_adam_sweep, fused_adamw_sweep,
-                                         fused_bias_gelu,
+                                         fused_bias_gelu, fused_sgd_sweep,
                                          fused_bias_gelu_bwd,
                                          fused_layer_norm,
                                          fused_layer_norm_bwd,
@@ -1782,7 +1909,7 @@ def _train_wrappers() -> dict:
         fused_layer_norm, fused_layer_norm_bwd, fused_bias_gelu,
         fused_bias_gelu_bwd, flash_attention, flash_attention_bwd,
         fused_adam_sweep, hash_dropout, hash_dropout_bwd, fused_rms_norm,
-        fused_rms_norm_bwd, fused_adamw_sweep)}
+        fused_rms_norm_bwd, fused_adamw_sweep, fused_sgd_sweep)}
 
 
 # the second counters some wrappers keep beside ``launches``
@@ -2199,6 +2326,424 @@ def phase_llama_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12-13. ResNet-50 v1 training through TrainStep with SGD momentum
+# ---------------------------------------------------------------------------
+
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "multi_precision": True}
+
+
+class _Decisions:
+    """The card's ReLU and max-pool decisions, recorded in call order
+    during its run and replayed on the CPU copy's. A ReLU network's
+    gradient jumps where a ReLU input crosses 0 or two inputs of a
+    max-pool window swap places; the card and the CPU round differently,
+    so an input within f32 rounding of such a point takes one side on
+    one device and the other side on the other, and every gradient
+    upstream of it moves by that element's share of its layer's, far
+    above the f32 noise the limits allow. Replayed, both devices compute
+    the same piecewise-linear function and the comparison reads the ops'
+    rounding alone; ``disagreements`` counts the elements where the CPU
+    would have decided otherwise, out of ``elements`` replayed."""
+
+    def __init__(self):
+        import torch.nn.functional as F
+
+        from mxnet_tpu_torch.ops import nn as ops_nn
+
+        self._ops, self._f = ops_nn, F
+        self._max_pool2d = F.max_pool2d
+        self.log, self.pos, self.mode = [], 0, None
+        self.disagreements = self.elements = 0
+
+    def relu(self, x):
+        keep = x > 0
+        if self.mode == "record":
+            self.log.append(keep.cpu())
+            return torch.relu(x)
+        want = self.log[self.pos].to(x.device)
+        self.pos += 1
+        self.disagreements += int((keep != want).sum())
+        self.elements += want.numel()
+        return torch.where(want, x, torch.zeros((), dtype=x.dtype))
+
+    def max_pool2d(self, x, kernel, stride, pad):
+        out, idx = self._max_pool2d(x, kernel, stride, pad,
+                                    return_indices=True)
+        if self.mode == "record":
+            self.log.append(idx.cpu())
+            return out
+        want = self.log[self.pos].to(x.device)
+        self.pos += 1
+        self.disagreements += int((idx != want).sum())
+        self.elements += want.numel()
+        n, c = x.shape[:2]
+        return x.reshape(n, c, -1).gather(2, want.reshape(n, c, -1)) \
+            .view(want.shape)
+
+    def run(self, mode, fn):
+        """``fn()`` with the decisions recorded (``"record"``) or
+        replayed (``"replay"``)."""
+        self.mode, self.pos = mode, 0
+        relu = self._ops._ACTIVATIONS["relu"]
+        self._ops._ACTIVATIONS["relu"] = self.relu
+        self._f.max_pool2d = self.max_pool2d
+        try:
+            return fn()
+        finally:
+            self._ops._ACTIVATIONS["relu"] = relu
+            self._f.max_pool2d = self._max_pool2d
+
+
+def _resnet_per_step(buckets) -> dict:
+    """Launches of each training kernel in one TrainStep of a ResNet v1:
+    one SGD sweep per dtype bucket and nothing else (convolution,
+    BatchNorm, pooling and the loss are library and plain PyTorch
+    ops)."""
+    return {**dict.fromkeys(_train_counts(), 0), "fused_sgd_sweep": buckets}
+
+
+def _running_stats(net) -> dict:
+    return {k: v.detach().float().cpu().clone()
+            for k, v in net.state_dict().items() if "running" in k}
+
+
+def phase_resnet_train_reference() -> None:
+    """resnet18_v1(classes=10, layout="NHWC") at 64x64 (the 7x7 stem, the
+    max pool, basic blocks), f32, seeded weights: three TrainStep SGD
+    steps (lr 1e-3, momentum 0.9) on a batch of 4 with float labels on
+    the card against the same weights and batch on the CPU, which runs
+    the plain versions, with TF32 off in cuDNN for the phase (restored
+    after it), and the CPU copy taking the card's ReLU and max-pool
+    decisions (_Decisions). Limits, set before the first run: each
+    step's loss within 1e-5 relative; every running mean and variance
+    after each step within 1e-5 + 1e-5 |cpu|; each parameter's delta
+    over the run within 1e-3 of its norm; exactly one sweep per step
+    and no other training kernel. The replay may cover at most 1e-5 of
+    the decisions it replays (about 25 of some 2.5M here; two runs
+    found 2), so a fault on the card upstream of a kink, which moves
+    many decisions, cannot hide behind it."""
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    steps, opt = 3, {"learning_rate": 1e-3, "momentum": 0.9}
+    card_net = resnet18_v1(classes=10, layout="NHWC", ctx="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 7))
+    cpu_net = copy.deepcopy(card_net).cpu()
+    w0 = {k: v.detach().cpu().clone()
+          for k, v in card_net.named_parameters()}
+    rs = np.random.RandomState(SEED + 7)
+    x = rs.randn(4, 3, 64, 64).astype(np.float32)
+    y = rs.randint(0, 10, (4,)).astype(np.float32)
+    decisions = _Decisions()
+    losses, stats = {}, {}
+    for name, net in (("card", card_net), ("cpu", cpu_net)):
+        step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                     optimizer_params=dict(opt))
+        _reset_train_counts()
+
+        def run():
+            got = []
+            for _ in range(steps):
+                got.append((float(step(x, y)[0]), _running_stats(net)))
+            return got
+
+        got = decisions.run("record" if name == "card" else "replay", run)
+        losses[name] = [g[0] for g in got]
+        stats[name] = [g[1] for g in got]
+        if name == "card":
+            launches = _train_counts()
+            buckets = len(step._buckets)
+    torch.backends.cudnn.allow_tf32 = tf32
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                        losses["cpu"]))
+    stat_err = max(float(((a[k] - b[k]).abs()
+                          - 1e-5 * b[k].abs()).max())
+                   for a, b in zip(stats["card"], stats["cpu"]) for k in a)
+    ratios = {}
+    cpu_params = dict(cpu_net.named_parameters())
+    for key, p in card_net.named_parameters():
+        dc = (cpu_params[key].detach() - w0[key]).flatten()
+        dg = (p.detach().cpu() - w0[key]).flatten()
+        ratios[key] = float((dg - dc).norm()) / float(dc.norm())
+    worst = max(ratios, key=ratios.get)
+    want = {k: v * steps for k, v in _resnet_per_step(buckets).items()}
+    emit({"phase": "resnet_train_reference",
+          "model": "resnet18_v1(classes=10, layout='NHWC')",
+          "dtype": "float32", "optimizer": opt, "batch": [4, 3, 64, 64],
+          "steps": steps, "losses": losses, "loss_max_rel_diff": loss_rel,
+          "loss_tol": 1e-5, "running_stats_excess_over_tol": stat_err,
+          "running_stats_tol": "1e-5 + 1e-5 |cpu|",
+          "delta_worst": [worst, ratios[worst]],
+          "delta_median": float(np.median(list(ratios.values()))),
+          "delta_tol": 1e-3,
+          "decisions_replayed": decisions.elements,
+          "decision_disagreements": decisions.disagreements,
+          "decision_disagreements_limit": 1e-5 * decisions.elements,
+          "launches": launches, "launches_expected": want,
+          "seconds": time.perf_counter() - t0})
+    if not all(np.isfinite(losses["card"])) or loss_rel > 1e-5:
+        fail(f"f32 ResNet training losses on the card disagree with the "
+             f"CPU's: {losses}")
+    if stat_err > 1e-5:
+        fail(f"f32 ResNet running statistics on the card disagree with the "
+             f"CPU's by {stat_err} over 1e-5 + 1e-5 |cpu|")
+    if not ratios[worst] <= 1e-3:
+        fail(f"f32 ResNet parameter deltas on the card disagree with the "
+             f"CPU's: {worst} {ratios[worst]}")
+    if launches != want:
+        fail(f"ResNet training reference launch counts {launches} are not "
+             f"{want}")
+    if decisions.disagreements > 1e-5 * decisions.elements:
+        fail(f"the CPU would decide {decisions.disagreements} of "
+             f"{decisions.elements} ReLU and max-pool elements otherwise "
+             "than the card: more than f32 rounding near a kink explains")
+    del cpu_net, card_net, step
+    torch.cuda.empty_cache()
+
+
+def _masters_and_momenta(step) -> list:
+    """Each trained parameter's (master, momentum) as f64 copies on the
+    card: the f32 master of a bf16 multi-precision parameter, the f32
+    parameter itself (BatchNorm's gamma and beta) otherwise."""
+    out = []
+    for p, st in zip(step._params, step._states):
+        w, mom = st if isinstance(st, tuple) else (p.detach(), st)
+        out.append((w.double(), mom.double()))
+    return out
+
+
+def _sgd_rule_excess(step, before, opt) -> dict:
+    """How far one TrainStep SGD step strayed from its rule, worked by
+    hand in f64 from ``before`` (_masters_and_momenta) and each
+    parameter's gradient, which the step leaves in ``.grad``: the new
+    momentum ``momentum * mom - lr * g`` within 1e-6 of its largest
+    term, the new master ``master + mom`` within 1e-6 of the largest
+    master (f32 rounding of each operation), each bf16 weight its master
+    rounded. ``worst_excess`` is the largest error over its limit (above
+    1 breaks the rule); no weight decay, clipping or rescale, as the
+    benchmark's optimizer has none."""
+    mu, lr = opt["momentum"], opt["learning_rate"]
+    worst, rounded = 0.0, True
+    for p, (w0, m0), (w1, m1) in zip(step._params, before,
+                                     _masters_and_momenta(step)):
+        g = p.grad.double()
+        lim = 1e-6 * float((mu * m0.abs() + lr * g.abs()).max())
+        worst = max(worst, float((m1 - (mu * m0 - lr * g)).abs().max())
+                    / max(lim, 1e-30))
+        lim = 1e-6 * float(w0.abs().max())
+        worst = max(worst, float((w1 - (w0 + m1)).abs().max())
+                    / max(lim, 1e-30))
+        if p.dtype == torch.bfloat16:
+            rounded &= torch.equal(p.detach(), w1.to(torch.bfloat16))
+    return {"worst_excess": worst, "bf16_is_master_rounded": bool(rounded),
+            "tol": "1e-6 of the largest term"}
+
+
+def _conv_flops_per_image(net, size=224) -> float:
+    """Training FLOPs per image from the model's own convolution and
+    classifier shapes: 2 x the multiply-adds of the forward (each
+    convolution's output elements times its kernel's in-channels and
+    taps, the classifier's in x out), times 3 for the forward and the
+    two backward products."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+
+    macs = []
+
+    def hook(mod, inp, out):
+        k = mod.weight
+        macs.append(out.numel() / out.shape[0] * k[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, gnn.Conv2D)]
+    with torch.no_grad():
+        net(torch.zeros(1, 3, size, size, device="cuda",
+                        dtype=torch.bfloat16))
+    for h in handles:
+        h.remove()
+    dense = net.output.weight.numel()
+    return 3.0 * 2.0 * (sum(macs) + dense)
+
+
+def _bn_glue_ms(net, x) -> dict:
+    """Device ms of the plain BatchNorm forward and backward over one
+    step's 53 calls: each BatchNorm's input shape read from one forward
+    at the step's batch, and each distinct shape event-timed once (cold
+    L2, bf16 input, f32 gamma and beta) and counted as often as the
+    model has it. Not a Pallas site; this is its share of the step."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    shapes = {}
+
+    def hook(mod, inp, out):
+        key = tuple(inp[0].shape)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, gnn.BatchNorm)]
+    with torch.no_grad():
+        net(x)
+    for h in handles:
+        h.remove()
+    flush = _L2Flush()
+    total, per = 0.0, {}
+    for shape, count in shapes.items():
+        c = shape[-1]
+        xx = torch.randn(shape, device="cuda",
+                         dtype=torch.bfloat16).requires_grad_()
+        g = torch.ones(c, device="cuda", requires_grad=True)
+        b = torch.zeros(c, device="cuda", requires_grad=True)
+        dy = torch.randn_like(xx)
+
+        def fwd_bwd():
+            out = ops_nn.batch_norm(xx, g, b, b, g, eps=1e-5,
+                                    fix_gamma=False, axis=-1,
+                                    training=True)[0]
+            torch.autograd.grad(out, (xx, g, b), dy)
+
+        ms = time_ms(fwd_bwd, flush, iters=5, warmup=1)
+        per[str(list(shape))] = {"calls": count, "ms_fwd_bwd": ms}
+        total += count * ms
+        del xx, dy
+    torch.cuda.empty_cache()
+    return {"ms_per_step": total, "by_shape": per}
+
+
+def _resnet_kind(name) -> str:
+    """Device events of a ResNet step by kind: the SGD sweep, pooling,
+    elementwise and reduction glue (BatchNorm, ReLU, the residual adds,
+    the loss), copies, and the rest, which is cuDNN's convolutions (and
+    its layout transforms) and the classifier's GEMM."""
+    low = name.lower()
+    if "sgd_kernel" in name:
+        return "sgd_sweep"
+    if any(k in name for k in _PORT_KERNELS):
+        return "port_kernels_other"
+    if "memcpy" in low or "memset" in low:
+        return "copy_memset"
+    if "pool" in low:
+        return "pooling"
+    if any(k in low for k in ("elementwise", "reduce", "index", "gather",
+                              "scatter", "softmax", "fill")):
+        return "elementwise_and_reduction_glue"
+    return "cudnn_conv_and_gemm"
+
+
+def phase_resnet_train() -> dict:
+    """resnet50_v1(layout="NHWC") at its published widths and depth (1000
+    classes, 25.56M parameters), bf16 with f32 BatchNorm, seeded random
+    weights, SoftmaxCrossEntropyLoss, SGD at lr 0.1, momentum 0.9,
+    multi-precision, as bench.py:221-251 builds it: one (256, 3, 224,
+    224) batch of RandomState(0) images with float labels, 3 warm-up and
+    20 timed TrainStep calls, cuDNN's autotuner on (torch.backends.cudnn
+    .benchmark, restored after). The loss must be finite every step and
+    fall strictly over the first three; the second step, the first whose
+    momentum is not 0, must follow the update rule by hand
+    (_sgd_rule_excess); every running statistic must move, and the
+    launches must be exactly one SGD sweep per dtype bucket (2) per step
+    and no other training kernel. Past the first steps, at lr 0.1 and
+    momentum 0.9 with no warm-up on one repeated batch, the loss
+    overshoots and swings, above its first value and back; the JAX
+    package's own TrainStep does the same at these settings
+    (tests/test_torch_resnet_train.py, run as a script), so where the
+    last step lands is not a condition."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, timed_steps = 256, 20
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    net = resnet50_v1(layout="NHWC", dtype=torch.bfloat16,
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                 optimizer_params=dict(RESNET_OPT))
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(batch, 3, 224, 224).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 1000, (batch,)).astype(np.float32)) \
+        .cuda()
+    stats0 = _running_stats(net)
+    warm = [float(step(x, y)[0])]
+    before = _masters_and_momenta(step)
+    warm.append(float(step(x, y)[0]))
+    rule = _sgd_rule_excess(step, before, RESNET_OPT)
+    del before
+    warm.append(float(step(x, y)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    timed, enq = [], []
+    t1 = time.perf_counter()
+    for _ in range(timed_steps):
+        timed.append(step(x, y)[0])
+        enq.append(time.perf_counter())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = warm + [float(v) for v in timed]
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in _running_stats(net).items())
+    per_step = _resnet_per_step(len(step._buckets))
+    want = {k: v * timed_steps for k, v in per_step.items()}
+    flops = _conv_flops_per_image(net)
+    images_s = batch * timed_steps / wall
+    out = {"phase": "resnet_train",
+           "model": "resnet50_v1(layout='NHWC')",
+           "dtype": "bfloat16, f32 BatchNorm, multi-precision sgd",
+           "optimizer": RESNET_OPT,
+           "params": sum(p.numel() for p in net.parameters()),
+           "batch": [batch, 3, 224, 224], "steps": timed_steps,
+           "cudnn_benchmark": True,
+           "ms_per_step": wall * 1e3 / timed_steps,
+           "images_per_s": images_s, "flops_per_image": flops,
+           "mfu": flops * images_s / 989e12, "peak_mem_gib": peak,
+           "losses": losses, "running_stats_moved": [moved, len(stats0)],
+           "update_rule_step2": rule,
+           "launches": launches, "launches_expected": want,
+           "launches_per_step": per_step,
+           "enqueue_ms": [1e3 * (b - a) for a, b in zip([t1] + enq, enq)],
+           "buckets": [(len(b.members), str(b.wdtype), b.mp)
+                       for b in step._buckets]}
+    out["step_breakdown"] = _device_breakdown(lambda: step(x, y), 2,
+                                              n_top=16, kind=_resnet_kind)
+    out["bn_glue"] = _bn_glue_ms(net, x)
+    out["seconds"] = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = bench
+    emit(out)
+    if not all(np.isfinite(losses)) \
+            or not losses[0] > losses[1] > losses[2]:
+        fail(f"bf16 ResNet-50 training loss is not finite or did not fall "
+             f"over the first three steps: {losses}")
+    if rule["worst_excess"] > 1.0 or not rule["bf16_is_master_rounded"]:
+        fail(f"ResNet-50's second SGD step broke its update rule: {rule}")
+    if moved != len(stats0):
+        fail(f"only {moved} of {len(stats0)} BatchNorm running statistics "
+             "moved")
+    if launches != want or per_step["fused_sgd_sweep"] != 2:
+        fail(f"ResNet-50 training launch counts {launches} are not {want} "
+             f"({per_step} per step)")
+    del step, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -2219,6 +2764,8 @@ def main() -> None:
     phase_bert_train()
     phase_llama_train_reference()
     llama = phase_llama_train()
+    phase_resnet_train_reference()
+    resnet = phase_resnet_train()
     tpu = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -2241,6 +2788,8 @@ def main() -> None:
         # row 12 for the adamw family: its scan and its sweep
         "fused_adamw_sweep": ("fused_optimizer.cu",
                               "fused_optimizer.py:128"),
+        # row 12 for the sgd family
+        "fused_sgd_sweep": ("fused_optimizer.cu", "fused_optimizer.py:128"),
         # the dropout modes of rows 1', 9, 3-4 and 5-8
         "fused_layer_norm[dropout]": ("layer_norm.cu", "fused_layers.py:323"),
         "fused_layer_norm_bwd[dropout]": ("layer_norm.cu",
@@ -2267,7 +2816,10 @@ def main() -> None:
                               "through _rms_bwd (fused_layers.py:479)",
         "fused_adamw_sweep": "the adamw family: one overflow scan and one "
                              "sweep per bucket; ms and bound_ms cover both "
-                             "launches"}
+                             "launches",
+        "fused_sgd_sweep": "the sgd family: one sweep per dtype bucket, two "
+                           "per ResNet-50 step (bf16-mp and f32); ms and "
+                           "bound_ms cover both buckets"}
     kernels = []
     for name, (src, site) in replaces.items():
         r = picks[name]
@@ -2282,6 +2834,8 @@ def main() -> None:
             by_path["llama_train"] = llama[name]
         if name == "fused_adamw_sweep":
             by_path["llama_train[scan]"] = llama[name + "[scan]"]
+        if resnet.get(name):
+            by_path["resnet_train"] = resnet[name]
         launches = next(iter(by_path.values()))
         if name == "hash_dropout":
             # one kernel for the op's forward and backward wrappers

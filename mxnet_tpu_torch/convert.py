@@ -15,7 +15,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["llama_params_from_reference", "bert_params_from_reference",
-           "bert_pretrain_params_from_reference"]
+           "bert_pretrain_params_from_reference",
+           "resnet_params_from_reference"]
 
 _GLOBAL = {"embed_weight": "embed.weight", "norm_weight": "norm.weight",
            "lm_head_weight": "lm_head.weight"}
@@ -295,3 +296,123 @@ def bert_pretrain_params_from_reference(named: Dict[str, np.ndarray]
             raise MXNetError(f"parameter {key!r} has shape "
                              f"{tuple(out[key].shape)}, expected {shape}")
     return out
+
+
+# -- ResNet v1 ----------------------------------------------------------------
+
+_RESNET_RE = re.compile(
+    r"(?P<prefix>.*?)(?:stage(?P<stage>\d+)_)?(?P<kind>conv2d|batchnorm|dense)"
+    r"(?P<idx>\d+)_(?P<field>weight|bias|gamma|beta|running_mean|"
+    r"running_var)")
+_BN_FIELDS = {"gamma", "beta", "running_mean", "running_var"}
+
+
+def resnet_params_from_reference(named: Dict[str, np.ndarray]
+                                 ) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``ResNetV1``'s named numpy parameters, BatchNorm's
+    running statistics included, onto the port's ``ResNetV1.state_dict()``
+    names (CPU tensors of the same dtype; ``load_state_dict`` moves them
+    to the model's device and dtype).
+
+    The reference names its layers by process-wide counters
+    (``resnetv10_stage2_conv2d7_weight``), so the layers of the stem and
+    of each stage are taken in counter order, which is construction
+    order: each block's body, then its downsample. The block type is read
+    from a stage's first convolution (1x1: bottleneck, 3x3: basic), a
+    first block's downsample from the stage's convolution count, the
+    thumbnail stem from the absence of a stem BatchNorm. Raises
+    :class:`MXNetError` on an unknown name, a missing or extra layer, or
+    channel counts that do not chain from the 3 input channels to the
+    classifier."""
+    groups: Dict[tuple, Dict[str, np.ndarray]] = {}
+    prefixes = set()
+    for name, arr in named.items():
+        m = _RESNET_RE.fullmatch(name)
+        if m is None:
+            raise MXNetError(f"unexpected parameter {name!r} for a ResNet v1 "
+                             "model")
+        prefixes.add(m["prefix"])
+        key = (int(m["stage"] or 0), m["kind"], int(m["idx"]))
+        groups.setdefault(key, {})[m["field"]] = np.asarray(arr)
+    if len(prefixes) != 1:
+        raise MXNetError(f"parameters of more than one model: {prefixes}")
+
+    def layers(stage, kind):
+        return [(f"{kind}{k[2]}", groups[k]) for k in sorted(
+            k for k in groups if k[0] == stage and k[1] == kind)]
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(key, layer, c_in):
+        what, fields = layer
+        w = fields.get("weight")
+        if set(fields) != {"weight"} or w.ndim != 4 or w.shape[1] != c_in:
+            raise MXNetError(f"{what}: expected one (O, {c_in}, kh, kw) "
+                             f"weight, got {_shapes(fields)}")
+        out[key + ".weight"] = _to_tensor(w)
+        return w.shape[0]
+
+    def bn(key, layer, c):
+        what, fields = layer
+        if set(fields) != _BN_FIELDS or any(
+                a.shape != (c,) for a in fields.values()):
+            raise MXNetError(f"{what}: expected gamma, beta, running_mean "
+                             f"and running_var of shape ({c},), got "
+                             f"{_shapes(fields)}")
+        for f, a in fields.items():
+            out[f"{key}.{f}"] = _to_tensor(a)
+
+    stem_convs, stem_bns = layers(0, "conv2d"), layers(0, "batchnorm")
+    if len(stem_convs) != 1 or len(stem_bns) > 1:
+        raise MXNetError(f"expected one stem convolution and at most one "
+                         f"stem BatchNorm, got {len(stem_convs)} and "
+                         f"{len(stem_bns)}")
+    c = conv("features.0", stem_convs[0], 3)
+    if stem_bns:
+        bn("features.1", stem_bns[0], c)
+    first = 4 if stem_bns else 1      # conv, bn, relu, max pool / conv
+    stages = sorted({k[0] for k in groups} - {0})
+    if not stages or stages != list(range(1, len(stages) + 1)):
+        raise MXNetError(f"stages {stages} are not 1, 2, ...")
+    for s in stages:
+        convs, bns = layers(s, "conv2d"), layers(s, "batchnorm")
+        if not convs or len(convs) != len(bns):
+            raise MXNetError(f"stage {s}: {len(convs)} convolutions and "
+                             f"{len(bns)} BatchNorms")
+        per = 3 if convs[0][1]["weight"].shape[2:] == (1, 1) else 2
+        n_blocks, ds = divmod(len(convs), per)
+        if ds > 1:
+            raise MXNetError(f"stage {s}: {len(convs)} convolutions do not "
+                             f"make blocks of {per}")
+        pairs = iter(zip(convs, bns))
+        for b in range(n_blocks):
+            base = f"features.{first + s - 1}.{b}"
+            c_in = c
+            for k in range(per):
+                cv, norm = next(pairs)
+                c = conv(f"{base}.body.{3 * k}", cv, c)
+                bn(f"{base}.body.{3 * k + 1}", norm, c)
+            if b == 0 and ds:
+                cv, norm = next(pairs)
+                c_ds = conv(f"{base}.downsample.0", cv, c_in)
+                bn(f"{base}.downsample.1", norm, c_ds)
+                if c_ds != c:
+                    raise MXNetError(f"stage {s}: the downsample gives "
+                                     f"{c_ds} channels, the body {c}")
+            elif c != c_in:
+                raise MXNetError(f"stage {s}, block {b}: {c_in} channels "
+                                 f"in, {c} out, and no downsample")
+    dense = layers(0, "dense")
+    if len(dense) != 1 or set(dense[0][1]) != {"weight", "bias"}:
+        raise MXNetError("expected one classifier with a weight and a bias")
+    w, bias = dense[0][1]["weight"], dense[0][1]["bias"]
+    if w.shape[1:] != (c,) or bias.shape != (w.shape[0],):
+        raise MXNetError(f"classifier: weight {w.shape} and bias "
+                         f"{bias.shape} after {c} channels")
+    out["output.weight"], out["output.bias"] = _to_tensor(w), \
+        _to_tensor(bias)
+    return out
+
+
+def _shapes(fields):
+    return {f: tuple(a.shape) for f, a in fields.items()}

@@ -1,4 +1,4 @@
 """Model zoo of the port (counterpart of ``mxnet_tpu/gluon/model_zoo``)."""
-from . import nlp
+from . import nlp, vision
 
-__all__ = ["nlp"]
+__all__ = ["nlp", "vision"]

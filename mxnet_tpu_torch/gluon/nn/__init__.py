@@ -1,4 +1,8 @@
 """Gluon layers of the port (counterpart of ``mxnet_tpu/gluon/nn``)."""
-from .basic_layers import Dense, Dropout, Embedding, HybridSequential, LayerNorm
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           Flatten, HybridSequential, LayerNorm)
+from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
 
-__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm"]
+__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Dropout",
+           "Embedding", "Flatten", "GlobalAvgPool2D", "HybridSequential",
+           "LayerNorm", "MaxPool2D"]

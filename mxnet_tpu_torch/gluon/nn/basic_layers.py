@@ -1,7 +1,8 @@
-"""Basic layers of the BERT serving path.
+"""Basic layers of the BERT, Llama and ResNet paths.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py`` for ``Dense``,
-``LayerNorm``, ``Embedding``, ``Dropout`` and ``HybridSequential``. They
+``LayerNorm``, ``BatchNorm``, ``Embedding``, ``Dropout``, ``Flatten`` and
+``HybridSequential``, and of ``activations.py``'s ``Activation``. They
 are ``nn.Module``s built with an explicit device and dtype, with no
 deferred initialisation: every shape is given at construction, so
 ``in_units`` and ``in_channels`` are required. Parameter names follow
@@ -16,7 +17,8 @@ from torch import nn
 from ... import autograd
 from ...ops import nn as ops
 
-__all__ = ["Dense", "LayerNorm", "Embedding", "Dropout", "HybridSequential"]
+__all__ = ["Dense", "LayerNorm", "BatchNorm", "Embedding", "Dropout",
+           "Flatten", "Activation", "HybridSequential"]
 
 
 class Dense(nn.Module):
@@ -67,6 +69,71 @@ class LayerNorm(nn.Module):
         return ops.layer_norm(x, self.gamma, self.beta, eps=self._epsilon)
 
 
+class BatchNorm(nn.Module):
+    """Batch normalisation over the channel ``axis`` (1; -1 for a
+    channels-last model) with the reference's defaults (momentum 0.9,
+    epsilon 1e-5; ``basic_layers.py:166-231``).
+
+    ``gamma`` and ``beta`` are parameters (buffers of ones and zeros
+    without ``scale`` / ``center``); ``running_mean`` and
+    ``running_var`` are buffers, so ``parallel.TrainStep``, which sweeps
+    the parameters that require a gradient, never touches them. They stay
+    f32 under a half-precision ``dtype``, as the reference's
+    ``BatchNorm.cast`` keeps them. In training mode
+    (``autograd.is_training()``, which ``TrainStep`` turns on) the
+    forward normalises by the batch statistics and folds them into the
+    running ones in place, ``run * m + stat * (1 - m)`` (the reference's
+    expression); otherwise it normalises by the running ones and moves
+    nothing."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
+                 device=None, dtype=None):
+        super().__init__()
+        if not in_channels:
+            raise ValueError("BatchNorm: in_channels is required (the port "
+                             "has no deferred initialisation)")
+        self._axis = int(axis)
+        self._momentum = float(momentum)
+        self._epsilon = float(epsilon)
+        self._scale = bool(scale)
+        self._use_global_stats = bool(use_global_stats)
+        if dtype in (torch.float16, torch.bfloat16):
+            dtype = torch.float32
+        kw = {"device": device, "dtype": dtype}
+        gamma, beta = torch.ones(in_channels, **kw), \
+            torch.zeros(in_channels, **kw)
+        if scale:
+            self.gamma = nn.Parameter(gamma)
+        else:
+            self.register_buffer("gamma", gamma)
+        if center:
+            self.beta = nn.Parameter(beta)
+        else:
+            self.register_buffer("beta", beta)
+        self.register_buffer("running_mean", torch.zeros(in_channels, **kw))
+        self.register_buffer("running_var", torch.ones(in_channels, **kw))
+
+    def forward(self, x):
+        ret = ops.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._epsilon, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis)
+        if not isinstance(ret, tuple):
+            return ret
+        out, mean, var = ret
+        m = self._momentum
+        with torch.no_grad():
+            for run, stat in ((self.running_mean, mean),
+                              (self.running_var, var)):
+                run.copy_(run * m + stat.to(run.dtype) * (1 - m))
+        return out
+
+    def extra_repr(self):
+        return (f"{self.running_mean.shape[0]}, axis={self._axis}, "
+                f"momentum={self._momentum}, eps={self._epsilon}")
+
+
 class Embedding(nn.Module):
     """Lookup table; indices may arrive as floats and are truncated."""
 
@@ -96,6 +163,28 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self._rate}, axes={self._axes}"
+
+
+class Flatten(nn.Module):
+    """Every axis after the first folded into one."""
+
+    def forward(self, x):
+        return ops.flatten(x)
+
+
+class Activation(nn.Module):
+    """``Activation(act_type)`` (reference ``activations.py:14``) for the
+    act_types ``ops.activation`` has."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self._act_type = activation
+
+    def forward(self, x):
+        return ops.activation(x, act_type=self._act_type)
+
+    def extra_repr(self):
+        return self._act_type
 
 
 class HybridSequential(nn.Sequential):

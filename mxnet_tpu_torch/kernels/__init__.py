@@ -14,7 +14,8 @@ from .fused_layers import (fused_bias_gelu, fused_bias_gelu_bwd,
                            fused_rms_norm_bwd, fused_rms_norm_bwd_reference,
                            fused_rms_norm_reference)
 from .fused_optimizer import (adam_sweep_reference, adamw_sweep_reference,
-                              fused_adam_sweep, fused_adamw_sweep)
+                              fused_adam_sweep, fused_adamw_sweep,
+                              fused_sgd_sweep, sgd_sweep_reference)
 from .paged_attention import (paged_attention_kernel,
                               paged_attention_reference)
 
@@ -28,6 +29,7 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "flash_attention", "flash_attention_fwd",
            "flash_attention_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference",
+           "fused_sgd_sweep", "sgd_sweep_reference",
            "fused_adam_sweep", "adam_sweep_reference",
            "fused_adamw_sweep", "adamw_sweep_reference",
            "paged_attention_kernel", "paged_attention_reference"]

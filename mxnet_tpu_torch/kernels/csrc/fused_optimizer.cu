@@ -1,4 +1,4 @@
-// Fused multi-tensor Adam sweep for Hopper (sm_90a).
+// Fused multi-tensor SGD, Adam and AdamW sweeps for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mxnet_tpu/pallas_kernels/fused_optimizer.py
 // `sweep_pallas` (the pallas_call at :128) for the Adam family: one
@@ -54,6 +54,23 @@
 // clip and fails, as jnp.clip then jnp.isfinite do. The flags stay on
 // the card. The scan reads 2 bytes per element of a bf16-mp bucket, the
 // sweep 28, as Adam's.
+//
+// The SGD family (mx_sgd_sweep) replaces the same pallas_call running
+// `_sgd_elem` (multi_tensor.py:326-339), with the multi-precision write
+// of mp_sgd_mom_update (mxnet_tpu/ops/optimizer_op.py:55-61):
+//
+//   g  = g * rescale  (clipped when clip >= 0)  + wd * w
+//   with a momentum state:  mom = momentum * mom - lr * g;  w = w + mom
+//   without:                w   = w - lr * g              [w_low = bf16(w)]
+//
+// lr and wd per member, no bias correction; momentum 0 with a state still
+// rewrites it to -lr * g (the op's contract). A non-finite g propagates,
+// as in the reference (no overflow skip). The state is in w's dtype
+// (SGD.create_state: the f32 master's under multi-precision). One launch
+// per bucket over the member table the Adam sweeps read (the state in the
+// m slot, 0 for none). Bytes per element of ResNet-50's bf16-mp bucket:
+// read g 2, w 4 and mom 4; write w 4, mom 4 and w_low 2: 20 bytes for
+// ~6 flops, so bytes bound it, as Adam's 28.
 #include <cstdint>
 
 #include "common.cuh"
@@ -88,6 +105,42 @@ __device__ __forceinline__ float rescale_clip(float g, const Hyper& hp) {
   if (hp.clip >= 0.f)  // NaN passes through, as jnp.clip / torch.clamp
     gi = gi < -hp.clip ? -hp.clip : (gi > hp.clip ? hp.clip : gi);
   return gi;
+}
+
+// The SGD sweep; ``hp.b1`` is the momentum. The state (mom) is in TW, or
+// absent (a null address: every member of a bucket has it or none does).
+template <typename TW, typename TG>
+__global__ void __launch_bounds__(kThreads)
+    sgd_kernel(const long long* __restrict__ members,
+               const float* __restrict__ lr_wd, int n_members, Hyper hp) {
+  const int j = find_member(members, n_members);
+  const long long* mem = members + kFields * j;
+  const long long start = (blockIdx.x - mem[6]) * kChunk;
+  TW* w = reinterpret_cast<TW*>(mem[0]);
+  const TG* g = reinterpret_cast<const TG*>(mem[1]);
+  TW* mom = reinterpret_cast<TW*>(mem[2]);
+  __nv_bfloat16* low = reinterpret_cast<__nv_bfloat16*>(mem[4]);
+  const long long n = mem[5];
+  const float lr = lr_wd[2 * j];
+  const float wd = lr_wd[2 * j + 1];
+  const long long end = min(n, start + kChunk);
+#pragma unroll 4
+  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
+    float gi = rescale_clip(mxk::to_f(g[i]), hp);
+    const float wi = mxk::to_f(w[i]);
+    gi = __fadd_rn(gi, __fmul_rn(wd, wi));
+    float wn;
+    if (mom != nullptr) {
+      const float mi = __fsub_rn(__fmul_rn(hp.b1, mxk::to_f(mom[i])),
+                                 __fmul_rn(lr, gi));
+      wn = __fadd_rn(wi, mi);
+      mom[i] = mxk::from_f<TW>(mi);
+    } else {
+      wn = __fsub_rn(wi, __fmul_rn(lr, gi));
+    }
+    w[i] = mxk::from_f<TW>(wn);
+    if (low != nullptr) low[i] = __float2bfloat16_rn(wn);
+  }
 }
 
 template <typename TW, typename TG>
@@ -267,6 +320,34 @@ extern "C" int mx_adamw_sweep(const long long* members, const float* lr_wd,
   else if (w_dtype == mxk::kBFloat16 && g_dtype == mxk::kBFloat16)
     adamw_kernel<bf16, bf16>
         <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, ok, n_members, hp);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The SGD sweep. members: the table mx_adam_sweep reads, with the
+// momentum state in the m slot (0 for the momentum-free form) and the v
+// slot unused; lr_wd: (n_members, 2) f32 on the device; the state in w's
+// dtype; w f32 (the master of a multi-precision bucket) with f32 or bf16
+// grads, or bf16 with bf16 grads; clip < 0 means no clipping. Updates in
+// place; returns cudaGetLastError() after the launch.
+extern "C" int mx_sgd_sweep(const long long* members, const float* lr_wd,
+                            int n_members, int n_blocks, float momentum,
+                            float rescale, float clip, int w_dtype,
+                            int g_dtype, void* stream) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_blocks < 1 || n_members < 1) return static_cast<int>(cudaSuccess);
+  const Hyper hp{momentum, 0.f, 0.f, 0.f, 0.f, rescale, clip};
+  if (w_dtype == mxk::kFloat32 && g_dtype == mxk::kFloat32)
+    sgd_kernel<float, float>
+        <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, n_members, hp);
+  else if (w_dtype == mxk::kFloat32 && g_dtype == mxk::kBFloat16)
+    sgd_kernel<float, bf16>
+        <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, n_members, hp);
+  else if (w_dtype == mxk::kBFloat16 && g_dtype == mxk::kBFloat16)
+    sgd_kernel<bf16, bf16>
+        <<<n_blocks, kThreads, 0, s>>>(members, lr_wd, n_members, hp);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -12,6 +12,11 @@ per-position lse (``_fused_ce_bwd``, ``:108``) and accumulates dX, dW and
 db chunk by chunk. The vocabulary is padded to a whole number of chunks
 with zero rows and a -1e30 bias (``_pad_vocab``, ``:36``), outside the
 autograd function, so the padding's gradients are trimmed by autograd.
+A bias-free head whose chunk divides the vocabulary takes the same node
+with no bias at all (``_fused_ce_nobias``, ``:152-229``): no bias add in
+the chunk logits and no bias gradient; only a padded bias-free head
+carries a zero bias, for its -1e30 padding rows, as the reference's
+fallback does (``:246-262``).
 
 The JAX package has no Pallas kernel here: each chunk's products are
 library GEMMs with f32 results (``torch.mm(..., out_dtype=float32)`` for
@@ -55,11 +60,16 @@ def _mm32(a, b):
 
 def _chunk_logits(hidden, weight, bias, lo, hi):
     """Base-2 logits of vocabulary rows [lo, hi): (N, hi - lo) f32."""
-    s = _mm32(hidden, weight[lo:hi].t()) + bias[lo:hi].float()
+    s = _mm32(hidden, weight[lo:hi].t())
+    if bias is not None:
+        s = s + bias[lo:hi].float()
     return s * _LOG2E
 
 
 class _SoftmaxCEHead(torch.autograd.Function):
+    """The chunked head; ``bias`` may be None (no bias add, no bias
+    gradient)."""
+
     @staticmethod
     def forward(ctx, hidden, weight, bias, labels, chunk):
         n = hidden.shape[0]
@@ -91,7 +101,7 @@ class _SoftmaxCEHead(torch.autograd.Function):
         dx = torch.zeros(hidden.shape, dtype=torch.float32,
                          device=hidden.device)
         dw = torch.empty_like(weight)
-        db = torch.empty_like(bias)
+        db = None if bias is None else torch.empty_like(bias)
         cols = torch.arange(chunk, device=hidden.device)
         for lo in range(0, weight.shape[0], chunk):
             s2 = _chunk_logits(hidden, weight, bias, lo, lo + chunk)
@@ -104,7 +114,8 @@ class _SoftmaxCEHead(torch.autograd.Function):
             gl_cast = gl.to(hidden.dtype)
             dx = dx + _mm32(gl_cast, weight[lo:lo + chunk])
             dw[lo:lo + chunk] = _mm32(gl_cast.t(), hidden).to(weight.dtype)
-            db[lo:lo + chunk] = gl.sum(dim=0).to(bias.dtype)
+            if db is not None:
+                db[lo:lo + chunk] = gl.sum(dim=0).to(bias.dtype)
         return dx.to(hidden.dtype), dw, db, None, None
 
 
@@ -114,16 +125,18 @@ def softmax_ce_head(hidden, weight, bias=None, labels=None, *, chunk=5120):
     vocab) logits (see the module docstring).
 
     ``hidden`` (..., D); ``weight`` (V, D), often a tied embedding table,
-    whose two uses then add their gradients; ``bias`` (V,) or None (a zero
-    bias); ``labels`` (...) integer class ids. Returns the f32 loss shaped
-    like ``labels``."""
+    whose two uses then add their gradients; ``bias`` (V,) or None (no
+    bias: a bias-free node when ``chunk`` divides V, else a zero bias that
+    masks the padding rows); ``labels`` (...) integer class ids. Returns
+    the f32 loss shaped like ``labels``."""
     lead = hidden.shape[:-1]
     d = hidden.shape[-1]
     chunk = int(chunk)
-    if bias is None:
+    if bias is None and weight.shape[0] % chunk:
         bias = torch.zeros(weight.shape[0], dtype=torch.float32,
                            device=weight.device)
-    weight, bias = _pad_vocab(weight, bias, chunk)
+    if bias is not None:
+        weight, bias = _pad_vocab(weight, bias, chunk)
     loss = _SoftmaxCEHead.apply(hidden.reshape(-1, d), weight, bias,
                                 labels.reshape(-1).long(), chunk)
     return loss.reshape(lead)

@@ -1,4 +1,4 @@
-"""Optimizers: the ``Optimizer`` base, ``Adam`` and ``AdamW``.
+"""Optimizers: the ``Optimizer`` base, ``SGD``, ``Adam`` and ``AdamW``.
 
 Counterpart of ``mxnet_tpu/optimizer/optimizer.py:37-292``, as far as
 the fused train step needs it: learning rate and weight decay,
@@ -7,7 +7,7 @@ per-index update counts and the dynamic mode a fused step runs the
 optimizer in. The update itself is the fused sweep of
 :mod:`.multi_tensor`, which ``parallel.TrainStep`` drives; the
 per-parameter ``update`` methods, learning-rate schedules and multipliers
-and the other optimizers (SGD, LAMB, ...) wait for the Trainer slice
+and the other optimizers (LAMB, NAG, ...) wait for the Trainer slice
 (ROADMAP.md, port queue 1, item 7).
 """
 from __future__ import annotations
@@ -19,9 +19,9 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "Adam", "AdamW", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create"]
 
-_NOT_PORTED = ("sgd", "nag", "rmsprop", "adagrad", "adadelta",
+_NOT_PORTED = ("nag", "rmsprop", "adagrad", "adadelta",
                "ftrl", "signum", "sgld", "dcasgd", "lamb", "ftml", "adamax",
                "nadam", "lbsgd")
 
@@ -87,6 +87,25 @@ class Optimizer:
         return self.wd
 
 
+class SGD(Optimizer):
+    """SGD with optional momentum (reference: ``SGD``,
+    ``optimizer.py:201-222``): ``mom = momentum * mom - lr * (g + wd * w)``
+    and ``w += mom``, or ``w -= lr * (g + wd * w)`` at momentum 0, where
+    there is no state. ``lazy_update`` is accepted and means nothing for
+    dense gradients. The state is a zero buffer in the weight's dtype (the
+    f32 master's under ``multi_precision``)."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+
 class Adam(Optimizer):
     """Adam with the bias correction folded into the learning rate
     (reference: ``Adam.update``); its state is ``(mean, var)`` in the
@@ -120,7 +139,7 @@ class AdamW(Optimizer):
                 torch.zeros_like(weight, dtype=torch.float32))
 
 
-_REGISTRY = {"adam": Adam, "adamw": AdamW}
+_REGISTRY = {"sgd": SGD, "adam": Adam, "adamw": AdamW}
 
 
 def create(name, **kwargs):

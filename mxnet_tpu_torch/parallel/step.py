@@ -91,7 +91,8 @@ class TrainStep:
     loss : callable ``loss(outputs, *labels)``; its first output is
         reduced by the mean, in f32.
     optimizer : an :class:`~mxnet_tpu_torch.optimizer.Optimizer` or a
-        name (``"adam"``, ``"adamw"``) built with ``optimizer_params``.
+        name (``"sgd"``, ``"adam"``, ``"adamw"``) built with
+        ``optimizer_params``.
     loss_only : return ``(loss, None)`` instead of ``(loss, outputs)``.
     mesh : None, or a mesh of one device; ``rules``, ``seq_axis``,
         ``remat`` and ``donate_inputs`` must keep their defaults (see the
@@ -196,7 +197,7 @@ class TrainStep:
             low = None
         for ri, role in enumerate(mt.state_roles(self._family,
                                                  dict(static))):
-            ins[role] = [s[ri] for s in base]
+            ins[role] = [_as_tuple(s)[ri] for s in base]
         vecs = mt.collect_scalars(self.optimizer, self._family, b.members)
         mt.packed_apply(self._family, static, ins, vecs,
                         self.optimizer.rescale_grad, low=low)

@@ -4,7 +4,8 @@ pretraining path's (backward kernels and the Adam sweep), its dropout
 modes (the hash-dropout kernel, LayerNorm and flash attention with
 dropout, each with its mask held bit for bit), the Llama pretraining
 path's (the RMSNorm backward, RMSNorm under autograd, the AdamW scan and
-sweep), and at ragged ones.
+sweep), the ResNet training path's (the SGD sweep; the ResNet forward
+with cuDNN against the CPU), and at ragged ones.
 
 Marked ``cuda``: each test skips where there is no CUDA card (the CPU
 test runs) and runs on a machine with one. This file imports neither JAX
@@ -36,10 +37,12 @@ from mxnet_tpu_torch.kernels import (adam_sweep_reference,
                                      fused_rms_norm, fused_rms_norm_bwd,
                                      fused_rms_norm_bwd_reference,
                                      fused_rms_norm_reference,
-                                     hash_dropout, hash_dropout_bwd,
+                                     fused_sgd_sweep, hash_dropout,
+                                     hash_dropout_bwd,
                                      hash_dropout_reference,
                                      paged_attention_kernel,
-                                     paged_attention_reference)
+                                     paged_attention_reference,
+                                     sgd_sweep_reference)
 from mxnet_tpu_torch.kernels.dropout import dropout_thresh, row_keep_mask
 from mxnet_tpu_torch.kernels.flash import (NO_KEY_LSE, _bwd_reference,
                                            _launch, _launch_bwd, _reference)
@@ -819,3 +822,107 @@ def test_llama_trainstep_on_card_matches_cpu():
     assert (fused_adamw_sweep.launches, fused_rms_norm_bwd.launches) \
         == (before[0] + 3, before[1] + 3 * 5)
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt,gdt,mp", [("float32", "float32", False),
+                                        ("float32", "bfloat16", True),
+                                        ("bfloat16", "bfloat16", False)])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_sgd_sweep_bit_identical_on_card(wdt, gdt, mp, momentum, clip):
+    """The SGD sweep against its plain version, bit for bit (compared as
+    bits, so NaNs count), over members of ragged sizes (below one
+    4096-element chunk, an empty one, exactly one chunk, one past it,
+    a channels-last 3x3 convolution weight, ResNet-50's classifier
+    weight, one whose grad holds a NaN past its first chunk, one holding
+    an inf), with and without momentum (``moms=None``), per-member lr
+    and wd and a grad rescale of 0.5; the NaN and inf propagate into
+    their members' weights, as the reference's SGD has no overflow skip;
+    one launch per call."""
+    _require_card()
+    shapes = [(5,), (0,), (4096,), (4097,), (256, 128, 3, 3),
+              (1000, 2048), (9000,), (768,)]
+    nan_j, inf_j = 6, 7
+    dt = {n: getattr(torch, n) for n in ("float32", "bfloat16")}
+
+    def members():
+        g = torch.Generator(device="cuda").manual_seed(5)
+
+        def rand(shape, dtype, scale=1.0):
+            fmt = torch.channels_last if len(shape) == 4 else \
+                torch.contiguous_format
+            out = torch.empty(shape, device="cuda", memory_format=fmt)
+            return (scale * out.normal_(generator=g)).to(dtype)
+
+        ws = [rand(s, dt[wdt]) for s in shapes]
+        gs = [rand(s, dt[gdt]) for s in shapes]
+        gs[nan_j].view(-1)[8000] = float("nan")
+        gs[inf_j].view(-1)[17] = float("inf")
+        moms = [rand(s, dt[wdt], 0.1) for s in shapes] if momentum \
+            else None
+        lows = [w.to(torch.bfloat16) for w in ws] if mp else None
+        return ws, gs, moms, lows
+
+    lrs = [0.1 * (1 + j) for j in range(len(shapes))]
+    wds = [1e-4, 0.0, 1e-4, 0.01, 5e-4, 1e-4, 0.0, 1e-4]
+    kw = dict(momentum=momentum, rescale_grad=0.5, clip_gradient=clip)
+    a, b = members(), members()
+    before = fused_sgd_sweep.launches
+    for _ in range(2):
+        fused_sgd_sweep(*a, lrs, wds, **kw)
+        sgd_sweep_reference(*b, lrs, wds, **kw)
+    torch.cuda.synchronize()
+    assert fused_sgd_sweep.launches == before + 2
+    for grp in (0, 2, 3):
+        if a[grp] is None:
+            continue
+        for x, y in zip(a[grp], b[grp]):
+            assert x.stride() == y.stride()
+            assert torch.equal(_bits(x), _bits(y))
+    assert torch.isnan(a[0][nan_j].float()).any()
+    # the inf grad makes its weight -inf, then NaN (inf - inf) a step
+    # later; clipped, it stays finite
+    assert torch.isfinite(a[0][inf_j].float()).all() == (clip is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_resnet_forward_on_card_matches_cpu(layout):
+    """``resnet18_v1(classes=10)`` at 64x64, f32, with TF32 off in cuDNN:
+    the logits on the card against the same model on the CPU, in predict
+    and in train mode (batch statistics), within 1e-4 of the largest
+    logit (f32 sums in other orders through 20 layers); the train-mode
+    forward folds the same running statistics into both (1e-5)."""
+    _require_card()
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = resnet18_v1(classes=10, layout=layout, ctx=mx.cpu(),
+                          generator=torch.Generator().manual_seed(3))
+        card = copy.deepcopy(net).cuda()
+        x = torch.from_numpy(np.random.RandomState(3).randn(
+            4, 3, 64, 64).astype(np.float32))
+        for train in (False, True):
+            scope = mx.autograd.train_mode() if train else \
+                mx.autograd.predict_mode()
+            with torch.no_grad(), scope:
+                want = net(x)
+                got = card(x.cuda()).cpu()
+            err = float((got - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (train, err)
+        for k, v in net.state_dict().items():
+            if "running" in k:
+                torch.testing.assert_close(card.state_dict()[k].cpu(), v,
+                                           rtol=1e-5, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -446,6 +446,44 @@ def test_softmax_ce_head_matches_jax_op(v, chunk):
     np.testing.assert_allclose(_np(out), _np(ce), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("v,chunk", [(512, 128), (700, 256)])
+def test_softmax_ce_head_without_bias_matches_jax_op(v, chunk):
+    """``bias=None``: where the chunk divides the vocabulary the head runs
+    a bias-free node, as the reference's ``_fused_ce_nobias``: the
+    autograd graph holds no vocab-sized bias tensor and no bias input;
+    with a padded vocabulary (700 over chunks of 256) a zero bias masks
+    the padding rows, as the reference's fallback. Loss and the hidden
+    and weight gradients against the JAX op at the biased test's rtol /
+    atol 1e-5 (f32, the same chunked arithmetic summed in other
+    orders)."""
+    rs = np.random.RandomState(53)
+    n, d = 40, 16
+    h = (0.5 * rs.randn(n, d)).astype(np.float32)
+    w = (0.1 * rs.randn(v, d)).astype(np.float32)
+    lab = rs.randint(0, v, (n,)).astype(np.int32)
+    gl = rs.rand(n).astype(np.float32)
+    jout, vjp = jax.vjp(lambda a, c: jloss.softmax_ce_head(
+        a, c, None, jnp.asarray(lab), chunk=chunk), jnp.asarray(h),
+        jnp.asarray(w))
+    jdh, jdw = vjp(jnp.asarray(gl))
+    th, tw = (torch.from_numpy(a).requires_grad_() for a in (h, w))
+    out = softmax_ce_head(th, tw, None, torch.from_numpy(lab), chunk=chunk)
+    node = out.grad_fn
+    while type(node).__name__ != "_SoftmaxCEHeadBackward":
+        node = node.next_functions[0][0]
+    saved = [t for t in node.saved_tensors if t is not None]
+    has_bias = any(t.dim() == 1 and t.shape[0] >= v for t in saved)
+    assert has_bias == (v % chunk != 0), [tuple(t.shape) for t in saved]
+    # no bias gradient flows anywhere: no bias input, or a constant one
+    assert node.next_functions[2][0] is None
+    out.backward(torch.from_numpy(gl))
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=1e-5, atol=1e-5)
+    for got, want, name in ((th.grad, jdh, "h"), (tw.grad, jdw, "w")):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_softmax_ce_head_bf16_close_to_f32():
     """bf16 hidden and weight with f32 chunk logits: within the JAX
     test's 0.05 of the f32 loss (``tests/test_fused_ce_head.py:38-51``)."""
