@@ -116,8 +116,35 @@ package. Phases, each printing JSON lines and failing loudly:
              SGD lr 0.1, momentum 0.9, multi-precision: 3 warm-up and 20
              timed steps, the second against the SGD rule by hand,
              exactly 2 sweeps per step, images/s, MFU, a profiled step;
-16. summary — one {"kernels": [...]} line, and the eager path's step
-             beside TrainStep's at the same shape and dropout.
+16. rtc     — mx.rtc.CudaModule over NVRTC (each module compiled to an
+             sm_90a CUBIN): upstream MXNet's axpy as a template
+             (axpy<float>, axpy<double>, axpy<__half>) and its
+             shared-memory saxpy, the JAX package's two tests/test_rtc.py
+             kernels in CUDA, (16384, 768) f32 row sums through dynamic
+             shared memory (also above 48 KiB) to 1e-6 of an f64 sum, and
+             a user axpy over a (32, 512, 768) activation in bf16 and f32,
+             bit-identical to its plain version with --fmad=false, timed
+             beside its byte bound and torch.add; the NVRTC compile ms,
+             a cached get_kernel's ms, the host us per launch, and six
+             refusals, each an MXNetError (the kernel sources and plain
+             versions are tests/test_torch_cuda_rtc.py's);
+17. imperative — the mx.nd path at BERT-base width:
+             BERTForPretrainFused(bert_12_768_12), bf16, one eager step's
+             gradients (record, autograd.backward; the kernels' launches
+             exactly the model's), the 153 parameters and gradients
+             wrapped as NDArrays without a copy, mx.nd.save / mx.nd.load
+             of the 219 MB parameter dict bit for bit (s and MB/s each
+             way), and a manual SGD update by two routes from the same
+             weights, the NDArray ops w -= lr * g and a user CudaModule
+             kernel launched once per parameter, bit-identical (device
+             ms, host ms and launches of each, the byte bound), and that
+             kernel alone on the largest parameter (the word embedding)
+             beside its plain version, torch.sub and its byte bound;
+18. summary — one {"kernels": [...]} line (the Pallas sites' kernels
+             and an mx.rtc entry for mxnet_tpu/rtc.py:62: the imperative
+             path's user SGD kernel, the rtc phase's axpy beside it), and
+             the eager path's step beside TrainStep's at the same shape
+             and dropout.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -3285,9 +3312,484 @@ def phase_resnet_train() -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 16-17. mx.rtc over NVRTC, and the imperative mx.nd path
+# ---------------------------------------------------------------------------
+
+def _rtc_cases():
+    """The user kernels and their plain versions, one copy shared with
+    the card tests (tests/test_torch_cuda_rtc.py)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / \
+        "test_torch_cuda_rtc.py"
+    spec = importlib.util.spec_from_file_location("_cuda_rtc_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _profiled_kernel_ms(fn, flush, kernel, iters=20, warmup=3) -> float:
+    """Mean device ms of the kernel named ``kernel`` over ``iters`` calls
+    of ``fn``, each after an L2 flush, from torch.profiler's device
+    events: the kernel's own time, without the host's time to launch it
+    (an event pair around a launch whose Python checks take longer than
+    the flush before it times those too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.key == kernel:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            return us / 1e3 / e.count
+    fail(f"torch.profiler recorded no device event named {kernel}")
+
+
+def _raises_mxnet_error(fn) -> str:
+    """The message of the MXNetError ``fn`` raises; fails if it raises
+    none."""
+    from mxnet_tpu_torch.base import MXNetError
+
+    try:
+        fn()
+    except MXNetError as e:
+        return str(e)
+    fail(f"expected an MXNetError from {fn}")
+
+
+def phase_rtc(card: str) -> dict:
+    """mx.rtc.CudaModule on the card: each module compiled by NVRTC to an
+    sm_90a CUBIN; upstream MXNet's axpy as a template (axpy<float>,
+    axpy<double>, axpy<__half>) over (16, 128), and its shared-memory
+    saxpy; the JAX package's two tests/test_rtc.py kernels in CUDA (axpy
+    at alpha 2.5 over (16, 128), the grid band-scale over (8, 128));
+    row sums of a (16384, 768) f32 matrix through dynamic shared memory
+    (one block per row, and again above 48 KiB), to 1e-6 relative of an
+    f64 sum; a user axpy over a (32, 512, 768) activation in bf16 and
+    f32, compiled with --fmad=false and bit-identical to its plain
+    version (two roundings), timed with a cold L2 beside its byte bound
+    and torch.add(y, x, alpha=a); the NVRTC compile ms per module, a
+    cached get_kernel's ms and the host us per launch; and the refusals
+    (a syntax error with NVRTC's log, a dtype mismatch, a strided view,
+    a 2048-thread block, a CPU NDArray, a CPU launch), each an
+    MXNetError."""
+    import mxnet_tpu_torch as mx
+
+    C = _rtc_cases()
+    gpu = mx.gpu(0)
+    flush = _L2Flush()
+    t0 = time.perf_counter()
+    out = {"phase": "rtc", "card": card}
+    mods = {
+        "upstream": mx.rtc.CudaModule(C.UPSTREAM_SRC, options=C.FMAD_OFF,
+                                      exports=C.UPSTREAM_EXPORTS),
+        "jax_tests": mx.rtc.CudaModule(C.JAX_TESTS_SRC, options=C.FMAD_OFF),
+        "row_sum": mx.rtc.CudaModule(C.ROW_SUM_SRC),
+        "bert_axpy": mx.rtc.CudaModule(C.BERT_AXPY_SRC, options=C.FMAD_OFF)}
+    out["compile_ms"] = {k: m.compile_ms for k, m in mods.items()}
+    sig = "const float *x, float *y, float alpha, int n"
+    tg = time.perf_counter()
+    for _ in range(1000):
+        mods["upstream"].get_kernel("axpy<float>", sig)
+    out["get_kernel_ms"] = (time.perf_counter() - tg)
+    checks = {}
+    rs = np.random.RandomState(0)
+    for export in C.UPSTREAM_EXPORTS:
+        ctype, dtype = C.UPSTREAM_TYPES[export]
+        k = mods["upstream"].get_kernel(
+            export, f"const {ctype} *x, {ctype} *y, {ctype} alpha, int n")
+        x = mx.nd.array(rs.randn(*C.AXPY_SHAPE), ctx=gpu, dtype=dtype)
+        y = mx.nd.array(rs.randn(*C.AXPY_SHAPE), ctx=gpu, dtype=dtype)
+        want = C.axpy_plain(x._data, y._data,
+                            torch.tensor(C.AXPY_ALPHA, dtype=dtype).item())
+        k.launch([x, y, C.AXPY_ALPHA, x.size], gpu, (C.grid_for(x.size),),
+                 (C.THREADS,))
+        checks[export] = torch.equal(y._data, want)
+    k = mods["upstream"].get_kernel("saxpy", "const float *x, float *y, "
+                                             "float alpha")
+    x, y = mx.nd.ones((10,), ctx=gpu), mx.nd.zeros((10,), ctx=gpu)
+    k.launch([x, y, 3.0], gpu, (1, 1, 1), (10, 1, 1), 40)
+    checks["saxpy"] = bool((y.asnumpy() == 3).all())
+    x = mx.nd.array(rs.randn(*C.AXPY_SHAPE), ctx=gpu)
+    y = mx.nd.array(rs.randn(*C.AXPY_SHAPE), ctx=gpu)
+    o = mx.nd.zeros(C.AXPY_SHAPE, ctx=gpu)
+    mods["jax_tests"].get_kernel(
+        "axpy_out", "const float *x, const float *y, float *o, float alpha, "
+                    "int n").launch([x, y, o, C.AXPY_ALPHA, x.size], gpu,
+                                    (C.grid_for(x.size),), (C.THREADS,))
+    checks["axpy_out"] = torch.equal(
+        o._data, C.axpy_plain(x._data, y._data, C.AXPY_ALPHA))
+    xb = mx.nd.array(rs.randn(*C.BLOCKY_SHAPE), ctx=gpu)
+    ob = mx.nd.zeros(C.BLOCKY_SHAPE, ctx=gpu)
+    mods["jax_tests"].get_kernel(
+        "blocky", "const float *x, float *o, int cols").launch(
+        [xb, ob, C.BLOCKY_SHAPE[1]], gpu, (C.BLOCKY_GRID,), (128,))
+    checks["blocky"] = torch.equal(ob._data, C.blocky_plain(xb._data))
+    rows, cols = C.ROW_SUM_SHAPE
+    k = mods["row_sum"].get_kernel("row_sum",
+                                   "const float *x, float *out, int cols")
+    x = mx.nd.array(np.random.RandomState(1).rand(rows, cols), ctx=gpu)
+    want = C.row_sum_plain(x._data)
+    row_sum = {}
+    for label, smem in (("smem", C.row_sum_smem(cols)),
+                        ("smem_above_48k", C.row_sum_smem(cols) + (100 << 10))):
+        s = mx.nd.zeros((rows,), ctx=gpu)
+        k.launch([x, s, cols], gpu, (rows,), (C.ROW_SUM_THREADS,), smem)
+        rel = ((s._data.double() - want).abs() / want.abs()).max().item()
+        row_sum[label] = {"shared_mem": smem, "max_rel_err": rel}
+        checks["row_sum_" + label] = rel <= C.ROW_SUM_RTOL
+    s = mx.nd.zeros((rows,), ctx=gpu)
+    row_sum["ms"] = _profiled_kernel_ms(lambda: k.launch(
+        [x, s, cols], gpu, (rows,), (C.ROW_SUM_THREADS,),
+        C.row_sum_smem(cols)), flush, "row_sum")
+    row_sum["bound_ms"] = (rows * cols + rows) * 4 / HBM_BYTES_PER_S * 1e3
+    out["row_sum"] = row_sum
+    axpy = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, dtype in (("axpy_bf16", torch.bfloat16),
+                        ("axpy_f32", torch.float32)):
+        k = mods["bert_axpy"].get_kernel(name, C.BERT_AXPY_SIGS[name])
+        xt = torch.randn(C.BERT_AXPY_SHAPE, generator=gen,
+                         device="cuda").to(dtype)
+        yt = torch.randn(C.BERT_AXPY_SHAPE, generator=gen,
+                         device="cuda").to(dtype)
+        a = torch.tensor(C.BERT_AXPY_ALPHA, dtype=dtype).item()
+        want = C.axpy_plain(xt, yt, a)
+        x, y = mx.nd.NDArray(xt), mx.nd.NDArray(yt.clone())
+        n = x.size
+        grid = (C.grid_for(n, vec=C.BERT_AXPY_VEC[name]),)
+        k.launch([x, y, C.BERT_AXPY_ALPHA, n], gpu, grid, (C.THREADS,))
+        err = (y._data.float() - want.float()).abs().max().item()
+        checks[name] = torch.equal(_bits(y._data), _bits(want))
+        bound_ms, by = bound(3 * n * _size(dtype), 2 * n, dtype)
+
+        def run():
+            k.launch([x, y, C.BERT_AXPY_ALPHA, n], gpu, grid, (C.THREADS,))
+
+        axpy[name] = {
+            "shape": list(C.BERT_AXPY_SHAPE), "dtype": _dname(dtype),
+            "bit_identical": checks[name], "max_abs_err": err,
+            "ms": _profiled_kernel_ms(run, flush, name),
+            # events around each launch: the host's launch time included
+            "event_ms": time_ms(run, flush),
+            "plain_ms": time_ms(lambda: C.axpy_plain(xt, yt, a), flush),
+            "library_ms": time_ms(lambda: torch.add(yt, xt, alpha=a),
+                                  flush),
+            "bound_ms": bound_ms, "bound_by": by, "grid": grid,
+            "block": C.THREADS}
+    out["bert_axpy"] = axpy
+    k = mods["upstream"].get_kernel("axpy<float>", sig)
+    x = mx.nd.ones(C.AXPY_SHAPE, ctx=gpu)
+    y = mx.nd.zeros(C.AXPY_SHAPE, ctx=gpu)
+    torch.cuda.synchronize()
+    th = time.perf_counter()
+    for _ in range(1000):
+        k.launch([x, y, 1.0, x.size], gpu, (8,), (C.THREADS,))
+    out["host_us_per_launch"] = (time.perf_counter() - th) * 1e3
+    torch.cuda.synchronize()
+    checks["host_launch_loop"] = bool((y.asnumpy() == 1000).all())
+    bad = mods["jax_tests"].get_kernel("blocky",
+                                       "const float *x, float *o, int cols")
+    xb = mx.nd.ones(C.BLOCKY_SHAPE, ctx=gpu)
+    ob = mx.nd.zeros(C.BLOCKY_SHAPE, ctx=gpu)
+    errors = {
+        "syntax": _raises_mxnet_error(lambda: mx.rtc.CudaModule(
+            'extern "C" __global__ void k( { }')),
+        "dtype": _raises_mxnet_error(lambda: bad.launch(
+            [xb.astype("float64"), ob, 128], gpu, (4,), (128,))),
+        "strided_view": _raises_mxnet_error(lambda: bad.launch(
+            [xb[:, 1:3], ob, 2], gpu, (4,), (128,))),
+        "block_2048": _raises_mxnet_error(lambda: bad.launch(
+            [xb, ob, 128], gpu, (4,), (2048,))),
+        "cpu_ndarray": _raises_mxnet_error(lambda: bad.launch(
+            [mx.nd.ones(C.BLOCKY_SHAPE, ctx=mx.cpu()), ob, 128], gpu, (4,),
+            (128,))),
+        "cpu_launch": _raises_mxnet_error(lambda: bad.launch(
+            [xb, ob, 128], mx.cpu(), (4,), (128,)))}
+    checks["syntax_error_has_log"] = "error" in errors["syntax"] and \
+        "NVRTC" in errors["syntax"]
+    checks["no_refused_launch_ran"] = bad.launches == 0
+    out["errors"] = {k: v[:200] for k, v in errors.items()}
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if not all(checks.values()):
+        fail(f"mx.rtc checks failed: {checks}")
+    return out
+
+
+def _route_ms(fn, reset, sleep_cycles=int(2e8)) -> tuple:
+    """(device ms, host ms) of ``fn``; ``reset()`` restores its inputs
+    before each of two runs. The first gives the host ms ``fn`` takes to
+    queue its work (no synchronise inside) and warms the allocator; the
+    second is queued behind a sleep kernel of ``sleep_cycles`` (~0.1 s),
+    so the events around it time the device's work back to back, not
+    the host's queueing (torch.profiler drops device events in a long
+    process, so it does not sum a route)."""
+    reset()
+    torch.cuda.synchronize()
+    th = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - th) * 1e3
+    torch.cuda.synchronize()
+    reset()
+    pre, start, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    torch.cuda.synchronize()
+    pre.record()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    tq = time.perf_counter()
+    fn()
+    queue_ms = (time.perf_counter() - tq) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if queue_ms >= pre.elapsed_time(start):
+        fail(f"the host took {queue_ms} ms to queue the work, longer than "
+             f"the sleep before it ({pre.elapsed_time(start)} ms)")
+    return start.elapsed_time(end), host_ms
+
+
+def _queued_ms(fn, flush, iters=20, warmup=3,
+               sleep_cycles=int(2e8)) -> float:
+    """Median device ms of ``fn`` over ``iters`` calls, each after an L2
+    flush and bracketed by CUDA events, all queued behind a sleep kernel
+    of ``sleep_cycles`` (~0.1 s). The card reaches each event pair only
+    after the host has queued every call, so a pair times the device's
+    work and not the host's launch (time_ms's pairs time an mx.rtc
+    launch's Python checks too, which outlast the flush before them)."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    pre, go = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    pre.record()
+    torch.cuda._sleep(sleep_cycles)
+    go.record()
+    tq = time.perf_counter()
+    for s, e in zip(starts, ends):
+        flush()
+        s.record()
+        fn()
+        e.record()
+    queue_ms = (time.perf_counter() - tq) * 1e3
+    torch.cuda.synchronize()
+    if queue_ms >= pre.elapsed_time(go):
+        fail(f"the host took {queue_ms} ms to queue the calls, longer than "
+             f"the sleep before them ({pre.elapsed_time(go)} ms)")
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+IMPERATIVE_LR = 1e-3
+
+
+def phase_imperative(card: str) -> dict:
+    """The slice's path at full width: BERTForPretrainFused at
+    bert_12_768_12, bf16, seeded random weights, at 0.1 / 0.1, one eager
+    step's gradients (record(), autograd.backward; the kernels' launches
+    exactly the model's per step), each of the 153 reached parameters
+    and its gradient wrapped as an NDArray with no copy; mx.nd.save of
+    the parameter dict (109.5M bf16 elements) and mx.nd.load onto gpu(0),
+    bit-identical, seconds and MB/s each way; then a manual SGD update
+    at lr 1e-3 (bf16) by two routes from the same weights: the NDArray
+    ops w -= lr * g, and a user's CudaModule kernel (sgd_bf16,
+    --fmad=false) launched on the same NDArrays once per parameter. The
+    two must agree bit for bit and the kernel route launch exactly once
+    per parameter; each route's device ms (queued behind a sleep kernel,
+    so the host's queueing is not timed), host ms and launches, beside
+    the byte bound (6 B per element) and torch._foreach_add_ over the
+    same lists as the library call; then the user kernel alone on the
+    largest parameter (the word embedding, 30522 x 768): its device ms,
+    its plain version's and torch.sub's (cold L2, events queued behind a
+    sleep kernel), its byte bound and its error against the plain
+    version."""
+    import gc
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+
+    C = _rtc_cases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gpu = mx.gpu(0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = BERTForPretrainFused(dropout=0.1, attn_dropout=0.1, ctx=gpu,
+                               dtype=torch.bfloat16, generator=gen)
+    cfg = net.config
+    if (cfg["num_layers"], cfg["units"], cfg["hidden_size"],
+            cfg["num_heads"], cfg["vocab_size"]) != (12, 768, 3072, 12,
+                                                     30522):
+        fail(f"not BERT-base at full width and depth: {cfg}")
+    mx.random.seed(SEED)
+    rs = np.random.RandomState(0)
+    tok = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
+        np.int32)).cuda()
+    lab = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
+        np.int32)).cuda()
+    _reset_train_counts()
+    with mx.autograd.record():
+        loss = net(tok, lab)
+    reached = {id(t) for t in mx.autograd._leaves([loss])}
+    mx.autograd.backward(loss)
+    torch.cuda.synchronize()
+    step_launches = _train_counts()
+    step_want = _per_step(cfg, 0, 0.1, 0.1)
+    loss = float(loss.detach().float().mean())
+    weights, grads = {}, {}
+    for name, p in net.collect_params().items():
+        if id(p._var) in reached:
+            weights[name] = mx.nd.NDArray(p.data())
+            grads[name] = mx.nd.NDArray(p.grad())
+    n_elem = sum(w.size for w in weights.values())
+    no_copy = all(weights[k]._data.data_ptr() == p.data().data_ptr()
+                  for k, p in net.collect_params().items() if k in weights)
+    out = {"phase": "imperative", "card": card,
+           "model": "BERTForPretrainFused (bert_12_768_12), bf16",
+           "batch": [32, 512], "loss": loss, "params": len(weights),
+           "elements": n_elem, "wrapped_without_copy": no_copy,
+           "step_launches": step_launches,
+           "step_launches_expected": step_want}
+    with tempfile.TemporaryDirectory() as d:
+        fname = os.path.join(d, "bert_12_768_12.params")
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        mx.nd.save(fname, weights)
+        save_s = time.perf_counter() - ts
+        size = os.path.getsize(fname)
+        tl = time.perf_counter()
+        back = mx.nd.load(fname, ctx=gpu)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - tl
+    round_trip = list(back) == list(weights) and all(
+        back[k].context == gpu and back[k].dtype == weights[k].dtype and
+        torch.equal(_bits(back[k]._data), _bits(weights[k]._data))
+        for k in weights)
+    del back
+    out["params_file"] = {"bytes": size, "save_s": save_s,
+                          "save_mb_s": size / save_s / 1e6,
+                          "load_s": load_s, "load_mb_s": size / load_s / 1e6,
+                          "bit_identical": round_trip}
+    names = list(weights)
+    w0 = {k: weights[k]._data.clone() for k in names}
+    wa = {k: mx.nd.NDArray(w0[k].clone()) for k in names}
+    wb = {k: mx.nd.NDArray(w0[k].clone()) for k in names}
+    mod = mx.rtc.CudaModule(C.SGD_SRC, options=C.FMAD_OFF)
+    kern = mod.get_kernel("sgd_bf16", C.SGD_SIG)
+    # compile, load and warm both routes on a throwaway copy of one member
+    first = names[0]
+    scratch = mx.nd.NDArray(w0[first].clone())
+    scratch -= IMPERATIVE_LR * grads[first]
+    kern.launch([scratch, grads[first], IMPERATIVE_LR, scratch.size], gpu,
+                (C.grid_for(scratch.size, vec=C.SGD_VEC),), (C.THREADS,))
+
+    def ops_route():
+        for k in names:
+            wa[k] -= IMPERATIVE_LR * grads[k]
+
+    def kernel_route():
+        for k in names:
+            w = wb[k]
+            kern.launch([w, grads[k], IMPERATIVE_LR, w.size], gpu,
+                        (C.grid_for(w.size, vec=C.SGD_VEC),), (C.THREADS,))
+
+    def restore(ws):
+        def reset():
+            for k in names:
+                ws[k]._data.copy_(w0[k])
+        return reset
+
+    dev_a, host_a = _route_ms(ops_route, restore(wa))
+    # the main path's launches: counted from 0 over the route's first
+    # (unprofiled) run
+    counted = []
+
+    def counted_kernel_route():
+        kernel_route()
+        counted.append(kern.launches)
+
+    kern.launches = 0
+    dev_b, host_b = _route_ms(counted_kernel_route, restore(wb))
+    sgd_launches = counted[0]
+    identical = all(torch.equal(_bits(wa[k]._data), _bits(wb[k]._data))
+                    for k in names)
+    plain = all(torch.equal(_bits(wa[k]._data), _bits(C.sgd_plain(
+        w0[k], grads[k]._data, IMPERATIVE_LR))) for k in names[:8])
+    moved = sum(int((wb[k]._data != w0[k]).sum()) for k in names)
+    lib_w = [w0[k].clone() for k in names]
+    lib_g = [grads[k]._data for k in names]
+    lr_bf16 = torch.tensor(IMPERATIVE_LR, dtype=torch.bfloat16).item()
+    dev_lib, host_lib = _route_ms(
+        lambda: torch._foreach_add_(lib_w, lib_g, alpha=-lr_bf16),
+        lambda: [w.copy_(w0[k]) for w, k in zip(lib_w, names)])
+    bound_ms, by = bound(6 * n_elem, 2 * n_elem, torch.bfloat16)
+    # the kernel alone at the path's largest launch
+    big = max(names, key=lambda k: w0[k].numel())
+    wt, gt, nb = wb[big], grads[big], w0[big].numel()
+    grid = (C.grid_for(nb, vec=C.SGD_VEC),)
+    want = C.sgd_plain(w0[big], gt._data, IMPERATIVE_LR)
+    wt._data.copy_(w0[big])
+    kern.launch([wt, gt, IMPERATIVE_LR, nb], gpu, grid, (C.THREADS,))
+    big_err = (wt._data.float() - want.float()).abs().max().item()
+    big_identical = torch.equal(_bits(wt._data), _bits(want))
+    flush = _L2Flush()
+    big_bound, big_by = bound(6 * nb, 2 * nb, torch.bfloat16)
+    kernel = {
+        "param": big, "shape": list(w0[big].shape), "dtype": "bfloat16",
+        "bit_identical": big_identical, "max_abs_err": big_err,
+        "ms": _queued_ms(lambda: kern.launch(
+            [wt, gt, IMPERATIVE_LR, nb], gpu, grid, (C.THREADS,)), flush),
+        "plain_ms": _queued_ms(lambda: C.sgd_plain(
+            w0[big], gt._data, IMPERATIVE_LR), flush),
+        "library_ms": _queued_ms(lambda: torch.sub(
+            w0[big], gt._data, alpha=lr_bf16), flush),
+        "bound_ms": big_bound, "bound_by": big_by, "grid": grid,
+        "block": C.THREADS}
+    out["sgd"] = {
+        "lr": IMPERATIVE_LR, "bit_identical": identical,
+        "ndarray_ops_equal_plain": plain, "elements_moved": moved,
+        "ndarray_ops": {"device_ms": dev_a, "host_ms": host_a,
+                        "launches": 3 * len(names)},
+        "user_kernel": {"device_ms": dev_b, "host_ms": host_b,
+                        "launches": sgd_launches,
+                        "host_us_per_launch": host_b * 1e3 / len(names)},
+        "library_foreach_add": {"device_ms": dev_lib, "host_ms": host_lib},
+        "bound_ms": bound_ms, "bound_by": by,
+        "compile_ms": mod.compile_ms, "kernel": kernel}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if step_launches != step_want:
+        fail(f"the eager step's launches {step_launches} are not "
+             f"{step_want}")
+    if len(weights) != 153 or not no_copy or not round_trip:
+        fail(f"imperative .params round trip failed: {len(weights)} params, "
+             f"no copy {no_copy}, bit-identical {round_trip}")
+    if not (identical and plain and big_identical and
+            sgd_launches == len(names) and moved):
+        fail(f"the two SGD routes disagree or the kernel route did not "
+             f"launch once per parameter: {out['sgd']}")
+    del net, weights, grads, w0, wa, wb, lib_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     picks = phase_kernels()
     phase_reference()
@@ -3317,52 +3819,56 @@ def main() -> None:
     llama = phase_llama_train()
     phase_resnet_train_reference()
     resnet = phase_resnet_train()
-    tpu = "mxnet_tpu/pallas_kernels/"
+    rtc = phase_rtc(card)
+    imperative = phase_imperative(card)
+    pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
-        "fused_rms_norm": ("rms_norm.cu", "fused_layers.py:323"),
+        "fused_rms_norm": ("rms_norm.cu", pk + "fused_layers.py:323"),
         "paged_attention_kernel": ("paged_attention.cu",
-                                   "paged_attention.py:150"),
-        "fused_layer_norm": ("layer_norm.cu", "fused_layers.py:323"),
-        "fused_bias_gelu": ("bias_gelu.cu", "fused_layers.py:533"),
+                                   pk + "paged_attention.py:150"),
+        "fused_layer_norm": ("layer_norm.cu", pk + "fused_layers.py:323"),
+        "fused_bias_gelu": ("bias_gelu.cu", pk + "fused_layers.py:533"),
         # one kernel for both forward pallas_call sites (:552 and :590)
-        "flash_attention": ("flash_attention.cu", "flash_attention.py:552"),
-        "fused_layer_norm_bwd": ("layer_norm.cu", "fused_layers.py:361"),
-        "fused_bias_gelu_bwd": ("bias_gelu.cu", "fused_layers.py:539"),
+        "flash_attention": ("flash_attention.cu",
+                            pk + "flash_attention.py:552"),
+        "fused_layer_norm_bwd": ("layer_norm.cu", pk + "fused_layers.py:361"),
+        "fused_bias_gelu_bwd": ("bias_gelu.cu", pk + "fused_layers.py:539"),
         # one algorithm for the four backward sites (:914, :937, :959,
         # :977)
         "flash_attention_bwd": ("flash_attention_bwd.cu",
-                                "flash_attention.py:914"),
-        "fused_adam_sweep": ("fused_optimizer.cu", "fused_optimizer.py:128"),
+                                pk + "flash_attention.py:914"),
+        "fused_adam_sweep": ("fused_optimizer.cu",
+                             pk + "fused_optimizer.py:128"),
         # row 9 in RMS mode, reached through _rms_bwd (:479)
-        "fused_rms_norm_bwd": ("layer_norm.cu", "fused_layers.py:361"),
+        "fused_rms_norm_bwd": ("layer_norm.cu", pk + "fused_layers.py:361"),
         # row 12 for the adamw family: its scan and its sweep
         "fused_adamw_sweep": ("fused_optimizer.cu",
-                              "fused_optimizer.py:128"),
+                              pk + "fused_optimizer.py:128"),
         # row 12 for the sgd family
-        "fused_sgd_sweep": ("fused_optimizer.cu", "fused_optimizer.py:128"),
+        "fused_sgd_sweep": ("fused_optimizer.cu",
+                            pk + "fused_optimizer.py:128"),
         # row 12 for the lamb family: phase 1, the norms, phase 2
         "fused_lamb_sweep": ("fused_optimizer.cu",
-                             "fused_optimizer.py:128"),
+                             pk + "fused_optimizer.py:128"),
         # the dropout modes of rows 1', 9, 3-4 and 5-8
-        "fused_layer_norm[dropout]": ("layer_norm.cu", "fused_layers.py:323"),
+        "fused_layer_norm[dropout]": ("layer_norm.cu",
+                                      pk + "fused_layers.py:323"),
         "fused_layer_norm_bwd[dropout]": ("layer_norm.cu",
-                                          "fused_layers.py:361"),
+                                          pk + "fused_layers.py:361"),
         "flash_attention[dropout]": ("flash_attention.cu",
-                                     "flash_attention.py:552"),
+                                     pk + "flash_attention.py:552"),
         "flash_attention_bwd[dropout]": ("flash_attention_bwd.cu",
-                                         "flash_attention.py:914"),
+                                         pk + "flash_attention.py:914"),
         # not a Pallas site: dropout_op's hash branch, which XLA fuses
-        "hash_dropout": ("dropout.cu", None),
+        "hash_dropout": ("dropout.cu", "mxnet_tpu/ops/nn.py:1079"),
     }
-    also = {"flash_attention": ["flash_attention.py:590"],
-            "flash_attention_bwd": ["flash_attention.py:937",
-                                    "flash_attention.py:959",
-                                    "flash_attention.py:977"],
-            "flash_attention[dropout]": ["flash_attention.py:590"],
-            "flash_attention_bwd[dropout]": ["flash_attention.py:937",
-                                             "flash_attention.py:959",
-                                             "flash_attention.py:977"]}
+    bwd_sites = [pk + "flash_attention.py:937", pk + "flash_attention.py:959",
+                 pk + "flash_attention.py:977"]
+    also = {"flash_attention": [pk + "flash_attention.py:590"],
+            "flash_attention_bwd": bwd_sites,
+            "flash_attention[dropout]": [pk + "flash_attention.py:590"],
+            "flash_attention_bwd[dropout]": bwd_sites}
     notes = {
         "hash_dropout": "not a Pallas site: dropout_op's hash branch, "
                         "which XLA fuses into its neighbours",
@@ -3397,6 +3903,8 @@ def main() -> None:
             by_path["resnet_train"] = resnet[name]
         if trainer.get(name):
             by_path["bert_trainer"] = trainer[name]
+        if imperative["step_launches"].get(name):
+            by_path["imperative"] = imperative["step_launches"][name]
         if name == "fused_lamb_sweep":
             for sub in ("[phase1]", "[norms]"):
                 by_path["bert_trainer" + sub] = trainer[name + sub]
@@ -3408,18 +3916,48 @@ def main() -> None:
                 "hash_dropout_bwd": train_drop["hash_dropout_bwd"]}
             launches = sum(by_path["bert_train_dropout"].values())
         rec = {"name": name, "route": "cuda", "source": csrc + src,
-               "replaces": tpu + site if site else
-               "mxnet_tpu/ops/nn.py:1079", "launches": launches,
+               "replaces": site, "launches": launches,
                "launches_by_path": by_path,
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "shape": r["shape"], "dtype": r["dtype"]}
         if name in also:
-            rec["also_replaces"] = [tpu + x for x in also[name]]
+            rec["also_replaces"] = also[name]
         if name in notes:
             rec["note"] = notes[name]
         kernels.append(rec)
+    # row 13: the user's kernels, compiled by NVRTC at run time. The
+    # row's numbers are the main path's kernel (the imperative phase's
+    # sgd_bf16, timed on its largest parameter); the rtc phase's axpy at
+    # (32, 512, 768) sits beside them
+    axpy, sgd = rtc["bert_axpy"]["axpy_bf16"], imperative["sgd"]
+    k13 = sgd["kernel"]
+    kernels.append({
+        "name": "mx.rtc.CudaModule", "kernel": "sgd_bf16", "route": "cuda",
+        "source": "tests/test_torch_cuda_rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:62",
+        "launches": sgd["user_kernel"]["launches"],
+        "launches_by_path": {"imperative": sgd["user_kernel"]["launches"]},
+        "max_abs_err": k13["max_abs_err"], "ms": k13["ms"],
+        "plain_ms": k13["plain_ms"], "bound_ms": k13["bound_ms"],
+        "bound_by": k13["bound_by"], "library_ms": k13["library_ms"],
+        "shape": k13["shape"], "dtype": k13["dtype"],
+        "compile_ms": dict(rtc["compile_ms"], sgd=sgd["compile_ms"]),
+        "note": "the user's kernels, compiled by NVRTC (mxnet_tpu_torch/"
+                "rtc.py) from CUDA source at run time; the row is the "
+                "imperative path's user SGD kernel, one launch per "
+                "parameter, timed on the word embedding against torch.sub; "
+                "rtc_axpy is the rtc phase's user axpy",
+        "rtc_axpy": {k: axpy[k] for k in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "imperative_sgd": {"device_ms": sgd["user_kernel"]["device_ms"],
+                           "ndarray_ops_device_ms":
+                               sgd["ndarray_ops"]["device_ms"],
+                           "library_device_ms":
+                               sgd["library_foreach_add"]["device_ms"],
+                           "bound_ms": sgd["bound_ms"]}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,12 +28,26 @@ MXNet's eager Gluon loop::
 with ``mx.gluon.Parameter``/``ParameterDict`` (``lr_mult``,
 ``wd_mult``, ``grad_req``) and ``mx.gluon.Block.collect_params``. Dropout
 is seeded by ``mx.random.seed``.
-"""
-from . import (autograd, base, context, convert, gluon, kernels, ops,
-               optimizer, parallel, random, random_state, serving)
-from .base import MXNetError
-from .context import cpu, gpu, num_gpus
 
-__all__ = ["MXNetError", "cpu", "gpu", "num_gpus", "autograd", "base",
-           "context", "convert", "gluon", "kernels", "ops", "optimizer",
-           "parallel", "random", "random_state", "serving"]
+The imperative half of MXNet: ``mx.nd`` (``NDArray`` over one
+``torch.Tensor``, on ``mx.current_context()``, the card by default; the
+registered ops, ``attach_grad``/``backward``, ``.params`` files
+byte-identical to the JAX package's) and ``mx.rtc.CudaModule``, a
+user's CUDA source compiled by NVRTC and launched on NDArrays::
+
+    x = mx.nd.array(np_x)                   # on gpu(0)
+    mod = mx.rtc.CudaModule(source, options=["--fmad=false"])
+    mod.get_kernel("axpy", "const float *x, float *y, float a") \
+        .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
+"""
+from . import (autograd, base, context, convert, engine, gluon, kernels,
+               ndarray, ops, optimizer, parallel, random, random_state, rtc,
+               serving)
+from . import ndarray as nd
+from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
+           "current_context", "autograd", "base", "context", "convert",
+           "engine", "gluon", "kernels", "nd", "ndarray", "ops", "optimizer",
+           "parallel", "random", "random_state", "rtc", "serving"]

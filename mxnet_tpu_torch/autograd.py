@@ -18,6 +18,14 @@ and :func:`backward` differentiates it. A head computed under
 ``pause()`` or ``torch.no_grad()`` is not on the tape, and ``backward``
 raises for it as the reference does (``autograd.py:466-472``).
 
+Heads and leaves may be ``mx.nd`` NDArrays (``NDArray.attach_grad``
+makes a leaf, ``NDArray.backward`` calls :func:`backward`). An NDArray
+op under ``record()`` runs inside :func:`saved_tensor_hooks`, which
+registers every tensor its graph saves, so that a write to that storage
+while the graph lives can be caught at the write (:func:`holds_live_save`,
+the reference's write-after-record rule, ``autograd.py:8-13``) instead of
+at ``backward``.
+
 ``grad``, ``mark_variables``, ``Function`` and ``watch_grad_ready`` wait
 (ROADMAP.md, port queue 1, item 5).
 """
@@ -31,7 +39,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["is_training", "set_training", "train_mode", "predict_mode",
-           "is_recording", "set_recording", "record", "pause", "backward"]
+           "is_recording", "set_recording", "record", "pause", "backward",
+           "is_on_tape", "saved_tensor_hooks", "holds_live_save"]
 
 _state = threading.local()
 
@@ -123,25 +132,91 @@ def _leaves(heads) -> list:
     return list({id(v): v for v in leaves}.values())
 
 
+def is_on_tape(arr) -> bool:
+    """Whether ``arr`` (an NDArray or a tensor) takes part in a recorded
+    graph: a leaf with a gradient attached, or the output of a recorded
+    op (reference: ``autograd.py:150``)."""
+    t = getattr(arr, "_data", arr)
+    return bool(getattr(t, "requires_grad", False))
+
+
+# storage address -> how many tensors on it live graphs hold saved
+_saves = {}
+_saves_lock = threading.RLock()     # __del__ may run inside a locked scope
+
+
+def _key(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+class _Saved:
+    """What a graph keeps of a saved tensor: the tensor (detached: it
+    shares storage and version counter) and its version when saved. The
+    handle lives exactly as long as the graph does, and counts itself in
+    ``_saves`` meanwhile."""
+
+    __slots__ = ("t", "version", "key")
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t.detach()
+        self.version = t._version
+        self.key = _key(t)
+        with _saves_lock:
+            _saves[self.key] = _saves.get(self.key, 0) + 1
+
+    def __del__(self):
+        with _saves_lock:
+            n = _saves.pop(self.key, 0) - 1
+            if n > 0:
+                _saves[self.key] = n
+
+
+def _unpack(h: _Saved) -> torch.Tensor:
+    # the version check torch itself skips for a tensor saved through hooks
+    if h.t._version != h.version:
+        raise MXNetError(
+            "a tensor saved for backward was modified in place after it "
+            "was recorded; write through an NDArray outside record() (which "
+            "copies on write) or record the computation again")
+    return h.t
+
+
+def saved_tensor_hooks():
+    """The scope in which the tensors a graph saves are registered for
+    :func:`holds_live_save`."""
+    return torch.autograd.graph.saved_tensors_hooks(_Saved, _unpack)
+
+
+def holds_live_save(t: torch.Tensor) -> bool:
+    """Whether a live graph recorded under :func:`saved_tensor_hooks`
+    saved a tensor on ``t``'s storage."""
+    return _key(t) in _saves
+
+
+def _tensors(xs) -> list:
+    return [getattr(x, "_data", x) for x in xs]
+
+
 def backward(heads, head_grads=None, retain_graph: bool = False) -> None:
-    """Differentiate ``heads`` (a tensor or a list of them) and write each
-    reached parameter's gradient into its ``.grad`` by its ``grad_req``
-    (reference: ``autograd.backward``): ``"write"`` (the default for a
-    tensor that requires a gradient) overwrites, ``"add"`` accumulates; a
-    parameter with ``grad_req="null"`` requires no gradient and never
-    gets one, and one the heads do not reach keeps what it holds.
+    """Differentiate ``heads`` (a tensor or an NDArray, or a list of
+    them) and write each reached parameter's gradient into its ``.grad``
+    by its ``grad_req`` (reference: ``autograd.backward``): ``"write"``
+    (the default for a tensor that requires a gradient) overwrites,
+    ``"add"`` accumulates; a parameter with ``grad_req="null"`` requires
+    no gradient and never gets one, and one the heads do not reach keeps
+    what it holds.
     ``head_grads`` default to ones, MXNet's head gradient, so a vector
     head is differentiated as its sum. Raises :class:`MXNetError` for a
     head that is not on the tape (computed under :func:`pause` or
     ``torch.no_grad()``)."""
-    if isinstance(heads, torch.Tensor):
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
         if head_grads is not None and not isinstance(head_grads,
                                                      (list, tuple)):
             head_grads = [head_grads]
-    heads = list(heads)
-    if head_grads is None:
-        head_grads = [None] * len(heads)
+    heads = _tensors(heads)
+    head_grads = [None] * len(heads) if head_grads is None \
+        else _tensors(head_grads)
     for h in heads:
         if not h.requires_grad:
             raise MXNetError(

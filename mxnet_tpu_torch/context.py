@@ -1,48 +1,127 @@
-"""Device contexts mapped onto ``torch.device``.
+"""Device contexts (counterpart of ``mxnet_tpu/context.py:37-120``).
 
-Counterpart of ``mxnet_tpu/context.py``. ``mx.cpu()`` and ``mx.gpu(i)``
-return ``torch.device`` objects. The port's native context is the CUDA
-card: entry points that take ``ctx=None`` resolve it to ``gpu(0)``, and
-asking for a GPU where CUDA is unavailable raises :class:`MXNetError` —
-there is no silent fallback to the CPU. The CPU is reached only by
-passing ``ctx=mx.cpu()`` explicitly (the CPU tests do).
+``mx.cpu()`` and ``mx.gpu(i)`` return a :class:`Context` (device type
+and id, ``==``, ``hash``, ``with ctx:``), which maps onto a
+``torch.device``. The port's native context is the CUDA card: entry
+points that take ``ctx=None`` resolve it to ``gpu(0)``, and
+:func:`current_context` is ``gpu(0)`` unless a ``with ctx:`` scope says
+otherwise (the reference's default is ``cpu(0)``). Asking for a GPU
+where CUDA is unavailable raises :class:`MXNetError` — there is no
+silent fallback to the CPU. The CPU is reached only by passing
+``ctx=mx.cpu()`` or by ``with mx.cpu():`` (the CPU tests do).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "num_gpus", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "num_gpus", "current_context",
+           "resolve_device"]
 
 
-def cpu(device_id: int = 0) -> torch.device:
-    return torch.device("cpu")
+class Context:
+    """A device context (reference: ``mxnet_tpu/context.py :: Context``),
+    with the reference's device-type ids (``include/mxnet/base.h``:
+    kCPU = 1, kGPU = 2)."""
+
+    devtype2str = {1: "cpu", 2: "gpu"}
+    devstr2type = {v: k for k, v in devtype2str.items()}
+
+    _default_ctx = threading.local()
+
+    def __init__(self, device_type, device_id: int = 0):
+        if isinstance(device_type, Context):
+            device_type, device_id = (device_type.device_typeid,
+                                      device_type.device_id)
+        if isinstance(device_type, str):
+            if device_type not in Context.devstr2type:
+                raise MXNetError(f"unknown device type {device_type!r} "
+                                 "(the port has cpu and gpu)")
+            device_type = Context.devstr2type[device_type]
+        self.device_typeid = device_type
+        self.device_id = int(device_id)
+        self._old_ctx = None
+
+    @property
+    def device_type(self) -> str:
+        return Context.devtype2str[self.device_typeid]
+
+    def __hash__(self):
+        return hash((self.device_typeid, self.device_id))
+
+    def __eq__(self, other):
+        return (isinstance(other, Context)
+                and self.device_typeid == other.device_typeid
+                and self.device_id == other.device_id)
+
+    def __str__(self):
+        return f"{self.device_type}({self.device_id})"
+
+    __repr__ = __str__
+
+    def __enter__(self):
+        self._old_ctx = getattr(Context._default_ctx, "value", None)
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._default_ctx.value = self._old_ctx
+
+    def torch_device(self) -> torch.device:
+        """The ``torch.device`` of this context; a GPU context is checked
+        against the cards present."""
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        gpu(self.device_id)             # raises where the card is missing
+        return torch.device("cuda", self.device_id)
+
+    @staticmethod
+    def from_device(dev: torch.device) -> "Context":
+        """The context of a ``torch.device`` (``cuda`` without an index is
+        card 0)."""
+        if dev.type == "cpu":
+            return Context(1, 0)
+        if dev.type == "cuda":
+            return Context(2, 0 if dev.index is None else dev.index)
+        raise MXNetError(f"unsupported device {dev} (the port runs on cuda "
+                         "or cpu)")
+
+
+def cpu(device_id: int = 0) -> Context:
+    return Context(1, device_id)
 
 
 def num_gpus() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
-def gpu(device_id: int = 0) -> torch.device:
+def gpu(device_id: int = 0) -> Context:
     """The ``device_id``-th CUDA card; raises when there is none."""
     n = num_gpus()
     if device_id >= n:
         raise MXNetError(
             f"gpu({device_id}) requested but {n} CUDA device(s) are "
             "available; pass ctx=mx.cpu() to run on the CPU")
-    return torch.device("cuda", device_id)
+    return Context(2, device_id)
+
+
+def current_context() -> Context:
+    """The default context: the innermost ``with ctx:`` scope of this
+    thread, else ``gpu(0)`` (reference ``context.py:180``, whose default
+    is ``cpu(0)``)."""
+    ctx = getattr(Context._default_ctx, "value", None)
+    return gpu(0) if ctx is None else ctx
 
 
 def resolve_device(ctx=None) -> torch.device:
-    """``ctx`` as a concrete ``torch.device``: ``None`` is ``gpu(0)``;
-    a ``torch.device`` or a device string is checked the same way."""
+    """``ctx`` as a concrete ``torch.device``: ``None`` is ``gpu(0)``; a
+    :class:`Context`, a ``torch.device`` or a device string is checked
+    the same way."""
     if ctx is None:
-        return gpu(0)
-    dev = torch.device(ctx)
-    if dev.type == "cpu":
-        return cpu()
-    if dev.type == "cuda":
-        return gpu(0 if dev.index is None else dev.index)
-    raise MXNetError(f"unsupported device {dev} (the port runs on cuda "
-                     "or cpu)")
+        ctx = gpu(0)
+    if isinstance(ctx, Context):
+        return ctx.torch_device()
+    return Context.from_device(torch.device(ctx)).torch_device()

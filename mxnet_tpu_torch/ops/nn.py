@@ -5,7 +5,10 @@ Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the paths run:
 (``:434``), ``batch_norm`` (``:580``), ``embedding`` (``:1030``),
 ``layer_norm`` (``:707``), ``fused_layer_norm_op`` (``:742``),
 ``fused_bias_gelu_op`` (``:775``), ``activation`` (``:835``), ``dropout``
-(``dropout_op``, ``:1079``, its position-hash branch) and ``flatten``. A
+(``dropout_op``, ``:1079``, its position-hash branch), ``softmax``
+(``:876``), ``log_softmax`` (``:893``) and ``flatten``; the ones NDArray
+reaches are registered under the reference's op names and attribute
+specs at the end of this module (``mx.nd.FullyConnected``...). A
 CUDA tensor takes the port's kernels, a CPU tensor their plain versions;
 under autograd the fused ops go through the kernels' differentiable
 wrappers (their backward kernels on the card). The matrix products and
@@ -20,12 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import autograd, random_state
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..kernels import fused_bias_gelu, fused_layer_norm, hash_dropout
+from .registry import attr, register
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "flatten", "embedding", "layer_norm", "fused_layer_norm_op",
-           "fused_bias_gelu_op", "activation", "dropout"]
+           "fused_bias_gelu_op", "activation", "dropout", "softmax",
+           "log_softmax"]
 
 
 def fully_connected(data, weight, bias=None, *, flatten=True):
@@ -282,21 +287,130 @@ def fused_bias_gelu_op(data, bias):
     return fused_bias_gelu(data, bias)
 
 
-# the activations the ported blocks use: PositionwiseFFN's default
-# (relu), BERT's FFN and MLM transform (gelu), BERT's pooler (tanh)
 _ACTIVATIONS = {
     "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "silu": F.silu,
+    "swish": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "mish": F.mish,
 }
 
 
 def activation(data, *, act_type="relu"):
-    """``Activation(act_type=...)`` (``mxnet_tpu/ops/nn.py:835``) for the
-    act_types the ported blocks use; the rest come with the op registry
-    (ROADMAP.md, port queue 1)."""
+    """``Activation(act_type=...)`` (``mxnet_tpu/ops/nn.py:835``)."""
     fn = _ACTIVATIONS.get(act_type)
     if fn is None:
-        raise MXNetError(f"activation: act_type {act_type!r} is not ported "
-                         f"yet (ported: {sorted(_ACTIVATIONS)})")
+        raise MXNetError(f"activation: act_type {act_type!r} is not one of "
+                         f"{sorted(_ACTIVATIONS)}")
     return fn(data)
+
+
+def softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
+            use_length=False):
+    """``softmax`` (``mxnet_tpu/ops/nn.py:876``): over ``axis``, of
+    ``data / temperature``; with ``use_length``, the positions of each
+    row at or past ``length`` (one per index of the first axis) get 0."""
+    x = data if temperature in (None, 1.0) else data / temperature
+    if use_length and length is not None:
+        pos = torch.arange(x.shape[axis], device=x.device)
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        lens = length.reshape([x.shape[0]] + [1] * (x.dim() - 1))
+        x = x.masked_fill(~(pos.reshape(shape) < lens), float("-inf"))
+    out = torch.softmax(x, dim=axis)
+    if use_length and length is not None:
+        out = torch.nan_to_num(out, nan=0.0)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+def log_softmax(data, *, axis=-1, temperature=None, dtype=None,
+                use_length=False):
+    """``log_softmax`` (``mxnet_tpu/ops/nn.py:893``)."""
+    x = data if temperature in (None, 1.0) else data / temperature
+    out = torch.log_softmax(x, dim=axis)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+# ---------------------------------------------------------------------------
+# the ops above under the reference's registered names and attribute specs
+# (mx.nd.FullyConnected, mx.nd.Activation, ...)
+# ---------------------------------------------------------------------------
+
+_LAYOUT_CHOICES = ("NCW", "NCHW", "NCDHW", "NWC", "NHWC", "NDHWC")
+
+
+@register("FullyConnected", attrs=[
+    attr("num_hidden", int, "Number of output hidden units.", low=0),
+    attr("no_bias", bool, "Whether to disable the bias term."),
+    attr("flatten", bool,
+         "Flatten trailing input dims into one (MXNet default) or apply "
+         "the projection to the last axis only."),
+])
+def _fully_connected_op(data, weight, bias=None, *, num_hidden=0,
+                        no_bias=False, flatten=True):
+    return fully_connected(data, weight, None if no_bias else bias,
+                           flatten=flatten)
+
+
+@register("Convolution", attrs=[
+    attr("kernel", tuple, "Spatial kernel size, e.g. (3, 3)."),
+    attr("stride", tuple, "Strides per spatial dim (default 1).", low=1),
+    attr("dilate", tuple, "Dilation per spatial dim (default 1).", low=1),
+    attr("pad", tuple, "Zero padding per spatial dim.", low=0),
+    attr("num_filter", int, "Number of output channels.", low=1),
+    attr("num_group", int, "Grouped-convolution group count.", low=1),
+    attr("no_bias", bool, "Whether to disable the bias term."),
+    attr("layout", str, "Input/output layout.", choices=_LAYOUT_CHOICES),
+])
+def _convolution_op(data, weight, bias=None, *, kernel=(), stride=(),
+                    dilate=(), pad=(), num_filter=1, num_group=1,
+                    no_bias=False, layout=None):
+    if num_group != 1 or any(d != 1 for d in _pair(dilate or 1)):
+        raise MXNetError("Convolution: groups and dilation are not ported "
+                         "yet (ROADMAP.md, port queue 1, item 4)")
+    return convolution(data, weight, bias, kernel=kernel, stride=stride,
+                       pad=pad, num_filter=num_filter, no_bias=no_bias,
+                       layout=layout)
+
+
+@register("Pooling", attrs=[
+    attr("kernel", tuple, "Pooling window size."),
+    attr("pool_type", str, "Pooling reduction.",
+         choices=("max", "avg", "sum", "lp")),
+    attr("stride", tuple, "Window strides (default 1).", low=1),
+    attr("pad", tuple, "Zero padding per spatial dim.", low=0),
+    attr("global_pool", bool, "Pool over the whole spatial extent."),
+    attr("pooling_convention", str, "Output-size rounding rule.",
+         choices=("valid", "full", "same")),
+    attr("layout", str, "Input layout.", choices=_LAYOUT_CHOICES),
+])
+def _pooling_op(data, *, kernel=(), pool_type="max", stride=(), pad=(),
+                global_pool=False, pooling_convention="valid", layout=None):
+    return pooling(data, kernel=kernel, pool_type=pool_type, stride=stride,
+                   pad=pad, global_pool=global_pool,
+                   pooling_convention=pooling_convention, layout=layout)
+
+
+@register("Dropout", attrs=[
+    attr("p", float, "Fraction of units dropped.", low=0.0, high=1.0),
+    attr("mode", str, "When to apply dropout.",
+         choices=("training", "always")),
+])
+def _dropout_op(data, *, p=0.5, mode="training", axes=()):
+    return dropout(data, p, mode, axes)
+
+
+@register("Activation", attrs=[
+    attr("act_type", str, "The activation.", choices=tuple(_ACTIVATIONS)),
+])
+def _activation_op(data, *, act_type="relu"):
+    return activation(data, act_type=act_type)
+
+
+register("softmax")(softmax)
+register("log_softmax")(log_softmax)

@@ -27,6 +27,7 @@ import zlib
 
 import torch
 
+from .context import Context
 from .kernels.dropout import hash_u32
 
 __all__ = ["seed", "next_seed", "scoped_seed", "preserved_stream"]
@@ -44,6 +45,8 @@ def _global():
 
 
 def _sig(device) -> str:
+    if isinstance(device, Context):
+        device = device.torch_device()
     dev = torch.device("cpu" if device is None else device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)

@@ -165,13 +165,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _refuse(args)
 
-    from .. import context
+    from ..context import cpu, resolve_device
 
     cfg = dict(CONFIGS[args.config])
     n_params = param_count(cfg)
     seq = args.seq or (2048 if args.config != "tiny" else 128)
     batch = args.batch or (4 if args.config == "proxy1b" else 2)
-    device = context.cpu() if args.ctx == "cpu" else context.gpu(0)
+    device = resolve_device(cpu() if args.ctx == "cpu" else None)
     data = _make_data(args.data, batch, seq, cfg["vocab_size"], device)
     _, step = build(args.config, ctx=device, dtype=args.dtype, lr=args.lr,
                     weight_decay=args.weight_decay)
