@@ -30,7 +30,13 @@ package. Phases, each printing JSON lines and failing loudly:
              kernel, plain and
              library-call times from CUDA events (cold L2), and the
              least time the card could take (bound_ms) from this run's
-             bytes and operations;
+             bytes and operations; for the paged decode and the flash
+             backward also device_ms and library_device_ms, events
+             queued behind a sleep kernel (_queued_ms), which time the
+             card and not the wrapper's host work, the paged decode's
+             splits and CTAs, one launch under torch's sync-debug mode
+             "error" (no host sync: lengths stays on the card), and both
+             kernels' bits on a second call;
 4. reference — the Llama decode path at Llama-3-8B widths, depth cut to
              2 layers, in f32: each stream's last decode-step logits
              against forward_full over the same tokens, to f32 noise;
@@ -384,7 +390,8 @@ def paged_case(b, dtype, flush, rs, gen) -> dict:
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.kernels import (paged_attention_kernel,
-                                         paged_attention_reference)
+                                         paged_attention_reference,
+                                         paged_splits)
 
     h, kv, d, ps, max_len = 32, 8, 128, 16, 1024
     lengths = rs.randint(1, max_len + 1, size=b).astype(np.int32)
@@ -410,11 +417,19 @@ def paged_case(b, dtype, flush, rs, gen) -> dict:
         return paged_attention_reference(q, k, v, pt, ln, page_size=ps,
                                          scale=scale)
 
-    out = kern()
+    # the wrapper never reads lengths on the host: no synchronising call
+    # (torch raises on one in this mode)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = kern()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     err, ok = within(out, plain(), *PAGED_TOL[dtype])
     if b > 1:                                            # empty row -> 0
         ok = ok and int(torch.count_nonzero(out[-1])) == 0
+    ok = ok and torch.equal(kern(), out)                 # the same bits
     # library yardstick: SDPA over K/V gathered beforehand (the gather is
     # not timed) with a length mask and grouped-query heads
     slots = (pt.long()[:, :, None] * ps
@@ -441,7 +456,12 @@ def paged_case(b, dtype, flush, rs, gen) -> dict:
            "rtol_atol": list(PAGED_TOL[dtype]), "ok": ok,
            "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
            "library_ms": time_ms(library, flush),
-           "bound_ms": b_ms, "bound_by": b_by, "ctas": b * kv}
+           "device_ms": _queued_ms(kern, flush),
+           "library_device_ms": _queued_ms(library, flush),
+           "bound_ms": b_ms, "bound_by": b_by}
+    rec["splits"] = paged_splits(b, kv, width, ps, torch.cuda.
+                                 get_device_properties(0).multi_processor_count)
+    rec["ctas"] = b * kv * rec["splits"]
     emit(rec)
     return rec
 
@@ -614,6 +634,7 @@ def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen,
     from mxnet_tpu_torch.kernels import (flash_attention_bwd,
                                          flash_attention_bwd_reference,
                                          flash_attention_fwd)
+    from mxnet_tpu_torch.kernels.flash import bwd_route
 
     q, k, v, do = _flash_inputs(b, h, l, d, layout, dtype, gen, 4, views)
     if layout == "blhd":
@@ -626,6 +647,8 @@ def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen,
     torch.cuda.synchronize()
     err, rel = max_rel(got, flash_attention_bwd_reference(q, k, v, o, lse,
                                                           do, **kw))
+    same = all(torch.equal(a, b) for a, b in zip(
+        got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
     leaves = [to_sdpa(t).detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     pairs = l * (l + 1) // 2 if causal else l * l
@@ -635,15 +658,20 @@ def flash_bwd_case(b, h, l, d, causal, layout, dtype, flush, gen,
     rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
            "shape": [b, h, l, d], "layout": layout, "views": views,
            "causal": causal,
-           "dtype": _dname(dtype), "max_abs_err": err,
-           "max_err_over_max_ref": rel, "tol": BWD_TOL[dtype],
-           "ok": rel <= BWD_TOL[dtype],
+           "dtype": _dname(dtype), "route": bwd_route(dtype, d),
+           "max_abs_err": err, "max_err_over_max_ref": rel,
+           "tol": BWD_TOL[dtype], "same_bits_twice": same,
+           "ok": rel <= BWD_TOL[dtype] and same,
            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                      **kw), flush),
            "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
                q, k, v, o, lse, do, **kw), flush),
            "library_ms": time_ms(_grad_timer(sdpa_out, leaves, to_sdpa(do)),
                                  flush),
+           "device_ms": _queued_ms(lambda: flash_attention_bwd(
+               q, k, v, o, lse, do, **kw), flush),
+           "library_device_ms": _queued_ms(
+               _grad_timer(sdpa_out, leaves, to_sdpa(do)), flush),
            "library": "autograd backward of F.scaled_dot_product_attention",
            "bound_ms": b_ms, "bound_by": b_by, "gflop": n_ops / 1e9,
            "mbytes": n_bytes / 1e6}
@@ -921,6 +949,10 @@ def flash_drop_cases(b, h, l, d, causal, layout, dtype, flush,
                    q, k, v, o, lse, do, **kw), flush),
                library_ms=time_ms(_grad_timer(sdpa_out, leaves, to_sdpa(do)),
                                   flush),
+               device_ms=_queued_ms(lambda: flash_attention_bwd(
+                   q, k, v, o, lse, do, **kw), flush),
+               library_device_ms=_queued_ms(
+                   _grad_timer(sdpa_out, leaves, to_sdpa(do)), flush),
                library="autograd backward of F.scaled_dot_product_attention"
                        "(dropout_p=0.1)",
                bound_ms=bw_ms, bound_by=bw_by)
@@ -1503,6 +1535,11 @@ def phase_kernels() -> dict:
         if r["kernel"] == "flash_attention_bwd" and r["layout"] == "blhd" \
                 and r["views"]:
             pick["flash_attention_bwd"] = r
+        # rule 2's main-path shape for the backward: proxy1b's causal
+        # (8, 16, 2048, 128) contiguous heads
+        if r["kernel"] == "flash_attention_bwd" and r["layout"] == "blhd" \
+                and not r["views"]:
+            pick["flash_attention_bwd[proxy1b]"] = r
         if r["kernel"] == "fused_rms_norm" and r["shape"] == [8, 4096]:
             pick["fused_rms_norm"] = r
         if r["kernel"] == "paged_attention_kernel" and r["shape"]["B"] == 8:
@@ -1732,9 +1769,11 @@ def _device_breakdown(step, steps, n_top=8, kind=None) -> dict:
 
 # the port's own CUDA kernels, by their __global__ names in kernels/csrc
 _PORT_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+                 "dkdv_wgmma_kernel", "dq_wgmma_kernel",
                  "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
                  "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
-                 "paged_decode_kernel", "dropout_kernel", "adamw_kernel",
+                 "paged_split_kernel", "paged_combine_kernel",
+                 "dropout_kernel", "adamw_kernel",
                  "adamw_scan_kernel", "sgd_kernel", "lamb_phase1_kernel",
                  "lamb_norms_kernel", "lamb_phase2_kernel")
 
@@ -1823,7 +1862,12 @@ def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
     finally:
         for o in owners:
             engine.pool.free(o)
-    return {"batch": batch, "context": 300, **res}
+    paged = {k: v for k, v in res["port_kernels_per_step"].items()
+             if k.startswith("paged")}
+    return {"batch": batch, "context": 300,
+            "paged_us_per_launch": {k: v["us_per_launch"]
+                                    for k, v in paged.items()},
+            **res}
 
 
 # ---------------------------------------------------------------------------
@@ -2134,7 +2178,8 @@ def _train_wrappers() -> dict:
 
 # the other counters some wrappers keep beside ``launches``
 _SUB_COUNTS = (("dropout_launches", "[dropout]"), ("scan_launches", "[scan]"),
-               ("phase1_launches", "[phase1]"), ("norms_launches", "[norms]"))
+               ("phase1_launches", "[phase1]"), ("norms_launches", "[norms]"),
+               ("wgmma_launches", "[wgmma]"))
 
 
 def _reset_train_counts() -> None:
@@ -2151,7 +2196,8 @@ def _train_counts() -> dict:
     the AdamW sweep its scans, as "fused_adamw_sweep[scan]", and for the
     LAMB sweep its phase-1 and norms launches, as
     "fused_lamb_sweep[phase1]" and "fused_lamb_sweep[norms]" (its own
-    count is phase 2's)."""
+    count is phase 2's), and for the flash backward its launches on the
+    warpgroup route, as "flash_attention_bwd[wgmma]"."""
     out = {}
     for name, f in _train_wrappers().items():
         out[name] = f.launches
@@ -2161,14 +2207,16 @@ def _train_counts() -> dict:
     return out
 
 
-def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0) -> dict:
+def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0,
+              wgmma=False) -> dict:
     """Launches of each kernel in one TrainStep of BERTForPretrainFused:
     embed_ln, two add+norms per layer and decoder_ln, forward and
     backward (the first add+norm of each layer drops, with dropout); the
     FFN's and decoder_transform's bias+GELU; one flash attention per
     layer (dropping with attention dropout); the Dropout op after
     embed_ln and after each layer's attention and FFN, forward and
-    backward; one sweep per dtype bucket."""
+    backward; one sweep per dtype bucket. ``wgmma``: the flash backward
+    takes the warpgroup route (bf16 at head dim 64 or 128)."""
     layers = cfg["num_layers"]
     drop_ln = layers if dropout > 0 else 0
     drop_attn = layers if attn_dropout > 0 else 0
@@ -2184,6 +2232,7 @@ def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0) -> dict:
             "flash_attention[dropout]": drop_attn,
             "flash_attention_bwd": layers,
             "flash_attention_bwd[dropout]": drop_attn,
+            "flash_attention_bwd[wgmma]": layers if wgmma else 0,
             "fused_adam_sweep": buckets,
             "hash_dropout": drop_op, "hash_dropout_bwd": drop_op}
 
@@ -2326,7 +2375,8 @@ def phase_bert_train(dropout=0.0, attn_dropout=0.0) -> dict:
     wall = time.perf_counter() - t1
     launches = _train_counts()
     losses = warm + [float(x) for x in timed]
-    per_step = _per_step(cfg, len(step._buckets), dropout, attn_dropout)
+    per_step = _per_step(cfg, len(step._buckets), dropout, attn_dropout,
+                         wgmma=True)
     want = {k: v * 20 for k, v in per_step.items()}
     samples_s = 32 * 20 / wall
     out = {"phase": "bert_train", "model": "BERTForPretrainFused "
@@ -2402,11 +2452,12 @@ def _trainer_buckets(trainer) -> int:
     return len({p.dtype for p in trainer._params if p.grad_req != "null"})
 
 
-def _trainer_per_step(cfg, buckets, dropout, attn_dropout) -> dict:
+def _trainer_per_step(cfg, buckets, dropout, attn_dropout,
+                      wgmma=False) -> dict:
     """Launches of each kernel in one eager step of BERTForPretrainFused:
     the model's as in a TrainStep (_per_step), and one launch of each of
     the three LAMB kernels per dtype bucket in place of the Adam sweep."""
-    return {**_per_step(cfg, buckets, dropout, attn_dropout),
+    return {**_per_step(cfg, buckets, dropout, attn_dropout, wgmma),
             "fused_adam_sweep": 0, "fused_lamb_sweep": buckets,
             "fused_lamb_sweep[phase1]": buckets,
             "fused_lamb_sweep[norms]": buckets}
@@ -2648,7 +2699,7 @@ def phase_bert_trainer() -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = warm + [float(x) for x in timed]
     buckets = _trainer_buckets(trainer)
-    per_step = _trainer_per_step(cfg, buckets, 0.1, 0.1)
+    per_step = _trainer_per_step(cfg, buckets, 0.1, 0.1, wgmma=True)
     want = {k: v * timed_steps for k, v in per_step.items()}
     samples_s = 32 * timed_steps / wall
     host = np.asarray(times) * 1e3
@@ -2710,16 +2761,17 @@ LLAMA_OPT = {"learning_rate": 3e-4, "wd": 0.1, "beta1": 0.9, "beta2": 0.95,
              "multi_precision": True}
 
 
-def _llama_per_step(cfg, buckets) -> dict:
+def _llama_per_step(cfg, buckets, wgmma=False) -> dict:
     """Launches of each training kernel in one TrainStep of a Llama with
     the fused CE head: two RMSNorms per layer and the final one, forward
-    and backward; one causal flash attention per layer, forward and
-    backward; one AdamW scan and sweep per dtype bucket; nothing else."""
+    and backward (on the warpgroup route with ``wgmma``: bf16); one AdamW
+    scan and sweep per dtype bucket; nothing else."""
     layers = cfg["num_layers"]
     return {**dict.fromkeys(_train_counts(), 0),
             "fused_rms_norm": 2 * layers + 1,
             "fused_rms_norm_bwd": 2 * layers + 1,
             "flash_attention": layers, "flash_attention_bwd": layers,
+            "flash_attention_bwd[wgmma]": layers if wgmma else 0,
             "fused_adamw_sweep": buckets, "fused_adamw_sweep[scan]": buckets}
 
 
@@ -2858,7 +2910,7 @@ def phase_llama_train() -> dict:
     wall = time.perf_counter() - t1
     launches = _train_counts()
     losses = warm + [float(x) for x in timed]
-    per_step = _llama_per_step(cfg, len(step._buckets))
+    per_step = _llama_per_step(cfg, len(step._buckets), wgmma=True)
     want = {k: v * timed_steps for k, v in per_step.items()}
     tokens_s = batch * seq * timed_steps / wall
     out = {"phase": "llama_train", "model": "LlamaModel(fused_ce=True), "
@@ -3647,7 +3699,7 @@ def phase_imperative(card: str) -> dict:
     mx.autograd.backward(loss)
     torch.cuda.synchronize()
     step_launches = _train_counts()
-    step_want = _per_step(cfg, 0, 0.1, 0.1)
+    step_want = _per_step(cfg, 0, 0.1, 0.1, wgmma=True)
     loss = float(loss.detach().float().mean())
     weights, grads = {}, {}
     for name, p in net.collect_params().items():
@@ -3922,6 +3974,15 @@ def main() -> None:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "shape": r["shape"], "dtype": r["dtype"]}
+        for key in ("device_ms", "library_device_ms", "ctas", "splits"):
+            if key in r:
+                rec[key] = r[key]
+        if name == "flash_attention_bwd":
+            p1 = picks["flash_attention_bwd[proxy1b]"]
+            rec["proxy1b_causal"] = {k: p1[k] for k in (
+                "shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms",
+                "library_ms", "device_ms", "library_device_ms", "bound_ms",
+                "bound_by")}
         if name in also:
             rec["also_replaces"] = also[name]
         if name in notes:

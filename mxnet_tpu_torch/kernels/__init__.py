@@ -18,7 +18,8 @@ from .fused_optimizer import (adam_sweep_reference, adamw_sweep_reference,
                               fused_lamb_sweep, fused_sgd_sweep,
                               lamb_sweep_reference, sgd_sweep_reference)
 from .paged_attention import (paged_attention_kernel,
-                              paged_attention_reference)
+                              paged_attention_reference,
+                              paged_attention_split_reference, paged_splits)
 
 __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "fused_rms_norm", "fused_rms_norm_reference",
@@ -34,4 +35,5 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "fused_adam_sweep", "adam_sweep_reference",
            "fused_adamw_sweep", "adamw_sweep_reference",
            "fused_lamb_sweep", "lamb_sweep_reference",
-           "paged_attention_kernel", "paged_attention_reference"]
+           "paged_attention_kernel", "paged_attention_reference",
+           "paged_attention_split_reference", "paged_splits"]

@@ -1,5 +1,6 @@
 // Tile building blocks shared by the flash attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu).
+// (flash_attention.cu) and backward (flash_attention_bwd.cu); the paged
+// decode (paged_attention.cu) takes its mma.sync.
 //
 // Every product of both kernels has the shape "a warp's 16 rows of A
 // times the rows of B": bf16 on the tensor cores with mma.sync m16n8k16

@@ -28,8 +28,10 @@ Causal masking is bottom-right aligned (key ``j`` is visible to query
 ``flash_shape_supported`` rejects it. A row that sees no key gives zeros
 and lse ``-1e30``. ``layout`` is ``"bhld"`` (B, H, L, D) or ``"blhd"``
 (B, L, H, D); the kernel reads either through strides, so the per-head
-views of a fused QKV projection need no copy. The backward takes head
-dims up to 128.
+views of a fused QKV projection need no copy. The backward takes the
+same head dims; its route is fixed by the inputs (:func:`bwd_route`):
+bf16 at head dim 64 or 128 runs the warpgroup (``wgmma``) kernels,
+everything else the ``mma.sync`` / FMA kernels.
 
 Dropout on the attention probabilities (``dropout > 0`` with a u32
 ``seed``), as the TPU kernels drop: the online max, the row sum ``l``
@@ -60,12 +62,12 @@ from .dropout import attn_keep_mask, check_dropout, dropout_thresh, f32, \
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_reference", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "LOG2E", "NO_KEY_LSE"]
+           "flash_attention_bwd_reference", "bwd_route", "LOG2E",
+           "NO_KEY_LSE"]
 
 LOG2E = 1.4426950408889634
 NO_KEY_LSE = -1e30
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128
 _BLOCK_Q = 64                     # query rows per CTA (csrc kBM)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _DROP_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
@@ -314,9 +316,9 @@ def _launch_bwd(q, k, v, o, lse, do, scale, causal, causal_offset, layout,
         raise MXNetError(f"flash_attention_bwd: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}/{o.dtype}/{do.dtype}: need one of "
                          "float32, bfloat16 for all five")
-    if d % 8 or d > MAX_BWD_HEAD_DIM:
+    if d % 8 or d > MAX_HEAD_DIM:
         raise MXNetError(f"flash_attention_bwd: head dim {d} must be a "
-                         f"multiple of 8 and <= {MAX_BWD_HEAD_DIM}")
+                         f"multiple of 8 and <= {MAX_HEAD_DIM}")
     if o.shape != q.shape or do.shape != q.shape \
             or lse.shape != (b * h, lq) or lse.dtype != torch.float32:
         raise MXNetError(
@@ -346,7 +348,18 @@ def _launch_bwd(q, k, v, o, lse, do, scale, causal, causal_offset, layout,
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.dropout_launches += int(dropout > 0.0)
+    if bwd_route(q.dtype, d) == "wgmma":
+        flash_attention_bwd.wgmma_launches += 1
+    else:
+        flash_attention_bwd.mma_launches += 1
     return dq, dk, dv
+
+
+def bwd_route(dtype, d: int) -> str:
+    """Which kernels the backward launches for these inputs, as
+    ``csrc/flash_attention_bwd.cu``'s ``launch_t`` picks them: "wgmma"
+    (bf16 at head dim 64 or 128) or "mma" (the rest)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "mma"
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False,
@@ -373,6 +386,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.dropout_launches = 0    # the launches with dropout
+flash_attention_bwd.wgmma_launches = 0      # by route (bwd_route)
+flash_attention_bwd.mma_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

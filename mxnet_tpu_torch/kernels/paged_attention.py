@@ -10,9 +10,14 @@ the H / KV q heads of each kv head and never repeats K or V; positions at
 or past ``lengths`` are masked; a row with ``lengths == 0`` emits zeros
 (``_decode_kernel``'s all-masked pin, ``paged_attention.py:105-109``).
 
-The kernel is ``csrc/paged_attention.cu``; its header comment says what
-bounds it on an H100 and how its design answers that. A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+The kernel is ``csrc/paged_attention.cu`` (flash-decoding: a split
+kernel over runs of each row's pages, then a combine kernel); its header
+comment says what bounds it on an H100 and how its design answers that.
+:func:`paged_splits` picks the number of runs from static shapes alone,
+so the wrapper never reads ``lengths`` on the host, and
+:func:`paged_attention_split_reference` is the plain version of the
+split and the merge. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -23,12 +28,16 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["paged_attention_kernel", "paged_attention_reference"]
+__all__ = ["paged_attention_kernel", "paged_attention_reference",
+           "paged_attention_split_reference", "paged_splits"]
 
 _SRC = "paged_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+_CTAS_PER_SM = 4          # the split kernel's target occupancy
+_RUN_TOKENS = 64          # csrc kWarps x kTile: a tile per warp and run
+_MAX_RUN_PAGES = 4096     # page ids a run holds in shared memory
 
 
 def paged_attention_reference(q, k_arena, v_arena, page_table, lengths, *,
@@ -57,7 +66,75 @@ def paged_attention_reference(q, k_arena, v_arena, page_table, lengths, *,
     return o.reshape(b, h, 1, d).to(q.dtype)
 
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+def paged_splits(b: int, kv: int, width: int, page_size: int,
+                 sms: int) -> int:
+    """How many runs the kernel splits each row's ``width`` table columns
+    into: about ``_CTAS_PER_SM`` CTAs per SM (``sms`` of them) over the
+    ``b * kv`` (row, kv head) pairs, at least ``_RUN_TOKENS`` tokens of capacity per run, at
+    most ``_MAX_RUN_PAGES`` pages per run, and no run without a column.
+    Static shapes only: ``lengths`` is never read."""
+    if width < 1:
+        return 1
+    want = -(-_CTAS_PER_SM * sms // max(1, b * kv))
+    most = -(-width * page_size // _RUN_TOKENS)
+    n = max(1, min(want, most), -(-width // _MAX_RUN_PAGES))
+    pps = -(-width // n)
+    return -(-width // pps)
+
+
+def paged_attention_split_reference(q, k_arena, v_arena, page_table,
+                                    lengths, *, page_size: int,
+                                    scale: float,
+                                    n_split: int) -> torch.Tensor:
+    """Plain PyTorch version of the split and the merge: each row's table
+    columns cut into runs of ``ceil(P / n_split)`` as the kernel cuts
+    them, each run's f32 partial (m, l, acc) of the masked scores (m =
+    -inf, l = 0 for a run past the row's length), merged in run order
+    and rounded once to q's dtype; zeros for an empty row."""
+    b, h, _, d = q.shape
+    kv = k_arena.shape[-2]
+    ps = int(page_size)
+    width = page_table.shape[1]
+    pps = max(1, -(-width // int(n_split)))
+    slots = (page_table.long()[:, :, None] * ps
+             + torch.arange(ps, device=q.device)).reshape(b, -1)  # (B, T)
+    k = k_arena[slots].float()                                    # (B,T,KV,D)
+    v = v_arena[slots].float()
+    qg = q.reshape(b, kv, h // kv, d).float() * scale
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k)
+    tok = torch.arange(slots.shape[1], device=q.device)[None, :]
+    n = lengths.long().clamp(0, width * ps)[:, None]
+    m_all = torch.full(s.shape[:-1], float("-inf"), device=q.device)
+    parts = []
+    for sp in range(int(n_split)):
+        lo = sp * pps * ps
+        hi = min(width, (sp + 1) * pps) * ps
+        valid = (tok >= lo) & (tok < hi) & (tok < n)              # (B, T)
+        ss = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+        m = ss.amax(dim=-1)
+        p = torch.exp(ss - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m))[..., None])
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgt,btkd->bkgd", p, v)))
+        m_all = torch.maximum(m_all, m)
+    l_all = torch.zeros_like(m_all)
+    o = torch.zeros(b, kv, h // kv, d, device=q.device)
+    for m, l, acc in parts:
+        c = torch.where(torch.isfinite(m),
+                        torch.exp(m - torch.where(torch.isfinite(m_all),
+                                                  m_all,
+                                                  torch.zeros_like(m_all))),
+                        torch.zeros_like(m))
+        l_all = l_all + l * c
+        o = o + acc * c[..., None]
+    o = torch.where(l_all[..., None] > 0,
+                    o / torch.where(l_all > 0, l_all,
+                                    torch.ones_like(l_all))[..., None],
+                    torch.zeros_like(o))
+    return o.reshape(b, h, 1, d).to(q.dtype)
+
+
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -119,19 +196,30 @@ def paged_attention_kernel(q, k_arena, v_arena, page_table, lengths, *,
     _check(q, k_arena, v_arena, page_table, lengths, page_size)
     b, h, _, d = q.shape
     kv = k_arena.shape[1]
+    width = page_table.shape[1]
+    if b == 0 or width == 0:                   # no row holds a token
+        return torch.zeros_like(q)
     out = torch.empty_like(q)
-    if b == 0:
-        return out
+    n_split = paged_splits(b, kv, width, int(page_size),
+                           _sm_count(q.device))
+    ws = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         _build.call(
             _SRC, "mx_paged_attention_decode", _ARGS,
             "paged_attention_kernel", q.data_ptr(), k_arena.data_ptr(),
             v_arena.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, h, kv, d, page_table.shape[1],
-            int(page_size), float(scale), _DTYPE_CODE[q.dtype],
+            out.data_ptr(), ws.data_ptr(), b, h, kv, d, width,
+            int(page_size), n_split, float(scale), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention_kernel.launches += 1
     return out
+
+
+def _sm_count(device) -> int:
+    """The card's SM count (torch caches the device properties: no
+    sync)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 paged_attention_kernel.launches = 0

@@ -45,10 +45,13 @@ from mxnet_tpu_torch.kernels import (adam_sweep_reference,
                                      lamb_sweep_reference,
                                      paged_attention_kernel,
                                      paged_attention_reference,
-                                     sgd_sweep_reference)
-from mxnet_tpu_torch.kernels.dropout import dropout_thresh, row_keep_mask
+                                     paged_attention_split_reference,
+                                     paged_splits, sgd_sweep_reference)
+from mxnet_tpu_torch.kernels.dropout import (attn_keep_mask, dropout_thresh,
+                                             row_keep_mask)
 from mxnet_tpu_torch.kernels.flash import (NO_KEY_LSE, _bwd_reference,
-                                           _launch, _launch_bwd, _reference)
+                                           _launch, _launch_bwd, _reference,
+                                           bwd_route)
 
 # bf16 keeps 8 significant bits, so one ulp is at most 2**-7 of a
 # value's magnitude. The kernel and its plain version sum the squares in
@@ -118,6 +121,69 @@ def test_paged_kernel_matches_plain_on_card(b, dtype, d):
     assert torch.count_nonzero(out[0]) == 0
     tol = 2e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_paged_kernel_split_edges_on_card(b, dtype, d, group):
+    """The split kernel and its combine at the runs' edges: rows of
+    length 0, 1, a page, a page and one, a run (a split boundary), a run
+    and one, the full table and past it (clamped to the capacity),
+    against the plain version and the plain split-and-merge; the same
+    bits on a second call, and no host sync (lengths is never read on
+    the host)."""
+    _require_card()
+    kv, ps, width = 4, 16, 64
+    h = kv * group
+    n_split = paged_splits(b, kv, width, ps, _sm_count())
+    run = -(-width // n_split) * ps
+    edges = np.array([0, 1, ps, ps + 1, run, run + 1, width * ps,
+                      width * ps + 100], np.int32)
+    lengths = edges[np.arange(b) % len(edges)] if b > 1 \
+        else np.array([run + 1], np.int32)
+    g = torch.Generator(device="cuda").manual_seed(b * 100 + d + group)
+    rs = np.random.RandomState(b + d + group)
+    table = rs.permutation(np.arange(1, 1 + b * width)).astype(
+        np.int32).reshape(b, width)
+    n_slots = (1 + b * width) * ps
+    tdt = getattr(torch, dtype)
+    q = torch.randn(b, h, 1, d, device="cuda", generator=g).to(tdt)
+    k = torch.randn(n_slots, kv, d, device="cuda", generator=g).to(tdt)
+    v = torch.randn(n_slots, kv, d, device="cuda", generator=g).to(tdt)
+    pt = torch.from_numpy(table).cuda()
+    ln = torch.from_numpy(lengths).cuda()
+    scale = 1.0 / np.sqrt(d)
+    before = paged_attention_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged_attention_kernel(q, k, v, pt, ln, page_size=ps,
+                                     scale=scale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = paged_attention_kernel(q, k, v, pt, ln, page_size=ps,
+                                   scale=scale)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 2
+    assert torch.equal(out, again)
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    ref = paged_attention_reference(q, k, v, pt, ln, page_size=ps,
+                                    scale=scale)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    split = paged_attention_split_reference(q, k, v, pt, ln, page_size=ps,
+                                            scale=scale, n_split=n_split)
+    torch.testing.assert_close(out.float(), split.float(), rtol=tol,
+                               atol=tol)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.count_nonzero(out[i]) == 0
 
 
 @pytest.mark.cuda
@@ -357,6 +423,117 @@ def test_flash_bwd_kernel_rows_with_no_visible_key_on_card(dtype):
     assert torch.count_nonzero(got[0][:, :, :10]) == 0
     for x, y in zip(got, want):
         _close_to_max(x, y, BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (B, H, Lq, Lk, D, causal, layout, views)
+    (2, 3, 200, 200, 64, False, "bhld", False),   # L not a multiple of 64
+    (2, 3, 130, 130, 128, True, "blhd", False),   # nor of 128
+    (1, 2, 100, 300, 128, True, "bhld", False),   # causal, lq < lk
+    (2, 2, 70, 190, 64, True, "blhd", False),
+    (1, 4, 1000, 1000, 128, False, "blhd", True),  # fused-QKV views
+    (3, 2, 190, 190, 64, True, "blhd", True),
+    (2, 2, 77, 77, 256, True, "bhld", False),     # head dim 256
+    (2, 2, 96, 150, 200, False, "blhd", False),   # 200, padded to 256
+    (1, 3, 64, 64, 136, True, "bhld", False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_tile_edges_on_card(shape, dtype):
+    """The backward at the tiles' edges, on its route (bwd_route: the
+    warpgroup kernels for bf16 at head dim 64 or 128), against the plain
+    version; the same bits on a second call."""
+    _require_card()
+    b, h, lq, lk, d, causal, layout, views = shape
+    g = torch.Generator(device="cuda").manual_seed(lq * d + lk)
+    tdt = getattr(torch, dtype)
+    if views:
+        qkv = torch.randn(b, lq, 3 * h * d, device="cuda",
+                          generator=g).to(tdt)
+        q, k, v = (t.view(b, lq, h, d) for t in qkv.split(h * d, dim=-1))
+    else:
+        qs = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+        ks = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+        q = torch.randn(*qs, device="cuda", generator=g).to(tdt)
+        k, v = (torch.randn(*ks, device="cuda", generator=g).to(tdt)
+                for _ in range(2))
+    do = torch.randn(q.shape, device="cuda", generator=g).to(tdt)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, layout=layout)
+    route = bwd_route(tdt, d)
+    before = (flash_attention_bwd.wgmma_launches,
+              flash_attention_bwd.mma_launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              layout=layout)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                layout=layout)
+    torch.cuda.synchronize()
+    after = (flash_attention_bwd.wgmma_launches,
+             flash_attention_bwd.mma_launches)
+    assert after == ((before[0] + 2, before[1]) if route == "wgmma"
+                     else (before[0], before[1] + 2))
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                         layout=layout)
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert torch.equal(x, z), f"d{name} differs between two calls"
+        _close_to_max(x, y, BWD_TOL[dtype], f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_rows_with_no_visible_key_at_tile_edges_on_card(d, dtype):
+    """A negative causal offset leaves the first rows no visible key;
+    ragged lengths put them across the warpgroup route's tiles."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(60 + d)
+    tdt = getattr(torch, dtype)
+    q, do = (torch.randn(2, 3, 150, d, device="cuda", generator=g).to(tdt)
+             for _ in range(2))
+    k, v = (torch.randn(2, 3, 170, d, device="cuda", generator=g).to(tdt)
+            for _ in range(2))
+    o, lse = _launch(q, k, v, d ** -0.5, True, -30, "bhld")
+    got = _launch_bwd(q, k, v, o, lse, do, d ** -0.5, True, -30, "bhld")
+    torch.cuda.synchronize()
+    want = _bwd_reference(q, k, v, o, lse, do, d ** -0.5, True, -30, "bhld")
+    assert torch.count_nonzero(got[0][:, :, :30]) == 0
+    for x, y in zip(got, want):
+        _close_to_max(x, y, BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_dropout_masks_bit_identical_on_card(d, dtype):
+    """Both dropout sites of the backward hold the forward's mask, bit
+    for bit. With lq = lk = d, dO = I makes dV = (dropped P)^T, so dV's
+    zeros are the mask (the dK/dV kernel's P^T); with q = k = v = I, o = 0
+    (delta = 0) and dO all ones, dS = P * (dropped dP) * scale, so dQ's
+    zeros (the dQ kernel) and dK's (the dK/dV kernel's dP^T) are the
+    mask. P > 0 everywhere (small scores, no causal mask), so no kept
+    element is 0."""
+    _require_card()
+    b, h, seed = 2, 4, 1234 + d
+    g = torch.Generator(device="cuda").manual_seed(d)
+    tdt = getattr(torch, dtype)
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous().to(tdt)
+    keep = attn_keep_mask(b, h, d, d, seed, dropout_thresh(0.1), "cuda")
+    kw = dict(dropout=0.1, seed=seed)
+    q, k = ((0.1 * torch.randn(b, h, d, d, device="cuda", generator=g))
+            .to(tdt) for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, eye, **kw)
+    for dv in (flash_attention_bwd(q, k, eye, o, lse, eye, **kw)[2],
+               flash_attention_bwd_reference(q, k, eye, o, lse, eye,
+                                             **kw)[2]):
+        assert torch.equal(dv != 0, keep.transpose(-1, -2))
+    _, lse = flash_attention_fwd(eye, eye, eye, **kw)
+    zero, ones = torch.zeros_like(eye), torch.ones_like(eye)
+    for dq, dk, _ in (flash_attention_bwd(eye, eye, eye, zero, lse, ones,
+                                          **kw),
+                      flash_attention_bwd_reference(eye, eye, eye, zero, lse,
+                                                    ones, **kw)):
+        assert torch.equal(dq != 0, keep)
+        assert torch.equal(dk != 0, keep.transpose(-1, -2))
+    assert 0.08 < float((~keep).float().mean()) < 0.12
 
 
 @pytest.mark.cuda

@@ -20,7 +20,9 @@ from mxnet_tpu.pallas_kernels.paged_attention import \
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import (fused_rms_norm, fused_rms_norm_reference,
-                                     paged_attention_reference)
+                                     paged_attention_reference,
+                                     paged_attention_split_reference,
+                                     paged_splits)
 from mxnet_tpu_torch.kernels.paged_attention import _check as paged_check
 from mxnet_tpu_torch.ops import attention as pattn
 
@@ -133,6 +135,43 @@ def test_paged_plain_matches_jax_kernel_on_real_rows(dtype, rtol, atol):
                                         (jln - 1)[:, None], ps, scale)
         np.testing.assert_allclose(_np(out)[real], _np(gather)[real],
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+def test_paged_split_merge_matches_jax_kernel(n_split):
+    """The kernel's split and merge, as its plain version runs them: each
+    row's 4 table columns cut into runs of ceil(4 / n_split) (n_split 3
+    and 8 leave runs past the table, and runs past a row's length are
+    empty too), each run's f32 (m, l, acc) merged in run order, against
+    the JAX Pallas kernel in interpret mode on the real rows, zeros on
+    the length-0 row, and the one-pass plain version everywhere (f32:
+    the same sums in other orders)."""
+    jargs, targs, ps, scale = _paged_case("float32")
+    out = paged_attention_split_reference(*targs, page_size=ps, scale=scale,
+                                          n_split=n_split)
+    ref = jax_paged_kernel(*jargs, page_size=ps, scale=scale,
+                           interpret=True)
+    real = np.asarray(jargs[4]) > 0
+    np.testing.assert_allclose(_np(out)[real], _np(ref)[real], rtol=1e-5,
+                               atol=1e-5)
+    assert torch.count_nonzero(out[~torch.from_numpy(real)]) == 0
+    np.testing.assert_allclose(
+        _np(out), _np(paged_attention_reference(*targs, page_size=ps,
+                                                scale=scale)),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,kv,width,ps", [
+    (1, 8, 64, 16), (8, 8, 64, 16), (32, 8, 64, 16), (8, 8, 48, 16),
+    (3, 2, 4, 8), (1, 1, 1, 16), (64, 8, 10000, 16), (2, 4, 7, 1)])
+def test_paged_splits_from_static_shapes(b, kv, width, ps):
+    """Every run owns at least one table column, a run holds at most
+    4096 page ids, and the split count depends on shapes alone."""
+    n = paged_splits(b, kv, width, ps, 132)
+    pps = -(-width // n)
+    assert 1 <= n <= width and (n - 1) * pps < width <= n * pps
+    assert pps <= 4096
+    assert n == paged_splits(b, kv, width, ps, 132)
 
 
 def test_paged_empty_row_emits_zero():

@@ -33,6 +33,7 @@ from mxnet_tpu_torch.kernels import (adam_sweep_reference, flash_attention,
                                      fused_layer_norm, fused_layer_norm_bwd,
                                      fused_layer_norm_bwd_reference,
                                      fused_layer_norm_reference)
+from mxnet_tpu_torch.kernels.flash import bwd_route
 from mxnet_tpu_torch.ops.fused_loss import softmax_ce_head
 from mxnet_tpu_torch.optimizer import multi_tensor as pmt
 
@@ -74,6 +75,7 @@ FLASH_BWD_CASES = [
     (2, 2, 128, 128, 32, True, "blhd"),    # row 6, fused, any layout (:937)
     (1, 2, 384, 384, 32, True, "bhld"),    # rows 7-8, streaming (:959/:977)
     (1, 2, 128, 384, 32, False, "blhd"),   # rows 7-8, cross lengths
+    (1, 2, 128, 128, 256, True, "bhld"),   # the largest head dim
 ]
 
 
@@ -108,6 +110,25 @@ def test_flash_bwd_plain_matches_jax_vjp(case):
                                 layout=layout)
     assert flash_attention_bwd.launches == before
     assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 40, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.float32, 64, "mma"), (torch.float32, 128, "mma")])
+def test_flash_bwd_route_is_fixed_by_the_inputs(dtype, d, route):
+    """The backward's kernels follow from dtype and head dim alone: the
+    warpgroup route for bf16 at 64 or 128 (every training path), the
+    mma.sync / FMA kernels otherwise; a CPU tensor launches neither."""
+    assert bwd_route(dtype, d) == route
+    (_, tq), (_, tk), (_, tv), (_, tg) = _flash_inputs(
+        1, 1, 8, 8, d, "bhld", seed=d, dtype=str(dtype).split(".")[-1])
+    out, lse = flash_attention_fwd(tq, tk, tv)
+    before = (flash_attention_bwd.wgmma_launches,
+              flash_attention_bwd.mma_launches)
+    flash_attention_bwd(tq, tk, tv, out, lse, tg)
+    assert (flash_attention_bwd.wgmma_launches,
+            flash_attention_bwd.mma_launches) == before
 
 
 def test_flash_bwd_bf16_plain_matches_jax_vjp():
