@@ -331,12 +331,18 @@ def rms_case(rows, d, dtype, flush, gen, rstd=False) -> dict:
     else:
         kern = lambda: fused_rms_norm(x, w, eps=eps)        # noqa: E731
     b_ms, b_by = bound(n_bytes, 4.0 * rows * d, torch.float32)
+
+    def library():
+        return F.rms_norm(x, (d,), w, eps)
+
     rec.update({
         "max_abs_err": err, "rtol_atol": list(RMS_TOL[dtype]), "ok": ok,
         "ms": time_ms(kern, flush),
         "plain_ms": time_ms(lambda: fused_rms_norm_reference(
             x, w, eps=eps, return_rstd=rstd), flush),
-        "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, eps), flush),
+        "library_ms": time_ms(library, flush),
+        "device_ms": _queued_ms(kern, flush),
+        "library_device_ms": _queued_ms(library, flush),
         "bound_ms": b_ms, "bound_by": b_by})
     emit(rec)
     return rec
@@ -380,6 +386,9 @@ def rms_bwd_case(rows, d, dtype, flush, gen) -> dict:
            "plain_ms": time_ms(lambda: fused_rms_norm_bwd_reference(
                x, w, rstd, dy), flush),
            "library_ms": time_ms(library, flush),
+           "device_ms": _queued_ms(lambda: fused_rms_norm_bwd(x, w, rstd,
+                                                              dy), flush),
+           "library_device_ms": _queued_ms(library, flush),
            "library": "F.rms_norm forward + its autograd backward",
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
@@ -490,15 +499,23 @@ def ln_case(rows, d, dtype, with_res, flush, gen) -> dict:
     # sum (+ residual add), centre, square-accumulate, normalise, scale,
     # shift: ~7 f32 operations per element
     b_ms, b_by = bound(n_bytes, 7.0 * rows * d, torch.float32)
+
+    def kern():
+        return fused_layer_norm(x, g, b, r, eps=eps)
+
+    def library():
+        return F.layer_norm(x, (d,), g, b, eps)
+
     rec = {"phase": "kernels", "kernel": "fused_layer_norm",
            "shape": [rows, d], "residual": with_res, "dtype": _dname(dtype),
            "max_abs_err": err, "rtol_atol": list(LN_TOL[dtype]), "ok": ok,
-           "ms": time_ms(lambda: fused_layer_norm(x, g, b, r, eps=eps),
-                         flush),
+           "ms": time_ms(kern, flush),
            "plain_ms": time_ms(lambda: fused_layer_norm_reference(
                x, g, b, r, eps=eps), flush),
-           "library_ms": None if with_res else time_ms(
-               lambda: F.layer_norm(x, (d,), g, b, eps), flush),
+           "library_ms": None if with_res else time_ms(library, flush),
+           "device_ms": _queued_ms(kern, flush),
+           "library_device_ms": None if with_res else _queued_ms(library,
+                                                                 flush),
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
     return rec
@@ -526,7 +543,9 @@ def gelu_case(rows, d, dtype, flush, gen) -> dict:
            "ms": time_ms(lambda: fused_bias_gelu(x, bias), flush),
            "plain_ms": time_ms(lambda: fused_bias_gelu_reference(x, bias),
                                flush),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None,
+           "device_ms": _queued_ms(lambda: fused_bias_gelu(x, bias), flush),
+           "library_device_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
     return rec
 
@@ -552,42 +571,68 @@ def _flash_inputs(b, h, l, d, layout, dtype, gen, n, views):
 
 
 def flash_case(b, h, l, d, causal, layout, dtype, flush, gen,
-               views=True) -> dict:
+               views=True, lk=None) -> dict:
     """Flash attention forward, output and lse against the plain version
     on the same inputs (``_flash_inputs``: "blhd" on fused-QKV views, or
-    contiguous with ``views`` False; "bhld" contiguous). Library
-    yardstick: F.scaled_dot_product_attention on the same inputs (timed
-    only; the port never calls it). Operations count the key positions
-    this run visits: all l for every row, or the causal triangle."""
+    contiguous with ``views`` False; "bhld" contiguous), and the same
+    bits on a second call. ``lk`` gives the keys (contiguous, no views)
+    another length than the queries' ``l``; causal masking then aligns
+    bottom-right. Library yardstick: F.scaled_dot_product_attention on
+    the same inputs (timed only; the port never calls it), with
+    causal_lower_right's mask where lk != l. Operations count the key
+    positions this run visits: all lk for every row, or the causal
+    triangle's."""
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
     from mxnet_tpu_torch.kernels import (flash_attention_fwd,
                                          flash_attention_reference)
+    from mxnet_tpu_torch.kernels.flash import fwd_route
 
-    q, k, v = _flash_inputs(b, h, l, d, layout, dtype, gen, 3, views)
+    lk = l if lk is None else lk
+    if lk == l:
+        q, k, v = _flash_inputs(b, h, l, d, layout, dtype, gen, 3, views)
+    else:
+        q, = _flash_inputs(b, h, l, d, layout, dtype, gen, 1, False)
+        k, v = _flash_inputs(b, h, lk, d, layout, dtype, gen, 2, False)
     sdpa_in = [t.transpose(1, 2) for t in (q, k, v)] \
         if layout == "blhd" else [q, k, v]
+    sdpa_kw = {"attn_mask": causal_lower_right(l, lk)} \
+        if causal and lk != l else {"is_causal": causal}
     kw = {"causal": causal, "layout": layout}
-    out, lse = flash_attention_fwd(q, k, v, **kw)
+
+    def kern():
+        return flash_attention_fwd(q, k, v, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(*sdpa_in, **sdpa_kw)
+
+    out, lse = kern()
+    again, lse_again = kern()
     torch.cuda.synchronize()
+    same = torch.equal(out, again) and torch.equal(lse, lse_again)
     ref, rlse = flash_attention_reference(q, k, v, **kw)
     err, ok = within(out, ref, *FLASH_TOL[dtype])
     lse_err, lse_ok = within(lse, rlse, *LSE_TOL)
-    pairs = l * (l + 1) // 2 if causal else l * l
+    off = lk - l
+    pairs = l * (off + 1) + l * (l - 1) // 2 if causal else l * lk
     n_ops = 4.0 * b * h * pairs * d
-    n_bytes = 4 * b * h * l * d * _size(dtype) + 4 * b * h * l
+    n_bytes = 2 * b * h * (l + lk) * d * _size(dtype) + 4 * b * h * l
     b_ms, b_by = bound(n_bytes, n_ops, dtype)
     rec = {"phase": "kernels", "kernel": "flash_attention",
-           "shape": [b, h, l, d], "layout": layout, "views": views,
-           "q_strides": list(q.stride()), "causal": causal,
-           "dtype": _dname(dtype), "max_abs_err": err,
-           "lse_max_abs_err": lse_err, "rtol_atol": list(FLASH_TOL[dtype]),
-           "lse_rtol_atol": list(LSE_TOL), "ok": ok and lse_ok,
-           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw), flush),
+           "shape": [b, h, l, d], "lk": lk, "layout": layout,
+           "views": views, "q_strides": list(q.stride()), "causal": causal,
+           "dtype": _dname(dtype), "route": fwd_route(dtype, d),
+           "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "rtol_atol": list(FLASH_TOL[dtype]),
+           "lse_rtol_atol": list(LSE_TOL), "same_bits_twice": same,
+           "ok": ok and lse_ok and same,
+           "ms": time_ms(kern, flush),
            "plain_ms": time_ms(lambda: flash_attention_reference(
                q, k, v, **kw), flush),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               *sdpa_in, is_causal=causal), flush),
+           "library_ms": time_ms(library, flush),
+           "device_ms": _queued_ms(kern, flush),
+           "library_device_ms": _queued_ms(library, flush),
            "bound_ms": b_ms, "bound_by": b_by, "gflop": n_ops / 1e9,
            "mbytes": n_bytes / 1e6}
     emit(rec)
@@ -700,11 +745,12 @@ def ln_bwd_case(rows, d, dtype, with_res, flush, gen) -> dict:
     torch.cuda.synchronize()
     err, rel = max_rel(got, fused_layer_norm_bwd_reference(x, g, mean, rstd,
                                                            dy, r))
-    library = None
+    library = library_dev = None
     if not with_res:
         leaves = [t.detach().requires_grad_() for t in (x, g, b)]
         y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
         library = time_ms(_grad_timer(y, leaves, dy), flush)
+        library_dev = _queued_ms(_grad_timer(y, leaves, dy), flush)
     size = _size(dtype)
     n_bytes = rows * d * size * (4 if with_res else 3) + 8 * rows \
         + 3 * d * size
@@ -720,6 +766,9 @@ def ln_bwd_case(rows, d, dtype, with_res, flush, gen) -> dict:
            "plain_ms": time_ms(lambda: fused_layer_norm_bwd_reference(
                x, g, mean, rstd, dy, r), flush),
            "library_ms": library,
+           "device_ms": _queued_ms(lambda: fused_layer_norm_bwd(
+               x, g, mean, rstd, dy, r), flush),
+           "library_device_ms": library_dev,
            "library": "null: no single PyTorch call adds a residual"
                       if with_res else "autograd backward of F.layer_norm",
            "bound_ms": b_ms, "bound_by": b_by}
@@ -751,6 +800,9 @@ def gelu_bwd_case(rows, d, dtype, flush, gen) -> dict:
            "plain_ms": time_ms(lambda: fused_bias_gelu_bwd_reference(
                x, bias, dy), flush),
            "library_ms": None,
+           "device_ms": _queued_ms(lambda: fused_bias_gelu_bwd(x, bias, dy),
+                                   flush),
+           "library_device_ms": None,
            "library": "null: no single PyTorch call (F.gelu takes no bias)",
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
@@ -809,6 +861,10 @@ def hash_dropout_case(shape, dtype, flush, gen) -> dict:
                                                               seed), flush),
            "library_ms": time_ms(lambda: F.dropout(x, DROP_P, training=True),
                                  flush),
+           "device_ms": _queued_ms(lambda: hash_dropout(x, DROP_P, seed),
+                                   flush),
+           "library_device_ms": _queued_ms(
+               lambda: F.dropout(x, DROP_P, training=True), flush),
            "library": "F.dropout (its own Philox mask)",
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
@@ -865,6 +921,8 @@ def ln_drop_cases(rows, d, dtype, with_res, flush, gen) -> list:
                ms=time_ms(lambda: fused_layer_norm(x, g, b, r, **kw), flush),
                plain_ms=time_ms(lambda: fused_layer_norm_reference(
                    x, g, b, r, **kw), flush),
+               device_ms=_queued_ms(lambda: fused_layer_norm(
+                   x, g, b, r, **kw), flush), library_device_ms=None,
                bound_ms=f_ms, bound_by=f_by)
     bwd = dict(common, kernel="fused_layer_norm_bwd[dropout]",
                max_abs_err=b_err, max_err_over_max_ref=rel,
@@ -874,6 +932,9 @@ def ln_drop_cases(rows, d, dtype, with_res, flush, gen) -> list:
                    x, g, mean, rstd, dy, r, DROP_P, seed), flush),
                plain_ms=time_ms(lambda: fused_layer_norm_bwd_reference(
                    x, g, mean, rstd, dy, r, DROP_P, seed), flush),
+               device_ms=_queued_ms(lambda: fused_layer_norm_bwd(
+                   x, g, mean, rstd, dy, r, DROP_P, seed), flush),
+               library_device_ms=None,
                bound_ms=bw_ms, bound_by=bw_by)
     emit(fwd)
     emit(bwd)
@@ -883,17 +944,19 @@ def ln_drop_cases(rows, d, dtype, with_res, flush, gen) -> list:
 def flash_drop_cases(b, h, l, d, causal, layout, dtype, flush,
                      gen) -> list:
     """Flash attention forward and backward at p = 0.1 against the plain
-    versions, "blhd" on BERT's fused-QKV views as flash_case builds them.
-    Library yardstick: F.scaled_dot_product_attention with dropout_p=0.1
-    and its autograd backward (SDPA draws its own mask; only the work is
-    the same). Operations: the products as without dropout, plus one
-    hash per score, forward and backward."""
+    versions, "blhd" on BERT's fused-QKV views as flash_case builds them;
+    the forward gives the same bits (output, so mask, and lse) on a
+    second call. Library yardstick: F.scaled_dot_product_attention with
+    dropout_p=0.1 and its autograd backward (SDPA draws its own mask;
+    only the work is the same). Operations: the products as without
+    dropout, plus one hash per score, forward and backward."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.kernels import (flash_attention_bwd,
                                          flash_attention_bwd_reference,
                                          flash_attention_fwd,
                                          flash_attention_reference)
+    from mxnet_tpu_torch.kernels.flash import fwd_route
 
     if layout == "blhd":
         qkv = torch.randn(b, l, 3 * h * d, device="cuda",
@@ -908,8 +971,10 @@ def flash_drop_cases(b, h, l, d, causal, layout, dtype, flush,
     kw = {"causal": causal, "layout": layout, "dropout": DROP_P,
           "seed": 0xF1A5 + l}
     o, lse = flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = flash_attention_fwd(q, k, v, **kw)
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
     ref, rlse = flash_attention_reference(q, k, v, **kw)
     f_err, f_ok = within(o, ref, *FLASH_TOL[dtype])
     lse_err, lse_ok = within(lse, rlse, *LSE_TOL)
@@ -929,15 +994,22 @@ def flash_drop_cases(b, h, l, d, causal, layout, dtype, flush,
                                 (HASH_OPS * scores, torch.float32)])
     common = {"phase": "kernels", "shape": [b, h, l, d], "layout": layout,
               "causal": causal, "dtype": _dname(dtype), "p": DROP_P}
-    fwd = dict(common, kernel="flash_attention[dropout]", max_abs_err=f_err,
+    def library():
+        return F.scaled_dot_product_attention(
+            *[to_sdpa(t) for t in (q, k, v)], is_causal=causal,
+            dropout_p=DROP_P)
+
+    fwd = dict(common, kernel="flash_attention[dropout]",
+               route=fwd_route(dtype, d), max_abs_err=f_err,
                lse_max_abs_err=lse_err, rtol_atol=list(FLASH_TOL[dtype]),
-               ok=f_ok and lse_ok,
+               same_bits_twice=same, ok=f_ok and lse_ok and same,
                ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), flush),
                plain_ms=time_ms(lambda: flash_attention_reference(
                    q, k, v, **kw), flush),
-               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                   *[to_sdpa(t) for t in (q, k, v)], is_causal=causal,
-                   dropout_p=DROP_P), flush),
+               library_ms=time_ms(library, flush),
+               device_ms=_queued_ms(lambda: flash_attention_fwd(
+                   q, k, v, **kw), flush),
+               library_device_ms=_queued_ms(library, flush),
                library="F.scaled_dot_product_attention(dropout_p=0.1)",
                bound_ms=f_ms, bound_by=f_by)
     bwd = dict(common, kernel="flash_attention_bwd[dropout]",
@@ -965,9 +1037,11 @@ def flash_mask_case(d, dtype, flush, gen) -> dict:
     """The flash forward's mask, bit for bit: with lk = d and V the
     identity, O is the dropped, normalised P, so its zeros are the mask;
     the kernel's zeros must be the plain version's (q and k are small,
-    so no kept P underflows to 0)."""
+    so no kept P underflows to 0), and a second call's output the
+    first's, bit for bit."""
     from mxnet_tpu_torch.kernels import (flash_attention_fwd,
                                          flash_attention_reference)
+    from mxnet_tpu_torch.kernels.flash import fwd_route
 
     b, h, lq = 32, 12, 512
     q = (0.1 * torch.randn(b, h, lq, d, device="cuda",
@@ -977,7 +1051,12 @@ def flash_mask_case(d, dtype, flush, gen) -> dict:
     v = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous().to(
         dtype)
     kw = {"dropout": DROP_P, "seed": 0xA5A5 + d}
-    out, _ = flash_attention_fwd(q, k, v, **kw)
+
+    def kern():
+        return flash_attention_fwd(q, k, v, **kw)
+
+    out, _ = kern()
+    twice = torch.equal(kern()[0], out)
     torch.cuda.synchronize()
     ref, _ = flash_attention_reference(q, k, v, **kw)
     same = bool(torch.equal(out == 0, ref == 0))
@@ -988,11 +1067,13 @@ def flash_mask_case(d, dtype, flush, gen) -> dict:
                                             torch.float32)])
     rec = {"phase": "kernels", "kernel": "flash_attention[dropout, mask]",
            "shape": [b, h, lq, d], "lk": d, "v": "identity",
-           "dtype": _dname(dtype), "p": DROP_P, "mask_identical": same,
-           "drop_share": float((ref == 0).float().mean()), "ok": same,
-           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw), flush),
+           "dtype": _dname(dtype), "route": fwd_route(dtype, d), "p": DROP_P,
+           "mask_identical": same, "same_bits_twice": twice,
+           "drop_share": float((ref == 0).float().mean()),
+           "ok": same and twice, "ms": time_ms(kern, flush),
            "plain_ms": time_ms(lambda: flash_attention_reference(
                q, k, v, **kw), flush), "library_ms": None,
+           "device_ms": _queued_ms(kern, flush),
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
     return rec
@@ -1477,6 +1558,9 @@ def phase_kernels() -> dict:
                       (8, 12, 128, 64, False, "blhd"),
                       (2, 8, 2048, 128, True, "bhld")):
             recs.append(flash_case(*shape, dtype, flush, gen))
+        # ragged lengths, causal with Lq < Lk (bottom-right aligned)
+        recs.append(flash_case(2, 8, 200, 128, True, "bhld", dtype, flush,
+                               gen, views=False, lk=328))
         # the pretraining path's backward kernels at its shapes
         for with_res in (True, False):
             recs.append(ln_bwd_case(32 * 512, 768, dtype, with_res, flush,
@@ -1552,6 +1636,10 @@ def phase_kernels() -> dict:
                                                                64] \
                 and r["layout"] == "blhd":
             pick["flash_attention"] = r
+        # rule 2's main-path shape for the forward, as for the backward
+        if r["kernel"] == "flash_attention" and r["layout"] == "blhd" \
+                and not r["views"]:
+            pick["flash_attention[proxy1b]"] = r
         # the dropout modes: the residual LayerNorm (the 12 add+norms
         # that drop), flash on the fused-QKV views, the Dropout op
         if r["kernel"] in ("fused_layer_norm[dropout]",
@@ -1768,7 +1856,8 @@ def _device_breakdown(step, steps, n_top=8, kind=None) -> dict:
 
 
 # the port's own CUDA kernels, by their __global__ names in kernels/csrc
-_PORT_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+_PORT_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "dkdv_kernel",
+                 "dq_kernel",
                  "dkdv_wgmma_kernel", "dq_wgmma_kernel",
                  "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
                  "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
@@ -2196,8 +2285,9 @@ def _train_counts() -> dict:
     the AdamW sweep its scans, as "fused_adamw_sweep[scan]", and for the
     LAMB sweep its phase-1 and norms launches, as
     "fused_lamb_sweep[phase1]" and "fused_lamb_sweep[norms]" (its own
-    count is phase 2's), and for the flash backward its launches on the
-    warpgroup route, as "flash_attention_bwd[wgmma]"."""
+    count is phase 2's), and for the flash forward and backward their
+    launches on the warpgroup route, as "flash_attention[wgmma]" and
+    "flash_attention_bwd[wgmma]"."""
     out = {}
     for name, f in _train_wrappers().items():
         out[name] = f.launches
@@ -2215,8 +2305,9 @@ def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0,
     FFN's and decoder_transform's bias+GELU; one flash attention per
     layer (dropping with attention dropout); the Dropout op after
     embed_ln and after each layer's attention and FFN, forward and
-    backward; one sweep per dtype bucket. ``wgmma``: the flash backward
-    takes the warpgroup route (bf16 at head dim 64 or 128)."""
+    backward; one sweep per dtype bucket. ``wgmma``: the flash forward
+    and backward take the warpgroup route (bf16 at head dim 64 or
+    128)."""
     layers = cfg["num_layers"]
     drop_ln = layers if dropout > 0 else 0
     drop_attn = layers if attn_dropout > 0 else 0
@@ -2232,6 +2323,7 @@ def _per_step(cfg, buckets, dropout=0.0, attn_dropout=0.0,
             "flash_attention[dropout]": drop_attn,
             "flash_attention_bwd": layers,
             "flash_attention_bwd[dropout]": drop_attn,
+            "flash_attention[wgmma]": layers if wgmma else 0,
             "flash_attention_bwd[wgmma]": layers if wgmma else 0,
             "fused_adam_sweep": buckets,
             "hash_dropout": drop_op, "hash_dropout_bwd": drop_op}
@@ -2764,13 +2856,15 @@ LLAMA_OPT = {"learning_rate": 3e-4, "wd": 0.1, "beta1": 0.9, "beta2": 0.95,
 def _llama_per_step(cfg, buckets, wgmma=False) -> dict:
     """Launches of each training kernel in one TrainStep of a Llama with
     the fused CE head: two RMSNorms per layer and the final one, forward
-    and backward (on the warpgroup route with ``wgmma``: bf16); one AdamW
+    and backward; one flash attention per layer, forward and backward (on
+    the warpgroup route with ``wgmma``: bf16); one AdamW
     scan and sweep per dtype bucket; nothing else."""
     layers = cfg["num_layers"]
     return {**dict.fromkeys(_train_counts(), 0),
             "fused_rms_norm": 2 * layers + 1,
             "fused_rms_norm_bwd": 2 * layers + 1,
             "flash_attention": layers, "flash_attention_bwd": layers,
+            "flash_attention[wgmma]": layers if wgmma else 0,
             "flash_attention_bwd[wgmma]": layers if wgmma else 0,
             "fused_adamw_sweep": buckets, "fused_adamw_sweep[scan]": buckets}
 
@@ -3977,12 +4071,14 @@ def main() -> None:
         for key in ("device_ms", "library_device_ms", "ctas", "splits"):
             if key in r:
                 rec[key] = r[key]
-        if name == "flash_attention_bwd":
-            p1 = picks["flash_attention_bwd[proxy1b]"]
+        if "route" in r:       # the flash kernels' own route (fwd/bwd_route)
+            rec["kernel_route"] = r["route"]
+        if name in ("flash_attention", "flash_attention_bwd"):
+            p1 = picks[name + "[proxy1b]"]
             rec["proxy1b_causal"] = {k: p1[k] for k in (
-                "shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms",
-                "library_ms", "device_ms", "library_device_ms", "bound_ms",
-                "bound_by")}
+                "shape", "causal", "dtype", "route", "max_abs_err", "ms",
+                "plain_ms", "library_ms", "device_ms", "library_device_ms",
+                "bound_ms", "bound_by")}
         if name in also:
             rec["also_replaces"] = also[name]
         if name in notes:

@@ -438,34 +438,11 @@ struct WgSmem {
       1024 + 2 * size_t(kOwn) + kWgStages * size_t(kStage) + kBars;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = mxhop::smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// acc (64 x D) += A (64 x 16, registers) . B (16 x D, MN-major): the
-// wgmma of the D-wide gradient products. In a wgmma accumulator, register
-// i of lane (g = lane / 4, t = lane % 4) of warp w holds row 16 w + g +
-// 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t + (i & 1); four of them over
-// two 8-column blocks are the register A operand of a 16-deep step.
-template <int D>
-struct WgRs;
-template <>
-struct WgRs<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    mxhop::wgmma_rs_n64_tb(d, a, b);
-  }
-};
-template <>
-struct WgRs<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    mxhop::wgmma_rs_n128_tb(d, a, b);
-  }
-};
+using mxhop::align1024;
+using mxhop::fexp2;
+using mxhop::wait_tile;
+using mxhop::warp_arrive;
+using mxhop::WgRs;
 
 // The ring's barriers. full (and own_full, for the owned tiles) count the
 // 128 producer threads: each arrives when its own cp.async copies of the
@@ -481,29 +458,6 @@ __device__ __forceinline__ void init_barriers(uint64_t* own_full,
     mxhop::mbar_init(empty + s, 8);
   }
   mxhop::mbar_init_fence();
-}
-
-// 2^x by the SFU's ex2.approx (relative error ~2^-22, subnormal results
-// flushed to 0): exp2f's exact path costs a branch per element, and P
-// rounds to bf16 before any product here anyway.
-__device__ __forceinline__ float fexp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One lane per consumer warp releases a stage, after the warp's wgmma
-// reads of it have completed.
-__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mxhop::mbar_arrive(bar);
-}
-
-// A consumer thread's wait for a tile, then the proxy fence that orders
-// the cp.async writes it now sees before its wgmma reads.
-__device__ __forceinline__ void wait_tile(uint64_t* bar, uint32_t parity) {
-  mxhop::mbar_wait(bar, parity);
-  mxhop::fence_async_smem();
 }
 
 // dK, dV for one (batch*head, 128-key block), walking query tiles of 64.

@@ -1,6 +1,7 @@
-// Hopper building blocks of the flash attention backward's warpgroup
-// route (flash_attention_bwd.cu): wgmma with shared-memory descriptors,
-// mbarriers, cp.async into 128-byte-swizzled tiles, and setmaxnreg.
+// Hopper building blocks of the flash attention forward's and backward's
+// warpgroup routes (flash_attention.cu, flash_attention_bwd.cu): wgmma
+// with shared-memory descriptors, mbarriers, cp.async into
+// 128-byte-swizzled tiles, and setmaxnreg.
 //
 // Tiles live in shared memory as the 128-byte-swizzled layout that wgmma
 // reads (and that TMA would write): a tile of R rows of D bf16 values is
@@ -200,6 +201,34 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 128, f32) (+)= A (64 x 16) . B (128 x 16)^T, both K-major
+// in shared memory (128-byte swizzle descriptors).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64), B
 // MN-major in shared memory (transposed read, 128-byte swizzle).
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
@@ -250,5 +279,74 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// acc (64 x D) += A (64 x 16, registers) . B (16 x D, MN-major): the
+// wgmma of the D-wide products. In a wgmma accumulator, register i of
+// lane (g = lane / 4, t = lane % 4) of warp w holds row 16 w + g +
+// 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t + (i & 1); four of them over
+// two 8-column blocks are the register A operand of a 16-deep step.
+template <int D>
+struct WgRs;
+template <>
+struct WgRs<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    wgmma_rs_n64_tb(d, a, b);
+  }
+};
+template <>
+struct WgRs<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    wgmma_rs_n128_tb(d, a, b);
+  }
+};
+
+// named barrier ``id`` (1-15; 0 is __syncthreads) over ``count`` threads:
+// wait for all of them, or arrive without waiting
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// keep the compiler from reusing register A operands before a wait
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// 2^x by the SFU's ex2.approx (relative error ~2^-22, subnormal results
+// flushed to 0): exp2f's exact path costs a branch per element, and P
+// rounds to bf16 before any product here anyway.
+__device__ __forceinline__ float fexp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One lane per consumer warp releases a stage, after the warp's wgmma
+// reads of it have completed.
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// A consumer thread's wait for a tile, then the proxy fence that orders
+// the cp.async writes it now sees before its wgmma reads.
+__device__ __forceinline__ void wait_tile(uint64_t* bar, uint32_t parity) {
+  mbar_wait(bar, parity);
+  fence_async_smem();
+}
 
 }  // namespace mxhop

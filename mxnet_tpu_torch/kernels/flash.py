@@ -28,9 +28,9 @@ Causal masking is bottom-right aligned (key ``j`` is visible to query
 ``flash_shape_supported`` rejects it. A row that sees no key gives zeros
 and lse ``-1e30``. ``layout`` is ``"bhld"`` (B, H, L, D) or ``"blhd"``
 (B, L, H, D); the kernel reads either through strides, so the per-head
-views of a fused QKV projection need no copy. The backward takes the
-same head dims; its route is fixed by the inputs (:func:`bwd_route`):
-bf16 at head dim 64 or 128 runs the warpgroup (``wgmma``) kernels,
+views of a fused QKV projection need no copy. Each direction's route is
+fixed by the inputs alone (:func:`fwd_route`, :func:`bwd_route`): bf16
+at head dim 64 or 128 runs the warpgroup (``wgmma``) kernels,
 everything else the ``mma.sync`` / FMA kernels.
 
 Dropout on the attention probabilities (``dropout > 0`` with a u32
@@ -62,18 +62,18 @@ from .dropout import attn_keep_mask, check_dropout, dropout_thresh, f32, \
 
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_reference", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "bwd_route", "LOG2E",
-           "NO_KEY_LSE"]
+           "flash_attention_bwd_reference", "fwd_route", "bwd_route",
+           "LOG2E", "NO_KEY_LSE"]
 
 LOG2E = 1.4426950408889634
 NO_KEY_LSE = -1e30
 MAX_HEAD_DIM = 256
-_BLOCK_Q = 64                     # query rows per CTA (csrc kBM)
+_BLOCK_Q = 64                     # query rows per CTA of the mma route
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _DROP_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int] + _DROP_ARGS \
-    + [ctypes.c_void_p]
+    + [ctypes.c_void_p, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_int] + _DROP_ARGS + [ctypes.c_void_p]
@@ -212,6 +212,8 @@ def _launch(q, k, v, scale, causal, causal_offset, layout, dropout=0.0,
                          f"({65535 * _BLOCK_Q} rows)")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    # the warpgroup route's work counter (zeroed by the kernel library)
+    next_item = torch.empty(1, dtype=torch.int32, device=q.device)
     c_strides = _c_strides((q, k, v, out), layout)
     with torch.cuda.device(q.device):
         _build.call(
@@ -221,10 +223,22 @@ def _launch(q, k, v, scale, causal, causal_offset, layout, dropout=0.0,
             h, lq, lk, d, float(scale) * LOG2E, int(bool(causal)),
             int(causal_offset), _DTYPE_CODE[q.dtype],
             *kernel_args(dropout, seed, f32(1.0 - dropout)),
+            next_item.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     flash_attention.dropout_launches += int(dropout > 0.0)
+    if fwd_route(q.dtype, d) == "wgmma":
+        flash_attention.wgmma_launches += 1
+    else:
+        flash_attention.mma_launches += 1
     return out, lse
+
+
+def fwd_route(dtype, d: int) -> str:
+    """Which kernel the forward launches for these inputs, as
+    ``csrc/flash_attention.cu``'s ``launch_t`` picks it: "wgmma" (bf16 at
+    head dim 64 or 128) or "mma" (the rest)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "mma"
 
 
 def flash_attention_fwd(q, k, v, scale=None, causal=False, layout="bhld",
@@ -431,3 +445,5 @@ def flash_attention(q, k, v, scale=None, causal=False, layout="bhld",
 
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0    # the launches with dropout > 0
+flash_attention.wgmma_launches = 0      # by route (fwd_route)
+flash_attention.mma_launches = 0

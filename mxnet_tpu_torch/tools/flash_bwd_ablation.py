@@ -4,7 +4,7 @@
 
 Builds variants of ``kernels/csrc/flash_attention_bwd.cu``, each with one
 part of the work taken out by a text edit of a copy of ``csrc/`` under
-``build/ablation/`` (git-ignored), all ``nvcc`` processes at once, and
+``build/ablation/bwd/`` (git-ignored), all ``nvcc`` processes at once, and
 times each beside the kernel as committed at BERT-base's fused-QKV views
 (32, 512, 12, 64) and proxy1b's causal (8, 2048, 16, 128) heads, bf16
 "blhd": the median of 20 calls, each after an L2 flush, bracketed by
@@ -64,20 +64,29 @@ SHAPES = {"bert_views": (32, 12, 512, 64, False, True),
           "proxy1b_causal": (8, 16, 2048, 128, True, False)}
 
 
-def _build_variants(root: Path) -> dict:
+def _build_variants(root: Path, source: str, variants: dict) -> dict:
+    """Build each of ``variants`` (name: (what it takes out, [(text,
+    replacement), ...])) of ``csrc/<source>`` in a copy of ``csrc/``
+    under ``root``, all ``nvcc`` processes at once; returns the loaded
+    libraries by name. An edit (file, text, replacement) edits another
+    file of the copy."""
     shutil.rmtree(root, ignore_errors=True)
-    procs = {}
-    for name, (_, edits) in VARIANTS.items():
+    for name, (_, edits) in variants.items():
         d = root / name
         shutil.copytree(_build.CSRC, d)
-        src = (d / _SRC).read_text()
-        for text, repl in edits:
+        for edit in edits:
+            path = d / (edit[0] if len(edit) == 3 else source)
+            text, repl = edit[-2:]
+            src = path.read_text()
             if text not in src:
-                raise SystemExit(f"variant {name}: {text!r} is not in {_SRC}")
-            src = src.replace(text, repl)
-        (d / _SRC).write_text(src)
+                raise SystemExit(f"variant {name}: {text!r} is not in "
+                                 f"{path.name}")
+            path.write_text(src.replace(text, repl))
+    procs = {}
+    for name in variants:
+        d = root / name
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / _SRC)]
+               str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                        stderr=subprocess.PIPE)
     libs = {}
@@ -123,7 +132,8 @@ def _time_ms(fn, flush, iters=20, warmup=3) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_ablation: needs a CUDA card")
-    libs = _build_variants(_build.REPO_ROOT / "build" / "ablation")
+    libs = _build_variants(_build.REPO_ROOT / "build" / "ablation" / "bwd",
+                           _SRC, VARIANTS)
     flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {}

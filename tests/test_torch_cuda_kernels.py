@@ -51,7 +51,7 @@ from mxnet_tpu_torch.kernels.dropout import (attn_keep_mask, dropout_thresh,
                                              row_keep_mask)
 from mxnet_tpu_torch.kernels.flash import (NO_KEY_LSE, _bwd_reference,
                                            _launch, _launch_bwd, _reference,
-                                           bwd_route)
+                                           bwd_route, fwd_route)
 
 # bf16 keeps 8 significant bits, so one ulp is at most 2**-7 of a
 # value's magnitude. The kernel and its plain version sum the squares in
@@ -325,6 +325,133 @@ def test_flash_kernel_on_fused_qkv_views_on_card(b, l, h, d, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+def _fwd_routes():
+    return (flash_attention.wgmma_launches, flash_attention.mma_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (B, H, Lq, Lk, D, causal, layout, views)
+    (2, 3, 200, 200, 64, False, "bhld", False),   # L not a multiple of 64
+    (2, 3, 130, 130, 128, True, "blhd", False),   # nor of 128
+    (1, 2, 100, 300, 128, True, "bhld", False),   # causal, lq < lk
+    (2, 8, 200, 328, 128, True, "bhld", False),
+    (2, 2, 70, 190, 64, True, "blhd", False),
+    (1, 2, 257, 129, 64, False, "bhld", False),   # lq > lk
+    (2, 4, 1, 77, 128, False, "bhld", False),     # a single query
+    (2, 4, 1, 77, 64, True, "blhd", False),
+    (1, 2, 129, 1000, 64, False, "bhld", False),  # one warpgroup's rows
+    (1, 2, 129, 1000, 128, True, "blhd", False),  # all past lq
+    (1, 4, 1000, 1000, 128, False, "blhd", True),  # fused-QKV views
+    (3, 2, 190, 190, 64, True, "blhd", True),
+    (2, 2, 77, 77, 40, True, "bhld", False),      # the mma route's dims
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_flash_fwd_kernel_tile_edges_on_card(shape, dtype, dropout):
+    """The forward at the tiles' edges, on its route (fwd_route: the
+    warpgroup kernel for bf16 at head dim 64 or 128, the mma.sync / FMA
+    kernel otherwise), against the plain version, with and without P
+    dropout (the mask's zeros are the plain version's: with dropout the
+    outputs are held to the same tolerance, which a flipped mask bit
+    exceeds); the same bits on a second call."""
+    _require_card()
+    b, h, lq, lk, d, causal, layout, views = shape
+    g = torch.Generator(device="cuda").manual_seed(lq * d + lk)
+    tdt = getattr(torch, dtype)
+    if views:
+        qkv = torch.randn(b, lq, 3 * h * d, device="cuda",
+                          generator=g).to(tdt)
+        q, k, v = (t.view(b, lq, h, d) for t in qkv.split(h * d, dim=-1))
+    else:
+        qs = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+        ks = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+        q = torch.randn(*qs, device="cuda", generator=g).to(tdt)
+        k, v = (torch.randn(*ks, device="cuda", generator=g).to(tdt)
+                for _ in range(2))
+    kw = dict(causal=causal, layout=layout)
+    if dropout:
+        kw.update(dropout=dropout, seed=31 + lq + lk)
+    route = fwd_route(tdt, d)
+    before = _fwd_routes()
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    again, lse_again = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = _fwd_routes()
+    assert after == ((before[0] + 2, before[1]) if route == "wgmma"
+                     else (before[0], before[1] + 2))
+    assert route == ("wgmma" if dtype == "bfloat16" and d in (64, 128)
+                     else "mma")
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    ref, rlse = flash_attention_reference(q, k, v, **kw)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.is_contiguous()
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("offset", [-30, -100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fwd_rows_with_no_visible_key_at_tile_edges_on_card(
+        d, offset, dtype):
+    """A negative causal offset leaves the first -offset rows no visible
+    key: zeros and the -1e30 lse. At -100 the warpgroup route's first
+    warpgroup (rows 0-63) visits no tile at all."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(70 + d - offset)
+    tdt = getattr(torch, dtype)
+    q = torch.randn(2, 3, 150, d, device="cuda", generator=g).to(tdt)
+    k, v = (torch.randn(2, 3, 170, d, device="cuda", generator=g).to(tdt)
+            for _ in range(2))
+    out, lse = _launch(q, k, v, d ** -0.5, True, offset, "bhld")
+    torch.cuda.synchronize()
+    ref, rlse = _reference(q, k, v, d ** -0.5, True, offset, "bhld")
+    assert torch.count_nonzero(out[:, :, :-offset]) == 0
+    assert torch.all(lse[:, :-offset] == NO_KEY_LSE)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_flash_fwd_dropout_mask_at_tile_edges_on_card(d, layout):
+    """The warpgroup forward's mask bit for bit at a ragged Lq: with
+    lk = d and V the identity, O is the dropped, normalised P, so its
+    zeros are the mask of the absolute (b * H + h, q, k) ids, in either
+    layout; the same bits on a second call."""
+    _require_card()
+    b, h, lq, seed = 2, 3, 200, 555 + d
+    g = torch.Generator(device="cuda").manual_seed(d + 1)
+    eye = torch.eye(d, device="cuda", dtype=torch.bfloat16)
+    if layout == "bhld":
+        q = 0.1 * torch.randn(b, h, lq, d, device="cuda", generator=g)
+        k = 0.1 * torch.randn(b, h, d, d, device="cuda", generator=g)
+        v = eye.expand(b, h, d, d).contiguous()
+    else:
+        q = 0.1 * torch.randn(b, lq, h, d, device="cuda", generator=g)
+        k = 0.1 * torch.randn(b, d, h, d, device="cuda", generator=g)
+        v = eye[None, :, None, :].expand(b, d, h, d).contiguous()
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    kw = dict(layout=layout, dropout=0.1, seed=seed)
+    out, _ = flash_attention_fwd(q, k, v, **kw)
+    again, _ = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    keep = attn_keep_mask(b, h, lq, d, seed, dropout_thresh(0.1), "cuda")
+    zeros = out == 0
+    if layout == "blhd":
+        zeros = zeros.transpose(1, 2)
+    assert torch.equal(zeros, ~keep)
+    assert torch.equal(out, again)
+    assert 0.08 < float((~keep).float().mean()) < 0.12
 
 
 # ---------------------------------------------------------------------------

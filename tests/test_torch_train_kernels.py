@@ -27,13 +27,15 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.kernels import (adam_sweep_reference, flash_attention,
                                      flash_attention_bwd,
                                      flash_attention_bwd_reference,
-                                     flash_attention_fwd, fused_adam_sweep,
+                                     flash_attention_fwd,
+                                     flash_attention_reference,
+                                     fused_adam_sweep,
                                      fused_bias_gelu, fused_bias_gelu_bwd,
                                      fused_bias_gelu_bwd_reference,
                                      fused_layer_norm, fused_layer_norm_bwd,
                                      fused_layer_norm_bwd_reference,
                                      fused_layer_norm_reference)
-from mxnet_tpu_torch.kernels.flash import bwd_route
+from mxnet_tpu_torch.kernels.flash import bwd_route, fwd_route
 from mxnet_tpu_torch.ops.fused_loss import softmax_ce_head
 from mxnet_tpu_torch.optimizer import multi_tensor as pmt
 
@@ -129,6 +131,27 @@ def test_flash_bwd_route_is_fixed_by_the_inputs(dtype, d, route):
     flash_attention_bwd(tq, tk, tv, out, lse, tg)
     assert (flash_attention_bwd.wgmma_launches,
             flash_attention_bwd.mma_launches) == before
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 40, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.float32, 64, "mma"), (torch.float32, 128, "mma")])
+def test_flash_fwd_route_is_fixed_by_the_inputs(dtype, d, route):
+    """The forward's kernel follows from dtype and head dim alone, as the
+    backward's does: the warpgroup route for bf16 at 64 or 128 (BERT,
+    proxy1b, Llama-3-8B), the mma.sync / FMA kernel otherwise; a CPU
+    tensor launches neither and takes the plain version."""
+    assert fwd_route(dtype, d) == route
+    (_, tq), (_, tk), (_, tv) = _flash_inputs(
+        1, 1, 8, 8, d, "bhld", seed=d, dtype=str(dtype).split(".")[-1])[:3]
+    before = (flash_attention.launches, flash_attention.wgmma_launches,
+              flash_attention.mma_launches)
+    out, lse = flash_attention_fwd(tq, tk, tv, causal=True)
+    assert (flash_attention.launches, flash_attention.wgmma_launches,
+            flash_attention.mma_launches) == before
+    ref, rlse = flash_attention_reference(tq, tk, tv, causal=True)
+    assert torch.equal(out, ref) and torch.equal(lse, rlse)
 
 
 def test_flash_bwd_bf16_plain_matches_jax_vjp():
