@@ -36,7 +36,14 @@ package. Phases, each printing JSON lines and failing loudly:
              card and not the wrapper's host work, the paged decode's
              splits and CTAs, one launch under torch's sync-debug mode
              "error" (no host sync: lengths stays on the card), and both
-             kernels' bits on a second call;
+             kernels' bits on a second call; the LayerNorm backward (±
+             residual, ± dropout), the RMSNorm backward and the RMSNorm
+             forward (also at decode's (8, 4096), beside an empty
+             kernel's device_ms as the floor)
+             the same bits on a second call; then launch_counts: the
+             kernels one call of each of those launches at bf16 at the
+             main paths' shapes, counted in a CUDA graph capture of the
+             call, exactly one;
 4. reference — the Llama decode path at Llama-3-8B widths, depth cut to
              2 layers, in f32: each stream's last decode-step logits
              against forward_full over the same tokens, to f32 noise;
@@ -300,7 +307,9 @@ def rms_case(rows, d, dtype, flush, gen, rstd=False) -> dict:
     """The RMSNorm forward; with ``rstd`` the training path's call, which
     also writes the f32 row rstd (held against the plain version's to
     1e-5 relative; the output must equal the serving call's bit for
-    bit)."""
+    bit). Each call gives the same bits twice (phase_launch_counts
+    counts its kernels); at decode's few rows an empty kernel's device
+    time is recorded beside it as the floor any launch pays."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.kernels import (fused_rms_norm,
@@ -335,6 +344,10 @@ def rms_case(rows, d, dtype, flush, gen, rstd=False) -> dict:
     def library():
         return F.rms_norm(x, (d,), w, eps)
 
+    # the same bits on a second call
+    same = torch.equal(fused_rms_norm(x, w, eps=eps), out)
+    ok = ok and same
+    rec["same_bits_twice"] = same
     rec.update({
         "max_abs_err": err, "rtol_atol": list(RMS_TOL[dtype]), "ok": ok,
         "ms": time_ms(kern, flush),
@@ -344,6 +357,13 @@ def rms_case(rows, d, dtype, flush, gen, rstd=False) -> dict:
         "device_ms": _queued_ms(kern, flush),
         "library_device_ms": _queued_ms(library, flush),
         "bound_ms": b_ms, "bound_by": b_by})
+    if rows <= 8:
+        # what an empty kernel takes under _queued_ms: the practical floor
+        # (after the timings above, whose first launches load the flush's
+        # kernels: a lazy module load inside _queued_ms's window blocks
+        # the host until the sleep ends)
+        rec["empty_kernel_device_ms"] = _queued_ms(
+            lambda: torch.cuda._sleep(0), flush)
     emit(rec)
     return rec
 
@@ -369,6 +389,7 @@ def rms_bwd_case(rows, d, dtype, flush, gen) -> dict:
     got = fused_rms_norm_bwd(x, w, rstd, dy)
     torch.cuda.synchronize()
     err, rel = max_rel(got, fused_rms_norm_bwd_reference(x, w, rstd, dy))
+    same = _same_bits(got, fused_rms_norm_bwd(x, w, rstd, dy))
     leaves = [t.detach().requires_grad_() for t in (x, w)]
 
     def library():
@@ -381,7 +402,7 @@ def rms_bwd_case(rows, d, dtype, flush, gen) -> dict:
     rec = {"phase": "kernels", "kernel": "fused_rms_norm_bwd",
            "shape": [rows, d], "dtype": _dname(dtype), "max_abs_err": err,
            "max_err_over_max_ref": rel, "tol": BWD_TOL[dtype],
-           "ok": rel <= BWD_TOL[dtype],
+           "same_bits_twice": same, "ok": rel <= BWD_TOL[dtype] and same,
            "ms": time_ms(lambda: fused_rms_norm_bwd(x, w, rstd, dy), flush),
            "plain_ms": time_ms(lambda: fused_rms_norm_bwd_reference(
                x, w, rstd, dy), flush),
@@ -745,6 +766,7 @@ def ln_bwd_case(rows, d, dtype, with_res, flush, gen) -> dict:
     torch.cuda.synchronize()
     err, rel = max_rel(got, fused_layer_norm_bwd_reference(x, g, mean, rstd,
                                                            dy, r))
+    same = _same_bits(got, fused_layer_norm_bwd(x, g, mean, rstd, dy, r))
     library = library_dev = None
     if not with_res:
         leaves = [t.detach().requires_grad_() for t in (x, g, b)]
@@ -760,7 +782,8 @@ def ln_bwd_case(rows, d, dtype, with_res, flush, gen) -> dict:
     rec = {"phase": "kernels", "kernel": "fused_layer_norm_bwd",
            "shape": [rows, d], "residual": with_res, "dtype": _dname(dtype),
            "max_abs_err": err, "max_err_over_max_ref": rel,
-           "tol": BWD_TOL[dtype], "ok": rel <= BWD_TOL[dtype],
+           "tol": BWD_TOL[dtype], "same_bits_twice": same,
+           "ok": rel <= BWD_TOL[dtype] and same,
            "ms": time_ms(lambda: fused_layer_norm_bwd(x, g, mean, rstd, dy,
                                                       r), flush),
            "plain_ms": time_ms(lambda: fused_layer_norm_bwd_reference(
@@ -902,6 +925,8 @@ def ln_drop_cases(rows, d, dtype, with_res, flush, gen) -> list:
     keep = row_keep_mask(rows, d, seed, dropout_thresh(DROP_P), "cuda")
     mask_same = bool(torch.equal(got[0] != 0, keep)
                      and torch.equal(want[0] != 0, keep))
+    same = _same_bits(got, fused_layer_norm_bwd(x, g, mean, rstd, dy, r,
+                                                DROP_P, seed))
     size = _size(dtype)
     f_ms, f_by = bound_mixed(
         rows * d * size * (3 if with_res else 2) + 2 * d * size,
@@ -927,7 +952,8 @@ def ln_drop_cases(rows, d, dtype, with_res, flush, gen) -> list:
     bwd = dict(common, kernel="fused_layer_norm_bwd[dropout]",
                max_abs_err=b_err, max_err_over_max_ref=rel,
                tol=BWD_TOL[dtype], mask_identical=mask_same,
-               ok=rel <= BWD_TOL[dtype] and mask_same,
+               same_bits_twice=same,
+               ok=rel <= BWD_TOL[dtype] and mask_same and same,
                ms=time_ms(lambda: fused_layer_norm_bwd(
                    x, g, mean, rstd, dy, r, DROP_P, seed), flush),
                plain_ms=time_ms(lambda: fused_layer_norm_bwd_reference(
@@ -1860,7 +1886,8 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "dkdv_kernel",
                  "dq_kernel",
                  "dkdv_wgmma_kernel", "dq_wgmma_kernel",
                  "delta_kernel", "ln_vec_kernel", "ln_scalar_kernel",
-                 "ln_bwd_kernel", "bias_gelu", "adam_kernel", "rms_norm",
+                 "ln_bwd_ring_kernel", "ln_bwd_scalar_kernel", "bias_gelu",
+                 "adam_kernel", "rms_norm",
                  "paged_split_kernel", "paged_combine_kernel",
                  "dropout_kernel", "adamw_kernel",
                  "adamw_scan_kernel", "sgd_kernel", "lamb_phase1_kernel",
@@ -3737,6 +3764,59 @@ def _queued_ms(fn, flush, iters=20, warmup=3,
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_launch_counts() -> dict:
+    """Kernels per call of the norm wrappers at the main paths' shapes,
+    bf16, counted in a CUDA graph capture of one call: exactly one each
+    (the memset that zeroes the backward's arrival counter is not a
+    kernel)."""
+    from mxnet_tpu_torch.kernels import (fused_layer_norm,
+                                         fused_layer_norm_bwd,
+                                         fused_rms_norm, fused_rms_norm_bwd)
+    from mxnet_tpu_torch.kernels._build import kernels_per_call
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    x, r, dy = randn(32 * 512, 768) + 2, randn(32 * 512, 768), \
+        randn(32 * 512, 768)
+    g, b = randn(768) * 0.1 + 1, randn(768) * 0.1
+    x2, dy2, w2 = randn(8 * 2048, 2048), randn(8 * 2048, 2048), \
+        randn(2048) * 0.1 + 1
+    x3, w3 = randn(8, 4096), randn(4096) * 0.1 + 1
+    _, rstd2 = _rms_norm_fwd(x2, w2, 1e-5, True)
+    calls = {"fused_rms_norm": lambda: fused_rms_norm(x3, w3, eps=1e-5),
+             "fused_rms_norm[16384x2048,rstd]":
+                 lambda: _rms_norm_fwd(x2, w2, 1e-5, True),
+             "fused_rms_norm_bwd":
+                 lambda: fused_rms_norm_bwd(x2, w2, rstd2, dy2)}
+    for name, res, p, seed in (
+            ("fused_layer_norm_bwd", r, 0.0, None),
+            ("fused_layer_norm_bwd[no residual]", None, 0.0, None),
+            ("fused_layer_norm_bwd[dropout]", r, DROP_P, 0xD0D1),
+            ("fused_layer_norm_bwd[dropout, no residual]", None, DROP_P,
+             0xD0D0)):
+        _, mean, rstd = fused_layer_norm(x, g, b, res, dropout=p, seed=seed,
+                                         return_stats=True)
+        calls[name] = (lambda res=res, p=p, seed=seed, mean=mean,
+                       rstd=rstd: fused_layer_norm_bwd(x, g, mean, rstd, dy,
+                                                       res, p, seed))
+    for fn in calls.values():
+        fn()
+    counts = {name: kernels_per_call(fn) for name, fn in calls.items()}
+    emit({"phase": "launch_counts", "kernels_per_call": counts})
+    if any(n != 1 for n in counts.values()):
+        fail(f"a norm wrapper launched other than one kernel: {counts}")
+    return counts
+
+
 IMPERATIVE_LR = 1e-3
 
 
@@ -3938,6 +4018,7 @@ def main() -> None:
     card = phase_device()
     phase_build()
     picks = phase_kernels()
+    counts = phase_launch_counts()
     phase_reference()
     serving = phase_serving()
     phase_bert_reference()
@@ -4068,9 +4149,12 @@ def main() -> None:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "shape": r["shape"], "dtype": r["dtype"]}
-        for key in ("device_ms", "library_device_ms", "ctas", "splits"):
+        for key in ("device_ms", "library_device_ms", "ctas", "splits",
+                    "same_bits_twice", "empty_kernel_device_ms"):
             if key in r:
                 rec[key] = r[key]
+        if name in counts:
+            rec["kernels_per_call"] = counts[name]
         if "route" in r:       # the flash kernels' own route (fwd/bwd_route)
             rec["kernel_route"] = r["route"]
         if name in ("flash_attention", "flash_attention_bwd"):

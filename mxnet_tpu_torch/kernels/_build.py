@@ -25,7 +25,8 @@ from typing import Dict
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "build_dir", "load", "check", "call"]
+__all__ = ["SOURCES", "build_all", "build_dir", "load", "check", "call",
+           "kernels_per_call"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -130,3 +131,35 @@ def call(src: str, name: str, argtypes, what: str, *args) -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     check(lib, fn(*args), what)
+
+
+def kernels_per_call(fn) -> int:
+    """How many kernels one call of ``fn`` enqueues on the current CUDA
+    device. The call is captured into a CUDA graph, not run, and the
+    graph's kernel nodes are counted (a memset or a copy is another kind
+    of node). A host sync inside ``fn`` fails the capture."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+
+    def driver(rc):
+        if rc != 0:
+            raise MXNetError(f"kernels_per_call: CUDA driver error {rc}")
+
+    n = ctypes.c_size_t(0)
+    driver(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    driver(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    count, kind = 0, ctypes.c_int()
+    for node in nodes:
+        driver(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        count += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    return count

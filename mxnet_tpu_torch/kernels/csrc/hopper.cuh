@@ -1,7 +1,8 @@
 // Hopper building blocks of the flash attention forward's and backward's
 // warpgroup routes (flash_attention.cu, flash_attention_bwd.cu): wgmma
 // with shared-memory descriptors, mbarriers, cp.async into
-// 128-byte-swizzled tiles, and setmaxnreg.
+// 128-byte-swizzled tiles, and setmaxnreg; and of the norm backward's
+// row ring (layer_norm.cu): 1-D bulk copies completing on an mbarrier.
 //
 // Tiles live in shared memory as the 128-byte-swizzled layout that wgmma
 // reads (and that TMA would write): a tile of R rows of D bf16 values is
@@ -112,6 +113,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// Arrive on ``bar`` and add ``bytes`` to the transaction count its
+// current phase waits for (the bulk copies that complete it).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// One 1-D copy of ``bytes`` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into this CTA's shared memory by the bulk
+// copy engine; it completes its bytes on ``bar``. No tensor map needed.
+// The lines are marked evict-first in L2: the data is read once (the
+// norm backward's rows: 6.6% off its residual case on an H100, as
+// against the default policy).
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], pol;\n}\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // cp.async of 16 (or 4) bytes, zero-filled when !valid

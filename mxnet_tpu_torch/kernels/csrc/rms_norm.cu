@@ -9,11 +9,12 @@
 // ~4 flops per element, far below the card's 295 flop/byte ridge.
 // The design therefore touches each element of x exactly once in device
 // memory: one CTA per row loads the row into registers with 16-byte
-// vector loads (8 elements per access chunk, at most 4 chunks per thread
-// for D <= 8192), reduces the f32 sum of squares with warp shuffles plus
-// one shared-memory hop, and normalises from the registers it already
-// holds. Decode calls it with rows = batch size (8 CTAs), where it is
-// latency bound; prefill with rows = batch * len-bucket.
+// vector loads (8 elements per access chunk, at most 4 chunks per
+// thread), the weight's matching chunks in the same breath (decode calls
+// it with rows = batch size, 8 CTAs, where the launch and one trip to
+// memory are the whole cost, so w must not wait for the reduction),
+// reduces the f32 sum of squares with warp shuffles plus one
+// shared-memory hop, and normalises from the registers it already holds.
 //
 // Numerics match the JAX kernel exactly in structure: f32 statistics,
 // rstd = rsqrt(mean(x^2) + eps), xhat rounded to x's dtype BEFORE the
@@ -22,17 +23,18 @@
 // per-row rstd output is what the backward recomputes xhat from (the
 // JAX `_rms_fwd` saves the same, :473-476); serving passes a null
 // pointer and writes nothing more. The backward is the `Rms` instance of
-// layer_norm.cu's ln_bwd_kernel (mx_rms_norm_bwd), as the JAX package
-// has one `_norm_bwd_kernel` with an rms flag.
+// layer_norm.cu's kernels (mx_rms_norm_bwd), as the JAX package has one
+// `_norm_bwd_kernel` with an rms flag.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kChunk = 8;          // elements per vector chunk
-constexpr int kMaxChunksPerThread = 4;
 constexpr int kMaxThreads = 256;   // 256 * 4 * 8 = 8192 = max D
 
-template <typename TX, typename TW, typename TO>
+// One CTA per row. CPT is the fewest chunks per thread that cover the
+// row, so the registers held are no more than needed.
+template <typename TX, typename TW, typename TO, int CPT>
 __global__ void __launch_bounds__(kMaxThreads)
     rms_norm_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                         TO* __restrict__ out, float* __restrict__ rstd_out,
@@ -42,13 +44,20 @@ __global__ void __launch_bounds__(kMaxThreads)
   const TX* xr = x + static_cast<size_t>(blockIdx.x) * d;
   TO* orow = out + static_cast<size_t>(blockIdx.x) * d;
 
-  float v[kMaxChunksPerThread][kChunk];
-  float ss = 0.f;
+  float v[CPT][kChunk], wv[CPT][kChunk];
 #pragma unroll
-  for (int i = 0; i < kMaxChunksPerThread; ++i) {
+  for (int i = 0; i < CPT; ++i) {
     const int c = threadIdx.x + i * blockDim.x;
     if (c < chunks) {
       mxk::load_f<TX, kChunk>(xr + c * kChunk, v[i]);
+      mxk::load_f<TW, kChunk>(w + c * kChunk, wv[i]);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < chunks) {
 #pragma unroll
       for (int e = 0; e < kChunk; ++e) ss += v[i][e] * v[i][e];
     }
@@ -56,15 +65,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   ss = mxk::block_sum(ss, scratch);
   const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
 #pragma unroll
-  for (int i = 0; i < kMaxChunksPerThread; ++i) {
+  for (int i = 0; i < CPT; ++i) {
     const int c = threadIdx.x + i * blockDim.x;
     if (c < chunks) {
-      float wv[kChunk];
-      mxk::load_f<TW, kChunk>(w + c * kChunk, wv);
       float o[kChunk];
 #pragma unroll
       for (int e = 0; e < kChunk; ++e)
-        o[e] = mxk::round_to<TX>(v[i][e] * rstd) * wv[e];
+        o[e] = mxk::round_to<TX>(v[i][e] * rstd) * wv[i][e];
       mxk::store_f<TO, kChunk>(orow + c * kChunk, o);
     }
   }
@@ -103,18 +110,26 @@ cudaError_t launch(const void* x, const void* w, void* out, float* rstd,
   const TX* xp = static_cast<const TX*>(x);
   const TW* wp = static_cast<const TW*>(w);
   TO* op = static_cast<TO*>(out);
-  if (vec) {
-    const int chunks = d / kChunk;
-    int threads = ((chunks + 31) / 32) * 32;
-    if (threads > kMaxThreads) threads = kMaxThreads;
-    rms_norm_vec_kernel<TX, TW, TO>
-        <<<rows, threads, 0, stream>>>(xp, wp, op, rstd, d, eps);
-  } else {
-    int threads = ((d + 31) / 32) * 32;
-    if (threads > kMaxThreads) threads = kMaxThreads;
+  if (!vec) {
     rms_norm_scalar_kernel<TX, TW, TO>
-        <<<rows, threads, 0, stream>>>(xp, wp, op, rstd, d, eps);
+        <<<rows, mxk::row_threads(d, kMaxThreads), 0, stream>>>(
+            xp, wp, op, rstd, d, eps);
+    return cudaGetLastError();
   }
+  const int chunks = d / kChunk;
+  const int threads = mxk::row_threads(chunks, kMaxThreads);
+  const int cpt = (chunks + threads - 1) / threads;
+#define MX_RMS_ROWS(CPT)                                             \
+  rms_norm_vec_kernel<TX, TW, TO, CPT>                               \
+      <<<rows, threads, 0, stream>>>(xp, wp, op, rstd, d, eps)
+  if (cpt == 1) {
+    MX_RMS_ROWS(1);
+  } else if (cpt == 2) {
+    MX_RMS_ROWS(2);
+  } else {
+    MX_RMS_ROWS(4);
+  }
+#undef MX_RMS_ROWS
   return cudaGetLastError();
 }
 

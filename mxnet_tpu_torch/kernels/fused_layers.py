@@ -28,6 +28,7 @@ knob and no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,8 +48,8 @@ MAX_D = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
-# CTAs per SM of the backward kernels' grids: each CTA writes one f32
-# partial row of the parameter gradients, summed by the wrapper
+# CTAs per SM of the bias+GELU backward's grid: each CTA writes one f32
+# partial row of the bias gradient, summed by the wrapper
 _BWD_CTAS_PER_SM = 8
 
 
@@ -63,6 +64,38 @@ def _stream(device) -> int:
 def _bwd_ctas(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count \
         * _BWD_CTAS_PER_SM
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _norm_bwd_scratch(device, rows, d, x_dtype, y_dtype, has_res, vec,
+                      rms):
+    """``(n_blocks, parts, counter)`` for one norm backward launch: the
+    grid ``mx_norm_bwd_blocks`` chooses, the f32 partial rows (one per
+    CTA, per array) and the int32 arrival counter (zeroed by the C entry
+    on the stream)."""
+    n_blocks = _bwd_blocks(device.index if device.index is not None
+                           else torch.cuda.current_device(), rows, d,
+                           _DTYPE_CODE[x_dtype], _DTYPE_CODE[y_dtype],
+                           int(has_res), int(vec), int(rms))
+    parts = torch.empty((1 if rms else 2, n_blocks, d), dtype=torch.float32,
+                        device=device)
+    counter = torch.empty(1, dtype=torch.int32, device=device)
+    return n_blocks, parts, counter
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_blocks(index, rows, d, x_code, y_code, has_res, vec, rms) -> int:
+    fn = _build.load("layer_norm.cu").mx_norm_bwd_blocks
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_int
+    n = fn(rows, d, x_code, y_code, has_res, vec, rms,
+           _sms(torch.device("cuda", index)))
+    if n < 1:
+        raise MXNetError(f"norm backward: no grid for rows {rows}, d {d}")
+    return n
 
 
 def _needs_grad(*tensors) -> bool:
@@ -166,7 +199,7 @@ def fused_rms_norm_bwd_reference(x, weight, rstd, dy):
     return dx.to(x.dtype), dw
 
 
-_RMS_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_RMS_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
 
 
@@ -175,9 +208,8 @@ def fused_rms_norm_bwd(x, weight, rstd, dy):
     gradient ``dy`` (in the output's dtype), from the forward's input,
     weight and f32 per-row ``rstd``; see
     :func:`fused_rms_norm_bwd_reference`. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (f32 partial rows of dw
-    per CTA, summed here, as ``_norm_bwd_pallas`` sums its partials) or
-    raises."""
+    version; a CUDA tensor launches the kernel (one launch: dx and dw,
+    the CTAs' f32 partial rows of dw summed in the kernel) or raises."""
     if x.device.type == "cpu":
         return fused_rms_norm_bwd_reference(x, weight, rstd, dy)
     if x.device.type != "cuda" or any(t.device != x.device
@@ -207,19 +239,20 @@ def fused_rms_norm_bwd(x, weight, rstd, dy):
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros(d, dtype=weight.dtype, device=x.device)
-    n_blocks = min(rows, _bwd_ctas(x.device))
-    dw_part = torch.empty((n_blocks, d), dtype=torch.float32,
-                          device=x.device)
     vec = d % 8 == 0 and _aligned(x, weight, dy, dx)
+    dw = torch.empty(d, dtype=weight.dtype, device=x.device)
+    n_blocks, parts, counter = _norm_bwd_scratch(
+        x.device, rows, d, x.dtype, dy.dtype, False, vec, True)
     with torch.cuda.device(x.device):
         _build.call(
             "layer_norm.cu", "mx_rms_norm_bwd", _RMS_BWD_ARGS,
             "fused_rms_norm_bwd", x.data_ptr(), weight.data_ptr(),
-            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dw_part.data_ptr(), rows, d, n_blocks, _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[weight.dtype], int(vec), _stream(x.device))
+            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            parts.data_ptr(), counter.data_ptr(), rows, d, n_blocks,
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], int(vec),
+            _stream(x.device))
     fused_rms_norm_bwd.launches += 1
-    return dx, dw_part.sum(dim=0).to(weight.dtype)
+    return dx, dw
 
 
 fused_rms_norm_bwd.launches = 0
@@ -411,7 +444,7 @@ def fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
     return dx.to(x.dtype), dgamma, dbeta, dh.to(x.dtype)
 
 
-_LN_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+_LN_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
     ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
 
 
@@ -423,9 +456,9 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None,
     rate and seed; without dropout the residual's gradient is ``dx`` too,
     with dropout and a residual it comes fourth, ``(dx, dgamma, dbeta,
     dres)`` (see :func:`fused_layer_norm_bwd_reference`). A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (f32
-    partial rows of dgamma/dbeta per CTA, summed here, as
-    ``_norm_bwd_pallas`` sums its partials) or raises."""
+    takes the plain version; a CUDA tensor launches the kernel (one
+    launch: the CTAs' f32 partial rows of dgamma/dbeta are summed in the
+    kernel, in a fixed order) or raises."""
     dropout, seed = check_dropout(dropout, seed, "fused_layer_norm_bwd")
     if x.device.type == "cpu":
         return fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
@@ -464,11 +497,12 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None,
     if rows == 0:
         zeros = torch.zeros(d, dtype=gamma.dtype, device=x.device)
         return (dx, zeros, zeros.clone()) + extra
-    n_blocks = min(rows, _bwd_ctas(x.device))
-    # the dgamma and dbeta partial rows, summed by one reduction
-    parts = torch.empty((2, n_blocks, d), dtype=torch.float32,
-                        device=x.device)
     vec = d % 8 == 0 and _aligned(x, residual, gamma, dy, dx, dres)
+    dgamma = torch.empty(d, dtype=gamma.dtype, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    n_blocks, parts, counter = _norm_bwd_scratch(
+        x.device, rows, d, x.dtype, x.dtype, residual is not None, vec,
+        False)
     with torch.cuda.device(x.device):
         _build.call(
             "layer_norm.cu", "mx_layer_norm_bwd", _LN_BWD_ARGS,
@@ -477,13 +511,13 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None,
             gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), dx.data_ptr(),
             dres.data_ptr() if dres is not None else None,
-            parts[0].data_ptr(), parts[1].data_ptr(), rows, d, n_blocks,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[gamma.dtype], int(vec),
+            dgamma.data_ptr(), dbeta.data_ptr(), parts.data_ptr(),
+            counter.data_ptr(), rows, d, n_blocks, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[gamma.dtype], int(vec),
             *kernel_args(dropout, seed, f32(1.0 / (1.0 - dropout))),
             _stream(x.device))
     fused_layer_norm_bwd.launches += 1
     fused_layer_norm_bwd.dropout_launches += int(dropout > 0.0)
-    dgamma, dbeta = parts.sum(dim=1).to(gamma.dtype)
     return (dx, dgamma, dbeta) + extra
 
 

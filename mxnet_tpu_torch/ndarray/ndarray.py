@@ -420,11 +420,18 @@ class NDArray:
     # indexing
     # ------------------------------------------------------------------
     def __getitem__(self, key):
+        """Basic indexing gives a view; an NDArray index, advanced
+        indexing and a slice with a negative step give a copy (the
+        elements of the positive-step slice over the same elements,
+        flipped: torch has no negative strides)."""
         if isinstance(key, NDArray):
             return imperative_invoke(get_op("take"), [self, key], {"axis": 0})
         key = _clean_index(key)
+        key, flips = _positive_steps(key, self.shape)
         with torch.set_grad_enabled(autograd.is_recording()):
             out = self._data[key]
+            if flips:
+                return NDArray(torch.flip(out, flips))
         if out._base is None:              # advanced indexing copied
             return NDArray(out)
         return self._make_view(lambda t: t[key], out)
@@ -432,6 +439,7 @@ class NDArray:
     def __setitem__(self, key, value):
         t = self._prepare_write()
         key = _clean_index(key)
+        key, flips = _positive_steps(key, self.shape)
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, numeric_types):
@@ -440,6 +448,9 @@ class NDArray:
             if isinstance(key, torch.Tensor):
                 t[key.to(torch.int64)] = value
             else:
+                if flips and isinstance(value, torch.Tensor):
+                    value = torch.flip(
+                        torch.broadcast_to(value, t[key].shape), flips)
                 t[key] = value
         self._wrote()
 
@@ -597,6 +608,38 @@ class NDArray:
         from .serialization import save
 
         save(fname, self)
+
+
+def _positive_steps(key, shape):
+    """``(key, flips)``: a basic index with each negative-step slice
+    replaced by the positive-step slice over the same elements, and the
+    result's dims those slices make, to flip back. An index with tensors
+    in it is returned as it is."""
+    parts = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in parts) \
+            or any(isinstance(k, torch.Tensor) for k in parts):
+        return key, []
+    used = sum(1 for k in parts if k is not None and k is not Ellipsis)
+    out, flips, dim, odim = [], [], 0, 0
+    for k in parts:
+        if k is Ellipsis:
+            skip = len(shape) - used
+            dim, odim = dim + skip, odim + skip
+        elif k is None:
+            odim += 1
+        elif isinstance(k, slice):
+            if k.step is not None and k.step < 0:
+                n = len(range(*k.indices(shape[dim])))
+                start, _, step = k.indices(shape[dim])
+                low = start + (n - 1) * step
+                k = slice(low, start + 1, -step) if n else slice(0, 0)
+                flips.append(odim)
+            dim, odim = dim + 1, odim + 1
+        else:                               # an integer drops its dim
+            dim += 1
+        out.append(k)
+    return tuple(out), flips
 
 
 def _clean_index(key):

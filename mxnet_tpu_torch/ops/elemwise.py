@@ -14,6 +14,17 @@ Three rules follow the reference rather than PyTorch's habit:
   ``:113-118``), where PyTorch returns ``bool``;
 * ``mod`` takes the sign of the divisor, as ``jnp.mod`` does
   (``torch.remainder``, not ``fmod``).
+
+Where PyTorch's own op gives another value or gradient than the
+reference at an edge (ties, kinks, +-0, +-inf, NaN, integer dtypes), the
+op here is written so that it gives the reference's: ``s / x`` correctly
+rounded; integer ``mod`` by zero 0; integer ``power`` by ``jnp``'s
+binary exponentiation over the exponent's low 6 bits; ``hypot`` of
+integers in float; ``cbrt`` taken in f32 and rounded once; ``sign`` of
+NaN NaN and of -0 -0; half the gradient at the ties of ``maximum``,
+``minimum`` and ``clip``; ``abs``'s gradient 1 at +-0; the gradients of
+``power`` and ``hypot`` at 0 as ``jnp``'s; ``Cast`` of a float to an
+integer type saturating, NaN to 0.
 """
 from __future__ import annotations
 
@@ -29,6 +40,133 @@ __all__ = ["cast_scalar"]
 # ---------------------------------------------------------------------------
 # binary arithmetic
 # ---------------------------------------------------------------------------
+
+
+def _int(t) -> bool:
+    return not t.dtype.is_floating_point and t.dtype != torch.bool
+
+
+def _mod(a, b):
+    """``jnp.mod``: the sign of the divisor; an integer divisor of 0 gives
+    0 (torch raises)."""
+    if not _int(b):
+        return torch.remainder(a, b)
+    zero = b == 0
+    r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
+def _pow_int(x, y):
+    """``jnp.power`` of integers (``_pow_int_int``): binary
+    exponentiation over the low 6 bits of the exponent, wrapping as the
+    dtype does (a negative exponent raises in torch)."""
+    x, y = torch.broadcast_tensors(x, y)
+    acc = torch.where((x == 0) & (y != 0), torch.zeros_like(x),
+                      torch.ones_like(x))
+    for k in range(6):
+        acc = torch.where(((y >> k) & 1) != 0, acc * x, acc)
+        x = x * x
+    return acc
+
+
+class _Pow(torch.autograd.Function):
+    """``x ** y`` whose gradients are ``jnp.power``'s: ``y * x ** (y - 1)``
+    (NaN at x = 0, y = 0, where torch gives 0) and ``log(x) * x ** y``
+    (0 where x = 0)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        out = torch.pow(x, y)
+        ctx.save_for_backward(x, y, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, out = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g * y * torch.pow(x, y - 1)).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            lx = torch.log(torch.where(x == 0, torch.ones_like(x), x))
+            gy = (g * lx * out).sum_to_size(y.shape)
+        return gx, gy
+
+
+def _power(x, y):
+    if _int(x) and _int(y):
+        return _pow_int(x, y)
+    return _Pow.apply(x, y)
+
+
+def _cpow(x, s):
+    """``x ** s`` for a float scalar ``s``, with C's ``pow`` at -inf and
+    +-0 for an exponent that is not an odd integer (torch takes +-0.5
+    through sqrt/rsqrt: -inf ** 0.5 would be NaN, -0 ** 0.5 -0)."""
+    out = torch.pow(x, s)
+    if not (float(s).is_integer() and int(s) % 2 == 1):
+        pos = torch.tensor([float("inf"), 0.0], dtype=x.dtype,
+                           device=x.device).pow(s)
+        out = torch.where(x == float("-inf"), pos[0], out)
+        out = torch.where(x == 0, pos[1], out)
+    return out
+
+
+class _PowScalar(torch.autograd.Function):
+    """``x ** s`` for a float scalar ``s`` whose gradient is
+    ``jnp.power``'s, ``s * x ** (s - 1)`` by C's ``pow`` (inf at x = 0 for
+    s < 1; NaN there for s = 0, where torch gives 0)."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.save_for_backward(x)
+        ctx.s = s
+        return _cpow(x, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * (ctx.s * _cpow(x, ctx.s - 1)), None
+
+
+def _power_scalar(x, s):
+    """``x ** s`` for a scalar ``s`` of x's dtype (see :func:`_cpow`)."""
+    if _int(x):
+        return _pow_int(x, torch.full_like(x, s))
+    return _PowScalar.apply(x, s)
+
+
+class _Hypot(torch.autograd.Function):
+    """``hypot`` correctly rounded, with ``jnp.hypot``'s gradients: x / h
+    and y / h, 1/2 each where h = 0 (torch gives NaN), 0 where h is
+    infinite."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        h = torch.hypot(x, y)
+        ctx.save_for_backward(x, y, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, h = ctx.saved_tensors
+        zero, inf = h == 0, torch.isinf(h)
+        safe = torch.where(zero | inf, torch.ones_like(h), h)
+
+        def part(v):
+            d = torch.where(zero, torch.full_like(h, 0.5), v / safe)
+            return torch.where(inf, torch.zeros_like(d), d)
+
+        return ((g * part(x)).sum_to_size(x.shape),
+                (g * part(y)).sum_to_size(y.shape))
+
+
+def _hypot(x, y):
+    """``jnp.hypot``: integers are taken in float (float64 for int64, as
+    the reference's x64 promotion gives; float32 otherwise)."""
+    if _int(x):
+        f = torch.float64 if x.dtype == torch.int64 else torch.float32
+        x, y = x.to(f), y.to(f)
+    return _Hypot.apply(x, y)
 
 
 def _binary(name, aliases, fn, strict_shape=False):
@@ -48,11 +186,11 @@ _binary("broadcast_add", ["broadcast_plus"], torch.add)
 _binary("broadcast_sub", ["broadcast_minus"], torch.sub)
 _binary("broadcast_mul", [], torch.mul)
 _binary("broadcast_div", [], torch.true_divide)
-_binary("broadcast_mod", [], torch.remainder)
-_binary("broadcast_power", ["broadcast_pow"], torch.pow)
+_binary("broadcast_mod", [], _mod)
+_binary("broadcast_power", ["broadcast_pow"], _power)
 _binary("broadcast_maximum", [], torch.maximum)
 _binary("broadcast_minimum", [], torch.minimum)
-_binary("broadcast_hypot", [], torch.hypot)
+_binary("broadcast_hypot", [], _hypot)
 _binary("elemwise_add", ["_plus", "_add"], torch.add, strict_shape=True)
 _binary("elemwise_sub", ["_minus", "_sub"], torch.sub, strict_shape=True)
 _binary("elemwise_mul", ["_mul"], torch.mul, strict_shape=True)
@@ -127,20 +265,25 @@ _scalar_op("_minus_scalar", lambda d, s: d - s)
 _scalar_op("_rminus_scalar", lambda d, s: s - d)
 _scalar_op("_mul_scalar", lambda d, s: d * s)
 _scalar_op("_div_scalar", lambda d, s: d / s)
-_scalar_op("_rdiv_scalar", lambda d, s: s / d)
-_scalar_op("_mod_scalar", torch.remainder)
-_scalar_op("_rmod_scalar", lambda d, s: torch.remainder(s, d))
-_scalar_op("_power_scalar", torch.pow)
-_scalar_op("_rpower_scalar", lambda d, s: torch.pow(s, d))
-_scalar_op("_maximum_scalar", torch.clamp_min)
-_scalar_op("_minimum_scalar", torch.clamp_max)
+# s / x as a division of two tensors: torch takes a scalar over a tensor
+# as s * (1 / x), up to one ulp off the correctly rounded quotient
+_scalar_op("_rdiv_scalar", lambda d, s: torch.full_like(d, s) / d)
+_scalar_op("_mod_scalar", lambda d, s: _mod(d, torch.full_like(d, s)))
+_scalar_op("_rmod_scalar", lambda d, s: _mod(torch.full_like(d, s), d))
+_scalar_op("_power_scalar", _power_scalar)
+_scalar_op("_rpower_scalar", lambda d, s: _power(torch.full_like(d, s), d))
+# against a full tensor, as jnp.maximum: half the gradient at a tie
+_scalar_op("_maximum_scalar",
+           lambda d, s: torch.maximum(d, torch.full_like(d, s)))
+_scalar_op("_minimum_scalar",
+           lambda d, s: torch.minimum(d, torch.full_like(d, s)))
 _scalar_op("_equal_scalar", lambda d, s: (d == s).to(d.dtype))
 _scalar_op("_not_equal_scalar", lambda d, s: (d != s).to(d.dtype))
 _scalar_op("_greater_scalar", lambda d, s: (d > s).to(d.dtype))
 _scalar_op("_greater_equal_scalar", lambda d, s: (d >= s).to(d.dtype))
 _scalar_op("_lesser_scalar", lambda d, s: (d < s).to(d.dtype))
 _scalar_op("_lesser_equal_scalar", lambda d, s: (d <= s).to(d.dtype))
-_scalar_op("_hypot_scalar", lambda d, s: torch.hypot(d, torch.full_like(d, s)))
+_scalar_op("_hypot_scalar", lambda d, s: _hypot(d, torch.full_like(d, s)))
 
 # ---------------------------------------------------------------------------
 # unary math
@@ -165,12 +308,61 @@ def _sqrt(x):
     return torch.sqrt(x)
 
 
+class _Cbrt(torch.autograd.Function):
+    """``jnp.cbrt``: the cube root taken in f32 (f64 for f64) with x's
+    sign (-0 stays -0), rounded once to x's dtype; the gradient ``1/3 *
+    y**-2`` in x's dtype, inf at +-0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        w = x.double() if x.dtype == torch.float64 else x.float()
+        y = torch.copysign(torch.abs(w).pow(1.0 / 3.0), w).to(x.dtype)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        third = torch.tensor(1.0 / 3.0, dtype=y.dtype, device=y.device)
+        return g * (third * (1.0 / (y * y)))
+
+
 def _cbrt(x):
-    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+    if _int(x):
+        x = x.float()
+    return _Cbrt.apply(x)
 
 
-_unary("abs", torch.abs)
-_unary("sign", torch.sign)
+class _Abs(torch.autograd.Function):
+    """``|x|`` whose gradient is ``jnp.abs``'s: +g where x >= 0 (so 1 at
+    +-0, where torch gives 0), -g elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x):
+    return torch.abs(x) if _int(x) else _Abs.apply(x)
+
+
+def _sign(x):
+    """``jnp.sign``: NaN for NaN and -0 for -0 (torch gives 0 and +0);
+    the gradient 0."""
+    if _int(x):
+        return torch.sign(x)
+    keep = (x == 0) | torch.isnan(x)
+    return torch.where(keep, x.detach(), torch.sign(x))
+
+
+_unary("abs", _abs)
+_unary("sign", _sign)
 _unary("round", torch.round)
 _unary("rint", torch.round)         # both round half to even
 _unary("ceil", torch.ceil)
@@ -181,7 +373,7 @@ _unary("square", torch.square)
 _unary("sqrt", _sqrt)
 _unary("rsqrt", torch.rsqrt)
 _unary("cbrt", _cbrt)
-_unary("rcbrt", lambda x: 1.0 / _cbrt(x))
+_unary("rcbrt", lambda x: 1.0 / _cbrt(x))     # 1 / -0 = -inf
 _unary("exp", torch.exp)
 _unary("log", torch.log)
 _unary("log10", torch.log10)
@@ -218,12 +410,32 @@ _unary("identity", lambda x: x, aliases=["_copy"])
 
 @register("clip")
 def clip(data, *, a_min=None, a_max=None):
-    return torch.clamp(data, a_min, a_max)
+    """``jnp.clip``: ``minimum(maximum(x, a_min), a_max)``, so a value on
+    a bound gets half the gradient (integers keep ``clamp``)."""
+    if _int(data):
+        return torch.clamp(data, a_min, a_max)
+    if a_min is not None:
+        data = torch.maximum(data, torch.full_like(data, a_min))
+    if a_max is not None:
+        data = torch.minimum(data, torch.full_like(data, a_max))
+    return data
 
 
 @register("Cast", aliases=["cast", "amp_cast"])
 def cast(data, *, dtype="float32"):
-    return data.to(torch_dtype(dtype))
+    """``astype``, saturating as XLA's convert does where a float goes to
+    an integer type: out-of-range values (and +-inf) to the type's
+    bounds, NaN to 0 (torch's conversion wraps there)."""
+    to = torch_dtype(dtype)
+    if data.dtype.is_floating_point and not to.is_floating_point \
+            and to != torch.bool:
+        info = torch.iinfo(to)
+        x = torch.nan_to_num(data.double(), nan=0.0)
+        out = x.clamp(info.min, info.max).to(to)
+        # float64 cannot hold int64's top: 2**63 would wrap
+        return torch.where(x >= float(info.max),
+                           torch.full_like(out, info.max), out)
+    return data.to(to)
 
 
 @register("where")

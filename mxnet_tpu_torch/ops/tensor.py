@@ -13,6 +13,8 @@ the contrib ops wait (ROADMAP.md, port queue 1, item 4).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -359,8 +361,12 @@ def argmin(data, *, axis=None, keepdims=False):
 @register("topk")
 def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
          dtype="float32"):
-    vals, raw = torch.topk(data, k, dim=axis, largest=not is_ascend,
-                           sorted=True)
+    # a stable sort, then the first k: equal values come in index order,
+    # as jax.lax.top_k gives them (torch.topk's order among ties is not
+    # the reference's)
+    vals, raw = torch.sort(data, dim=axis, descending=not is_ascend,
+                           stable=True)
+    vals, raw = vals.narrow(axis, 0, k), raw.narrow(axis, 0, k)
     if ret_typ == "indices":
         return raw.to(torch_dtype(dtype))
     if ret_typ == "value":
@@ -446,10 +452,22 @@ def _full(*, shape=(), value=0.0, dtype="float32", device=None):
 @register("_arange", aliases=["arange"])
 def _arange(*, start=0.0, stop=None, step=1.0, repeat=1, dtype="float32",
             device=None):
+    """``jnp.arange`` with a step, which is ``np.arange``: the first two
+    values rounded to the dtype, then ``first + i * (second - first)``
+    computed in the dtype (in f32 for f16 and bf16, rounded once), not
+    each value in f64 as ``torch.arange`` does."""
     if stop is None:
         start, stop = 0, start
-    out = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
-                       device=device)
+    dt = torch_dtype(dtype)
+    n = max(0, math.ceil((stop - start) / step))
+    work = torch.float32 if dt in (torch.float16, torch.bfloat16) else dt
+    ends = torch.tensor([start, start + step], dtype=dt,
+                        device=device).to(work)
+    out = ends[0] + torch.arange(n, dtype=work, device=device) * (
+        ends[1] - ends[0])
+    if n > 1:
+        out[1] = ends[1]
+    out = out.to(dt)
     return torch.repeat_interleave(out, repeat) if repeat > 1 else out
 
 

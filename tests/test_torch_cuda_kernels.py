@@ -47,6 +47,7 @@ from mxnet_tpu_torch.kernels import (adam_sweep_reference,
                                      paged_attention_reference,
                                      paged_attention_split_reference,
                                      paged_splits, sgd_sweep_reference)
+from mxnet_tpu_torch.kernels._build import kernels_per_call
 from mxnet_tpu_torch.kernels.dropout import (attn_keep_mask, dropout_thresh,
                                              row_keep_mask)
 from mxnet_tpu_torch.kernels.flash import (NO_KEY_LSE, _bwd_reference,
@@ -1376,3 +1377,133 @@ def test_trainer_lamb_on_card_matches_cpu():
                        w0):
         da, db = a.detach().cpu() - s, b.detach() - s
         assert float((da - db).norm()) <= 1e-3 * float(db.norm())
+
+
+# ---------------------------------------------------------------------------
+# The norm backward's persistent ring kernel (LayerNorm +- residual +-
+# dropout, RMSNorm) and the RMSNorm forward at few and many rows
+# ---------------------------------------------------------------------------
+
+_NORM_MODES = ("ln", "ln_res", "ln_res_drop", "rms")
+
+
+def _norm_bwd_case(mode, rows, d, xdt, gdt):
+    """(call, its plain version's outputs, output names, the wrapper, the
+    keep mask or None) for one backward of ``mode`` on seeded inputs."""
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(rows * 131 + d)
+    xt, gt = getattr(torch, xdt), getattr(torch, gdt)
+    gamma = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    if mode == "rms":
+        x = (1.5 * torch.randn(rows, d, device="cuda", generator=g)).to(xt)
+        _, rstd = _rms_norm_fwd(x, gamma, 1e-5, True)
+        dy = torch.randn(rows, d, device="cuda", generator=g).to(
+            torch.promote_types(xt, gt))
+        return (lambda: fused_rms_norm_bwd(x, gamma, rstd, dy),
+                fused_rms_norm_bwd_reference(x, gamma, rstd, dy),
+                ("dx", "dw"), fused_rms_norm_bwd, None)
+    x = (2 + torch.randn(rows, d, device="cuda", generator=g)).to(xt)
+    r = (torch.randn(rows, d, device="cuda", generator=g).to(xt)
+         if "res" in mode else None)
+    beta = (0.1 * torch.randn(d, device="cuda", generator=g)).to(gt)
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(xt)
+    p, seed = (0.1, 4321 + rows) if mode.endswith("drop") else (0.0, None)
+    _, mean, rstd = fused_layer_norm(x, gamma, beta, r, dropout=p, seed=seed,
+                                     return_stats=True)
+    keep = (row_keep_mask(rows, d, seed, dropout_thresh(p), "cuda")
+            if p > 0 else None)
+    return (lambda: fused_layer_norm_bwd(x, gamma, mean, rstd, dy, r, p,
+                                         seed),
+            fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy, r, p,
+                                           seed),
+            ("dx", "dgamma", "dbeta", "dres"), fused_layer_norm_bwd, keep)
+
+
+def _check_norm_bwd(mode, rows, d, xdt, gdt):
+    call, want, names, wrapper, keep = _norm_bwd_case(mode, rows, d, xdt,
+                                                      gdt)
+    before = wrapper.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert len(got) == len(want)
+    # dx (dres): one rounding of f32 sums taken in another order; the
+    # parameter gradients: f32 column sums in another order, rounded once
+    tol = 1e-5 if xdt == "float32" and gdt == "float32" else 2.0 ** -7
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype, name
+        _close_to_max(a, b, tol, name)
+    n_param = 1 if mode == "rms" else 2
+    again = call()
+    for a, b in zip(got[1:1 + n_param], again[1:1 + n_param]):
+        assert torch.equal(a, b)           # the same bits twice
+    assert kernels_per_call(call) == 1
+    if keep is not None:
+        assert torch.equal(got[0] != 0, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 768, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 131, 1056, 16384])
+@pytest.mark.parametrize("mode", _NORM_MODES)
+def test_norm_bwd_kernel_shapes_on_card(mode, rows, d):
+    """The backward at every row count and width of the ring route's
+    plans (one warp per row up to d 1024, 2-8 warps above; fewer rows
+    than row groups, one row per CTA, many per CTA), bf16: within the
+    tolerance of the plain version, dgamma/dbeta the same bits on two
+    calls, exactly one kernel per call, dx's zeros the dropout mask."""
+    _require_card()
+    _check_norm_bwd(mode, rows, d, "bfloat16", "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(131, 768), (7, 2048), (1056, 4096),
+                                    (5, 100), (3, 3000)])
+@pytest.mark.parametrize("xdt,gdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32"),
+                                     ("float32", "bfloat16")])
+@pytest.mark.parametrize("mode", _NORM_MODES)
+def test_norm_bwd_kernel_dtypes_on_card(mode, rows, d, xdt, gdt):
+    """Every dtype pair through the ring route and, at d % 8 != 0, the
+    scalar route, which ends in the same in-kernel final sum."""
+    _require_card()
+    _check_norm_bwd(mode, rows, d, xdt, gdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [
+    (1, 4096), (1, 8192), (1, 4104), (8, 4096), (8, 8192), (8, 4104),
+    (16, 4096), (16, 8192), (16, 4104), (300, 4096), (4096, 2048),
+    (40, 256)])
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+def test_rms_fwd_kernel_on_card(rows, d, xdt, wdt):
+    """The RMSNorm forward, one CTA per row with w loaded beside x, at
+    decode's few rows (d 4104: 513 chunks, one thread with a chunk more)
+    and at many rows, against the plain version, rstd included; the
+    serving call (no rstd) gives the same bits, in one kernel."""
+    _require_card()
+    from mxnet_tpu_torch.kernels.fused_layers import _rms_norm_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(rows * 7 + d)
+    x = torch.randn(rows, d, device="cuda", generator=g).to(
+        getattr(torch, xdt))
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=g)).to(
+        getattr(torch, wdt))
+    before = fused_rms_norm.launches
+    out, rstd = _rms_norm_fwd(x, w, 1e-5, True)
+    torch.cuda.synchronize()
+    assert fused_rms_norm.launches == before + 1
+    ref, ref_rstd = fused_rms_norm_reference(x, w, eps=1e-5,
+                                             return_rstd=True)
+    assert out.dtype == ref.dtype
+    rtol = (1e-5 if xdt == "float32" else
+            BF16_OUT_RTOL if wdt == "bfloat16" else BF16_RTOL)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, rtol=1e-5, atol=0.0)
+    assert torch.equal(fused_rms_norm(x, w, eps=1e-5), out)
+    assert kernels_per_call(lambda: fused_rms_norm(x, w, eps=1e-5)) == 1

@@ -90,6 +90,28 @@ def test_rms_wrapper_routes_cpu_tensors_to_plain_version():
     assert torch.equal(out, fused_rms_norm_reference(x, w, eps=1e-6))
 
 
+@pytest.mark.parametrize("rows,d", [
+    (1, 4096), (8, 4096), (16, 4104), (1, 8192), (3, 100), (33, 512),
+    (7, 8)])
+@pytest.mark.parametrize("xdt,wdt,rtol,atol", RMS_CASES)
+def test_rms_plain_matches_jax_at_row_shapes(rows, d, xdt, wdt, rtol, atol):
+    """The plain RMSNorm (what the kernel is held to on the card) against
+    the JAX op at decode's few long rows and at widths off the vector
+    route (d % 8 != 0), rstd included."""
+    rs = np.random.RandomState(rows * 7 + d)
+    x = rs.randn(rows, d).astype(np.float32)
+    w = (1.0 + 0.1 * rs.randn(d)).astype(np.float32)
+    jx, tx = _pair(x, xdt)
+    jw, tw = _pair(w, wdt)
+    out, rstd = fused_rms_norm_reference(tx, tw, eps=1e-5, return_rstd=True)
+    ref = jattn.rms_norm(jx, jw, eps=1e-5)
+    assert str(out.dtype).split(".")[-1] == str(ref.dtype)
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=rtol, atol=atol)
+    x64 = tx.double().numpy()
+    want = 1.0 / np.sqrt((x64 * x64).mean(-1) + 1e-5)
+    np.testing.assert_allclose(rstd.numpy(), want, rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # paged decode attention
 # ---------------------------------------------------------------------------

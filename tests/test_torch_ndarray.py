@@ -598,3 +598,248 @@ def test_nd_and_rtc_import_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# ---------------------------------------------------------------------------
+# edge inputs where torch's own op differs from the reference: ties, +-0,
+# +-inf, NaN, non-power-of-two scalars, integer dtypes (each case runs the
+# same numpy inputs through both packages)
+# ---------------------------------------------------------------------------
+
+
+def check_bits(case):
+    """``check``, and each zero's sign as the reference's (NaN's sign
+    bit is not compared)."""
+    check(case)
+    want, got = both(case)
+    for i, (w, g) in enumerate(zip(want, got)):
+        wv, gv = _value(w), _value(g)
+        if wv.dtype.kind == "f":
+            z = wv == 0
+            np.testing.assert_array_equal(np.signbit(gv[z]), np.signbit(wv[z]),
+                                          err_msg=f"zero signs, result {i}")
+
+
+def _ag(m):
+    return jag if m is jmx else mx.autograd
+
+
+def _grads(m, f, *arrays, dtype="float32"):
+    """The gradients of sum(f(m, *xs)) for each array of ``arrays``."""
+    xs = [m.nd.array(np.asarray(a, dtype=np.float32), dtype=dtype)
+          for a in arrays]
+    for x in xs:
+        x.attach_grad()
+    with _ag(m).record():
+        loss = f(m, *xs).sum()
+    loss.backward()
+    return [x.grad for x in xs]
+
+
+_SPECIALS = [0.0, -0.0, np.inf, -np.inf, np.nan, 7.0, -2.5]
+
+_RDIV = {
+    "f32_3_over_7": ("float32", 3.0, [7.0, 7.0, 11.0, 0.7, 13.0]),
+    "f16_neg1.5_over_2.5": ("float16", -1.5, [2.5, 2.5, 0.3, 7.0]),
+    "bf16_3_over_x": ("bfloat16", 3.0, _rand((64,), 21, 0.1, 9.0)),
+    "f32_specials": ("float32", 3.0, _SPECIALS),
+    "bf16_specials": ("bfloat16", -0.7, _SPECIALS),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_RDIV))
+def test_rdiv_scalar_is_correctly_rounded(name):
+    """``s / x`` divides two operands of x's dtype, correctly rounded
+    (torch takes a scalar over a tensor as s * (1 / x))."""
+    dtype, s, x = _RDIV[name]
+    check_bits(lambda m: [s / m.nd.array(np.asarray(x, np.float32),
+                                         dtype=dtype)])
+
+
+_TIES = np.array([[5, 5, 5, 1], [0, 0, 0, 0]], dtype=np.float32)
+
+
+@pytest.mark.parametrize("is_ascend", [False, True])
+@pytest.mark.parametrize("ret_typ", ["indices", "value", "mask", "both"])
+def test_topk_breaks_ties_in_index_order(ret_typ, is_ascend):
+    def case(m):
+        out = m.nd.topk(m.nd.array(_TIES), k=2, ret_typ=ret_typ,
+                        is_ascend=is_ascend)
+        return list(out) if ret_typ == "both" else [out]
+    check(case)
+
+
+@pytest.mark.parametrize("is_ascend", [False, True])
+def test_topk_value_gradient_at_ties(is_ascend):
+    check(lambda m: _grads(m, lambda m, x: m.nd.topk(
+        x, k=2, ret_typ="value", is_ascend=is_ascend), _TIES))
+
+
+_CBRT_IN = [1e38, 1e-30, 1e3, 0.0, -0.0, np.nan, -27.0, 5.0, -1e-3]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("op", ["cbrt", "rcbrt"])
+def test_cbrt_rounds_once_and_keeps_the_sign_of_zero(op, dtype):
+    """The cube root taken in f32 and rounded once to x's dtype: bf16 bit
+    for bit (a power taken in bf16 is 6% off at 1e38). XLA's
+    own f16 and f32 cube roots are not correctly rounded (cbrt(1000) is
+    9.99 in f16; up to 9e-7 relative in f32), so f16 is held to two ulps
+    (rcbrt divides the reference's ulp-off root, rounding once more) and
+    f32 to 2**-20. -0 stays -0 and rcbrt(-0) is -inf."""
+    def case(m):
+        return [getattr(m.nd, op)(m.nd.array(np.asarray(_CBRT_IN,
+                                                        np.float32),
+                                             dtype=dtype))]
+    want, got = both(case)
+    wv, gv = _value(want[0]), _value(got[0])
+    assert _dtype(got[0]) == _dtype(want[0])
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(gv, wv)
+    else:
+        rtol = 2.0 ** -9 if dtype == "float16" else 2.0 ** -20
+        np.testing.assert_allclose(gv, wv, rtol=rtol, atol=0)
+    z = (wv == 0) | np.isinf(wv)
+    np.testing.assert_array_equal(np.signbit(gv[z]), np.signbit(wv[z]))
+
+
+@pytest.mark.parametrize("op", ["cbrt", "rcbrt"])
+def test_cbrt_gradient_at_zero(op):
+    """inf (cbrt) and -inf (rcbrt) at +-0, as jnp.cbrt's 1/3 * y**-2."""
+    want, got = both(lambda m: _grads(
+        m, lambda m, x: getattr(m.nd, op)(x), [0.0, -0.0, 8.0, -1.0, 2.0]))
+    np.testing.assert_allclose(_value(got[0]), _value(want[0]), rtol=1e-6)
+
+
+_ARANGE = {f"{a}_{b}_{s}_{dt}": (a, b, s, dt, 1)
+           for a, b, s in ((0, 10, 0.1), (-3, 3, 0.7))
+           for dt in ("float32", "float16", "bfloat16")}
+_ARANGE["repeat"] = (0, 1, 0.3, "float32", 2)
+_ARANGE["repeat_bf16"] = (-1, 2, 0.45, "bfloat16", 3)
+
+
+@pytest.mark.parametrize("name", sorted(_ARANGE))
+def test_arange_with_a_fractional_step(name):
+    """start + i * step computed in the output dtype (np.arange's fill),
+    not each value in f64 and then rounded."""
+    a, b, s, dt, rep = _ARANGE[name]
+    check(lambda m: [m.nd.arange(a, b, s, repeat=rep, dtype=dt)])
+
+
+_NEG_STEP = {
+    "rows_and_every_other_column": (slice(None, None, -1),
+                                    slice(None, None, -2)),
+    "rows": slice(None, None, -1),
+    "from_row_1_down": slice(1, None, -1),
+    "columns_by_3": (slice(None), slice(None, None, -3)),
+    "rows_by_2_one_column": (slice(None, None, -2), 1),
+    "ellipsis": (Ellipsis, slice(None, None, -1)),
+    "past_the_end": slice(5, 0, -1),
+    "empty": slice(0, 2, -1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NEG_STEP))
+def test_negative_step_getitem(name):
+    key = _NEG_STEP[name]
+    check(lambda m: [m.nd.array(np.arange(12, dtype=np.float32)
+                                .reshape(3, 4))[key]])
+
+
+@pytest.mark.parametrize("value", ["ndarray", "scalar", "numpy", "row"])
+def test_negative_step_setitem(value):
+    def case(m):
+        x = m.nd.array(np.arange(12, dtype=np.float32).reshape(3, 4))
+        v = {"ndarray": m.nd.array(np.arange(100, 106, dtype=np.float32)
+                                   .reshape(3, 2)),
+             "scalar": 7.0,
+             "numpy": np.arange(50, 56, dtype=np.float32).reshape(3, 2),
+             "row": m.nd.array(np.array([1.0, 2.0], np.float32))}[value]
+        x[::-1, ::-2] = v
+        return [x]
+    check(case)
+
+
+def test_negative_step_gradient():
+    w = _rand((3, 2), 5)
+    check(lambda m: _grads(m, lambda m, x: x[::-1, ::-2] * m.nd.array(w),
+                           np.arange(12, dtype=np.float32).reshape(3, 4)))
+
+
+_INT_EDGES = {
+    "broadcast_mod_by_zero": lambda m, x: m.nd.broadcast_mod(
+        m.nd.array([5, -5, 0, 7, 3, 9, -9], dtype="int32"), x),
+    "mod_scalar_zero": lambda m, x: x % 0,
+    "rmod_scalar_by_zero": lambda m, x: 5 % x,
+    "broadcast_hypot": lambda m, x: m.nd.broadcast_hypot(x, x + 1),
+    "hypot_scalar": lambda m, x: m.nd._hypot_scalar(x, scalar=3),
+    "power_scalar_minus_2": lambda m, x: x ** -2.0,
+    "power_scalar_minus_1": lambda m, x: x ** -1.0,
+    "power_scalar_70": lambda m, x: x ** 70.0,
+    "broadcast_power": lambda m, x: m.nd.broadcast_power(x, -x),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_INT_EDGES))
+def test_integer_edge_cases(name):
+    """int32: a zero divisor gives 0; hypot gives float32; a negative
+    exponent gives jnp's binary exponentiation over the exponent's low
+    six bits (wrapping as int32 does)."""
+    check(lambda m: [_INT_EDGES[name](
+        m, m.nd.array([1, 0, -3, 7, 0, 2, -1], dtype="int32"))])
+
+
+@pytest.mark.parametrize("s", [0.5, -0.5, 1.5, -1.5, 3.0, -1.0, 2.0])
+def test_power_scalar_at_minus_inf_and_zero(s):
+    """C's pow at -inf and +-0: (-inf) ** 0.5 is +inf, (-0) ** 0.5 +0
+    (torch takes +-0.5 through sqrt/rsqrt)."""
+    check_bits(lambda m: [m.nd.array(np.asarray(_SPECIALS[:5], np.float32))
+                          ** s])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_sign_of_nan_and_negative_zero(dtype):
+    check_bits(lambda m: [m.nd.sign(m.nd.array(
+        np.asarray(_SPECIALS, np.float32), dtype=dtype))])
+
+
+_KINKS = {
+    "clip_at_bounds": (lambda m, x: m.nd.clip(x, a_min=-1.0, a_max=1.0),
+                       [[-1.0, 1.0, 0.5, 2.0, -3.0]]),
+    "maximum_scalar_tie": (lambda m, x: m.nd._maximum_scalar(x, scalar=1.0),
+                           [[1.0, 0.5, 2.0]]),
+    "minimum_scalar_tie": (lambda m, x: m.nd._minimum_scalar(x, scalar=1.0),
+                           [[1.0, 0.5, 2.0]]),
+    "abs_at_zero": (lambda m, x: m.nd.abs(x),
+                    [[0.0, -0.0, -1.0, 2.0, np.nan]]),
+    "power_at_zero": (lambda m, x, y: m.nd.broadcast_power(x, y),
+                      [[0.0, 1.5, 0.0, 0.0], [0.0, 0.0, 2.0, 0.5]]),
+    "hypot_at_zero": (lambda m, x, y: m.nd.broadcast_hypot(x, y),
+                      [[0.0, -0.0, 4.0, 2.0], [0.0, 0.0, 3.0, -0.0]]),
+    "sign": (lambda m, x: m.nd.sign(x), [[0.0, -0.0, 2.0, np.nan]]),
+    "power_scalar_half_at_zero": (lambda m, x: x ** 0.5, [_SPECIALS]),
+    "power_scalar_minus_half_at_zero": (lambda m, x: x ** -0.5, [_SPECIALS]),
+    "power_scalar_minus_2_at_zero": (lambda m, x: x ** -2.0, [_SPECIALS]),
+    "power_scalar_2_at_minus_inf": (lambda m, x: x ** 2.0, [_SPECIALS]),
+    "power_scalar_0_at_zero": (lambda m, x: x ** 0.0, [_SPECIALS]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_KINKS))
+def test_gradient_at_ties_and_kinks(name):
+    """The reference's gradients: half at the ties of maximum, minimum
+    and clip; abs 1 at +-0; power(x, 0) NaN at x = 0; hypot 1/2 at
+    (0, 0); x ** s as s * x ** (s - 1) by C's pow at +-0 and -inf."""
+    f, arrays = _KINKS[name]
+    want, got = both(lambda m: _grads(m, f, *arrays))
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(_value(g), _value(w), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int32", "int64"])
+def test_cast_saturates(dtype):
+    """A float out of the integer type's range goes to its bound, NaN to
+    0, as XLA's convert does (torch's conversion wraps)."""
+    check(lambda m: [m.nd.Cast(m.nd.array(np.array(
+        [300.7, -300.7, np.nan, 1e10, -1e10, np.inf, -np.inf, -0.5, 2.5],
+        np.float32)), dtype=dtype)])
