@@ -47,13 +47,35 @@ package. Phases, each printing JSON lines and failing loudly:
 4. reference — the Llama decode path at Llama-3-8B widths, depth cut to
              2 layers, in f32: each stream's last decode-step logits
              against forward_full over the same tokens, to f32 noise;
+             decode steps replay one CUDA graph per batch bucket,
+             captured at start() and never again: captures, replays,
+             launches per replay held against each graph's kernel
+             nodes, the launch counts equal to the replays' and the
+             prefills' exactly; one B = 8 step's graph logits against
+             the eager _paged_forward bit for bit (all rows, then 5 rows
+             and 3 padding rows);
 5. serving — Llama-3-8B at full width (32 layers, bf16, seeded random
              weights) behind serving.Server: 8 concurrent
              submit_generate calls (prompts of 100-500 tokens, 32 new
              tokens each); tokens/s, TTFT, per-token latency, the
-             kernels' launch counts over this phase, and each stream's
-             last decode-step logits against forward_full over the same
-             tokens;
+             kernels' launch counts over this phase, each stream's last
+             decode-step logits against forward_full over the same
+             tokens, and the graph checks of phase 4; a B = 8 step's
+             host vs device ms through the graph and eagerly (the
+             parent's path), in turns, and the graph's replay alone;
+5a. multitenant — two Llama-3-8B tenants at full width and depth,
+             bf16, different seeds, one page pool: the weight-3:1 token
+             share over a window within 10%, then a pool filled by
+             priority-0 streams that priority-10 arrivals must preempt
+             (each victim Preempted with no token after, stats()
+             counting exactly the victims), every completed stream's
+             last logits against forward_full within 10%;
+5b. reload — swap_model on a full Llama-3-8B while a stream decodes
+             (it finishes on the old weights, the next runs on the new;
+             one recapture per bucket, timed), then reload from a
+             CheckpointManager bundle at 8B width and 2 layers through
+             one injected, retried serving.reload fault (save and load
+             s and MB/s, the weights bit for bit);
 6. bert_reference — BERT-base widths, depth cut to 2 layers, every
              output (masked-LM head included), in f32: each sample served
              through Server.submit against a batch-1 forward of the same
@@ -1709,13 +1731,41 @@ class _LogitsTap:
         return row
 
 
+def _graph_counts(engine) -> dict:
+    """Each captured decode bucket's launches per replay, by wrapper, held
+    against the graph's own kernel nodes of those kernels (RMSNorm
+    kernels; the paged decode's split kernel, one per launch beside its
+    combine kernel); fails on a difference."""
+    from mxnet_tpu_torch.kernels._build import graph_kernel_names
+
+    out = {}
+    for b, w in engine.buckets():
+        graph, per = engine.graph(b, w)
+        names = graph_kernel_names(graph)
+        nodes = {"fused_rms_norm": sum("rms_norm" in k for k in names),
+                 "paged_attention_kernel": sum("paged_split_kernel" in k
+                                               for k in names)}
+        launches = {fn.__name__: n for (fn, attr), n in per.items()
+                    if attr == "launches"}
+        if launches != nodes:
+            fail(f"decode graph {b}x{w}: launches per replay {launches}, "
+                 f"the graph's kernel nodes {nodes}")
+        out[f"{b}x{w}"] = {"launches_per_replay": launches,
+                           "kernel_nodes": len(names)}
+    return out
+
+
 def _serve(net, dtype, prompts, new_tokens, tol, **server_kw) -> tuple:
     """Serve ``prompts`` concurrently through ``serving.Server`` after one
     warm-up request, then hold each stream's last decode-step logits
     against ``forward_full`` over the same tokens: the largest |diff|
-    must stay within ``tol`` times the largest |logit|. Kernel launch
-    counts are zeroed just before the streams are submitted and read
-    just after they complete. Returns (results, the server's engine)."""
+    must stay within ``tol`` times the largest |logit|. Decode steps
+    replay the engine's CUDA graphs, one captured per batch bucket at
+    ``start()`` and none after. Kernel launch counts are zeroed just
+    before the streams are submitted and read just after they complete:
+    each replay adds its graph's launches, and the counts must equal
+    the replays' and the eager prefills' exactly. Returns (results, the
+    server's engine)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import (fused_rms_norm,
                                          paged_attention_kernel)
@@ -1723,7 +1773,12 @@ def _serve(net, dtype, prompts, new_tokens, tol, **server_kw) -> tuple:
     n = len(prompts)
     srv = mx.serving.Server(net, dtype=dtype, **server_kw)
     with srv:
-        tap = _LogitsTap(srv.engine)
+        engine = srv.engine
+        captured = engine.captures
+        if captured != len(server_kw["batch_buckets"]):
+            fail(f"start() captured {captured} decode graphs for the "
+                 f"buckets {server_kw['batch_buckets']}")
+        tap = _LogitsTap(engine)
         # warm-up: one short request through both phases (cuBLAS picks
         # its kernels; the kernels' libraries load)
         srv.submit_generate(prompts[0][:16], 2).result(600)
@@ -1739,6 +1794,7 @@ def _serve(net, dtype, prompts, new_tokens, tol, **server_kw) -> tuple:
             return cb
 
         torch.cuda.reset_peak_memory_stats()
+        replays0, batches0 = engine.replays, srv.stats()["batches"]
         fused_rms_norm.launches = 0
         paged_attention_kernel.launches = 0
         t_start = time.perf_counter()
@@ -1753,6 +1809,19 @@ def _serve(net, dtype, prompts, new_tokens, tol, **server_kw) -> tuple:
         launches = {"fused_rms_norm": fused_rms_norm.launches,
                     "paged_attention_kernel": paged_attention_kernel.launches}
         stats = srv.stats()
+        layers = engine.cfg["num_layers"]
+        replays = engine.replays - replays0
+        prefills = stats["batches"] - batches0
+        graphs = {"captures_at_start": captured,
+                  "captures": engine.captures, "replays": replays,
+                  "prefills": prefills, "per_replay": _graph_counts(engine)}
+    if graphs["captures"] != captured:
+        fail(f"decode graphs captured again in steady state: {graphs}")
+    want = {"fused_rms_norm": (replays + prefills) * (2 * layers + 1),
+            "paged_attention_kernel": replays * layers}
+    if launches != want:
+        fail(f"launch counts {launches} are not the replays' and "
+             f"prefills' {want}")
     if any(len(o) != new_tokens for o in outs):
         fail(f"a stream did not complete: {[len(o) for o in outs]}")
     if min(launches.values()) <= 0:
@@ -1780,8 +1849,8 @@ def _serve(net, dtype, prompts, new_tokens, tol, **server_kw) -> tuple:
                        "max": 1e3 * float(np.max(ttft))},
            "per_token_ms": {"mean": 1e3 * float(np.mean(per_tok)),
                             "max": 1e3 * float(np.max(per_tok))},
-           "launches": launches, "batches": stats["batches"],
-           "defrags": stats["defrags"],
+           "launches": launches, "graphs": graphs,
+           "batches": stats["batches"], "defrags": stats["defrags"],
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "vs_forward_full": {"max_abs_err": errs,
                                "err_over_max_logit": rel, "tolerance": tol,
@@ -1810,11 +1879,13 @@ def phase_reference() -> None:
     net = llama_3_8b(num_layers=2, ctx=mx.gpu(0), dtype=torch.float32,
                      generator=gen)
     rs = np.random.RandomState(SEED + 1)
-    res, _ = _serve(net, "float32", _prompts(rs, 4, 20, 120, 128256), 8,
-                 tol=1e-3, batch_buckets=(1, 2, 4), len_buckets=(128,),
-                 decode_pages=128, page_size=16)
+    res, engine = _serve(net, "float32", _prompts(rs, 4, 20, 120, 128256),
+                         8, tol=1e-3, batch_buckets=(1, 2, 4),
+                         len_buckets=(128,), decode_pages=128, page_size=16)
     emit({"phase": "reference", "model": "llama_3_8b(num_layers=2)",
           "dtype": "float32", **res})
+    emit({"phase": "reference", "step": "graph_vs_eager",
+          **_graph_vs_eager(engine, rs, 128256, context=100)})
     del net
     torch.cuda.empty_cache()
 
@@ -1847,9 +1918,336 @@ def phase_serving() -> dict:
                  NEW_TOKENS, tol=0.1, batch_buckets=(1, 2, 4, 8),
                  len_buckets=(128, 512), decode_pages=512, page_size=16)
     emit({"phase": "serving", "step": "generate", **res})
+    emit({"phase": "serving", "step": "graph_vs_eager",
+          **_graph_vs_eager(engine, rs, cfg["vocab_size"])})
     emit({"phase": "serving", "step": "decode_breakdown",
           **_decode_breakdown(engine, rs, cfg["vocab_size"])})
     return res["launches"]
+
+
+def _tapped(srv, model, prompt, new_tokens, taps, last):
+    """submit_generate with an on_token callback that keeps the row of
+    the dispatch's logits each token came from (``taps[model]``)."""
+    key = len(last)
+    last.append(None)
+
+    def cb(i, tok):
+        last[key] = taps[model].take()
+
+    h = srv.submit_generate(prompt, new_tokens, on_token=cb, model=model)
+    return key, h
+
+
+def _check_streams(srv, streams, last, tol) -> dict:
+    """Each completed stream's last decode-step logits against its
+    tenant engine's forward_full over the same tokens: the largest
+    |diff| within ``tol`` of the largest |logit|."""
+    rel, agree = [], 0
+    for model, prompt, out, key in streams:
+        seq = np.concatenate([prompt, out[:-1]])[None, :]
+        full = srv._tenant(model).engine.forward_full(seq)[0]
+        dec = last[key]
+        if int(np.argmax(dec)) != int(out[-1]):
+            fail(f"{model} stream: tapped logits do not match its last "
+                 "token")
+        rel.append(float(np.max(np.abs(dec - full)) / np.max(np.abs(full))))
+        agree += int(np.argmax(dec) == np.argmax(full))
+    out = {"streams": len(streams), "err_over_max_logit_max": max(rel),
+           "err_over_max_logit_mean": float(np.mean(rel)),
+           "argmax_agree": f"{agree}/{len(streams)}", "tolerance": tol}
+    if max(rel) > tol or not all(np.isfinite(last[k]).all()
+                                 for *_, k in streams):
+        fail(f"decode logits disagree with forward_full: {out}")
+    return out
+
+
+def phase_multitenant() -> dict:
+    """Two Llama-3-8B tenants at full width and depth, bf16, with
+    different seeded weights (32.1 GB together), behind one Server and
+    one page pool. First 8 streams each (prompts 50-120, 48 new tokens;
+    "premium" at weight 3, the default tenant at 1): the token share
+    over a window of >= 192 tokens while all 16 decode must be 3:1 within
+    10%. Then 8 default streams of 400-500-token prompts and 200 new
+    tokens reserve all but one page less than a premium stream needs,
+    and 3 premium streams (priority 10, 32 new tokens) arrive: each must
+    preempt. Each victim ends Preempted and never yields another token;
+    stats() counts exactly the victims; every completed stream's last
+    logits hold against forward_full within the serving phase's 10%;
+    both kernels launch (counted per replay)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import llama_3_8b
+    from mxnet_tpu_torch.kernels import (fused_rms_norm,
+                                         paged_attention_kernel)
+    from mxnet_tpu_torch.serving import DEFAULT_MODEL, Preempted
+
+    t0 = time.perf_counter()
+    nets = [llama_3_8b(ctx=mx.gpu(0), dtype=torch.bfloat16,
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           SEED + 10 + i)) for i in range(2)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    vocab, page = 128256, 16
+    rs = np.random.RandomState(SEED + 10)
+    fair = [_prompts(rs, 8, 50, 120, vocab) for _ in range(2)]
+    squat = _prompts(rs, 8, 400, 500, vocab)
+    prem = _prompts(rs, 3, 100, 300, vocab)
+    squat_new, prem_new, fair_new = 200, 32, 48
+
+    def pages(n):
+        return -(-n // page)
+
+    held = sum(pages(len(p) + squat_new) for p in squat)
+    need = min(pages(len(p) + prem_new) for p in prem)
+    decode_pages = 1 + held + need - 1
+    if decode_pages - 1 < sum(pages(len(p) + fair_new)
+                              for f in fair for p in f):
+        fail("the multitenant pool cannot hold the fairness streams")
+    srv = mx.serving.Server(nets[0], dtype="bfloat16",
+                            batch_buckets=(1, 2, 4, 8),
+                            len_buckets=(128, 512),
+                            decode_pages=decode_pages, page_size=page,
+                            max_generate_tokens=768, priority=0, weight=1.0)
+    last, done = [], []
+    with srv:
+        srv.register_model("premium", nets[1], slo_class="premium",
+                           priority=10, weight=3.0)
+        taps = {m: _LogitsTap(srv._tenant(m).engine)
+                for m in (DEFAULT_MODEL, "premium")}
+        captures = {m: srv._tenant(m).engine.captures for m in taps}
+        # warm-up: one short request per tenant
+        for m in taps:
+            srv.submit_generate(fair[0][0][:16], 2, model=m).result(600)
+        torch.cuda.synchronize()
+        fused_rms_norm.launches = 0
+        paged_attention_kernel.launches = 0
+
+        def tokens():
+            ms = srv.stats()["models"]
+            return ms[DEFAULT_MODEL]["tokens"], ms["premium"]["tokens"]
+
+        t1 = time.perf_counter()
+        base = tokens()
+        handles = []
+        for m, prompts in zip((DEFAULT_MODEL, "premium"), fair):
+            for p in prompts:
+                handles.append((m, p) + _tapped(srv, m, p, fair_new, taps,
+                                                last))
+        deadline = time.perf_counter() + 600
+        while not (srv.stats()["generates_active"] == 16
+                   and sum(tokens()) - sum(base) >= 16 + 24):
+            if time.perf_counter() > deadline:
+                fail("the fairness streams never all decoded together")
+            time.sleep(0.002)
+        a1, b1 = tokens()
+        while (tokens()[0] - a1) + (tokens()[1] - b1) < 192:
+            time.sleep(0.002)
+        a2, b2 = tokens()
+        share = (b2 - b1) / ((a2 - a1) + (b2 - b1))
+        for m, p, key, h in handles:
+            done.append((m, p, h.result(600), key))
+        fair_s = time.perf_counter() - t1
+        # preemption: squatters fill the pool, premium arrivals evict
+        t2 = time.perf_counter()
+        squatters = [(p,) + _tapped(srv, DEFAULT_MODEL, p, squat_new, taps,
+                                    last) for p in squat]
+        while srv.stats()["generates_active"] < len(squat):
+            time.sleep(0.002)
+        premium = [(p,) + _tapped(srv, "premium", p, prem_new, taps, last)
+                   for p in prem]
+        victims, survivors = [], 0
+        for p, key, h in premium:
+            done.append(("premium", p, h.result(600), key))
+        for p, key, h in squatters:
+            try:
+                done.append((DEFAULT_MODEL, p, h.result(600), key))
+                survivors += 1
+            except Preempted:
+                got = h.tokens()
+                if h.next_token(len(got), timeout=1) is not None:
+                    fail("a preempted stream yielded a token after its end")
+                victims.append(len(got))
+        preempt_s = time.perf_counter() - t2
+        torch.cuda.synchronize()
+        launches = {"fused_rms_norm": fused_rms_norm.launches,
+                    "paged_attention_kernel": paged_attention_kernel.launches}
+        stats = srv.stats()
+        graphs = {m: {"captures_at_register": captures[m],
+                      "captures": srv._tenant(m).engine.captures,
+                      "replays": srv._tenant(m).engine.replays}
+                  for m in taps}
+    if abs(share - 0.75) / 0.75 > 0.10:
+        fail(f"premium token share {share} is not 3:1 within 10%")
+    if not victims:
+        fail("no squatter was preempted")
+    if (stats["preemptions"] != len(victims)
+            or stats["models"][DEFAULT_MODEL]["preempted"] != len(victims)):
+        fail(f"stats() preemptions {stats['preemptions']} are not the "
+             f"{len(victims)} victims")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the path never launched: {launches}")
+    if any(g["captures"] != g["captures_at_register"]
+           for g in graphs.values()):
+        fail(f"decode graphs captured again in steady state: {graphs}")
+    check = _check_streams(srv, done, last, tol=0.1)
+    out = {"tenants": {DEFAULT_MODEL: {"priority": 0, "weight": 1.0},
+                       "premium": {"priority": 10, "weight": 3.0}},
+           "build_s": build_s, "decode_pages": decode_pages,
+           "fairness": {"window_tokens": [a2 - a1, b2 - b1],
+                        "premium_share": share, "target": 0.75,
+                        "seconds": fair_s},
+           "preemption": {"victims": len(victims),
+                          "victim_tokens": victims,
+                          "survivors": survivors,
+                          "premium_streams": len(premium),
+                          "stats_preemptions": stats["preemptions"],
+                          "seconds": preempt_s},
+           "launches": launches, "graphs": graphs,
+           "tokens": stats["tokens"], "vs_forward_full": check}
+    emit({"phase": "multitenant", **out})
+    del srv, nets, taps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_reload() -> dict:
+    """Hot reload at Llama-3-8B width. (1) swap_model on the full bf16
+    model while a stream decodes: that stream finishes on the old
+    weights (its last logits against the OLD block's forward_full
+    within 10%), the next runs on the new ones (against the engine's,
+    now the new block's); the engine recaptures each of its 4 bucket
+    graphs exactly once, timed. (2) reload from a CheckpointManager
+    bundle at that width, depth cut to 2 layers, bf16, through one
+    injected transient serving.reload fault (retried): the served block
+    holds the bundle's weights bit for bit and a stream holds against
+    forward_full; the bundle's save and load s and MB/s."""
+    import shutil
+    from pathlib import Path
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import fault
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import llama_3_8b
+    from mxnet_tpu_torch.serving import DEFAULT_MODEL, PagePool
+
+    def net(seed, **kw):
+        return llama_3_8b(ctx=mx.gpu(0), dtype=torch.bfloat16,
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(seed), **kw)
+
+    vocab = 128256
+    rs = np.random.RandomState(SEED + 20)
+    pa, pb = _prompts(rs, 2, 200, 400, vocab)
+    kw = dict(dtype="bfloat16", batch_buckets=(1, 2, 4, 8),
+              len_buckets=(128, 512), decode_pages=256, page_size=16)
+    old = net(SEED + 20)
+    srv = mx.serving.Server(old, **kw)
+    last = []
+    with srv:
+        engine = srv.engine
+        taps = {DEFAULT_MODEL: _LogitsTap(engine)}
+        caps0 = engine.captures
+        refresh = {}
+        real_refresh = engine.refresh_params
+
+        def timed_refresh(model):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real_refresh(model)
+            torch.cuda.synchronize()
+            refresh["ms"] = 1e3 * (time.perf_counter() - t)
+
+        engine.refresh_params = timed_refresh
+        key_a, ha = _tapped(srv, DEFAULT_MODEL, pa, 256, taps, last)
+        if ha.next_token(3, timeout=600) is None:
+            fail("the reload phase's first stream did not start")
+        new = net(SEED + 21)            # built while stream A decodes
+        torch.cuda.synchronize()
+        srv.swap_model(new)
+        swapped_at = len(ha.tokens())
+        out_a = ha.result(600)
+        key_b, hb = _tapped(srv, DEFAULT_MODEL, pb, 16, taps, last)
+        out_b = hb.result(600)
+        recaptures = engine.captures - caps0
+        version = srv.model_version
+    if recaptures != len(kw["batch_buckets"]):
+        fail(f"one swap recaptured {recaptures} decode graphs, not one per "
+             f"bucket {kw['batch_buckets']}")
+    old_engine = old.decode_engine(PagePool(64, 16), dtype=torch.bfloat16)
+    seq_a = np.concatenate([pa, out_a[:-1]])[None, :]
+    full_old = old_engine.forward_full(seq_a)[0]
+    full_new = engine.forward_full(seq_a)[0]
+    rel_old = float(np.max(np.abs(last[key_a] - full_old))
+                    / np.max(np.abs(full_old)))
+    rel_new = float(np.max(np.abs(last[key_a] - full_new))
+                    / np.max(np.abs(full_new)))
+    b_check = _check_streams(srv, [(DEFAULT_MODEL, pb, out_b, key_b)],
+                             last, tol=0.1)
+    swap = {"stream_a_tokens_at_swap": swapped_at,
+            "stream_a_vs_old_forward_full": rel_old,
+            "stream_a_vs_new_forward_full": rel_new,
+            "stream_b_vs_forward_full": b_check,
+            "recaptures": recaptures, "refresh_ms": refresh.get("ms"),
+            "model_version": version}
+    if swapped_at >= 256 or rel_old > 0.1 or rel_new <= rel_old:
+        fail(f"the stream in flight did not finish on the old weights: "
+             f"{swap}")
+    emit({"phase": "reload", "step": "swap_model", **swap})
+    del srv, engine, old_engine, old, new, taps
+    torch.cuda.empty_cache()
+
+    # (2) a bundle at 8B width, 2 layers
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    old2, new2 = net(SEED + 22, num_layers=2), net(SEED + 23, num_layers=2)
+    mgr = CheckpointManager(str(ckpt_dir), keep_last=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mgr.save(1, params=new2)
+    save_s = time.perf_counter() - t
+    nbytes = (Path(mgr.path(1)) / "params.params").stat().st_size
+    load = {}
+
+    def factory(path):
+        block = net(SEED + 24, num_layers=2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        block.load_parameters(str(Path(path) / "params.params"))
+        torch.cuda.synchronize()
+        load["s"] = time.perf_counter() - t
+        return block
+
+    last = []
+    with mx.serving.Server(old2, **kw) as srv:
+        with fault.inject("serving.reload=once") as st:
+            t = time.perf_counter()
+            step = srv.reload(mgr, factory)
+            reload_s = time.perf_counter() - t
+            injected = st()["serving.reload"]
+        served = srv.current_model()
+        same = all(torch.equal(a, b) for a, b in
+                   zip(served.state_dict().values(),
+                       new2.state_dict().values()))
+        taps = {DEFAULT_MODEL: _LogitsTap(srv.engine)}
+        key, h = _tapped(srv, DEFAULT_MODEL, pa, 16, taps, last)
+        out = h.result(600)
+        check = _check_streams(srv, [(DEFAULT_MODEL, pa, out, key)], last,
+                               tol=0.1)
+        loaded_step = srv.loaded_step
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    bundle = {"model": "llama_3_8b(num_layers=2)", "dtype": "bfloat16",
+              "bytes": nbytes, "save_s": save_s,
+              "save_mb_per_s": nbytes / 1e6 / save_s,
+              "load_s": load["s"], "load_mb_per_s": nbytes / 1e6 / load["s"],
+              "reload_s": reload_s, "fault": injected,
+              "loaded_step": loaded_step, "weights_bit_for_bit": same,
+              "vs_forward_full": check}
+    if (step != 1 or loaded_step != 1 or not same
+            or injected.get("injected") != 1 or injected.get("hits") != 2):
+        fail(f"reload from the bundle failed its checks: {bundle}")
+    emit({"phase": "reload", "step": "checkpoint", **bundle})
+    del srv, old2, new2, served
+    torch.cuda.empty_cache()
+    return {"swap": swap, "checkpoint": bundle}
 
 
 def _device_breakdown(step, steps, n_top=8, kind=None) -> dict:
@@ -1953,37 +2351,94 @@ def _port_kernel_times(prof, per) -> dict:
     return out
 
 
-def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
-    """A (batch, 1) decode step's host vs device time; rows hold
-    300-token prompts, as in the serving phase."""
+def _decode_rows(engine, rs, vocab, batch, context, extra):
+    """``batch`` rows prefilled with ``context``-token prompts, pages for
+    ``extra`` more tokens each, at the page-table width of a server
+    whose generate budget is 768 tokens. Returns (owners, table, next
+    tokens)."""
     owners = [object() for _ in range(batch)]
-    width = engine.pool.pages_for(768)
-    table = np.zeros((batch, width), np.int32)
+    table = np.zeros((batch, engine.pool.pages_for(768)), np.int32)
     tokens = rs.randint(0, vocab, size=(batch, 512)).astype(np.int32)
-    state = {"lengths": np.full((batch,), 300, np.int32)}
+    for i, o in enumerate(owners):
+        pages = engine.pool.alloc(o, context + extra)
+        table[i, :len(pages)] = pages
+    lengths = np.full((batch,), context, np.int32)
+    nxt = np.argmax(engine.prefill(tokens, lengths, table), -1)
+    return owners, table, nxt.astype(np.int32)
+
+
+def _graph_vs_eager(engine, rs, vocab, batch=8, context=300) -> dict:
+    """One (batch, 1) decode step's logits from the bucket's CUDA graph
+    against the eager ``_paged_forward`` on the same inputs and arenas
+    (the eager step first; the replay rewrites the same K/V values into
+    the same slots), bit for bit: all rows, then the first 5 with rows
+    5-7 padding (length 0, an all-scratch page table)."""
+    owners, table, nxt = _decode_rows(engine, rs, vocab, batch, context, 4)
     try:
-        for i, o in enumerate(owners):
-            table[i, :engine.pool.pages_for(300 + 2 * steps + 2)] = \
-                engine.pool.alloc(o, 300 + 2 * steps + 2)
-        state["nxt"] = np.argmax(engine.prefill(tokens, state["lengths"],
-                                                table), -1)
-        engine.decode_step(state["nxt"], state["lengths"] + 1, table)
-
-        def step():
-            state["lengths"] = state["lengths"] + 1
-            state["nxt"] = np.argmax(engine.decode_step(
-                state["nxt"], state["lengths"], table), -1)
-
-        res = _device_breakdown(step, steps)
+        out = {"batch": batch, "context": context, "checks": []}
+        for n in (batch, 5):
+            tk = np.where(np.arange(batch) < n, nxt, 0).astype(np.int32)
+            ln = np.where(np.arange(batch) < n, context + 1, 0).astype(
+                np.int32)
+            tb = np.where((np.arange(batch) < n)[:, None], table, 0).astype(
+                np.int32)
+            want = engine.decode_step_eager(tk, ln, tb)
+            got = engine.decode_step(tk, ln, tb)
+            same = bool(np.array_equal(got.view(np.int32),
+                                       want.view(np.int32)))
+            out["checks"].append({
+                "rows": n, "same_bits": same,
+                "max_abs_err": float(np.max(np.abs(got - want))),
+                "finite": bool(np.isfinite(got).all())})
+            if not same or not np.isfinite(got).all():
+                fail(f"decode graph logits differ from the eager step: "
+                     f"{out}")
     finally:
         for o in owners:
             engine.pool.free(o)
-    paged = {k: v for k, v in res["port_kernels_per_step"].items()
-             if k.startswith("paged")}
-    return {"batch": batch, "context": 300,
-            "paged_us_per_launch": {k: v["us_per_launch"]
-                                    for k, v in paged.items()},
-            **res}
+    return out
+
+
+def _decode_breakdown(engine, rs, vocab, batch=8, steps=8) -> dict:
+    """A (batch, 1) decode step's host vs device time, through the
+    bucket's CUDA graph (``decode_step``) and eagerly
+    (``decode_step_eager``, the parent's path) in turns; rows hold
+    300-token prompts, as in the serving phase. ``replay_ms``: the
+    graph's replay alone, CUDA events around 20 replays."""
+    owners, table, nxt = _decode_rows(engine, rs, vocab, batch, 300,
+                                      6 * steps + 8)
+    state = {"lengths": np.full((batch,), 301, np.int32), "nxt": nxt}
+    out = {"batch": batch, "context": 300}
+    try:
+        engine.decode_step(state["nxt"], state["lengths"], table)
+        for name in ("graph", "eager", "graph_again"):
+            fn = (engine.decode_step_eager if name == "eager"
+                  else engine.decode_step)
+
+            def step(fn=fn):
+                state["lengths"] = state["lengths"] + 1
+                state["nxt"] = np.argmax(fn(state["nxt"], state["lengths"],
+                                            table), -1)
+
+            res = _device_breakdown(step, steps)
+            res["paged_us_per_launch"] = {
+                k: v["us_per_launch"]
+                for k, v in res["port_kernels_per_step"].items()
+                if k.startswith("paged")}
+            out[name] = res
+        graph, _ = engine.graph(batch, table.shape[1])
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        graph.replay()
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out["replay_ms"] = start.elapsed_time(end) / 20
+    finally:
+        for o in owners:
+            engine.pool.free(o)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4021,6 +4476,8 @@ def main() -> None:
     counts = phase_launch_counts()
     phase_reference()
     serving = phase_serving()
+    phase_multitenant()
+    phase_reload()
     phase_bert_reference()
     serving.update(phase_bert_serving())
     phase_train_reference()

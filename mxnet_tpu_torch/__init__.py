@@ -10,7 +10,11 @@ Ported so far: two serving paths and two training entry points.
 One-shot BERT serving, ``mx.serving.Server(net, shape_buckets=...)
 .submit(...)`` over ``mx.gluon.model_zoo.nlp.bert_12_768_12``; paged-KV
 Llama generation, ``mx.serving.Server(net, decode_pages=...)
-.submit_generate(...)`` over ``mx.gluon.model_zoo.nlp.llama_3_8b``; the
+.submit_generate(...)`` over ``mx.gluon.model_zoo.nlp.llama_3_8b``, its
+decode steps replaying one CUDA graph per batch bucket; either server
+multi-tenant (``register_model``, ``model=``/``priority=``) and hot
+reloaded from ``mx.checkpoint.CheckpointManager`` bundles, with
+``mx.fault``, ``mx.tracing`` and ``mx.telemetry`` as in the reference; the
 fused step ``mx.parallel.TrainStep(net, loss, "adam" | "adamw" | "sgd" |
 "lamb", ...)`` (BERT masked-LM pretraining over
 ``mx.gluon.model_zoo.nlp.BERTForPretrainFused`` at BERT's published
@@ -40,14 +44,15 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
     mod.get_kernel("axpy", "const float *x, float *y, float a") \
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
 """
-from . import (autograd, base, context, convert, engine, gluon, kernels,
-               ndarray, ops, optimizer, parallel, random, random_state, rtc,
-               serving)
+from . import (autograd, base, checkpoint, context, convert, engine, fault,
+               gluon, kernels, ndarray, ops, optimizer, parallel, random,
+               random_state, rtc, serving, telemetry, tracing)
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
-           "current_context", "autograd", "base", "context", "convert",
-           "engine", "gluon", "kernels", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "random_state", "rtc", "serving"]
+           "current_context", "autograd", "base", "checkpoint", "context",
+           "convert", "engine", "fault", "gluon", "kernels", "nd",
+           "ndarray", "ops", "optimizer", "parallel", "random",
+           "random_state", "rtc", "serving", "telemetry", "tracing"]

@@ -16,6 +16,8 @@ query heads, RMSNorm through its forward and backward kernels, and with
 """
 from __future__ import annotations
 
+import gc
+import re
 import warnings
 
 import numpy as np
@@ -215,6 +217,13 @@ class LlamaModel(Block):
                                    chunk=self._ce_chunk)
         return self.lm_head(h)
 
+    def _collect_params_with_prefix(self):
+        """The JAX model's structural names: its blocks are children
+        ``layer0``, ``layer1``, ... where the port holds ``blocks.0``,
+        ``blocks.1``, ... (a ``.params`` file loads in either package)."""
+        return {re.sub(r"^blocks\.(\d+)\.", r"layer\1.", name): p
+                for name, p in self.named_parameters()}
+
     def decode_engine(self, pool, dtype="float32") -> "LlamaDecodeEngine":
         """The paged-KV decode engine for serving (the seam
         ``serving.Server`` calls to enable ``submit_generate``).
@@ -287,13 +296,150 @@ def _paged_forward(params, tokens, positions, page_table, lengths,
     return h_last @ head_w.T
 
 
+def _launch_counters():
+    """``{(wrapper, attribute): count}`` over every launch counter of
+    the port's kernel wrappers (``launches``, ``wgmma_launches``, ...)."""
+    from .... import kernels
+
+    out = {}
+    for name in kernels.__all__:
+        fn = getattr(kernels, name)
+        for attr, v in vars(fn).items():
+            if attr.endswith("launches") and isinstance(v, int):
+                out[(fn, attr)] = v
+    return out
+
+
+class _DecodeStep:
+    """One decode batch bucket's step: static input buffers on the
+    engine's device (tokens, lengths, page table at a fixed (B, W)) and
+    the body, :func:`_paged_forward` at L = 1 with positions
+    ``lengths - 1``, that reads them.
+
+    On the card the body is captured once into a CUDA graph
+    (:meth:`capture`) and each step replays it; inputs arrive through
+    pinned host staging buffers copied with ``non_blocking=True``, and
+    the f32 logits leave through one copy into pinned memory. The
+    kernel wrappers' launch counters tick when a wrapper runs, which a
+    replay does not do: the capture records how far each counter moved,
+    puts it back, and every replay adds that much. On the CPU, which
+    has no graphs, the same body runs eagerly over the same buffers.
+
+    The caller hands in every row of the bucket on every step (padding
+    rows with length 0 and an all-scratch page table), so no page id of
+    an earlier, fuller batch stays in the buffers. A step holds no
+    reference to its engine: the engine's graphs are freed when the
+    engine is, never by a cycle collection that could land inside
+    another capture."""
+
+    def __init__(self, engine, b: int, w: int):
+        dev = engine.device
+        self.tokens = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        self.lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.table = torch.zeros((b, w), dtype=torch.int32, device=dev)
+        self.graph = None
+        self.out = None
+        self.launches = {}
+        if dev.type == "cuda":
+            pin = {"pin_memory": True}
+            self.h_tokens = torch.zeros((b, 1), dtype=torch.long, **pin)
+            self.h_lengths = torch.zeros((b,), dtype=torch.int32, **pin)
+            self.h_table = torch.zeros((b, w), dtype=torch.int32, **pin)
+
+    def body(self, e) -> torch.Tensor:
+        positions = (self.lengths.long() - 1)[:, None]
+        return _paged_forward(e._params, self.tokens, positions, self.table,
+                              self.lengths, e.k_arena, e.v_arena,
+                              cfg=e.cfg, page_size=e.page_size).float()
+
+    @torch.no_grad()
+    def capture(self, e, pool) -> None:
+        """One eager step on a side stream (cuBLAS workspaces, every
+        kernel module loaded: a lazy load inside a capture stalls), then
+        the capture. The buffers hold zeros, so the warm-up step's K/V
+        writes land in scratch page 0. Raises :class:`MXNetError` when
+        the capture fails; nothing runs eagerly in its place."""
+        dev = e.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body(e)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = _launch_counters()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # no cycle collection inside the capture: freeing another graph
+        # there (cudaGraphExecDestroy) would invalidate it
+        gc_was = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.out = self.body(e)
+        except Exception as err:  # noqa: BLE001 - re-raised typed
+            graph = None
+            raise MXNetError(
+                f"LlamaDecodeEngine: capturing the decode graph of batch "
+                f"bucket {tuple(self.table.shape)} failed: {err}") from err
+        finally:
+            if gc_was:
+                gc.enable()
+            after = _launch_counters()
+            for (fn, attr), n in before.items():
+                setattr(fn, attr, n)        # a capture launches nothing
+        self.launches = {k: after[k] - n for k, n in before.items()
+                         if after[k] != n}
+        graph.instantiate()
+        self.graph = graph
+
+    @torch.no_grad()
+    def __call__(self, e, tokens, lengths, page_table) -> np.ndarray:
+        if self.graph is None:
+            self.tokens.copy_(torch.from_numpy(
+                np.asarray(tokens, np.int64).reshape(-1, 1)))
+            self.lengths.copy_(torch.from_numpy(
+                np.asarray(lengths, np.int32)))
+            self.table.copy_(torch.from_numpy(
+                np.asarray(page_table, np.int32)))
+            return self.body(e).numpy()
+        self.h_tokens.numpy()[:] = np.asarray(tokens).reshape(-1, 1)
+        self.h_lengths.numpy()[:] = lengths
+        self.h_table.numpy()[:] = page_table
+        self.tokens.copy_(self.h_tokens, non_blocking=True)
+        self.lengths.copy_(self.h_lengths, non_blocking=True)
+        self.table.copy_(self.h_table, non_blocking=True)
+        self.graph.replay()
+        for (fn, attr), n in self.launches.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+        e.replays += 1
+        # one copy into pinned memory (torch's host cache hands the block
+        # back once the returned array is gone)
+        out = torch.empty(self.out.shape, dtype=self.out.dtype,
+                          pin_memory=True)
+        out.copy_(self.out, non_blocking=True)
+        torch.cuda.current_stream(e.device).synchronize()
+        return out.numpy()
+
+
 class LlamaDecodeEngine:
     """Cache-aware generation engine over one :class:`LlamaModel`.
 
     Owns the per-replica K/V arenas (pages allocated from ``pool``) on
-    the model's device and runs :func:`_paged_forward` eagerly: PyTorch
-    has no trace cache to key, so the JAX engine's compile-cache site has
-    no counterpart. Numpy in, numpy logits out, as in the JAX engine.
+    the model's device. Prefill runs :func:`_paged_forward` eagerly (one
+    signature per (batch, len bucket)); each decode step runs one
+    :class:`_DecodeStep` per (batch bucket, page-table width): on the
+    card a CUDA graph, captured at :meth:`capture` (``Server.start``
+    captures every bucket of its grid) or at the bucket's first step,
+    and replayed — the counterpart of the JAX engine's one cached
+    ``(batch, 1)`` executable per bucket. The engine's buckets share one
+    graph memory pool. Numpy in, numpy f32 logits out, as in the JAX
+    engine.
+
+    The graphs read the weights where they lie: ``_params`` holds the
+    model's own tensors when their dtype is the engine's (no copy), so
+    :meth:`refresh_params` recaptures over a new model's tensors and
+    never writes into the old model's. ``captures`` and ``replays``
+    count the graphs captured and replayed (on the CPU, ``captures``
+    counts the static-buffer steps built, at the same points).
 
     Not thread-safe by design: exactly one scheduler thread drives it
     (the :class:`~mxnet_tpu_torch.serving.server.Server` contract).
@@ -310,11 +456,15 @@ class LlamaDecodeEngine:
         self.k_arena, self.v_arena = make_kv_arena(
             self.cfg["num_layers"], pool, self.cfg["num_kv_heads"],
             self.cfg["head_dim"], dtype=self.dtype, device=self.device)
-        self.refresh_params(model)
+        self._steps = {}
+        self._graph_pool = None     # the buckets' shared graph memory
+        self.captures = 0
+        self.replays = 0
+        self._set_params(model)
 
     @torch.no_grad()
-    def refresh_params(self, model) -> None:
-        """(Re)extract the weights, cast to the engine dtype (no copy when
+    def _set_params(self, model) -> None:
+        """Extract the weights, cast to the engine dtype (no copy when
         the model already holds that dtype)."""
         def w(p):
             return p.detach().to(self.device, self.dtype)
@@ -329,12 +479,58 @@ class LlamaDecodeEngine:
                   for blk in model.blocks),
             w(model.norm.weight), w(model.lm_head.weight))
 
+    def refresh_params(self, model) -> None:
+        """Serve ``model``'s weights from now on: drop every decode graph
+        and recapture each bucket over the new tensors (one capture per
+        bucket). The arenas stay where they are."""
+        keys = list(self._steps)
+        self._steps = {}
+        # a pool whose graphs are all gone cannot take another capture
+        self._graph_pool = None
+        self._set_params(model)
+        for b, w in keys:
+            self._step(b, w)
+
+    def capture(self, batch_buckets, width: int) -> None:
+        """Capture the decode graph of every batch size in
+        ``batch_buckets`` at page-table width ``width`` (those not
+        captured yet)."""
+        for b in batch_buckets:
+            self._step(int(b), int(width))
+
+    def _step(self, b: int, w: int) -> _DecodeStep:
+        step = self._steps.get((b, w))
+        if step is None:
+            step = _DecodeStep(self, b, w)
+            if self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                try:
+                    step.capture(self, self._graph_pool)
+                except MXNetError:
+                    if not self._steps:
+                        self._graph_pool = None
+                    raise
+            self._steps[(b, w)] = step
+            self.captures += 1
+        return step
+
+    def buckets(self) -> list:
+        """The (batch, page-table width) buckets with a decode step."""
+        return sorted(self._steps)
+
+    def graph(self, b: int, w: int):
+        """The captured ``torch.cuda.CUDAGraph`` of bucket ``(b, w)`` and
+        the launch counts one replay adds (None on the CPU)."""
+        step = self._steps[(b, w)]
+        return step.graph, dict(step.launches)
+
     def _tensor(self, a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     @torch.no_grad()
     def forward(self, tokens, positions, page_table, lengths) -> np.ndarray:
-        """One cache-aware forward; numpy in, float32 numpy logits
+        """One eager cache-aware forward; numpy in, float32 numpy logits
         (B, vocab) out; the arenas advance in place."""
         logits = _paged_forward(
             self._params, self._tensor(tokens, torch.long),
@@ -354,7 +550,15 @@ class LlamaDecodeEngine:
 
     def decode_step(self, tokens, lengths, page_table) -> np.ndarray:
         """One continuous-batching decode step: ``tokens`` (B,) are the
-        rows' newest tokens, already counted in ``lengths``."""
+        rows' newest tokens, already counted in ``lengths``. Runs the
+        step of bucket (B, page-table width): a graph replay on the
+        card, capturing it first if this is the bucket's first step."""
+        table = np.asarray(page_table)
+        return self._step(*table.shape)(self, tokens, lengths, table)
+
+    def decode_step_eager(self, tokens, lengths, page_table) -> np.ndarray:
+        """The same step through :meth:`forward`, with no graph: the
+        reference a replay is held against."""
         tokens = np.asarray(tokens).reshape(-1, 1)
         positions = (np.asarray(lengths, dtype=np.int64) - 1).reshape(-1, 1)
         return self.forward(tokens, positions, page_table, lengths)

@@ -26,7 +26,7 @@ from typing import Dict
 from ..base import MXNetError
 
 __all__ = ["SOURCES", "build_all", "build_dir", "load", "check", "call",
-           "kernels_per_call"]
+           "kernels_per_call", "graph_kernel_names"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -143,23 +143,74 @@ def kernels_per_call(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         fn()
+    return len(_kernel_nodes(_driver(), graph))
+
+
+def _driver():
     cu = ctypes.CDLL("libcuda.so.1")
     cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.POINTER(ctypes.c_size_t)]
     cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
                                       ctypes.POINTER(ctypes.c_int)]
+    return cu
+
+
+def _driver_check(rc, what) -> None:
+    if rc != 0:
+        raise MXNetError(f"CUDA driver error {rc} in {what}")
+
+
+def _kernel_nodes(cu, graph) -> list:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made
+    with ``keep_graph=True``)."""
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
-
-    def driver(rc):
-        if rc != 0:
-            raise MXNetError(f"kernels_per_call: CUDA driver error {rc}")
-
     n = ctypes.c_size_t(0)
-    driver(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    _driver_check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)),
+                  "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
-    driver(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
-    count, kind = 0, ctypes.c_int()
+    _driver_check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+    out, kind = [], ctypes.c_int()
     for node in nodes:
-        driver(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
-        count += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
-    return count
+        _driver_check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+                      "cuGraphNodeGetType")
+        if kind.value == 0:               # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(node)
+    return out
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of the driver API."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernel_names(graph) -> list:
+    """The (mangled) function name of every kernel node of a captured
+    ``torch.cuda.CUDAGraph`` (made with ``keep_graph=True``), read
+    through the driver API; memset and copy nodes are left out."""
+    cu = _driver()
+    cu.cuGraphKernelNodeGetParams_v2.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_KernelNodeParams)]
+    cu.cuFuncGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                                 ctypes.c_void_p]
+    cu.cuKernelGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                                   ctypes.c_void_p]
+    names = []
+    for node in _kernel_nodes(cu, graph):
+        params = _KernelNodeParams()
+        _driver_check(cu.cuGraphKernelNodeGetParams_v2(
+            node, ctypes.byref(params)), "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            _driver_check(cu.cuFuncGetName(ctypes.byref(name), params.func),
+                          "cuFuncGetName")
+        else:
+            _driver_check(cu.cuKernelGetName(ctypes.byref(name),
+                                             params.kern), "cuKernelGetName")
+        names.append(name.value.decode(errors="replace"))
+    return names

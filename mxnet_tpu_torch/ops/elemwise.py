@@ -98,11 +98,22 @@ def _power(x, y):
     return _Pow.apply(x, y)
 
 
+_POW_IN_F64 = (torch.float32, torch.float16, torch.bfloat16)
+
+
 def _cpow(x, s):
     """``x ** s`` for a float scalar ``s``, with C's ``pow`` at -inf and
     +-0 for an exponent that is not an odd integer (torch takes +-0.5
-    through sqrt/rsqrt: -inf ** 0.5 would be NaN, -0 ** 0.5 -0)."""
-    out = torch.pow(x, s)
+    through sqrt/rsqrt: -inf ** 0.5 would be NaN, -0 ** 0.5 -0).
+
+    An f32, f16 or bf16 ``x`` is raised in f64 and rounded once to f32
+    (then to its own dtype, as the reference's f32 pow is): torch's f32
+    pow is not correctly rounded, and its +-0.5 rewrite to sqrt/rsqrt
+    puts 7 ** -0.5 one ulp off ``jnp.power``'s."""
+    if x.dtype in _POW_IN_F64:
+        out = torch.pow(x.double(), s).float().to(x.dtype)
+    else:
+        out = torch.pow(x, s)
     if not (float(s).is_integer() and int(s) % 2 == 1):
         pos = torch.tensor([float("inf"), 0.0], dtype=x.dtype,
                            device=x.device).pow(s)

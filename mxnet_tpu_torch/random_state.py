@@ -30,7 +30,8 @@ import torch
 from .context import Context
 from .kernels.dropout import hash_u32
 
-__all__ = ["seed", "next_seed", "scoped_seed", "preserved_stream"]
+__all__ = ["seed", "next_seed", "scoped_seed", "preserved_stream",
+           "checkpoint_state", "restore_checkpoint_state"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
@@ -118,3 +119,35 @@ def preserved_stream():
             gen.set_state(state)
             streams[sig] = gen
         st.streams = streams
+
+
+def checkpoint_state() -> dict:
+    """A picklable snapshot of the calling thread's streams, for a
+    checkpoint bundle's ``rng.pkl``: the reference's layout (``version``,
+    ``base_seed``, ``keys``, ``host_rng``) with the port's streams under
+    ``torch_streams`` (each a CPU generator's state as uint8 numpy).
+    ``keys`` stays empty: the port holds no JAX keys, so the reference
+    restoring this snapshot keeps the base seed and derives its keys
+    afresh."""
+    import numpy as np
+
+    st = _global()
+    return {"version": 1, "base_seed": st.base_seed, "keys": {},
+            "host_rng": None,
+            "torch_streams": {sig: np.asarray(gen.get_state().numpy())
+                              for sig, gen in st.streams.items()}}
+
+
+def restore_checkpoint_state(state: dict) -> None:
+    """Restore :func:`checkpoint_state`'s snapshot into the calling
+    thread's streams. A snapshot the reference wrote (JAX keys, no
+    ``torch_streams``) restores its base seed alone: its keys have no
+    meaning here, and the streams restart from that seed."""
+    st = _global()
+    st.base_seed = int(state["base_seed"])
+    streams = {}
+    for sig, raw in (state.get("torch_streams") or {}).items():
+        gen = torch.Generator()
+        gen.set_state(torch.from_numpy(raw.copy()))
+        streams[sig] = gen
+    st.streams = streams

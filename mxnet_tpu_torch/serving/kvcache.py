@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/serving/kvcache.py``. :class:`PagePool`,
 :class:`CacheFull` and :class:`Preempted` are copied (numpy only; the
-telemetry hook waits for the port's telemetry module). Keys and values
+pool publishes its page gauges to :mod:`mxnet_tpu_torch.telemetry` as
+the reference's does). Keys and values
 live in fixed-size pages of one preallocated per-replica arena, and each
 request owns a list of pages: token ``i`` of a request whose page table
 is ``pt`` lives at slot ``pt[i // page_size] * page_size + i % page_size``.
@@ -26,6 +27,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..telemetry import _state as _telemetry_state
 
 __all__ = ["CacheFull", "Preempted", "PagePool", "make_kv_arena",
            "apply_defrag"]
@@ -37,8 +39,10 @@ class CacheFull(MXNetError):
 
 
 class Preempted(MXNetError):
-    """This stream's pages were reclaimed for a higher-priority arrival
-    (raised by the multi-tenant scheduler, a later slice of the port)."""
+    """This stream's pages were reclaimed for a higher-priority arrival.
+    Raised (as the generate future's failure) by the multi-tenant
+    scheduler at a decode-step boundary: every token the stream emitted
+    before it is a clean prefix, and it emits no more."""
 
 
 class PagePool:
@@ -61,6 +65,7 @@ class PagePool:
         self._lock = threading.Lock()
         self._free: deque = deque(range(1, self.n_pages))
         self._owned: Dict[object, List[int]] = {}
+        self._publish()
 
     # -- capacity ------------------------------------------------------
     @property
@@ -94,6 +99,7 @@ class PagePool:
                     f"{self.n_pages - 1} free")
             pages = [self._free.popleft() for _ in range(need)]
             self._owned[owner] = pages
+        self._publish()
         return list(pages)
 
     def extend(self, owner, n_tokens: int) -> List[int]:
@@ -113,7 +119,9 @@ class PagePool:
                     f"kv cache full: owner {owner!r} needs {grow} more "
                     f"page(s), {len(self._free)} free")
             held.extend(self._free.popleft() for _ in range(grow))
-            return list(held)
+            out = list(held)
+        self._publish()
+        return out
 
     def free(self, owner) -> int:
         """Return ``owner``'s pages to the free list (idempotent);
@@ -122,6 +130,7 @@ class PagePool:
             pages = self._owned.pop(owner, None)
             if pages:
                 self._free.extend(pages)
+        self._publish()
         return len(pages) if pages else 0
 
     def page_table(self, owner, width: Optional[int] = None) -> np.ndarray:
@@ -161,6 +170,14 @@ class PagePool:
                     "owners": len(self._owned),
                     "page_size": self.page_size,
                     "n_pages": self.n_pages}
+
+    def _publish(self) -> None:
+        if not _telemetry_state.enabled:
+            return
+        from .. import telemetry
+
+        s = self.stats()
+        telemetry.set_kvcache_pages(s["free"], s["used"], s["reserved"])
 
     # -- defrag --------------------------------------------------------
     def defrag(self) -> List[Tuple[int, int]]:
