@@ -129,6 +129,33 @@ package. Phases, each printing JSON lines and failing loudly:
              other sweep, the host ms of the forward, the backward and
              Trainer.step apart, a profiled step, and the memory a
              forward holds under record(), outside it and under pause();
+11a. gluon_reference — the Gluon core as MXNet users write it, f32, BERT
+             at BERT-base widths cut to 2 layers (pooler, classifier,
+             dropout 0.1 / 0.1, TF32 off): bert_12_768_12(...),
+             initialize(mx.init.Normal(0.02), ctx=) on the card and the
+             CPU, the weights carried by a .params file; the hybridized
+             predict forward on the card (one CUDA graph per signature,
+             with and without a ragged valid_length) against the eager
+             CPU forward (each output within 1e-4 of its largest), then
+             three record / loss.backward() / Trainer.step Adam steps on
+             each device with the same dropout seeds (losses to 1e-5,
+             deltas to 1e-3 by norm ratio);
+11b. gluon  — bert_12_768_12 with pooler and classifier, not cut, bf16,
+             NDArrays on mx.gpu(), hybridize(static_alloc=True,
+             static_shape=True): predict at (32, 128), (32, 512) and
+             (32, 128) with a ragged valid_length, each graph's output
+             the eager forward's bit for bit, one capture per signature
+             and none over 20 replays, launches per replay equal to the
+             graph's own kernel nodes and to the model's (25 LayerNorm,
+             12 flash, 12 bias+GELU; no flash with the valid_length,
+             whose mask takes the dense route), host and device ms per
+             forward hybridized and eager with the card's idle share;
+             train at 32 x 128 (Adam 2e-5, dropout 0.1 / 0.1: the loss
+             finite and falling over the first three steps, every
+             gradient an NDArray, exactly the model's launches per step,
+             ms per step, samples/s, host ms of forward, backward and
+             Trainer.step); save_parameters / load_parameters(ctx=
+             mx.gpu()) of a fresh model bit for bit, MB/s each way;
 12. llama_train_reference — LlamaModel(fused_ce=True) at proxy1b
              widths, depth cut to 2 layers, f32: three TrainStep AdamW
              steps on the card against the same weights and batch on the
@@ -3133,7 +3160,8 @@ def _lamb_state(trainer) -> list:
     out = []
     for i, p in enumerate(trainer._params):
         st = trainer._updater.states[i]
-        w, (m, v) = st if isinstance(st[1], tuple) else (p.data(), st)
+        w, (m, v) = st if isinstance(st[1], tuple) \
+            else (p.data()._data, st)
         out.append((w.double(), m.double(), v.double()))
     return out
 
@@ -3160,7 +3188,7 @@ def _lamb_rule_excess(trainer, before, n) -> dict:
             zip(trainer._params, before, _lamb_state(trainer))):
         t = opt._index_update_count[i]
         lr, wd = opt._get_lr(i), opt._get_wd(i)
-        g = p.grad().double() / n
+        g = p.grad()._data.double() / n
         m = b1 * m0 + (1 - b1) * g
         v = b2 * v0 + (1 - b2) * g * g
         worst = max(worst, excess(m1 - m, 1e-6 * float(
@@ -3174,8 +3202,8 @@ def _lamb_rule_excess(trainer, before, n) -> dict:
         step = lr * ratio * upd
         worst = max(worst, excess(w1 - (w0 - step), 1e-6 * float(
             w0.abs().max()) + 1e-5 * float(step.abs().max())))
-        if p.dtype == torch.bfloat16:
-            rounded &= torch.equal(p.data(), w1.to(torch.bfloat16))
+        if p.dtype == "bfloat16":
+            rounded &= torch.equal(p.data()._data, w1.to(torch.bfloat16))
     return {"worst_excess": worst, "bf16_is_master_rounded": bool(rounded),
             "tol": "moments 1e-6 of the largest term; masters 1e-6 of the "
                    "largest master + 1e-5 of the largest step"}
@@ -3333,6 +3361,432 @@ def phase_bert_trainer() -> dict:
 # the pretraining tool's optimizer (mxnet_tpu_torch/tools/pretrain_llama.py)
 LLAMA_OPT = {"learning_rate": 3e-4, "wd": 0.1, "beta1": 0.9, "beta2": 0.95,
              "multi_precision": True}
+
+
+# ---------------------------------------------------------------------------
+# 12-13. the Gluon core as MXNet users write it
+# ---------------------------------------------------------------------------
+
+# GluonNLP's BERT fine-tuning; f32 masters, as mixed-precision fine-tuning
+# keeps them (an Adam step of ~lr is below half a bf16 ulp of most weights)
+GLUON_OPT = {"learning_rate": 2e-5, "multi_precision": True}
+
+
+def _gluon_inputs(b, l, ragged, ctx, seed):
+    """(tokens, token types[, valid_length]) NDArrays on ``ctx`` drawn
+    from ``seed``; ``ragged``: a (b,) valid_length in [1, l]."""
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(seed)
+    args = [mx.nd.array(rs.randint(1, 30522, (b, l)), ctx=ctx,
+                        dtype="float32"),
+            mx.nd.array(rs.randint(0, 2, (b, l)), ctx=ctx, dtype="float32")]
+    if ragged:
+        args.append(mx.nd.array(rs.randint(1, l + 1, (b,)), ctx=ctx,
+                                dtype="float32"))
+    return args
+
+
+def _gluon_kernel_nodes(graph) -> dict:
+    """A captured graph's kernel nodes of the LayerNorm, flash and
+    bias+GELU forwards, by the wrapper that launches each."""
+    from mxnet_tpu_torch.kernels._build import graph_kernel_names
+
+    names = graph_kernel_names(graph)
+    return {"fused_layer_norm": sum("ln_vec_kernel" in n
+                                    or "ln_scalar_kernel" in n
+                                    for n in names),
+            "flash_attention": sum("flash_fwd" in n for n in names),
+            "fused_bias_gelu": sum("bias_gelu_vec_kernel" in n
+                                   or "bias_gelu_scalar_kernel" in n
+                                   for n in names),
+            "all": len(names)}
+
+
+def _nd_bits(outs) -> list:
+    return [o._data.detach().contiguous().view(torch.uint8).cpu()
+            for o in outs]
+
+
+def _gluon_step(net, trainer, loss_fn, args, labels, times=None):
+    """One fine-tuning step as a GluonNLP user writes it: the classifier
+    logits' softmax cross-entropy under autograd.record(), loss.backward()
+    on the NDArray, trainer.step(batch). Returns the mean loss (a float,
+    synchronising); appends the host seconds of the forward, the backward
+    and the step to ``times``."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        loss = loss_fn(net(*args)[2], labels)
+    t1 = time.perf_counter()
+    loss.backward()
+    t2 = time.perf_counter()
+    trainer.step(labels.shape[0])
+    if times is not None:
+        times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return float(loss.mean().asscalar())
+
+
+def phase_gluon_reference() -> None:
+    """The Gluon workflow in f32 at BERT-base widths (768 units, 3072 FFN,
+    12 heads, vocab 30522), depth cut to 2 layers, pooler and classifier,
+    dropout 0.1 / 0.1, TF32 off: the model built through the new API
+    (``bert_12_768_12(...)``, ``initialize(mx.init.Normal(0.02), ctx=)``)
+    on the card and on the CPU, the card's weights carried to the CPU by
+    a ``.params`` file (``save_parameters`` / ``load_parameters``). The
+    hybridized predict forward on the card (CUDA graphs, at (4, 128) and
+    at (4, 128) with a ragged valid_length) against the eager forward on
+    the CPU, which runs every kernel's plain version: each output within
+    1e-4 of its largest magnitude. Then three record / loss.backward() /
+    Trainer.step Adam steps (lr 1e-4) on each device with the same u32
+    dropout seeds (each device's stream seeded alike): each loss within
+    1e-5 relative, each parameter's delta within 1e-3 of its norm
+    (‖Δcard − Δcpu‖ / ‖Δcpu‖), the key third of each QKV bias, whose true
+    gradient is 0, held apart to moving less than lr per step."""
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import bert_12_768_12
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(num_layers=2, use_pooler=True, use_classifier=True,
+              use_decoder=False, dropout=0.1, attn_dropout=0.1)
+    mx.random.seed(SEED + 6)
+    card_net, cpu_net = bert_12_768_12(**kw), bert_12_768_12(**kw)
+    card_net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    cpu_net.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.params")
+        card_net.save_parameters(path)
+        cpu_net.load_parameters(path)
+    units = cpu_net.config["units"]
+    w0 = {k: p.data().asnumpy() for k, p in
+          cpu_net._collect_params_with_prefix().items()}
+    card_net.hybridize(static_alloc=True, static_shape=True)
+    predict = {}
+    for ragged in (False, True):
+        cpu_args = _gluon_inputs(4, 128, ragged, mx.cpu(), SEED + 6)
+        card_args = [a.as_in_context(mx.gpu(0)) for a in cpu_args]
+        got = [o.asnumpy() for o in card_net(*card_args)]
+        want = [o.asnumpy() for o in cpu_net(*cpu_args)]
+        rel = [float(np.abs(g - w).max() / np.abs(w).max())
+               for g, w in zip(got, want)]
+        predict["ragged" if ragged else "full"] = rel
+    captures = card_net.cached_graph.captures
+    losses, launches = {}, None
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for name, net, ctx in (("cpu", cpu_net, mx.cpu()),
+                           ("card", card_net, mx.gpu(0))):
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-4})
+        args = _gluon_inputs(4, 128, False, ctx, SEED + 7)
+        labels = mx.nd.array(np.arange(4) % 2, ctx=ctx)
+        mx.random.seed(SEED + 7, ctx=ctx)
+        _reset_train_counts()
+        losses[name] = [_gluon_step(net, trainer, loss_fn, args, labels)
+                        for _ in range(3)]
+        launches = _train_counts()            # the card's run, read last
+    lr, steps = 1e-4, 3
+    ratios, key_bias = {}, []
+    card_w = {k: p.data().asnumpy() for k, p in
+              card_net._collect_params_with_prefix().items()}
+    for key, start in w0.items():
+        dc = (cpu_net._collect_params_with_prefix()[key].data().asnumpy()
+              - start).ravel()
+        dg = (card_w[key] - start).ravel()
+        if key.endswith("qkv_proj.bias"):
+            part = slice(units, 2 * units)
+            key_bias.append(max(float(np.abs(dc[part]).max()),
+                                float(np.abs(dg[part]).max())))
+            dc, dg = np.delete(dc, part), np.delete(dg, part)
+        norm = float(np.linalg.norm(dc))
+        if norm > 0:
+            ratios[key] = float(np.linalg.norm(dg - dc)) / norm
+        elif float(np.linalg.norm(dg)) != 0.0:
+            ratios[key] = float("inf")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                        losses["cpu"]))
+    worst = max(ratios, key=ratios.get)
+    out = {"phase": "gluon_reference",
+           "model": "bert_12_768_12(num_layers=2, use_decoder=False)",
+           "dtype": "float32",
+           "entry_points": "bert_12_768_12, initialize(mx.init.Normal(0.02)"
+                           ", ctx=), save_parameters/load_parameters, "
+                           "hybridize, autograd.record, NDArray.backward, "
+                           "gluon.Trainer('adam')",
+           "predict_err_over_max_output": predict, "predict_tol": 1e-4,
+           "graph_captures": captures, "dropout": 0.1, "attn_dropout": 0.1,
+           "batch": [4, 128], "steps": steps, "losses": losses,
+           "loss_max_rel_diff": loss_rel, "loss_tol": 1e-5,
+           "delta_worst": [worst, ratios[worst]],
+           "delta_median": float(np.median(list(ratios.values()))),
+           "delta_tol": 1e-3, "key_bias_max_abs_delta": max(key_bias),
+           "key_bias_tol": steps * lr, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if max(max(v) for v in predict.values()) > 1e-4:
+        fail(f"hybridized f32 BERT on the card disagrees with the CPU: "
+             f"{predict}")
+    if captures != 2:
+        fail(f"{captures} graph captures for 2 signatures")
+    if not all(np.isfinite(losses["card"])) or loss_rel > 1e-5:
+        fail(f"f32 Gluon losses on the card disagree with the CPU's: "
+             f"{losses}")
+    if ratios[worst] > 1e-3 or max(key_bias) > steps * lr:
+        fail(f"f32 Gluon parameter deltas on the card disagree with the "
+             f"CPU's: {worst} {ratios[worst]}, key bias {max(key_bias)}")
+    del cpu_net, card_net
+    torch.cuda.empty_cache()
+
+
+def _gluon_predict_per_forward(layers, ragged) -> dict:
+    """Forward launches of bert_12_768_12 without the MLM head: embed_ln
+    and two add+norms per layer, the FFN's bias+GELU, one flash attention
+    per layer; a valid_length masks keys, which the flash kernels do not
+    take, so those calls take the dense route, as the reference's do
+    (``sdp_attention``: flash only ``if mask is None``)."""
+    return {"fused_layer_norm": 2 * layers + 1,
+            "flash_attention": 0 if ragged else layers,
+            "fused_bias_gelu": layers}
+
+
+def phase_gluon() -> dict:
+    """bert_12_768_12 with pooler and classifier, no decoder, not cut,
+    bf16, every NDArray on mx.gpu(), as a GluonNLP user fine-tunes and
+    serves it: ``initialize(mx.init.Normal(0.02), ctx=mx.gpu())``,
+    ``cast("bfloat16")``, ``hybridize(static_alloc=True,
+    static_shape=True)``.
+
+    predict: first the eager forward, before ``hybridize``, so that no
+    block below runs a graph (checked), at (32, 128) and (32, 512) and at
+    (32, 128) with a ragged valid_length; then the hybridized forward at
+    the same signatures: each graph's output equals the eager forward's
+    bit for bit; exactly one capture per signature and none over 20
+    replays of each; launches per replay equal to the graph's own kernel
+    nodes and to the model's (25 LayerNorm, 12 flash, 12 bias+GELU; 0
+    flash with the valid_length); host and device ms per forward,
+    hybridized and eager, and the card's idle share.
+
+    train: batch 32 x 128, dropout 0.1 / 0.1, Adam at 2e-5 with f32
+    masters, one fixed batch, 3 warm-up and 10 timed steps of record /
+    loss.backward() / Trainer.step; the loss finite and falling strictly
+    over the first three steps; every trained parameter's gradient an
+    NDArray; every trained parameter's f32 master moved; exactly the
+    model's launches per step (LayerNorm, bias+GELU and flash forward and
+    backward, hash dropout, one Adam sweep per dtype bucket, no other
+    training kernel); ms per step, samples/s and the host ms of the
+    forward, the backward and Trainer.step.
+
+    save/load: save_parameters, then a fresh bert_12_768_12(...) whose
+    load_parameters(ctx=mx.gpu()) reads it back bit for bit, MB/s each
+    way."""
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import bert_12_768_12
+
+    t0 = time.perf_counter()
+    gpu = mx.gpu(0)
+    kw = dict(use_pooler=True, use_classifier=True, use_decoder=False,
+              dropout=0.1, attn_dropout=0.1)
+    mx.random.seed(SEED + 8)
+    net = bert_12_768_12(**kw)
+    net.initialize(mx.init.Normal(0.02), ctx=gpu)
+    net.cast("bfloat16")
+    cfg = net.config
+    if (cfg["num_layers"], cfg["units"], cfg["hidden_size"],
+            cfg["num_heads"], cfg["vocab_size"]) != (12, 768, 3072, 12,
+                                                     30522):
+        fail(f"not BERT-base at full width and depth: {cfg}")
+    layers = cfg["num_layers"]
+    names = ("fused_layer_norm", "flash_attention", "fused_bias_gelu")
+    sigs = {"32x128": (32, 128, False), "32x512": (32, 512, False),
+            "32x128_valid_length": (32, 128, True)}
+    # the eager forward of every signature, before hybridize: every block
+    # below runs eagerly
+    eager_bits, eager_times = {}, {}
+    for key, (b, l, ragged) in sigs.items():
+        args = _gluon_inputs(b, l, ragged, gpu, SEED + 8)
+        eager_bits[key] = _nd_bits(net(*args))
+
+        def eager_fwd(args=args):
+            net(*args)
+
+        eager_times[key] = _device_breakdown(eager_fwd, 10)
+    graphs = [blk for blk in net.modules()
+              if getattr(blk, "cached_graph", None) is not None]
+    if graphs:
+        fail(f"gluon: {len(graphs)} blocks ran graphs before hybridize()")
+    net.hybridize(static_alloc=True, static_shape=True)
+    predict = {}
+    for key, (b, l, ragged) in sigs.items():
+        args = _gluon_inputs(b, l, ragged, gpu, SEED + 8)
+        before = net.cached_graph.captures if net.cached_graph else 0
+        graph_out = net(*args)                       # the capture
+        entry = list(net.cached_graph._graphs.values())[-1]
+        torch.cuda.synchronize()
+        _reset_bert_counts()
+        replays, issue = 20, []
+        for _ in range(replays):
+            t = time.perf_counter()
+            out = net(*args)
+            issue.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        launches = _bert_counts()
+        captures = net.cached_graph.captures - before
+        eager = eager_bits[key]
+        same = all(torch.equal(a, b) for a, b in
+                   zip(_nd_bits(out), eager)) and all(
+            torch.equal(a, b) for a, b in zip(_nd_bits(graph_out), eager))
+        per = _gluon_predict_per_forward(layers, ragged)
+        nodes = _gluon_kernel_nodes(entry.graph)
+        per_replay = {fn.__name__: n for (fn, attr), n in
+                      entry.launches.items()
+                      if attr == "launches" and fn.__name__ in names}
+        per_replay = {n: per_replay.get(n, 0) for n in names}
+
+        def graph_fwd(args=args):
+            net(*args)
+
+        hyb = _device_breakdown(graph_fwd, 10)
+        eag = eager_times[key]
+        predict[key] = {
+            "graph_equals_eager_bits": bool(same),
+            "captures": captures, "replays": replays,
+            "launches": launches,
+            "launches_expected": {k: v * replays for k, v in per.items()},
+            "launches_per_replay": per_replay,
+            "kernel_nodes": nodes,
+            "host_issue_ms_per_forward": 1e3 * float(np.mean(issue)),
+            "hybridized": {k: hyb[k] for k in (
+                "host_ms_per_step", "device_ms_per_step",
+                "device_idle_share")},
+            "eager": {k: eag[k] for k in (
+                "host_ms_per_step", "device_ms_per_step",
+                "device_idle_share")}}
+        rec = predict[key]
+        if not same:
+            fail(f"gluon {key}: the graph's output is not the eager "
+                 "forward's bit for bit")
+        if captures != 1:
+            fail(f"gluon {key}: {captures} captures, not 1")
+        if launches != rec["launches_expected"] or per_replay != per \
+                or any(nodes[n] != per[n] for n in names):
+            fail(f"gluon {key}: launches {launches} (per replay "
+                 f"{per_replay}, kernel nodes {nodes}) are not "
+                 f"{rec['launches_expected']}")
+    steady = net.cached_graph.captures
+    # --- train ---------------------------------------------------------
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               dict(GLUON_OPT))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    args = _gluon_inputs(32, 128, False, gpu, SEED + 9)
+    labels = mx.nd.array(np.arange(32) % 2, ctx=gpu)
+    buckets = len({p.dtype for p in trainer._params
+                   if p.grad_req != "null"})
+    start = {i: p.tensor.detach().float().clone()
+             for i, p in enumerate(trainer._params) if p.grad_req != "null"}
+    _reset_train_counts()
+    first = [_gluon_step(net, trainer, loss_fn, args, labels)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    warm_launches = _train_counts()
+    grads_nd = all(isinstance(p.grad(), mx.nd.NDArray)
+                   and p.grad()._data is p.tensor.grad
+                   for p in trainer._params if p.grad_req != "null")
+    want = {k: v * 3 for k, v in _per_step(
+        dict(cfg, num_layers=layers), buckets, 0.1, 0.1,
+        wgmma=True).items()}
+    # the classifier path has no MLM head: one LayerNorm and one
+    # bias+GELU fewer each way than BERTForPretrainFused's
+    for k in ("fused_layer_norm", "fused_layer_norm_bwd"):
+        want[k] -= 3
+    for k in ("fused_bias_gelu", "fused_bias_gelu_bwd"):
+        want[k] -= 3
+    times = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [_gluon_step(net, trainer, loss_fn, args, labels, times)
+              for _ in range(10)]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t1) * 1e3 / 10
+    host = np.mean(np.asarray(times), axis=0) * 1e3
+    # each master against its start; the share of each bf16 weight that
+    # changed shows what the masters carry
+    masters = {i: trainer._updater.states[i][0] for i in start}
+    still = [trainer._params[i].name for i, w in start.items()
+             if torch.equal(masters[i], w)]
+    moved = {trainer._params[i].name: float(
+        (trainer._params[i].tensor.float() != w).float().mean())
+        for i, w in start.items()}
+    del start, masters
+    train = {"batch": [32, 128], "dropout": 0.1, "attn_dropout": 0.1,
+             "optimizer": dict(GLUON_OPT, name="adam"),
+             "first_losses": first, "losses": losses,
+             "ms_per_step": ms_step, "samples_per_s": 32e3 / ms_step,
+             "host_ms": {"forward": float(host[0]),
+                         "backward": float(host[1]),
+                         "trainer_step": float(host[2])},
+             "grads_are_ndarrays": bool(grads_nd), "dtype_buckets": buckets,
+             "masters_unmoved": still,
+             "bf16_share_changed_min": min(moved.values()),
+             "bf16_share_changed_median": float(np.median(
+                 list(moved.values()))),
+             "launches_warmup": warm_launches,
+             "launches_expected": want}
+    if not all(np.isfinite(first + losses)) or not (
+            first[0] > first[1] > first[2]):
+        fail(f"gluon train: the loss is not finite and falling: {first}")
+    if not grads_nd:
+        fail("gluon train: a gradient is not an NDArray over the buffer")
+    if still:
+        fail(f"gluon train: {len(still)} f32 masters did not move: "
+             f"{still[:8]}")
+    if warm_launches != want:
+        fail(f"gluon train launch counts {warm_launches} are not {want}")
+    if net.cached_graph.captures != steady:
+        fail("gluon: Trainer.step made the graphs recapture")
+    # --- save / load ----------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.params")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net.save_parameters(path)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        fresh = bert_12_768_12(**kw)
+        fresh.cast("bfloat16")
+        t = time.perf_counter()
+        fresh.load_parameters(path, ctx=gpu)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    mine = net._collect_params_with_prefix()
+    theirs = fresh._collect_params_with_prefix()
+    bits = sorted(mine) == sorted(theirs) and all(
+        torch.equal(mine[k].tensor.view(torch.int16),
+                    theirs[k].tensor.view(torch.int16)) for k in mine)
+    saveload = {"bytes": size, "params": len(mine),
+                "save_s": save_s, "load_s": load_s,
+                "save_MB_per_s": size / 1e6 / save_s,
+                "load_MB_per_s": size / 1e6 / load_s,
+                "bit_for_bit": bool(bits)}
+    if not bits:
+        fail("gluon: load_parameters did not read save_parameters back "
+             "bit for bit")
+    out = {"phase": "gluon", "model": "bert_12_768_12(use_pooler=True, "
+           "use_classifier=True, use_decoder=False)", "dtype": "bfloat16",
+           "predict": predict, "train": train, "save_load": saveload,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del net, fresh, trainer
+    torch.cuda.empty_cache()
+    return warm_launches
 
 
 def _llama_per_step(cfg, buckets, wgmma=False) -> dict:
@@ -3752,7 +4206,7 @@ def _conv_flops_per_image(net, size=224) -> float:
     macs = []
 
     def hook(mod, inp, out):
-        k = mod.weight
+        k = mod.weight.tensor
         macs.append(out.numel() / out.shape[0] * k[0].numel())
 
     handles = [m.register_forward_hook(hook) for m in net.modules()
@@ -3762,7 +4216,7 @@ def _conv_flops_per_image(net, size=224) -> float:
                         dtype=torch.bfloat16))
     for h in handles:
         h.remove()
-    dense = net.output.weight.numel()
+    dense = net.output.weight.tensor.numel()
     return 3.0 * 2.0 * (sum(macs) + dense)
 
 
@@ -4333,10 +4787,10 @@ def phase_imperative(card: str) -> dict:
     weights, grads = {}, {}
     for name, p in net.collect_params().items():
         if id(p._var) in reached:
-            weights[name] = mx.nd.NDArray(p.data())
-            grads[name] = mx.nd.NDArray(p.grad())
+            weights[name] = mx.nd.NDArray(p.data()._data)
+            grads[name] = mx.nd.NDArray(p.grad()._data)
     n_elem = sum(w.size for w in weights.values())
-    no_copy = all(weights[k]._data.data_ptr() == p.data().data_ptr()
+    no_copy = all(weights[k]._data.data_ptr() == p.tensor.data_ptr()
                   for k, p in net.collect_params().items() if k in weights)
     out = {"phase": "imperative", "card": card,
            "model": "BERTForPretrainFused (bert_12_768_12), bf16",
@@ -4499,6 +4953,8 @@ def main() -> None:
           "trainstep_adam_ms_per_step": drop_ms,
           "gap_ms": trainer["ms_per_step"] - float(np.mean(drop_ms))})
     trainer = trainer["launches"]
+    phase_gluon_reference()
+    gluon = phase_gluon()
     phase_llama_train_reference()
     llama = phase_llama_train()
     phase_resnet_train_reference()
@@ -4589,6 +5045,8 @@ def main() -> None:
             by_path["bert_trainer"] = trainer[name]
         if imperative["step_launches"].get(name):
             by_path["imperative"] = imperative["step_launches"][name]
+        if gluon.get(name):
+            by_path["gluon_train"] = gluon[name]
         if name == "fused_lamb_sweep":
             for sub in ("[phase1]", "[norms]"):
                 by_path["bert_trainer" + sub] = trainer[name + sub]

@@ -45,14 +45,16 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
 """
 from . import (autograd, base, checkpoint, context, convert, engine, fault,
-               gluon, kernels, ndarray, ops, optimizer, parallel, random,
-               random_state, rtc, serving, telemetry, tracing)
+               gluon, init, initializer, kernels, ndarray, ops, optimizer,
+               parallel, random, random_state, rtc, serving, telemetry,
+               tracing)
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "base", "checkpoint", "context",
-           "convert", "engine", "fault", "gluon", "kernels", "nd",
+           "convert", "engine", "fault", "gluon", "init", "initializer",
+           "kernels", "nd",
            "ndarray", "ops", "optimizer", "parallel", "random",
            "random_state", "rtc", "serving", "telemetry", "tracing"]

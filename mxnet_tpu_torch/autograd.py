@@ -26,8 +26,12 @@ while the graph lives can be caught at the write (:func:`holds_live_save`,
 the reference's write-after-record rule, ``autograd.py:8-13``) instead of
 at ``backward``.
 
-``grad``, ``mark_variables``, ``Function`` and ``watch_grad_ready`` wait
-(ROADMAP.md, port queue 1, item 5).
+:func:`mark_variables` attaches given gradient buffers to NDArrays,
+:func:`grad` returns the gradients of heads as new NDArrays (to any
+order with ``create_graph``: the gradient is itself on the tape), and
+:class:`Function` runs a user's ``forward``/``backward`` on NDArrays as a
+``torch.autograd.Function``. ``watch_grad_ready`` waits for the
+data-parallel comms (ROADMAP.md, port queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from .base import MXNetError
 
 __all__ = ["is_training", "set_training", "train_mode", "predict_mode",
            "is_recording", "set_recording", "record", "pause", "backward",
-           "is_on_tape", "saved_tensor_hooks", "holds_live_save"]
+           "is_on_tape", "saved_tensor_hooks", "holds_live_save",
+           "mark_variables", "grad", "Function"]
 
 _state = threading.local()
 
@@ -239,3 +244,120 @@ def backward(heads, head_grads=None, retain_graph: bool = False) -> None:
                 var.grad.add_(g)
             else:
                 var.grad.copy_(g)
+
+
+def _nd(t):
+    from .ndarray import NDArray
+
+    return NDArray(t)
+
+
+def mark_variables(variables, gradients, grad_reqs="write") -> None:
+    """Make each NDArray of ``variables`` a leaf of the tape whose
+    gradient goes into the NDArray of ``gradients`` beside it (the same
+    storage), by ``grad_reqs`` (one for all, or one each)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        t = v._data
+        if not t.is_leaf:
+            t = v._tensor = t.detach()
+        t.requires_grad_(req != "null")
+        t._mx_grad_req = req
+        t.grad = None if req == "null" else g._data
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph: bool = False, train_mode: bool = True):
+    """The gradients of ``heads`` with respect to ``variables`` (an
+    NDArray or a list), as new NDArrays; the variables' own gradient
+    buffers are left alone. With ``create_graph`` the gradients are on
+    the tape, so they can be differentiated again; ``retain_graph``
+    defaults to ``create_graph``. A variable the heads do not reach
+    raises :class:`MXNetError`."""
+    single = not isinstance(variables, (list, tuple))
+    if single:
+        variables = [variables]
+    if not isinstance(heads, (list, tuple)):
+        heads = [heads]
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
+            head_grads = [head_grads]
+    hs = _tensors(heads)
+    for h in hs:
+        if not h.requires_grad:
+            raise MXNetError(
+                "cannot differentiate a head that is not on the tape; "
+                "compute it inside autograd.record() from arrays with "
+                "attach_grad()")
+    hgs = [torch.ones_like(h) if hg is None else hg for h, hg in
+           zip(hs, [None] * len(hs) if head_grads is None
+               else _tensors(head_grads))]
+    if retain_graph is None:
+        retain_graph = create_graph
+    with torch.set_grad_enabled(create_graph):
+        gs = torch.autograd.grad(hs, _tensors(variables), hgs,
+                                 retain_graph=retain_graph,
+                                 create_graph=create_graph,
+                                 allow_unused=True)
+    if any(g is None for g in gs):
+        raise MXNetError("cannot differentiate: one of the requested "
+                         "variables is not part of the recorded graph")
+    out = [_nd(g) for g in gs]
+    return out[0] if single else out
+
+
+class Function:
+    """A user-defined differentiable function: subclass it with
+    ``forward(*inputs)`` and ``backward(*output_grads)`` on NDArrays (both
+    run outside the tape; ``save_for_backward`` keeps what backward
+    needs) and call an instance on NDArrays. Under ``record()`` the call
+    is one node of the tape, a ``torch.autograd.Function`` whose backward
+    is the user's, itself recorded when the gradient is asked for with
+    ``create_graph``."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args) -> None:
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        if not is_recording():
+            with pause(train_mode=is_training()):
+                return self.forward(*inputs)
+        user = self
+        single = []
+
+        class _Node(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *tensors):
+                with pause(train_mode=is_training()):
+                    outs = user.forward(*[_nd(t) for t in tensors])
+                single.append(not isinstance(outs, (list, tuple)))
+                outs = [outs] if single[0] else list(outs)
+                return tuple(o._data.clone() for o in outs)
+
+            @staticmethod
+            def backward(ctx, *cts):
+                # recorded under create_graph, so the gradient stays on
+                # the tape
+                with _scope(torch.is_grad_enabled(), None):
+                    gs = user.backward(*[_nd(c) for c in cts])
+                if not isinstance(gs, (list, tuple)):
+                    gs = [gs]
+                return tuple(None if g is None else g._data for g in gs)
+
+        outs = _Node.apply(*_tensors(inputs))
+        outs = [_nd(o) for o in outs]
+        return outs[0] if single[0] else outs

@@ -11,16 +11,39 @@ its ``uint16`` bits.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "torch_dtype", "numeric_types", "integer_types",
-           "dtype_id", "dtype_from_id"]
+           "dtype_id", "dtype_from_id", "name_manager"]
 
 
 class MXNetError(RuntimeError):
     """Framework-level error (reference: ``python/mxnet/base.py :: MXNetError``)."""
 
+
+class _NameManager(threading.local):
+    """Unique names per thread: ``get(None, "dense")`` hands out
+    ``dense0``, ``dense1``, ... (reference: ``base.py:83-104``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._counter = {}
+
+    def get(self, name, hint):
+        if name is not None:
+            return name
+        idx = self._counter.get(hint, 0)
+        self._counter[hint] = idx + 1
+        return f"{hint}{idx}"
+
+    def reset(self):
+        self._counter = {}
+
+
+name_manager = _NameManager()
 
 numeric_types = (float, int, _np.generic)
 integer_types = (int, _np.integer)

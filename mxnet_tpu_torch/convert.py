@@ -42,8 +42,8 @@ def _expected_shapes(named: Dict[str, np.ndarray], n_layers: int):
     first layer's projections: (V, U) embed, (U,) norms, (U, U) q/out,
     (2*KV*D, U) kv, (2F, U) gate-up, (U, F) down, (V, U) head."""
     vocab, units = named["embed.weight"].shape
-    kv_rows = named["blocks.0.attention.kv_proj.weight"].shape[0]
-    ff2 = named["blocks.0.mlp.gate_up.weight"].shape[0]
+    kv_rows = named["layer0.attention.kv_proj.weight"].shape[0]
+    ff2 = named["layer0.mlp.gate_up.weight"].shape[0]
     shapes = {"embed.weight": (vocab, units), "norm.weight": (units,),
               "lm_head.weight": (vocab, units)}
     per = {"attn_norm.weight": (units,),
@@ -55,7 +55,7 @@ def _expected_shapes(named: Dict[str, np.ndarray], n_layers: int):
            "mlp.down.weight": (units, ff2 // 2)}
     for i in range(n_layers):
         for k, s in per.items():
-            shapes[f"blocks.{i}.{k}"] = s
+            shapes[f"layer{i}.{k}"] = s
     return shapes
 
 
@@ -85,14 +85,14 @@ def llama_params_from_reference(named: Dict[str, np.ndarray]
             key = _GLOBAL[suffix]
         elif m is not None:
             layers.add(int(m.group(1)))
-            key = f"blocks.{int(m.group(1))}.{_LAYER[m.group(2)]}"
+            key = f"layer{int(m.group(1))}.{_LAYER[m.group(2)]}"
         else:
             raise MXNetError(f"unexpected parameter {name!r} (suffix "
                              f"{suffix!r}) for a Llama model")
         out[key] = _to_tensor(np.asarray(arr))
     n_layers = max(layers) + 1 if layers else 0
-    if n_layers == 0 or "blocks.0.attention.kv_proj.weight" not in out \
-            or "blocks.0.mlp.gate_up.weight" not in out:
+    if n_layers == 0 or "layer0.attention.kv_proj.weight" not in out \
+            or "layer0.mlp.gate_up.weight" not in out:
         raise MXNetError("no complete layer 0 among the parameters")
     expected = _expected_shapes(out, n_layers)
     missing = sorted(set(expected) - set(out))
@@ -243,7 +243,7 @@ _BERT_PRETRAIN_HEAD = {
     "decoder_transform_bias": "decoder_transform.bias",
     "decoder_ln_gamma": "decoder_ln.gamma",
     "decoder_ln_beta": "decoder_ln.beta",
-    "decoder_bias": "decoder_bias",
+    "decoder_bias": "vocab_bias",
 }
 
 
@@ -287,7 +287,7 @@ def bert_pretrain_params_from_reference(named: Dict[str, np.ndarray]
     shapes = {"decoder_transform.weight": (units, units),
               "decoder_transform.bias": (units,),
               "decoder_ln.gamma": (units,), "decoder_ln.beta": (units,),
-              "decoder_bias": (vocab,)}
+              "vocab_bias": (vocab,)}
     missing = sorted(set(shapes) - set(out))
     if missing:
         raise MXNetError(f"missing parameters: {missing}")

@@ -1,11 +1,12 @@
-"""Gluon layer of the port (counterpart of ``mxnet_tpu/gluon``): ``Block``
-and ``Parameter``, the ``Trainer``, the basic, convolution and pooling
-layers, the softmax cross-entropy loss, and the model zoo's BERT, Llama
-and ResNet v1 models."""
-from . import loss, model_zoo, nn
-from .block import Block, HybridBlock
-from .parameter import Parameter, ParameterDict
+"""Gluon layer of the port (counterpart of ``mxnet_tpu/gluon``):
+``Block``/``HybridBlock``, ``Parameter``/``Constant``/``ParameterDict``,
+the ``Trainer``, the layers (``nn``), the losses, ``utils`` and the model
+zoo's BERT, Llama and ResNet v1 models."""
+from . import loss, nn, utils
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import Constant, Parameter, ParameterDict
 from .trainer import Trainer
+from . import model_zoo  # noqa: E402  (builds on the layers above)
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
-           "loss", "model_zoo", "nn"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Constant", "Parameter",
+           "ParameterDict", "Trainer", "loss", "model_zoo", "nn", "utils"]

@@ -1,53 +1,72 @@
-"""BERT: the encoder for serving and masked-LM pretraining.
+"""BERT: the encoder for fine-tuning and serving, and masked-LM
+pretraining.
 
-Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/bert.py``: word +
-token-type + position embeddings, ``embed_ln``, a stack of post-LN
-encoder cells with a GELU FFN, then the pooler, the next-sentence
-classifier and the masked-LM head whose output projection is tied to the
-word embedding; and ``BERTForPretrainFused``, the same backbone under the
-fused projection + cross-entropy head, for ``parallel.TrainStep``.
-Attribute names mirror the JAX blocks, so
-:func:`mxnet_tpu_torch.convert.bert_params_from_reference` and
-:func:`~mxnet_tpu_torch.convert.bert_pretrain_params_from_reference`
-carry a JAX model's weights across name by name.
+Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/bert.py``, with the
+reference's parameter names (``bertmodel0_word_embed_weight``,
+``bertmodel0_enc_layer0_attn_qkv_weight``...) and structural names
+(``word_embed.weight``, ``encoder.cells.0.attention.qkv_proj.weight``):
+word + token-type + position embeddings, ``embed_ln``, a stack of
+post-LN encoder cells with a GELU FFN, then the pooler, the
+next-sentence classifier and the masked-LM head whose output projection
+shares the word embedding's weight; and ``BERTForPretrainFused``, the
+same backbone under the fused projection + cross-entropy head, for
+``parallel.TrainStep``. A ``.params`` file of either package loads into
+the other's model (``load_parameters``).
+
+Built as in the reference, the model is not initialized:
+``bert_12_768_12()`` then ``initialize(mx.init.Normal(0.02), ctx=...)``.
+The port also takes ``ctx=``, ``dtype=`` and ``generator=`` at
+construction: ``dtype`` sets every parameter's dtype, and ``ctx`` or
+``generator`` initializes at once on ``ctx`` (default: the card), N(0,
+0.02) for the projections and the embeddings, zeros for the biases and
+beta, ones for gamma, drawn from ``generator`` (a ``torch.Generator`` on
+that device) when given.
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
-
-from ....base import torch_dtype
-from ....context import resolve_device
-from ....ops.fused_loss import softmax_ce_head
-from ...block import Block
-from ...nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
+from .... import initializer
+from ...block import HybridBlock, param_like
+from ... import nn
+from .._build import materialize
 from .transformer import TransformerEncoderCell
 
 __all__ = ["BERTEncoder", "BERTModel", "BERTForPretrainFused",
            "bert_12_768_12", "bert_24_1024_16"]
 
 
-class BERTEncoder(Block):
+class BERTEncoder(HybridBlock):
     """Stack of post-LN transformer cells with a GELU FFN."""
 
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
-                 num_heads=12, dropout=0.1, attn_dropout=0.0, device=None,
-                 dtype=None):
-        super().__init__()
-        self.cells = HybridSequential()
-        for _ in range(num_layers):
-            self.cells.add(TransformerEncoderCell(
-                units, hidden_size, num_heads, dropout=dropout,
-                activation="gelu", attn_dropout=attn_dropout,
-                device=device, dtype=dtype))
+                 num_heads=12, dropout=0.1, attn_dropout=0.0, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.cells = nn.HybridSequential(prefix="")
+            for i in range(num_layers):
+                self.cells.add(TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout=dropout,
+                    activation="gelu", attn_dropout=attn_dropout,
+                    prefix=f"layer{i}_"))
 
-    def forward(self, x, mask=None):
+    def hybrid_forward(self, F, x, mask=None):
         for cell in self.cells:
             x = cell(x, mask)
         return x
 
 
-class BERTModel(Block):
+def _valid_mask(F, valid, tokens):
+    """``valid`` as a (B, L) 1/0 mask over ``tokens`` (B, L): a (B,)
+    ``valid_length`` (GluonNLP) becomes ``arange(L) < valid_length``; a
+    (B, L) mask stays."""
+    if len(valid.shape) != 1:
+        return valid
+    pos = F._contrib_arange_like(tokens, axis=1)
+    return F.broadcast_lesser(pos.reshape((1, -1)),
+                              F.cast(valid, "float32").reshape((-1, 1)))
+
+
+class BERTModel(HybridBlock):
     """Embeddings -> encoder -> heads.
 
     ``forward(token_ids, token_types=None, valid_mask=None)`` returns, in
@@ -56,24 +75,18 @@ class BERTModel(Block):
     ``use_classifier``; the masked-LM logits (B, L, vocab) when
     ``use_decoder``. A single output comes back bare, several as a tuple.
     ``token_ids`` may be floats (the serving batcher's dtype); they are
-    truncated to int64.
-
-    ``ctx``: the device of the weights (default: the card; ``mx.cpu()``
-    for the CPU). ``dtype``: the weights' dtype. ``generator``: the
-    ``torch.Generator`` (on ``ctx``'s device) that draws the initial
-    weights: N(0, 0.02) for the projections and the embeddings, zeros
-    for the biases and beta, ones for gamma; ``None`` uses torch's
-    default generator. The modules are built on the meta device and
-    materialised once, on their device.
-    """
+    truncated. ``valid_mask``: (B, L) 1 = a real token, or a (B,)
+    ``valid_length``; the keys it marks out are masked in every
+    attention. ``ctx``, ``dtype`` and ``generator``: see the module
+    docstring."""
 
     def __init__(self, vocab_size=30522, token_type_vocab_size=2,
                  max_length=512, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, dropout=0.1, attn_dropout=0.0,
                  use_pooler=True, use_classifier=True, use_decoder=True,
-                 ctx=None, dtype=torch.float32, generator=None):
-        super().__init__()
-        device = resolve_device(ctx)
+                 prefix=None, params=None, ctx=None, dtype=None,
+                 generator=None):
+        super().__init__(prefix=prefix, params=params)
         self._units = units
         self._use_pooler = use_pooler
         self._use_classifier = use_classifier
@@ -81,57 +94,58 @@ class BERTModel(Block):
         self.config = {"vocab_size": vocab_size, "max_length": max_length,
                        "num_layers": num_layers, "units": units,
                        "hidden_size": hidden_size, "num_heads": num_heads}
-        kw = {"device": "meta", "dtype": torch_dtype(dtype)}
-        self.word_embed = Embedding(vocab_size, units, **kw)
-        self.token_type_embed = Embedding(token_type_vocab_size, units, **kw)
-        self.position_embed = Embedding(max_length, units, **kw)
-        self.embed_ln = LayerNorm(units, **kw)
-        self.embed_dropout = Dropout(dropout) if dropout else None
-        self.encoder = BERTEncoder(num_layers, units, hidden_size,
-                                   num_heads, dropout,
-                                   attn_dropout=attn_dropout, **kw)
-        if use_pooler:
-            self.pooler = Dense(units, units, flatten=False,
-                                activation="tanh", **kw)
-        if use_classifier:
-            self.classifier = Dense(2, units, flatten=False, **kw)
-        if use_decoder:
-            # masked-LM head: transform + the output projection tied to
-            # the word embedding (its bias is the decoder's own)
-            self.decoder_transform = Dense(units, units, flatten=False,
-                                           activation="gelu", **kw)
-            self.decoder_ln = LayerNorm(units, **kw)
-            self.decoder = Dense(vocab_size, units, flatten=False, **kw)
-        self.to_empty(device=device)
-        if use_decoder:
-            self.decoder.weight = self.word_embed.weight
-        self.reset_parameters(generator)
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units,
+                                           prefix="word_embed_")
+            self.token_type_embed = nn.Embedding(token_type_vocab_size,
+                                                 units,
+                                                 prefix="token_type_embed_")
+            self.position_embed = nn.Embedding(max_length, units,
+                                               prefix="position_embed_")
+            self.embed_ln = nn.LayerNorm(in_channels=units,
+                                         prefix="embed_ln_")
+            self.embed_dropout = nn.Dropout(dropout) if dropout else None
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout,
+                                       attn_dropout=attn_dropout,
+                                       prefix="enc_")
+            if use_pooler:
+                self.pooler = nn.Dense(units, flatten=False,
+                                       activation="tanh", in_units=units,
+                                       prefix="pooler_")
+            if use_classifier:
+                self.classifier = nn.Dense(2, flatten=False, in_units=units,
+                                           prefix="classifier_")
+            if use_decoder:
+                # masked-LM head: transform + the output projection that
+                # shares the word embedding's weight (its bias is its own)
+                self.decoder_transform = nn.Dense(
+                    units, flatten=False, activation="gelu", in_units=units,
+                    prefix="decoder_transform_")
+                self.decoder_ln = nn.LayerNorm(in_channels=units,
+                                               prefix="decoder_ln_")
+                self.decoder = nn.Dense(
+                    vocab_size, flatten=False, in_units=units,
+                    params=self.word_embed.params, prefix="word_embed_")
+        materialize(self, ctx, dtype, generator, initializer.Normal(0.02))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator=None) -> None:
-        for name, p in self.named_parameters():
-            if name.endswith("gamma"):
-                p.fill_(1.0)
-            elif name.endswith("bias") or name.endswith("beta"):
-                p.zero_()
-            else:
-                p.normal_(0.0, 0.02, generator=generator)
-
-    def forward(self, token_ids, token_types=None, valid_mask=None):
+    def hybrid_forward(self, F, token_ids, token_types=None,
+                       valid_mask=None):
         l = token_ids.shape[1]
         x = self.word_embed(token_ids)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
-        positions = torch.arange(l, device=token_ids.device)
-        x = x + self.position_embed(positions).reshape(1, l, self._units)
+        # the position embedding's first l rows (its lookup at arange(l))
+        pos = param_like(self.position_embed.weight, x)[:l]
+        x = x + pos.reshape((1, l, self._units))
         x = self.embed_ln(x)
         if self.embed_dropout is not None:
             x = self.embed_dropout(x)
         attn_mask = None
         if valid_mask is not None:
+            valid_mask = _valid_mask(F, valid_mask, token_ids)
             # (B, L) 1/0 -> (B, 1, 1, L): every query may attend valid keys
-            attn_mask = valid_mask.reshape(valid_mask.shape[0], 1, 1,
-                                           valid_mask.shape[1])
+            attn_mask = valid_mask.reshape((valid_mask.shape[0], 1, 1, l))
         seq = self.encoder(x, attn_mask)
         outs = [seq]
         pooled = None
@@ -160,54 +174,55 @@ def bert_24_1024_16(**kwargs) -> BERTModel:
     return BERTModel(**cfg)
 
 
-class BERTForPretrainFused(Block):
+class BERTForPretrainFused(HybridBlock):
     """BERT masked-LM pretraining with the fused projection + CE head
     (``bert.py:145-200`` of the JAX package).
 
     A ``BERTModel(use_pooler=False, use_classifier=False,
     use_decoder=False)`` backbone named ``bert``, then ``decoder_ln(
     decoder_transform(seq))`` (Dense with GELU, LayerNorm) and
-    :func:`~mxnet_tpu_torch.ops.fused_loss.softmax_ce_head` over the word
-    embedding table (the tied projection: the lookup's and the head's
-    gradients add up on ``bert.word_embed.weight``) with this block's own
-    ``decoder_bias``. The (B, L, vocab) logits never exist at once.
+    ``_contrib_softmax_ce_head`` over the word embedding table (the tied
+    projection: the lookup's and the head's gradients add up on
+    ``bert.word_embed.weight``) with this block's own ``vocab_bias``
+    (named ``decoder_bias``). The (B, L, vocab) logits never exist at
+    once.
 
     ``forward(token_ids, mlm_labels)`` returns the (B, L) f32
     per-position loss; train it with ``parallel.TrainStep(net, lambda
     outs, *a: outs, "adam", loss_only=True)``, the labels riding as the
     second data input. ``ctx``, ``dtype`` and ``generator`` are as for
-    :class:`BERTModel`; the head is drawn after the backbone (N(0, 0.02)
-    weight, zero biases and beta, unit gamma).
+    :class:`BERTModel`.
     """
 
     def __init__(self, vocab_size=30522, token_type_vocab_size=2,
                  max_length=512, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, dropout=0.1, attn_dropout=0.0, chunk=5120,
-                 ctx=None, dtype=torch.float32, generator=None):
-        super().__init__()
-        device = resolve_device(ctx)
+                 prefix=None, params=None, ctx=None, dtype=None,
+                 generator=None):
+        super().__init__(prefix=prefix, params=params)
         self._chunk = int(chunk)
-        self.bert = BERTModel(
-            vocab_size=vocab_size,
-            token_type_vocab_size=token_type_vocab_size,
-            max_length=max_length, num_layers=num_layers, units=units,
-            hidden_size=hidden_size, num_heads=num_heads, dropout=dropout,
-            attn_dropout=attn_dropout, use_pooler=False,
-            use_classifier=False, use_decoder=False, ctx=device,
-            dtype=dtype, generator=generator)
+        with self.name_scope():
+            self.vocab_bias = self.params.get(
+                "decoder_bias", shape=(vocab_size,), init="zeros")
+            self.bert = BERTModel(
+                vocab_size=vocab_size,
+                token_type_vocab_size=token_type_vocab_size,
+                max_length=max_length, num_layers=num_layers, units=units,
+                hidden_size=hidden_size, num_heads=num_heads,
+                dropout=dropout, attn_dropout=attn_dropout,
+                use_pooler=False, use_classifier=False, use_decoder=False,
+                prefix="bert_")
+            self.decoder_transform = nn.Dense(
+                units, flatten=False, activation="gelu", in_units=units,
+                prefix="decoder_transform_")
+            self.decoder_ln = nn.LayerNorm(in_channels=units,
+                                           prefix="decoder_ln_")
         self.config = dict(self.bert.config, chunk=self._chunk)
-        kw = {"device": device, "dtype": torch_dtype(dtype)}
-        self.decoder_transform = Dense(units, units, flatten=False,
-                                       activation="gelu", **kw)
-        self.decoder_ln = LayerNorm(units, **kw)
-        self.decoder_bias = nn.Parameter(torch.zeros(vocab_size, **kw))
-        with torch.no_grad():
-            self.decoder_transform.weight.normal_(0.0, 0.02,
-                                                  generator=generator)
+        materialize(self, ctx, dtype, generator, initializer.Normal(0.02))
 
-    def forward(self, token_ids, mlm_labels):
+    def hybrid_forward(self, F, token_ids, mlm_labels, vocab_bias):
         seq = self.bert(token_ids)
         h = self.decoder_ln(self.decoder_transform(seq))
-        return softmax_ce_head(h, self.bert.word_embed.weight,
-                               self.decoder_bias, mlm_labels,
-                               chunk=self._chunk)
+        return F._contrib_softmax_ce_head(
+            h, param_like(self.bert.word_embed.weight, h), vocab_bias,
+            mlm_labels, chunk=self._chunk)

@@ -1,11 +1,12 @@
 """Llama-style decoder-only LM and its paged-KV decode engine.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/llama.py``. The blocks are
-``Block``s with the JAX blocks' attribute layout (``q_proj``,
-``kv_proj``, ``out_proj``, ``gate_up``, ``down``, ``attn_norm``,
-``mlp_norm``, ``embed``, ``norm``, ``lm_head``); MXNet's Dense weight is
-(out, in), the same as ``nn.Linear``'s, so :mod:`mxnet_tpu_torch.convert`
-carries weights across unchanged.
+``HybridBlock``s built in name scopes with the JAX blocks' prefixes and
+attribute layout (``q_proj``, ``kv_proj``, ``out_proj``, ``gate_up``,
+``down``, ``attn_norm``, ``mlp_norm``, ``embed``, ``norm``,
+``lm_head``, the blocks as children ``layer0``, ``layer1``, ...), so a
+``.params`` file of either package loads into the other's model and
+:mod:`mxnet_tpu_torch.convert` carries weights across unchanged.
 
 Two paths: the serving path, :class:`LlamaDecodeEngine` over
 :func:`_paged_forward`, and the full-sequence causal ``forward`` that
@@ -16,45 +17,44 @@ query heads, RMSNorm through its forward and backward kernels, and with
 """
 from __future__ import annotations
 
-import gc
-import re
 import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from .... import initializer
 from ....base import MXNetError, torch_dtype
-from ....context import resolve_device
-from ....ops.attention import (paged_attention, rms_norm, rope, rope_at,
-                               sdp_attention)
-from ....ops.fused_loss import softmax_ce_head
-from ...block import Block
+from ....kernels._build import capture_graph, replay_counts
+from ....ops.attention import paged_attention, rms_norm, rope_at
+from ...block import HybridBlock, param_like
+from ... import nn
+from .._build import materialize
 
 __all__ = ["RMSNorm", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaModel", "LlamaDecodeEngine", "llama_tiny", "llama_3_8b",
            "llama_proxy1b"]
 
 
-class RMSNorm(Block):
-    """f32-statistics RMSNorm; on a CUDA tensor it runs the port's fused
-    kernel (:func:`mxnet_tpu_torch.ops.rms_norm`)."""
+class RMSNorm(HybridBlock):
+    """f32-statistics RMSNorm; on a CUDA input it runs the port's fused
+    kernel (``_contrib_rms_norm``)."""
 
-    def __init__(self, units, eps=1e-6, device=None, dtype=None):
-        super().__init__()
+    def __init__(self, units, eps=1e-6, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(units, device=device,
-                                              dtype=dtype))
+        with self.name_scope():
+            self.weight = self.params.get("weight", shape=(units,),
+                                          init="ones")
 
-    def forward(self, x):
-        return rms_norm(x, self.weight, eps=self.eps)
+    def hybrid_forward(self, F, x, weight):
+        return F._contrib_rms_norm(x, weight, eps=self.eps)
 
 
-class LlamaAttention(Block):
+class LlamaAttention(HybridBlock):
     def __init__(self, units, num_heads, num_kv_heads=None,
-                 rope_theta=10000.0, device=None, dtype=None):
-        super().__init__()
+                 rope_theta=10000.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         num_kv_heads = num_kv_heads or num_heads
         if num_heads % num_kv_heads:
             raise ValueError("num_heads must be divisible by num_kv_heads")
@@ -62,58 +62,62 @@ class LlamaAttention(Block):
         self.num_kv_heads = num_kv_heads
         self.head_dim = units // num_heads
         self.rope_theta = rope_theta
-        kw = {"bias": False, "device": device, "dtype": dtype}
-        self.q_proj = nn.Linear(units, units, **kw)
-        self.kv_proj = nn.Linear(units, 2 * num_kv_heads * self.head_dim,
-                                 **kw)
-        self.out_proj = nn.Linear(units, units, **kw)
+        kw = {"flatten": False, "use_bias": False, "in_units": units}
+        with self.name_scope():
+            self.q_proj = nn.Dense(units, prefix="q_", **kw)
+            self.kv_proj = nn.Dense(2 * num_kv_heads * self.head_dim,
+                                    prefix="kv_", **kw)
+            self.out_proj = nn.Dense(units, prefix="out_", **kw)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         """(B, L, units) -> (B, L, units), causal, with rope on q and k
         (the JAX ``LlamaAttention.hybrid_forward``, ``llama.py:65-83``);
         the (B, L, H, D) heads go to attention as they are ("blhd")."""
         b, l = x.shape[0], x.shape[1]
-        d = self.head_dim
-        q = self.q_proj(x).reshape(b, l, self.num_heads, d)
-        kv = self.kv_proj(x).reshape(b, l, 2 * self.num_kv_heads, d)
-        k, v = kv[:, :, :self.num_kv_heads], kv[:, :, self.num_kv_heads:]
-        q = rope(q, theta=self.rope_theta)
-        k = rope(k, theta=self.rope_theta)
-        if self.num_kv_heads != self.num_heads:
+        h, d = self.num_heads, self.head_dim
+        q = self.q_proj(x).reshape((b, l, h, d))
+        kv = self.kv_proj(x).reshape((b, l, 2 * self.num_kv_heads, d))
+        k, v = F.split(kv, num_outputs=2, axis=2)
+        q = F._contrib_rope(q, theta=self.rope_theta)
+        k = F._contrib_rope(k, theta=self.rope_theta)
+        if self.num_kv_heads != h:
             # F.repeat(k, repeats=rep, axis=1) in the JAX (B, H, L, D)
-            rep = self.num_heads // self.num_kv_heads
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
-        out = sdp_attention(q, k, v, causal=True, layout="blhd")
-        return self.out_proj(out.reshape(b, l, self.num_heads * d))
+            rep = h // self.num_kv_heads
+            k = F.repeat(k, repeats=rep, axis=2)
+            v = F.repeat(v, repeats=rep, axis=2)
+        out = F._contrib_sdp_attention(q, k, v, causal=True, layout="blhd")
+        return self.out_proj(out.reshape((b, l, h * d)))
 
 
-class LlamaMLP(Block):
+class LlamaMLP(HybridBlock):
     """SwiGLU: gate and up projected in ONE matmul, then silu(gate)*up."""
 
-    def __init__(self, units, hidden_size, device=None, dtype=None):
-        super().__init__()
-        kw = {"bias": False, "device": device, "dtype": dtype}
-        self.gate_up = nn.Linear(units, 2 * hidden_size, **kw)
-        self.down = nn.Linear(hidden_size, units, **kw)
+    def __init__(self, units, hidden_size, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.gate_up = nn.Dense(2 * hidden_size, flatten=False,
+                                    use_bias=False, in_units=units,
+                                    prefix="gateup_")
+            self.down = nn.Dense(units, flatten=False, use_bias=False,
+                                 in_units=hidden_size, prefix="down_")
 
-    def forward(self, x):
-        gate, up = self.gate_up(x).chunk(2, dim=-1)
-        return self.down(F.silu(gate) * up)
+    def hybrid_forward(self, F, x):
+        gate, up = F.split(self.gate_up(x), num_outputs=2, axis=-1)
+        return self.down(F.Activation(gate, act_type="silu") * up)
 
 
-class LlamaBlock(Block):
+class LlamaBlock(HybridBlock):
     def __init__(self, units, hidden_size, num_heads, num_kv_heads=None,
-                 rope_theta=10000.0, eps=1e-6, device=None, dtype=None):
-        super().__init__()
-        kw = {"device": device, "dtype": dtype}
-        self.attn_norm = RMSNorm(units, eps, **kw)
-        self.attention = LlamaAttention(units, num_heads, num_kv_heads,
-                                        rope_theta, **kw)
-        self.mlp_norm = RMSNorm(units, eps, **kw)
-        self.mlp = LlamaMLP(units, hidden_size, **kw)
+                 rope_theta=10000.0, eps=1e-6, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.attn_norm = RMSNorm(units, eps, prefix="attnnorm_")
+            self.attention = LlamaAttention(units, num_heads, num_kv_heads,
+                                            rope_theta, prefix="attn_")
+            self.mlp_norm = RMSNorm(units, eps, prefix="mlpnorm_")
+            self.mlp = LlamaMLP(units, hidden_size, prefix="mlp_")
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         x = x + self.attention(self.attn_norm(x))
         return x + self.mlp(self.mlp_norm(x))
 
@@ -132,16 +136,18 @@ def _best_ce_chunk(vocab, target=8192):
             return c if c >= target // 4 else target
 
 
-class LlamaModel(Block):
-    """Decoder-only causal LM.
+class LlamaModel(HybridBlock):
+    """Decoder-only causal LM, with the reference's parameter names
+    (``llamamodel0_layer0_attn_q_weight``...) and structural names
+    (``layer0.attention.q_proj.weight``: the blocks are children
+    ``layer0``, ``layer1``, ..., listed in ``blocks``).
 
-    ``ctx``: the device the weights live on (default: the card;
-    ``mx.cpu()`` for the CPU). ``dtype``: the weights' dtype.
-    ``generator``: the ``torch.Generator`` (on ``ctx``'s device) that
-    draws the initial weights, N(0, 0.02) for the projections and the
-    embedding and ones for the norms; ``None`` uses torch's default
-    generator. The modules are built on the meta device first, so a
-    Llama-3-8B in bf16 is materialised once, on its device.
+    Built as in the reference, it is not initialized; ``ctx=``,
+    ``dtype=`` and ``generator=`` at construction initialize it at once
+    (``ctx`` default: the card): N(0, 0.02) for the projections and the
+    embedding and ones for the norms, drawn from ``generator`` (a
+    ``torch.Generator`` on that device) when given, each parameter drawn
+    in float32 and cast to ``dtype``.
 
     ``fused_ce``: ``forward(tokens, labels)`` returns the per-token loss
     through the fused projection + CE head over vocabulary chunks of
@@ -153,9 +159,9 @@ class LlamaModel(Block):
     def __init__(self, vocab_size=128256, num_layers=32, units=4096,
                  hidden_size=14336, num_heads=32, num_kv_heads=8,
                  rope_theta=500000.0, eps=1e-5, remat=False,
-                 fused_ce=False, ce_chunk=None, ctx=None,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
+                 fused_ce=False, ce_chunk=None, prefix=None, params=None,
+                 ctx=None, dtype=None, generator=None):
+        super().__init__(prefix=prefix, params=params)
         if remat not in (False, None):
             raise MXNetError(f"LlamaModel: remat={remat!r} is not ported "
                              "yet (ROADMAP.md, port queue 1, item 8)")
@@ -171,7 +177,6 @@ class LlamaModel(Block):
                 stacklevel=2)
         self._ce_chunk = int(ce_chunk) if ce_chunk else \
             _best_ce_chunk(vocab_size)
-        device = resolve_device(ctx)
         num_kv = num_kv_heads or num_heads
         # architecture record for the paged decode engine
         self._decode_cfg = {
@@ -181,26 +186,21 @@ class LlamaModel(Block):
             "head_dim": int(units // num_heads),
             "rope_theta": float(rope_theta), "eps": float(eps),
         }
-        kw = {"device": "meta", "dtype": torch_dtype(dtype)}
-        self.embed = nn.Embedding(vocab_size, units, **kw)
-        self.blocks = nn.ModuleList(
-            LlamaBlock(units, hidden_size, num_heads, num_kv_heads,
-                       rope_theta, eps, **kw)
-            for _ in range(num_layers))
-        self.norm = RMSNorm(units, eps, **kw)
-        self.lm_head = nn.Linear(units, vocab_size, bias=False, **kw)
-        self.to_empty(device=device)
-        self.reset_parameters(generator)
+        with self.name_scope():
+            self.embed = nn.Embedding(vocab_size, units, prefix="embed_")
+            self.blocks = []
+            for i in range(num_layers):
+                blk = LlamaBlock(units, hidden_size, num_heads, num_kv_heads,
+                                 rope_theta, eps, prefix=f"layer{i}_")
+                self.blocks.append(blk)
+                self.register_child(blk, f"layer{i}")
+            self.norm = RMSNorm(units, eps, prefix="norm_")
+            self.lm_head = nn.Dense(vocab_size, in_units=units,
+                                    flatten=False, use_bias=False,
+                                    prefix="lm_head_")
+        materialize(self, ctx, dtype, generator, initializer.Normal(0.02))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator=None) -> None:
-        for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, 0.02, generator=generator)
-
-    def forward(self, tokens, labels=None):
+    def hybrid_forward(self, F, tokens, labels=None):
         """``tokens`` (B, L) integer ids; the (B, L, vocab) logits, or
         with ``fused_ce`` the (B, L) f32 per-token loss against
         ``labels`` (B, L)."""
@@ -213,16 +213,10 @@ class LlamaModel(Block):
                 raise ValueError(
                     "LlamaModel(fused_ce=True) takes (tokens, labels) and "
                     "returns the per-token loss")
-            return softmax_ce_head(h, self.lm_head.weight, None, labels,
-                                   chunk=self._ce_chunk)
+            return F._contrib_softmax_ce_head(
+                h, param_like(self.lm_head.weight, h), None, labels,
+                chunk=self._ce_chunk)
         return self.lm_head(h)
-
-    def _collect_params_with_prefix(self):
-        """The JAX model's structural names: its blocks are children
-        ``layer0``, ``layer1``, ... where the port holds ``blocks.0``,
-        ``blocks.1``, ... (a ``.params`` file loads in either package)."""
-        return {re.sub(r"^blocks\.(\d+)\.", r"layer\1.", name): p
-                for name, p in self.named_parameters()}
 
     def decode_engine(self, pool, dtype="float32") -> "LlamaDecodeEngine":
         """The paged-KV decode engine for serving (the seam
@@ -296,20 +290,6 @@ def _paged_forward(params, tokens, positions, page_table, lengths,
     return h_last @ head_w.T
 
 
-def _launch_counters():
-    """``{(wrapper, attribute): count}`` over every launch counter of
-    the port's kernel wrappers (``launches``, ``wgmma_launches``, ...)."""
-    from .... import kernels
-
-    out = {}
-    for name in kernels.__all__:
-        fn = getattr(kernels, name)
-        for attr, v in vars(fn).items():
-            if attr.endswith("launches") and isinstance(v, int):
-                out[(fn, attr)] = v
-    return out
-
-
 class _DecodeStep:
     """One decode batch bucket's step: static input buffers on the
     engine's device (tokens, lengths, page table at a fixed (B, W)) and
@@ -354,42 +334,14 @@ class _DecodeStep:
 
     @torch.no_grad()
     def capture(self, e, pool) -> None:
-        """One eager step on a side stream (cuBLAS workspaces, every
-        kernel module loaded: a lazy load inside a capture stalls), then
-        the capture. The buffers hold zeros, so the warm-up step's K/V
-        writes land in scratch page 0. Raises :class:`MXNetError` when
-        the capture fails; nothing runs eagerly in its place."""
-        dev = e.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body(e)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = _launch_counters()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        # no cycle collection inside the capture: freeing another graph
-        # there (cudaGraphExecDestroy) would invalidate it
-        gc_was = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.out = self.body(e)
-        except Exception as err:  # noqa: BLE001 - re-raised typed
-            graph = None
-            raise MXNetError(
-                f"LlamaDecodeEngine: capturing the decode graph of batch "
-                f"bucket {tuple(self.table.shape)} failed: {err}") from err
-        finally:
-            if gc_was:
-                gc.enable()
-            after = _launch_counters()
-            for (fn, attr), n in before.items():
-                setattr(fn, attr, n)        # a capture launches nothing
-        self.launches = {k: after[k] - n for k, n in before.items()
-                         if after[k] != n}
-        graph.instantiate()
-        self.graph = graph
+        """Capture the body (:func:`capture_graph`: a warm-up step on a
+        side stream first). The buffers hold zeros, so the warm-up step's
+        K/V writes land in scratch page 0. Raises :class:`MXNetError`
+        when the capture fails; nothing runs eagerly in its place."""
+        self.graph, self.out, self.launches = capture_graph(
+            lambda: self.body(e), e.device, pool,
+            f"LlamaDecodeEngine: capturing the decode graph of batch "
+            f"bucket {tuple(self.table.shape)}")
 
     @torch.no_grad()
     def __call__(self, e, tokens, lengths, page_table) -> np.ndarray:
@@ -408,8 +360,7 @@ class _DecodeStep:
         self.lengths.copy_(self.h_lengths, non_blocking=True)
         self.table.copy_(self.h_table, non_blocking=True)
         self.graph.replay()
-        for (fn, attr), n in self.launches.items():
-            setattr(fn, attr, getattr(fn, attr) + n)
+        replay_counts(self.launches)
         e.replays += 1
         # one copy into pinned memory (torch's host cache hands the block
         # back once the returned array is gone)
@@ -452,7 +403,7 @@ class LlamaDecodeEngine:
         self.pool = pool
         self.page_size = pool.page_size
         self.dtype = torch_dtype(dtype)
-        self.device = model.embed.weight.device
+        self.device = model.embed.weight.tensor.device
         self.k_arena, self.v_arena = make_kv_arena(
             self.cfg["num_layers"], pool, self.cfg["num_kv_heads"],
             self.cfg["head_dim"], dtype=self.dtype, device=self.device)
@@ -467,7 +418,7 @@ class LlamaDecodeEngine:
         """Extract the weights, cast to the engine dtype (no copy when
         the model already holds that dtype)."""
         def w(p):
-            return p.detach().to(self.device, self.dtype)
+            return p.tensor.detach().to(self.device, self.dtype)
 
         self._params = (
             w(model.embed.weight),

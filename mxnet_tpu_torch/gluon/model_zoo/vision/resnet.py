@@ -3,31 +3,35 @@
 Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py`` for
 ``BasicBlockV1`` (``:29``), ``BottleneckV1`` (``:56``), ``ResNetV1``
 (``:148``), ``get_resnet`` (``:258``) and ``resnet18_v1`` ...
-``resnet152_v1``. In this v1 the bottleneck's stride sits on its first
-1x1 convolution (``:62``), not on the 3x3 as in torchvision's "v1.5".
-The module tree mirrors the reference's (``features``, ``body``,
-``downsample``, ``output``), so
-:func:`mxnet_tpu_torch.convert.resnet_params_from_reference` carries a
-JAX model's parameters and running statistics across in construction
-order.
+``resnet152_v1``, with the reference's module tree (``features``,
+``body``, ``downsample``, ``output``; stages ``stage1_``...) and so its
+parameter and structural names. In this v1 the bottleneck's stride sits
+on its first 1x1 convolution (``:62``), not on the 3x3 as in
+torchvision's "v1.5".
 
 ``layout="NHWC"`` builds the model channels-last inside with NCHW at the
 API edge, as the reference: the forward turns the (N, 3, H, W) input
 into torch's ``channels_last`` memory format once and runs every layer
-on its (N, H, W, C) view (convolution weights stored channels-last
-too); ``layout`` is passed down to every layer, there is no
-``conv_layout`` context. ResNet v2 waits in ``ROADMAP.md``.
+on its (N, H, W, C) view (convolution weights stored channels-last too);
+``layout`` is passed down to every layer, there is no ``conv_layout``
+context. The shapes are given (no deferred ``in_channels``), so
+``initialize`` allocates at once. ``ctx=``, ``dtype=`` and
+``generator=`` at construction initialize at once as the reference's
+default initializer does (``Uniform(0.07)`` weights, zero biases and
+beta, unit gamma, running statistics zero and one), BatchNorm in
+float32 under a half-precision ``dtype``. ResNet v2 waits in
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
 import torch
 
-from ....base import MXNetError, torch_dtype
-from ....context import resolve_device
-from ....ops import nn as ops
-from ...block import Block
-from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
-                   HybridSequential, MaxPool2D)
+from .... import initializer
+from ....base import MXNetError
+from ....ndarray import NDArray
+from ...block import HybridBlock
+from ... import nn
+from .._build import materialize
 
 __all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
@@ -35,70 +39,68 @@ __all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
 
 
 class _Layers:
-    """Builds the layers of one model with its layout, device and dtype."""
+    """Builds the layers of one model in its layout."""
 
-    def __init__(self, layout, device, dtype):
+    def __init__(self, layout):
         self.layout = layout
-        self.kw = {"device": device, "dtype": dtype}
 
     def conv(self, channels, kernel, stride, pad, in_channels):
-        return Conv2D(channels, kernel, stride, pad, use_bias=False,
-                      in_channels=in_channels, layout=self.layout,
-                      **self.kw)
+        return nn.Conv2D(channels, kernel, stride, pad, use_bias=False,
+                         in_channels=in_channels, layout=self.layout)
 
     def bn(self, channels):
-        return BatchNorm(axis=-1 if self.layout == "NHWC" else 1,
-                         in_channels=channels, **self.kw)
+        return nn.BatchNorm(axis=-1 if self.layout == "NHWC" else 1,
+                            in_channels=channels)
 
 
-class BasicBlockV1(Block):
-    """Two 3x3 convolutions (18/34-layer v1), the stride on the first."""
-
-    def __init__(self, channels, stride, downsample, in_channels, layers):
-        super().__init__()
-        self.body = HybridSequential()
-        self.body.add(layers.conv(channels, 3, stride, 1, in_channels),
-                      layers.bn(channels), Activation("relu"),
-                      layers.conv(channels, 3, 1, 1, channels),
-                      layers.bn(channels))
-        self.downsample = _downsample(channels, stride, in_channels,
-                                      layers) if downsample else None
-
-    def forward(self, x):
+class _Residual(HybridBlock):
+    def hybrid_forward(self, F, x):
         residual = x if self.downsample is None else self.downsample(x)
-        return ops.activation(self.body(x) + residual, act_type="relu")
-
-
-class BottleneckV1(Block):
-    """1x1-3x3-1x1 bottleneck (50/101/152-layer v1), the stride on the
-    first 1x1."""
-
-    def __init__(self, channels, stride, downsample, in_channels, layers):
-        super().__init__()
-        mid = channels // 4
-        self.body = HybridSequential()
-        self.body.add(layers.conv(mid, 1, stride, 0, in_channels),
-                      layers.bn(mid), Activation("relu"),
-                      layers.conv(mid, 3, 1, 1, mid), layers.bn(mid),
-                      Activation("relu"),
-                      layers.conv(channels, 1, 1, 0, mid),
-                      layers.bn(channels))
-        self.downsample = _downsample(channels, stride, in_channels,
-                                      layers) if downsample else None
-
-    def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        return ops.activation(self.body(x) + residual, act_type="relu")
+        return F.Activation(self.body(x) + residual, act_type="relu")
 
 
 def _downsample(channels, stride, in_channels, layers):
-    ds = HybridSequential()
+    ds = nn.HybridSequential(prefix="")
     ds.add(layers.conv(channels, 1, stride, 0, in_channels),
            layers.bn(channels))
     return ds
 
 
-class ResNetV1(Block):
+class BasicBlockV1(_Residual):
+    """Two 3x3 convolutions (18/34-layer v1), the stride on the first."""
+
+    def __init__(self, channels, stride, downsample, in_channels, layers,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(layers.conv(channels, 3, stride, 1, in_channels),
+                      layers.bn(channels), nn.Activation("relu"),
+                      layers.conv(channels, 3, 1, 1, channels),
+                      layers.bn(channels))
+        self.downsample = _downsample(channels, stride, in_channels,
+                                      layers) if downsample else None
+
+
+class BottleneckV1(_Residual):
+    """1x1-3x3-1x1 bottleneck (50/101/152-layer v1), the stride on the
+    first 1x1."""
+
+    def __init__(self, channels, stride, downsample, in_channels, layers,
+                 **kwargs):
+        super().__init__(**kwargs)
+        mid = channels // 4
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(layers.conv(mid, 1, stride, 0, in_channels),
+                      layers.bn(mid), nn.Activation("relu"),
+                      layers.conv(mid, 3, 1, 1, mid), layers.bn(mid),
+                      nn.Activation("relu"),
+                      layers.conv(channels, 1, 1, 0, mid),
+                      layers.bn(channels))
+        self.downsample = _downsample(channels, stride, in_channels,
+                                      layers) if downsample else None
+
+
+class ResNetV1(HybridBlock):
     """ResNet v1 ("Deep Residual Learning for Image Recognition").
 
     ``block``: :class:`BasicBlockV1` or :class:`BottleneckV1`;
@@ -106,20 +108,13 @@ class ResNetV1(Block):
     each stage's. ``thumbnail`` replaces the 7x7 stride-2 stem, its
     BatchNorm and the max pool by one 3x3 convolution (small images).
     ``forward(x)``: (N, 3, H, W) images in the model's dtype (NCHW in
-    both layouts) to (N, classes) logits.
-
-    ``ctx``: the device (default: the card; ``mx.cpu()`` for the CPU).
-    ``dtype``: the convolutions' and the classifier's dtype (BatchNorm
-    keeps f32). ``generator``: the ``torch.Generator`` (on ``ctx``'s
-    device) that draws the initial weights as the reference's default
-    initializer does (``net.initialize()``: ``Uniform(0.07)``): every
-    weight uniform in [-0.07, 0.07), biases and beta zero, gamma one;
-    ``None`` uses torch's default generator."""
+    both layouts) to (N, classes) logits. ``ctx``, ``dtype``,
+    ``generator``: see the module docstring."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, layout="NCHW", ctx=None,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
+                 thumbnail=False, layout="NCHW", prefix=None, params=None,
+                 ctx=None, dtype=None, generator=None):
+        super().__init__(prefix=prefix, params=params)
         if len(layers) != len(channels) - 1:
             raise ValueError("ResNetV1: one channel count per stage, after "
                              "the stem's")
@@ -127,40 +122,36 @@ class ResNetV1(Block):
             raise ValueError(f"ResNetV1: layout {layout!r} is not NCHW or "
                              "NHWC")
         self._layout = layout
-        device = resolve_device(ctx)
-        mk = _Layers(layout, device, torch_dtype(dtype))
-        self.features = HybridSequential()
-        if thumbnail:
-            self.features.add(mk.conv(channels[0], 3, 1, 1, 3))
-        else:
-            self.features.add(mk.conv(channels[0], 7, 2, 3, 3),
-                              mk.bn(channels[0]), Activation("relu"),
-                              MaxPool2D(3, 2, 1, layout=layout))
-        for i, num_layer in enumerate(layers):
-            stage = HybridSequential()
-            in_c, out_c = channels[i], channels[i + 1]
-            stride = 1 if i == 0 else 2
-            stage.add(block(out_c, stride, out_c != in_c, in_c, mk))
-            for _ in range(num_layer - 1):
-                stage.add(block(out_c, 1, False, out_c, mk))
-            self.features.add(stage)
-        self.features.add(GlobalAvgPool2D(layout=layout))
-        self.output = Dense(classes, channels[-1], **mk.kw)
-        self.reset_parameters(generator)
+        mk = _Layers(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(mk.conv(channels[0], 3, 1, 1, 3))
+            else:
+                self.features.add(mk.conv(channels[0], 7, 2, 3, 3),
+                                  mk.bn(channels[0]), nn.Activation("relu"),
+                                  nn.MaxPool2D(3, 2, 1, layout=layout))
+            for i, num_layer in enumerate(layers):
+                stage = nn.HybridSequential(prefix=f"stage{i + 1}_")
+                in_c, out_c = channels[i], channels[i + 1]
+                with stage.name_scope():
+                    stage.add(block(out_c, 1 if i == 0 else 2,
+                                    out_c != in_c, in_c, mk, prefix=""))
+                    for _ in range(num_layer - 1):
+                        stage.add(block(out_c, 1, False, out_c, mk,
+                                        prefix=""))
+                self.features.add(stage)
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.output = nn.Dense(classes, in_units=channels[-1])
+        materialize(self, ctx, dtype, generator, initializer.Uniform(0.07))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator=None) -> None:
-        for name, p in self.named_parameters():
-            if name.endswith("weight"):
-                p.uniform_(-0.07, 0.07, generator=generator)
-            elif name.endswith("bias"):
-                p.zero_()
-
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         if self._layout == "NHWC":
             # NCHW at the API edge, channels-last inside: one reorder
-            x = x.contiguous(memory_format=torch.channels_last) \
+            t = x._data if isinstance(x, NDArray) else x
+            t = t.contiguous(memory_format=torch.channels_last) \
                 .permute(0, 2, 3, 1)
+            x = NDArray(t) if isinstance(x, NDArray) else t
         return self.output(self.features(x))
 
 

@@ -1,8 +1,7 @@
 """Gluon layers of the port (counterpart of ``mxnet_tpu/gluon/nn``)."""
-from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
-                           Flatten, HybridSequential, LayerNorm)
-from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
+from .activations import *  # noqa: F401,F403
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
 
-__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Dropout",
-           "Embedding", "Flatten", "GlobalAvgPool2D", "HybridSequential",
-           "LayerNorm", "MaxPool2D"]
+# the Block bases through gluon.nn as well, as upstream exposes them
+from ..block import Block, HybridBlock, SymbolBlock  # noqa: F401,E402

@@ -144,7 +144,8 @@ class Trainer:
     def _fused_update(self) -> None:
         """Every dense trainable parameter in one fused sweep per dtype
         bucket: plan all buckets, then advance the counts and sweep."""
-        items = [(i, p._var, p.grad()) for i, p in enumerate(self._params)
+        items = [(i, p._var, p._grad_tensor())
+                 for i, p in enumerate(self._params)
                  if p.grad_req != "null"]
         if not items:
             return

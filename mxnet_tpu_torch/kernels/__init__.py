@@ -37,3 +37,16 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "fused_lamb_sweep", "lamb_sweep_reference",
            "paged_attention_kernel", "paged_attention_reference",
            "paged_attention_split_reference", "paged_splits"]
+
+
+def launch_counters() -> dict:
+    """``{(wrapper, attribute): count}`` over every launch counter of the
+    kernel wrappers above (``launches``, ``wgmma_launches``, ...): what a
+    CUDA graph capture puts back and each replay adds again."""
+    out = {}
+    for name in __all__:
+        fn = globals()[name]
+        for attr, v in vars(fn).items():
+            if attr.endswith("launches") and isinstance(v, int):
+                out[(fn, attr)] = v
+    return out

@@ -26,7 +26,8 @@ from typing import Dict
 from ..base import MXNetError
 
 __all__ = ["SOURCES", "build_all", "build_dir", "load", "check", "call",
-           "kernels_per_call", "graph_kernel_names"]
+           "kernels_per_call", "graph_kernel_names", "capture_graph",
+           "replay_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -214,3 +215,54 @@ def graph_kernel_names(graph) -> list:
                                              params.kern), "cuKernelGetName")
         names.append(name.value.decode(errors="replace"))
     return names
+
+
+def capture_graph(body, device, pool, what):
+    """Capture ``body()`` into a ``torch.cuda.CUDAGraph`` on ``device``,
+    in the memory pool ``pool``: every graph of the port is captured so.
+    One eager call on a side stream comes first (cuBLAS workspaces, every
+    kernel module loaded: a lazy load inside a capture stalls); the
+    capture runs with the cyclic GC off (a graph freed inside another
+    capture, ``cudaGraphExecDestroy``, would invalidate it). A capture
+    launches nothing, so the kernel wrappers' launch counters are put
+    back, and each replay adds the capture's delta
+    (:func:`replay_counts`). Returns ``(graph, outputs, delta)``. A
+    failed capture raises :class:`MXNetError` as ``"{what} failed:
+    ..."``; nothing runs eagerly in its place."""
+    import gc
+
+    import torch
+
+    from . import launch_counters
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = launch_counters()
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            out = body()
+    except Exception as err:  # noqa: BLE001 - re-raised typed
+        raise MXNetError(f"{what} failed: {err}") from err
+    finally:
+        if gc_was:
+            gc.enable()
+        after = launch_counters()
+        for (fn, attr), n in before.items():
+            setattr(fn, attr, n)            # a capture launches nothing
+    graph.instantiate()
+    return graph, out, {k: after[k] - n for k, n in before.items()
+                        if after[k] != n}
+
+
+def replay_counts(delta) -> None:
+    """Move the launch counters by one replay of a graph whose capture
+    returned ``delta`` (:func:`capture_graph`)."""
+    for (fn, attr), n in delta.items():
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -709,8 +709,16 @@ def imperative_invoke(opdef, tensor_args, attrs, out=None, ctx=None):
             result = registry.invoke(opdef, vals, attrs)
     multi = isinstance(result, (tuple, list))
     inputs = [v for v in vals if isinstance(v, torch.Tensor)]
-    outputs = [NDArray(_fresh(r, inputs))
-               for r in (result if multi else [result])]
+    if opdef.views:
+        # views of the one input, derived from it again as reshape's are
+        src = tensor_args[0]
+        outputs = [src._make_view(
+            lambda t, i=i: registry.invoke(opdef, [t], attrs)[i]
+            if multi else registry.invoke(opdef, [t], attrs), out=r)
+            for i, r in enumerate(result if multi else [result])]
+    else:
+        outputs = [NDArray(_fresh(r, inputs))
+                   for r in (result if multi else [result])]
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outs, outputs):

@@ -15,6 +15,7 @@ import torch
 from .. import autograd, random_state
 from ..kernels import flash_attention, fused_rms_norm, paged_attention_kernel
 from ..kernels.dropout import attn_keep_mask, dropout_thresh, f32
+from .registry import register
 
 __all__ = ["sdp_attention", "rms_norm", "rope", "rope_at",
            "paged_attention"]
@@ -172,3 +173,9 @@ def paged_attention(query, k_arena, v_arena, page_table, lengths,
                        + torch.arange(lq, device=query.device)[None, :])
     return _paged_reference(query, k_arena, v_arena, page_table, lengths,
                             q_positions, page_size, scale)
+
+
+# under the reference's op names (mx.nd._contrib_sdp_attention, ...)
+register("_contrib_sdp_attention", aliases=["sdp_attention"])(sdp_attention)
+register("_contrib_rms_norm", aliases=["rms_norm"])(rms_norm)
+register("_contrib_rope", aliases=["rope"])(rope)

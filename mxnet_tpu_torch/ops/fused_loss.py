@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .registry import register
+
 __all__ = ["softmax_ce_head"]
 
 _LOG2E = 1.4426950408889634
@@ -140,3 +142,7 @@ def softmax_ce_head(hidden, weight, bias=None, labels=None, *, chunk=5120):
     loss = _SoftmaxCEHead.apply(hidden.reshape(-1, d), weight, bias,
                                 labels.reshape(-1).long(), chunk)
     return loss.reshape(lead)
+
+
+register("_contrib_softmax_ce_head",
+         aliases=["softmax_ce_head"])(softmax_ce_head)

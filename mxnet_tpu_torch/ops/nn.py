@@ -30,7 +30,7 @@ from .registry import attr, register
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "flatten", "embedding", "layer_norm", "fused_layer_norm_op",
            "fused_bias_gelu_op", "activation", "dropout", "softmax",
-           "log_softmax"]
+           "log_softmax", "instance_norm", "group_norm", "leaky_relu"]
 
 
 def fully_connected(data, weight, bias=None, *, flatten=True):
@@ -414,3 +414,119 @@ def _activation_op(data, *, act_type="relu"):
 
 register("softmax")(softmax)
 register("log_softmax")(log_softmax)
+
+
+# the Gluon layers' ops (mx.nd.LayerNorm, mx.nd.BatchNorm, ...): each goes
+# to the function above that the layer ran before, so a CUDA NDArray
+# reaches the same kernel
+
+
+@register("LayerNorm", aliases=["layer_norm"], attrs=[
+    attr("axis", int, "The axis to normalize (the last only)."),
+    attr("eps", float, "Normalization epsilon.", low=0.0),
+])
+def _layer_norm_op(data, gamma, beta, *, axis=-1, eps=1e-5,
+                   output_mean_var=False):
+    if output_mean_var:
+        raise MXNetError("LayerNorm: output_mean_var is not ported yet "
+                         "(ROADMAP.md, port queue 1, item 4)")
+    return layer_norm(data, gamma, beta, axis=axis, eps=eps)
+
+
+register("_contrib_fused_layer_norm", aliases=["fused_layer_norm"], attrs=[
+    attr("eps", float, "Normalization epsilon.", low=0.0),
+    attr("dropout", float, "Drop rate applied to ``data`` (not the "
+         "residual) before the add+norm.", low=0.0, high=1.0),
+])(fused_layer_norm_op)
+register("_contrib_fused_bias_gelu",
+         aliases=["fused_bias_gelu"])(fused_bias_gelu_op)
+
+
+@register("BatchNorm", aliases=["batch_norm"], attrs=[
+    attr("eps", float, "Numerical-stability epsilon added to variance.",
+         low=0.0),
+    attr("momentum", float, "Moving-average momentum.", low=0.0, high=1.0),
+    attr("fix_gamma", bool, "Treat gamma as fixed at 1."),
+    attr("use_global_stats", bool,
+         "Normalize with moving stats even in training."),
+    attr("axis", int, "Channel axis (1 = channels-first, -1 = last)."),
+])
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False):
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps=eps,
+                      fix_gamma=fix_gamma,
+                      use_global_stats=use_global_stats,
+                      output_mean_var=output_mean_var, axis=axis)
+
+
+@register("Embedding", attrs=[
+    attr("input_dim", int, "Vocabulary size.", low=0),
+    attr("output_dim", int, "Embedding width.", low=0),
+])
+def _embedding_op(data, weight, *, input_dim=0, output_dim=0,
+                  dtype="float32", sparse_grad=False):
+    return embedding(data, weight)
+
+
+@register("InstanceNorm", attrs=[
+    attr("eps", float, "Normalization epsilon.", low=0.0)])
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """Each sample's channels normalised over their spatial axes (the
+    biased variance), then ``gamma``/``beta`` per channel, in data's
+    dtype (reference ``ops/nn.py:793``)."""
+    ax = tuple(range(2, data.dim()))
+    mean = data.mean(dim=ax, keepdim=True)
+    var = (data - mean).square().mean(dim=ax, keepdim=True)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("GroupNorm", attrs=[
+    attr("num_groups", int, "Number of channel groups.", low=1),
+    attr("eps", float, "Normalization epsilon.", low=0.0)])
+def group_norm(data, gamma, beta, *, num_groups=1, eps=1e-5):
+    """The channels split into ``num_groups`` groups, each normalised over
+    its channels and the spatial axes (reference ``ops/nn.py:803``)."""
+    n, c = data.shape[:2]
+    x = data.reshape((n, num_groups, c // num_groups) + tuple(data.shape[2:]))
+    ax = tuple(range(2, x.dim()))
+    mean = x.mean(dim=ax, keepdim=True)
+    var = (x - mean).square().mean(dim=ax, keepdim=True)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return x * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+_SELU = (1.0507009873554805, 1.6732632423543772)
+
+
+@register("LeakyReLU", attrs=[
+    attr("act_type", str, "The activation.",
+         choices=("leaky", "prelu", "elu", "selu", "gelu", "rrelu")),
+    attr("slope", float, "Negative slope (leaky) or alpha (elu)."),
+])
+def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """``LeakyReLU`` in each ``act_type`` of the reference
+    (``ops/nn.py:852``); ``rrelu`` takes the mean slope, as there."""
+    neg = data < 0
+    if act_type == "leaky":
+        return torch.where(neg, slope * data, data)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() < data.dim() and g.numel() > 1:
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(neg, g * data, data)
+    if act_type == "elu":
+        return torch.where(neg, slope * torch.expm1(data), data)
+    if act_type == "selu":
+        scale, alpha = _SELU
+        return scale * torch.where(neg, alpha * torch.expm1(data), data)
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        return torch.where(neg, (lower_bound + upper_bound) / 2.0 * data,
+                           data)
+    raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not known")

@@ -128,16 +128,19 @@ class OpDef(NamedTuple):
     attr_params: tuple                # attribute names, in order
     variadic: bool                    # takes *tensors (Concat, add_n)
     attr_specs: Optional[Dict] = None  # AttrSpec by name
+    views: bool = False               # its outputs are views of its input
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(name: Optional[str] = None, aliases: Sequence[str] = (),
-             attrs: Sequence[AttrSpec] = ()):
+             attrs: Sequence[AttrSpec] = (), views: bool = False):
     """Decorator registering a PyTorch op under ``name`` (default: the
     function's name) and ``aliases``; ``attrs`` declares typed
-    attributes."""
+    attributes. ``views``: the op's outputs are views of its input, and
+    the NDArray layer hands them out as such (no other op's NDArray
+    output shares its input's storage)."""
 
     def deco(fn):
         opname = name or fn.__name__
@@ -161,7 +164,8 @@ def register(name: Optional[str] = None, aliases: Sequence[str] = (),
             optional_tensor_params=frozenset(optional),
             attr_params=tuple(attr_params),
             variadic=any(p.kind == p.VAR_POSITIONAL for p in params),
-            attr_specs={s.name: s for s in attrs} if attrs else None)
+            attr_specs={s.name: s for s in attrs} if attrs else None,
+            views=views)
         _REGISTRY[opname] = opdef
         for a in aliases:
             _REGISTRY[a] = opdef

@@ -200,6 +200,15 @@ def split(data, *, num_outputs=1, axis=1, squeeze_axis=False):
     return _split(data, num_outputs, axis, squeeze_axis)
 
 
+@register("_split_views", views=True)
+def split_views(data, *, num_outputs=1, axis=-1):
+    """``data`` cut into ``num_outputs`` equal parts along ``axis``, as
+    views of it: one split, whose backward is one concatenation. The
+    port's own op (``split`` hands out copies, as the reference's does);
+    its NDArray outputs share ``data``'s storage."""
+    return data.split(data.shape[axis] // num_outputs, dim=axis)
+
+
 @register("split_v2")
 def split_v2(data, *, indices=(), axis=0, squeeze_axis=False, sections=0):
     return _split(data, sections if sections > 0 else list(indices), axis,
@@ -469,6 +478,20 @@ def _arange(*, start=0.0, stop=None, step=1.0, repeat=1, dtype="float32",
         out[1] = ends[1]
     out = out.to(dt)
     return torch.repeat_interleave(out, repeat) if repeat > 1 else out
+
+
+@register("_contrib_arange_like", aliases=["arange_like"])
+def arange_like(data, *, start=0.0, step=1.0, repeat=1, axis=None):
+    """``start + step * i`` in f32 over ``data``'s shape, or over its
+    ``axis`` alone, on ``data``'s device (no host copy: a CUDA graph
+    captures it). ``repeat`` is taken and ignored, as in the
+    reference."""
+    if axis is None:
+        out = start + step * torch.arange(data.numel(), dtype=torch.float32,
+                                          device=data.device)
+        return out.reshape(data.shape)
+    return start + step * torch.arange(data.shape[axis], dtype=torch.float32,
+                                       device=data.device)
 
 
 @register("diag")

@@ -30,8 +30,9 @@ import torch
 from .context import Context
 from .kernels.dropout import hash_u32
 
-__all__ = ["seed", "next_seed", "scoped_seed", "preserved_stream",
-           "checkpoint_state", "restore_checkpoint_state"]
+__all__ = ["seed", "next_seed", "next_init_seed", "scoped_seed",
+           "preserved_stream", "checkpoint_state",
+           "restore_checkpoint_state"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
@@ -89,6 +90,16 @@ def next_seed(device=None) -> int:
         return hash_u32(k, frame[0])
     gen = _stream(st, _sig(device))
     return int(torch.randint(0, 2 ** 32, (1,), generator=gen,
+                             dtype=torch.int64))
+
+
+def next_init_seed() -> int:
+    """A fresh seed for an initializer's draws, from a stream of its own
+    (the reference draws initial weights from its host generator, apart
+    from the random ops' keys), so initializing a model does not move any
+    device's sequence of dropout seeds; ``seed(n)`` resets it too."""
+    gen = _stream(_global(), "init")
+    return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=gen,
                              dtype=torch.int64))
 
 

@@ -275,13 +275,15 @@ class Server:
     :class:`~mxnet_tpu_torch.gluon.model_zoo.nlp.LlamaModel`) —
     continuous-batching greedy generation::
 
-        net = mx.gluon.model_zoo.nlp.bert_12_768_12(dtype=torch.bfloat16)
+        net = mx.gluon.model_zoo.nlp.bert_12_768_12(ctx=mx.gpu(),
+                                                    dtype=torch.bfloat16)
         with mx.serving.Server(net, shape_buckets=[(128,), (512,)],
                                batch_buckets=(1, 8, 32),
                                slo_ms=500) as srv:
             seq, pooled, cls, mlm = srv.submit(token_ids).result()
 
-        net = mx.gluon.model_zoo.nlp.llama_3_8b(dtype=torch.bfloat16)
+        net = mx.gluon.model_zoo.nlp.llama_3_8b(ctx=mx.gpu(),
+                                                dtype=torch.bfloat16)
         with mx.serving.Server(net, dtype="bfloat16", decode_pages=1024,
                                batch_buckets=(1, 2, 4, 8),
                                len_buckets=(128, 512)) as srv:

@@ -377,4 +377,4 @@ def test_default_device_bert_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
     with pytest.raises(mx.MXNetError):
-        BERTModel(**CFG)
+        BERTModel(**CFG).initialize()

@@ -92,7 +92,7 @@ def test_convert_maps_every_name_and_keeps_the_tie(reference):
     assert set(n for n, _ in net.named_parameters()) == set(sd)
     prefix = next(n for n in named if n.endswith("bert_word_embed_weight"))
     np.testing.assert_array_equal(
-        net.bert.word_embed.weight.detach().numpy(), named[prefix])
+        net.bert.word_embed.weight.tensor.detach().numpy(), named[prefix])
 
 
 def test_convert_raises_on_a_bad_name_shape_or_missing_head(reference):
@@ -263,7 +263,7 @@ def test_tied_projection_gradient_reaches_unused_vocab_rows():
     rs = np.random.RandomState(0)
     tok = rs.randint(0, 128, (4, 32)).astype(np.int32)
     lab = rs.randint(0, 128, (4, 32)).astype(np.int32)
-    emb = net.bert.word_embed.weight
+    emb = net.bert.word_embed.weight.tensor
     w0 = emb.detach().clone()
     losses = [float(step((tok, lab), ())[0]) for _ in range(10)]
     assert losses[-1] < losses[0], losses

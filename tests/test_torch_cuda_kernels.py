@@ -1019,6 +1019,7 @@ def test_rms_norm_module_trains_its_weight_on_card(dtype):
     equal to the plain version's on the CPU, and x's gradient too; one
     forward and one backward kernel launch."""
     _require_card()
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo.nlp import RMSNorm
 
     dt = getattr(torch, dtype)
@@ -1027,13 +1028,16 @@ def test_rms_norm_module_trains_its_weight_on_card(dtype):
     grads = []
     before = (fused_rms_norm.launches, fused_rms_norm_bwd.launches)
     for dev in ("cuda", "cpu"):
-        norm = RMSNorm(2048, eps=1e-5, device=dev, dtype=dt)
+        norm = RMSNorm(2048, eps=1e-5)
+        norm.cast(dt)
+        norm.initialize(ctx=mx.gpu(0) if dev == "cuda" else mx.cpu())
+        w = norm.weight.tensor
         with torch.no_grad():
-            norm.weight.copy_((1 + 0.1 * torch.randn(2048, generator=g)))
+            w.copy_((1 + 0.1 * torch.randn(2048, generator=g)))
         xi = x.to(dev).requires_grad_()
         norm(xi).float().sum().backward()
-        assert norm.weight.grad is not None and xi.grad is not None
-        grads.append((xi.grad.cpu(), norm.weight.grad.cpu()))
+        assert w.grad is not None and xi.grad is not None
+        grads.append((xi.grad.cpu(), w.grad.cpu()))
         g.manual_seed(9)
         torch.randn(4, 64, 2048, generator=g)
     torch.cuda.synchronize()
@@ -1372,6 +1376,17 @@ def test_trainer_lamb_on_card_matches_cpu():
             torch.cuda.synchronize()
             assert after[0] - before[0] == 3 * 6
             assert [a - b for a, b in zip(after[1:], before[1:])] == [3] * 3
+    # the readings, shown with ``-s``: the loss gap and each parameter's
+    # delta gap over its norm, worst first
+    gaps = []
+    for (name, a), b, s in zip(nets["cuda"].named_parameters(),
+                               nets["cpu"].parameters(), w0):
+        da, db = a.detach().cpu() - s, b.detach() - s
+        gaps.append((float((da - db).norm()) / max(float(db.norm()), 1e-30),
+                     name))
+    print(f"lamb card vs cpu: loss max rel "
+          f"{max(abs(x / y - 1) for x, y in zip(losses['cuda'], losses['cpu']))}"
+          f", delta gap / norm {sorted(gaps, reverse=True)[:3]}")
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
     for a, b, s in zip(nets["cuda"].parameters(), nets["cpu"].parameters(),
                        w0):

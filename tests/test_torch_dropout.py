@@ -516,6 +516,7 @@ def test_attention_output_is_dropped_twice_as_in_the_reference():
     torch.manual_seed(0)
     cell = TransformerEncoderCell(32, 64, 4, dropout=0.1,
                                   activation="gelu", attn_dropout=0.1)
+    cell.initialize(ctx=mx.cpu())
     with torch.no_grad():
         for p in cell.parameters():
             p.normal_(0.0, 0.3)
@@ -529,11 +530,12 @@ def test_attention_output_is_dropped_twice_as_in_the_reference():
     h = flash_attention(q, k, v, layout="blhd", dropout=0.1, seed=s[0])
     h = att.out_proj(h.reshape(2, 16, 32))
     h = pdrop.hash_dropout_reference(h, 0.1, s[1])            # site 2
-    y = fused_layer_norm(h, cell.ln1.gamma, cell.ln1.beta, x,
+    y = fused_layer_norm(h, cell.ln1.gamma.tensor, cell.ln1.beta.tensor, x,
                          dropout=0.1, seed=s[2])               # site 3
     f = pdrop.hash_dropout_reference(cell.ffn.ffn2(cell.ffn.ffn1(y)), 0.1,
                                      s[3])
-    want = fused_layer_norm(f, cell.ln2.gamma, cell.ln2.beta, y)
+    want = fused_layer_norm(f, cell.ln2.gamma.tensor, cell.ln2.beta.tensor,
+                            y)
     assert torch.equal(got, want)
 
 

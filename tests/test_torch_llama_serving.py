@@ -317,7 +317,7 @@ def test_default_device_entry_points_raise_without_cuda(nets):
     with pytest.raises(mx.MXNetError):
         mx.gpu()
     with pytest.raises(mx.MXNetError):
-        llama_tiny()
+        llama_tiny().initialize()
     with pytest.raises(mx.MXNetError):
         Server(pnet, **_server_kw())
     with pytest.raises(mx.MXNetError):

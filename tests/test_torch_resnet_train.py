@@ -445,6 +445,7 @@ def test_batch_norm_block_without_scale_or_center():
     block) trains nothing: gamma and beta are buffers of ones and zeros,
     and its training output is the op's with ``fix_gamma``."""
     bn = pnn.BatchNorm(in_channels=3, scale=False, center=False)
+    bn.initialize(ctx=mx.cpu())
     assert list(bn.parameters()) == []
     assert sorted(dict(bn.named_buffers())) == [
         "beta", "gamma", "running_mean", "running_var"]
@@ -568,11 +569,12 @@ def test_resnet50_shapes_and_converter_names():
                if c._kwargs["stride"] == (2, 2)]
     assert strided == [(7, 7)] + [(1, 1)] * 6
     for c in convs:
-        assert c.weight.dtype == torch.bfloat16
-        assert c.weight.is_contiguous(memory_format=torch.channels_last)
+        assert c.weight.tensor.dtype == torch.bfloat16
+        assert c.weight.tensor.is_contiguous(
+            memory_format=torch.channels_last)
     for b in bns:
-        assert {t.dtype for t in (b.gamma, b.beta, b.running_mean,
-                                  b.running_var)} == {torch.float32}
+        assert {p.tensor.dtype for p in (b.gamma, b.beta, b.running_mean,
+                                         b.running_var)} == {torch.float32}
     jnet = jvision.resnet50_v1()
     jnet.initialize()
     jnet(jmx.nd.zeros((1, 3, 64, 64)))
@@ -875,10 +877,12 @@ class _Small(torch.nn.Module):
                                use_bias=False)
         self.bn = pnn.BatchNorm(in_channels=6, momentum=0.9)
         self.pool = pnn.GlobalAvgPool2D()
-        self.out = pnn.Dense(4, 6)
+        self.out = pnn.Dense(4, in_units=6)
+        for blk in (self.conv, self.bn, self.out):
+            blk.initialize(ctx=mx.cpu())
         with torch.no_grad():
-            self.conv.weight.normal_(0, 0.3, generator=g)
-            self.out.weight.normal_(0, 0.3, generator=g)
+            self.conv.weight.tensor.normal_(0, 0.3, generator=g)
+            self.out.weight.tensor.normal_(0, 0.3, generator=g)
 
     def forward(self, x):
         return self.out(self.pool(torch.relu(self.bn(self.conv(x)))))
@@ -894,27 +898,27 @@ def test_one_step_moves_the_running_stats_by_the_reference_expression():
     x, y = _batch(4, 8)
     y = y % 4
     with torch.no_grad():
-        _, mean, var = pops.batch_norm(net.conv(_t(x)), net.bn.gamma,
-                                       net.bn.beta, net.bn.running_mean,
-                                       net.bn.running_var, eps=1e-5,
+        _, mean, var = pops.batch_norm(net.conv(_t(x)), net.bn.gamma.tensor,
+                                       net.bn.beta.tensor, net.bn.running_mean.tensor,
+                                       net.bn.running_var.tensor, eps=1e-5,
                                        fix_gamma=False, training=True)
-    rm0, rv0 = net.bn.running_mean.clone(), net.bn.running_var.clone()
+    rm0, rv0 = net.bn.running_mean.tensor.clone(), net.bn.running_var.tensor.clone()
     step = TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
                      optimizer_params={"learning_rate": 0.1,
                                        "momentum": 0.9})
-    assert not any(p is net.bn.running_mean or p is net.bn.running_var
+    assert not any(p is net.bn.running_mean.tensor or p is net.bn.running_var.tensor
                    for p in step._params)
     step(x, y)
-    assert torch.equal(net.bn.running_mean, rm0 * 0.9 + mean * (1 - 0.9))
-    assert torch.equal(net.bn.running_var, rv0 * 0.9 + var * (1 - 0.9))
-    rm1, rv1 = net.bn.running_mean.clone(), net.bn.running_var.clone()
+    assert torch.equal(net.bn.running_mean.tensor, rm0 * 0.9 + mean * (1 - 0.9))
+    assert torch.equal(net.bn.running_var.tensor, rv0 * 0.9 + var * (1 - 0.9))
+    rm1, rv1 = net.bn.running_mean.tensor.clone(), net.bn.running_var.tensor.clone()
     assert not mx.autograd.is_training()
     with torch.no_grad():
         net(_t(x))
     with mx.autograd.predict_mode():
         net(_t(x))
-    assert torch.equal(net.bn.running_mean, rm1)
-    assert torch.equal(net.bn.running_var, rv1)
+    assert torch.equal(net.bn.running_mean.tensor, rm1)
+    assert torch.equal(net.bn.running_var.tensor, rv1)
 
 
 # ---------------------------------------------------------------------------
@@ -959,10 +963,18 @@ def test_resnet_refuses_what_is_not_ported():
             pops.convolution(x, w, kernel=(2, 2), layout=layout)
         with pytest.raises(mx.MXNetError, match="layout.*item 4"):
             pops.pooling(x, kernel=(2, 2), layout=layout)
-    with pytest.raises(ValueError, match="in_channels"):
-        pnn.Conv2D(4, 3)
-    with pytest.raises(ValueError, match="in_channels"):
-        pnn.BatchNorm()
+    # in_channels is deferred, as in the reference: settled by the first
+    # forward
+    conv, bn = pnn.Conv2D(4, 3), pnn.BatchNorm()
+    for blk in (conv, bn):
+        blk.initialize(ctx=mx.cpu())
+    assert conv.weight.shape == (4, 0, 3, 3) and conv.weight._var is None
+    out = bn(conv(torch.zeros(1, 2, 5, 5)))
+    assert conv.weight.shape == (4, 2, 3, 3) and bn.gamma.shape == (4,)
+    assert tuple(out.shape) == (1, 4, 3, 3)
+    for cls in (pnn.Conv1D, pnn.Conv3D, pnn.Conv2DTranspose):
+        with pytest.raises(mx.MXNetError, match="item 4"):
+            cls(4, 3)
 
 
 if __name__ == "__main__":

@@ -367,7 +367,7 @@ def test_load_parameters_refuses_missing_extra_and_misshapen_names(tmp_path):
     from mxnet_tpu_torch.ndarray import serialization
 
     net = port_net(7)
-    good = {name: NDArray(p.detach().clone())
+    good = {name: NDArray(p.tensor.detach().clone())
             for name, p in net._collect_params_with_prefix().items()}
     assert "layer1.mlp.down.weight" in good      # the JAX package's names
     cases = {"missing": dict(good), "extra": dict(good),

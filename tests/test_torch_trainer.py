@@ -47,7 +47,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _np(x):
-    """A torch or jax array as float32 numpy."""
+    """A torch or jax array (or a port NDArray) as float32 numpy."""
+    if isinstance(x, mx.nd.NDArray):
+        x = x._data
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
@@ -306,19 +308,16 @@ def _jax_run(optname, okw, steps, dtype, mp, grad_req=None, mixed=False,
     return losses, [_np(p.data().data) for p in params], states
 
 
-def _cast(var, dtype):
-    var.data = var.data.to(getattr(torch, dtype))
-
-
 def _port_net(dtype="float32", mixed=False):
-    net = HybridSequential()
-    net.add(Dense(16, 32), Dense(8, 16))
+    net = HybridSequential(prefix="net_")
+    with net.name_scope():
+        net.add(Dense(16, in_units=32, prefix="0_"),
+                Dense(8, in_units=16, prefix="1_"))
+    net.initialize(ctx=mx.cpu())
     rs = np.random.RandomState(7)
-    for var, dt in zip(net.parameters(), _dtypes(dtype, mixed)):
-        with torch.no_grad():
-            var.copy_(torch.from_numpy(rs.randn(*var.shape)
-                                       .astype(np.float32)))
-        _cast(var, dt)
+    for p, dt in zip(net.collect_params().values(), _dtypes(dtype, mixed)):
+        p.set_data(rs.randn(*p.shape).astype(np.float32))
+        p.cast(dt)
     return net
 
 
@@ -413,7 +412,7 @@ def test_trainer_ten_steps_match_the_jax_trainer(optname, okw, dtype, mp):
     if mp:
         for p in tr._params:
             w32 = tr._updater.states[tr._params.index(p)][0]
-            assert torch.equal(p.data(), w32.to(torch.bfloat16))
+            assert torch.equal(p.data()._data, w32.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("optname", ["adam", "lamb"])
@@ -435,8 +434,8 @@ def test_mixed_set_with_a_null_parameter(optname):
     with pytest.raises(mx.MXNetError, match="grad_req='null'"):
         null.grad()
     np.testing.assert_array_equal(port[1][1], _np(_port_net(
-        "float32", mixed=True)[0].bias))
-    items = [(i, p._var, p.grad()) for i, p in enumerate(tr._params)
+        "float32", mixed=True)[0].bias.data()))
+    items = [(i, p._var, p._var.grad) for i, p in enumerate(tr._params)
              if p.grad_req != "null"]
     plan = pmt.plan_eager(tr.optimizer, tr._updater, items)
     assert [(b.members, b.wdtype, b.mp) for b in plan.buckets] == \
@@ -460,19 +459,23 @@ def test_multipliers_through_collect_params_select():
     returns reach the sweep, as the JAX Trainer's ``param_dict`` carries
     them: the biases at ``wd_mult=0`` (GluonNLP's BERT scripts) and the
     second weight at ``lr_mult=2``, three LAMB steps at wd 0.1. The
-    select is a regex matched from the name's start, and the same
-    Parameter object comes back from every call."""
+    select is a regex matched from the prefixed name's start, the same
+    Parameter object comes back from every call, and ``get`` of a name
+    the dict lacks creates it under the dict's prefix, as the
+    reference's does."""
     net = _port_net()
     first = net.collect_params()
     biases = net.collect_params(".*bias")
-    assert list(biases.keys()) == ["0.bias", "1.bias"]
-    assert biases["0.bias"] is first["0.bias"]
-    assert list(net.collect_params("0").keys()) == ["0.weight", "0.bias"]
+    assert list(biases.keys()) == ["net_0_bias", "net_1_bias"]
+    assert biases["net_0_bias"] is first["net_0_bias"]
+    assert list(net.collect_params("net_0").keys()) == ["net_0_weight",
+                                                        "net_0_bias"]
     assert list(net.collect_params("bias").keys()) == []
     assert isinstance(first, ParameterDict)
-    assert isinstance(first.get("1.weight"), Parameter)
-    with pytest.raises(mx.MXNetError, match="item 6"):
-        first.get("nosuch")
+    assert first.get("1_weight") is first["net_1_weight"]
+    created = first.get("nosuch", shape=(2,))
+    assert isinstance(created, Parameter) and created.name == "net_nosuch"
+    assert first["net_nosuch"] is created
     okw = {"learning_rate": 0.01, "wd": 0.1}
     mults = {1: (1.0, 0.0), 3: (1.0, 0.0), 2: (2.0, 1.0)}
     port = _port_run("lamb", okw, 3, "float32", False, mults=mults)
@@ -529,7 +532,8 @@ def _jax_dense(rs_seed=3, units=4, in_units=6):
 
 
 def _port_dense(rs_seed=3, units=4, in_units=6):
-    net = Dense(units, in_units)
+    net = Dense(units, in_units=in_units)
+    net.initialize(ctx=mx.cpu())
     rs = np.random.RandomState(rs_seed)
     for p in net.collect_params().values():
         p.set_data(rs.randn(*p.shape).astype(np.float32))
@@ -615,14 +619,14 @@ def test_heads_outside_record():
     rs = np.random.RandomState(2)
     x = torch.from_numpy(rs.randn(3, 6).astype(np.float32))
     net = _port_dense()
-    w = net.collect_params()["weight"]
+    w = net.collect_params()[net.weight.name]
     with mx.autograd.record():
         y = net(x)
     mx.autograd.backward(y)
-    inside = w.grad().clone()
+    inside = w.grad()._data.clone()
     w.zero_grad()
     mx.autograd.backward(net(x))
-    assert torch.equal(w.grad(), inside)
+    assert torch.equal(w.grad()._data, inside)
     for scope in (mx.autograd.pause, torch.no_grad):
         with scope():
             y = net(x)
@@ -857,7 +861,7 @@ def test_backward_reaches_every_parameter_of_bert(bert_weights):
     assert len(leaves) == len(params) - 1
     assert {id(v) for v in leaves} == {
         id(p._var) for n, p in params.items()
-        if n != "bert.token_type_embed.weight"}
+        if not n.endswith("bert_token_type_embed_weight")}
     mx.autograd.backward(loss)
     ref = _port_bert(bert_weights)
     ref(tok, lab).sum().backward()
@@ -908,7 +912,7 @@ def test_trainer_refuses_what_needs_a_later_slice():
     tr.update(4)
     assert opt.rescale_grad == 0.25 and opt.num_update == 1
     with pytest.raises(mx.MXNetError, match="grad_req"):
-        params["weight"].grad_req = "sometimes"
+        params[net.weight.name].grad_req = "sometimes"
 
 
 def test_trainer_module_imports_neither_jax_nor_the_jax_package():
