@@ -170,6 +170,13 @@ package. Phases, each printing JSON lines and failing loudly:
              (finite, falling), exactly 21/21 RMSNorm and 10/10 flash
              launches forward/backward, one AdamW scan and one sweep per
              step and no other training kernel, and a profiled step;
+13a. llama_remat — the same proxy1b from the same weights and batch in
+             three settings: no remat, the driver's default (per-block
+             remat, "full") and --remat dots: the first step's loss and
+             every weight and f32 master under either policy equal to
+             the no-remat step's bit for bit; ms per step, tokens/s,
+             MFU, peak memory; exactly 41/21 RMSNorm and 20/10 flash
+             launches forward/backward a step under remat;
 14. resnet_train_reference — resnet18_v1(classes=10) at 64x64, batch
              4, f32 with TF32 off: three TrainStep SGD steps on the card
              against the CPU, which replays the card's ReLU and max-pool
@@ -178,6 +185,25 @@ package. Phases, each printing JSON lines and failing loudly:
              SGD lr 0.1, momentum 0.9, multi-precision: 3 warm-up and 20
              timed steps, the second against the SGD rule by hand,
              exactly 2 sweeps per step, images/s, MFU, a profiled step;
+15a. optimizer_paths — SGD, Adam, AdamW and LAMB, f32 and bf16 with
+             f32 masters, three updates of a BERT layer's shapes through
+             the fused sweep and through the per-parameter Updater:
+             every weight, master and state bit for bit;
+15b. resnet_v2_trainer_reference — resnet18_v2(classes=10) at 64x64,
+             batch 4, f32, TF32 off: three eager steps (record,
+             backward, Trainer('nag') with a cosine schedule) on the card
+             against the CPU replaying the card's ReLU and max-pool
+             decisions (phase 14's limits), then save_states /
+             load_states into a fresh Trainer over a reloaded model and
+             its step 3 = the uninterrupted one bit for bit;
+15c. resnet_v2_trainer — resnet50_v2(layout="NHWC") bf16 at 128 x 224
+             through GluonCV's recipe in the eager loop (NAG momentum
+             0.9, wd 1e-4, multi-precision, cosine after a linear
+             warmup): the loss falling, each learning rate the
+             schedule's by hand, step 2 against NAG's rule in f64, no
+             sweep launched, one per_param dispatch per parameter;
+             ms per step, images/s, host ms of forward, backward and
+             Trainer.step, save_states/load_states MB/s;
 16. rtc     — mx.rtc.CudaModule over NVRTC (each module compiled to an
              sm_90a CUBIN): upstream MXNet's axpy as a template
              (axpy<float>, axpy<double>, axpy<__half>) and its
@@ -3921,7 +3947,9 @@ def phase_llama_train() -> dict:
     t0 = time.perf_counter()
     batch, seq, timed_steps = 8, 2048, 10
     cfg = pretrain_llama.CONFIGS["proxy1b"]
-    net, step = pretrain_llama.build("proxy1b", ctx="cuda")
+    # --no-remat, as bench_llama.py runs it (phase 13a runs the
+    # driver's default, remat on)
+    net, step = pretrain_llama.build("proxy1b", ctx="cuda", remat=False)
     if net._decode_cfg["num_layers"] != 10 or net._ce_chunk != 8192:
         fail(f"not proxy1b at full depth: {net._decode_cfg}")
     n_params = pretrain_llama.param_count(cfg)
@@ -4393,6 +4421,604 @@ def phase_resnet_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# 13a. proxy1b under remat: the driver's default and both policies
+# ---------------------------------------------------------------------------
+
+def _remat_per_step(cfg, buckets) -> dict:
+    """Launches of each training kernel in one TrainStep of a Llama whose
+    blocks are rematerialised: the no-remat counts (_llama_per_step) with
+    each block's two RMSNorm forwards and its flash forward run again in
+    the backward's recompute (the final norm sits outside the blocks);
+    the backward kernels run once."""
+    layers = cfg["num_layers"]
+    out = _llama_per_step(cfg, buckets, wgmma=True)
+    out["fused_rms_norm"] += 2 * layers
+    out["flash_attention"] += layers
+    out["flash_attention[wgmma]"] += layers
+    return out
+
+
+def _step_state_bits(step) -> dict:
+    """Each trained parameter's weight and f32 master after a step, on
+    the card, keyed by its name."""
+    names = {id(p): n for n, p in step.net.named_parameters()}
+    out = {}
+    for p, st in zip(step._params, step._states):
+        out[names[id(p)]] = p.detach().clone()
+        if isinstance(st, tuple) and isinstance(st[0], torch.Tensor):
+            out[names[id(p)] + "[master]"] = st[0].detach().clone()
+    return out
+
+
+def phase_llama_remat() -> dict:
+    """The proxy1b Llama at full width and depth (700.5M parameters),
+    built by mxnet_tpu_torch.tools.pretrain_llama as in phase 13 (bf16,
+    fused CE head, multi-precision AdamW, weights from seed 0, one (8,
+    2048) batch), in three settings from the same weights and batch: no
+    remat (the reference), the driver's default (per-block remat,
+    "full") and --remat dots. With either policy the first step's loss
+    and every parameter's weight and f32 master after it must equal the
+    no-remat step's bit for bit (the same kernels run on the same
+    inputs; a parameter that differs is named). Then 2 more warm-up and
+    6 timed steps each: ms per step, tokens/s, MFU (6 N per token, the
+    recompute not counted as useful work), peak memory over the timed
+    steps, and exactly the per-step launches: under remat 21 + 20
+    RMSNorm and 10 + 10 flash forwards (each block's two norms and one
+    flash again in the recompute), 21 and 10 backwards."""
+    import gc
+
+    from mxnet_tpu_torch.tools import pretrain_llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, seq, timed_steps = 8, 2048, 6
+    cfg = pretrain_llama.CONFIGS["proxy1b"]
+    n_params = pretrain_llama.param_count(cfg)
+    default = pretrain_llama.resolve_remat("proxy1b", None)
+    settings = [("no_remat", False), ("driver_default", None),
+                ("dots", "dots")]
+    ref, out, fails = None, {}, []
+    for name, flag in settings:
+        net, step = pretrain_llama.build("proxy1b", ctx="cuda", remat=flag)
+        tok, lab = next(pretrain_llama._make_data(
+            "synthetic", batch, seq, cfg["vocab_size"],
+            torch.device("cuda")))
+        first = float(step((tok, lab), ())[0])
+        bits = _step_state_bits(step)
+        rec = {"remat": net._remat, "first_loss": first}
+        if ref is None:
+            ref = (first, bits)
+        else:
+            diff = [k for k, v in bits.items()
+                    if not torch.equal(v, ref[1][k])]
+            rec["first_loss_bits_equal"] = first == ref[0]
+            rec["params_differing"] = diff
+            rec["params_compared"] = len(bits)
+            if first != ref[0] or diff:
+                fails.append(f"{name}: loss {first} vs {ref[0]}, "
+                             f"differing {diff[:8]}")
+        del bits
+        losses = [first] + [float(step((tok, lab), ())[0]) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_train_counts()
+        t1 = time.perf_counter()
+        timed = [step((tok, lab), ())[0] for _ in range(timed_steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _train_counts()
+        per = (_remat_per_step if net._remat else
+               lambda c, b: _llama_per_step(c, b, wgmma=True))(
+                   cfg, len(step._buckets))
+        want = {k: v * timed_steps for k, v in per.items()}
+        tokens_s = batch * seq * timed_steps / wall
+        rec.update({"ms_per_step": wall * 1e3 / timed_steps,
+                    "tokens_per_s": tokens_s,
+                    "mfu": 6.0 * n_params * tokens_s / 989e12,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated()
+                    / 2 ** 30,
+                    "losses": losses + [float(x) for x in timed],
+                    "launches": launches, "launches_per_step": per})
+        if launches != want:
+            fails.append(f"{name}: launches {launches} are not {want}")
+        if not all(np.isfinite(rec["losses"])):
+            fails.append(f"{name}: a loss is not finite: {rec['losses']}")
+        out[name] = rec
+        del step, net, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "llama_remat", "model": "LlamaModel(fused_ce=True), "
+          "proxy1b", "dtype": "bfloat16, multi-precision adamw",
+          "params": n_params, "batch": [batch, seq], "steps": timed_steps,
+          "driver_default_remat": default, "settings": out,
+          "seconds": time.perf_counter() - t0})
+    if default != "full":
+        fails.append(f"the driver's default remat is {default!r}")
+    if fails:
+        fail("proxy1b under remat: " + "; ".join(fails))
+    return out["driver_default"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# 15a. per-parameter optimizer updates against the fused sweeps
+# ---------------------------------------------------------------------------
+
+def phase_optimizer_paths() -> None:
+    """For SGD (momentum 0.9), Adam, AdamW and LAMB, in f32 and in bf16
+    with f32 masters: three updates of a BERT layer's parameter shapes
+    (768 x 768, 3072 x 768, 768 x 3072, 3072, 768) through the fused
+    sweep (the family's kernels, plan_eager/apply_eager_plan) and through
+    the per-parameter Updater (the optimizer's update over NDArrays, the
+    ops' plain PyTorch), from the same weights and gradients, on the
+    card. Every weight, master and state must agree bit for bit; each
+    fused run launches its family's sweep once a step, and the
+    per-parameter LAMB the sweep once a parameter (its norms must be the
+    kernel's sums: LAMB.update), the other families none."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.optimizer import multi_tensor as mt
+
+    t0 = time.perf_counter()
+    shapes = [(768, 768), (3072, 768), (768, 3072), (3072,), (768,)]
+    kws = {"sgd": {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4},
+           "adam": {"learning_rate": 1e-3, "wd": 1e-4},
+           "adamw": {"learning_rate": 1e-3, "wd": 0.01, "beta2": 0.95},
+           "lamb": {"learning_rate": 1e-3, "wd": 0.01}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out, fails = {}, []
+    for family, kw in kws.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            mp = dtype == torch.bfloat16
+            w0 = [torch.randn(s, generator=gen, device="cuda").to(dtype)
+                  for s in shapes]
+            grads = [[torch.randn(s, generator=gen, device="cuda").to(dtype)
+                      for s in shapes] for _ in range(3)]
+            cls = type(mx.optimizer.create(family))
+            fused_opt = cls(multi_precision=mp, **kw)
+            per_opt = type("PerParam", (cls,), {})(multi_precision=mp, **kw)
+            fu, pu = mx.optimizer.Updater(fused_opt), \
+                mx.optimizer.Updater(per_opt)
+            wf = [w.clone() for w in w0]
+            wp = [w.clone() for w in w0]
+            kernel = getattr(mx.kernels, f"fused_{family}_sweep")
+            launched = per_launched = 0
+            for gs in grads:
+                items = [(i, w, g) for i, (w, g) in enumerate(zip(wf, gs))]
+                n0 = kernel.launches
+                plan = mt.plan_eager(fused_opt, fu, items)
+                mt.apply_eager_plan(fused_opt, fu, plan, items)
+                n1 = kernel.launches
+                for i, (w, g) in enumerate(zip(wp, gs)):
+                    pu(i, NDArray(g), NDArray(w))
+                launched += n1 - n0
+                per_launched += kernel.launches - n1
+            torch.cuda.synchronize()
+
+            def leaves(s):
+                if s is None:
+                    return []
+                if isinstance(s, tuple):
+                    return [x for v in s for x in leaves(v)]
+                return [s._data if isinstance(s, NDArray) else s]
+
+            differ = [f"w{i}" for i in range(len(wf))
+                      if not torch.equal(wf[i], wp[i])]
+            for i in fu.states:
+                for k, (a, b) in enumerate(zip(leaves(fu.states[i]),
+                                               leaves(pu.states[i]))):
+                    if not torch.equal(a, b):
+                        differ.append(f"state{i}.{k}")
+            worst = max(float(((a.float() - b.float()).abs()
+                               / a.float().abs().max()).max())
+                        for a, b in zip(wf, wp))
+            key = f"{family}[{'bf16-mp' if mp else 'f32'}]"
+            # LAMB's per-parameter update takes the kernels over its one
+            # parameter on the card (LAMB.update); the others, the ops
+            want_per = 3 * len(shapes) if family == "lamb" else 0
+            out[key] = {"bits_equal": not differ, "differing": differ,
+                        "max_diff_over_max_abs": worst,
+                        "sweep_launches": launched,
+                        "per_param_sweep_launches": per_launched}
+            if differ:
+                fails.append(f"{key}: {differ}")
+            if launched != 3 or per_launched != want_per:
+                fails.append(f"{key}: {launched} fused and {per_launched} "
+                             f"per-parameter sweeps, not 3 and {want_per}")
+    emit({"phase": "optimizer_paths", "shapes": shapes, "results": out,
+          "seconds": time.perf_counter() - t0})
+    if fails:
+        fail("per-parameter updates differ from the fused sweeps: "
+             + "; ".join(fails))
+
+
+# ---------------------------------------------------------------------------
+# 15b-15c. ResNet v2 through the eager Gluon loop: NAG, a cosine schedule
+# ---------------------------------------------------------------------------
+
+V2_NAG = {"momentum": 0.9, "wd": 1e-4}
+
+
+def _v2_schedule(base_lr, max_update, warmup):
+    import mxnet_tpu_torch as mx
+
+    return mx.lr_scheduler.CosineScheduler(
+        max_update=max_update, base_lr=base_lr, final_lr=0.0,
+        warmup_steps=warmup, warmup_begin_lr=0.0, warmup_mode="linear")
+
+
+def _cosine_by_hand(n, base_lr, max_update, warmup):
+    """The cosine schedule with its linear warmup at update ``n``, worked
+    from its definition."""
+    import math
+
+    if n < warmup:
+        return base_lr * n / warmup
+    if n <= max_update:
+        return base_lr * (1 + math.cos(math.pi * (n - warmup)
+                                       / (max_update - warmup))) / 2
+    return 0.0
+
+
+def _eager_step(net, loss_fn, trainer, x, y, times=None):
+    """One step of the eager Gluon loop: the loss under record(),
+    autograd.backward, trainer.step(batch). Returns the mean loss on the
+    device; appends the host seconds of the three parts to ``times``."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    t1 = time.perf_counter()
+    mx.autograd.backward(loss)
+    t2 = time.perf_counter()
+    trainer.step(x.shape[0])
+    if times is not None:
+        times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return loss.detach().float().mean()
+
+
+def phase_resnet_v2_trainer_reference() -> None:
+    """resnet18_v2(classes=10) at 64x64, batch 4, f32 with TF32 off:
+    three eager steps (_eager_step) with Trainer('nag', momentum 0.9, wd
+    1e-4, a cosine schedule with a linear warmup of 2 over 10 updates
+    from lr 0.01) on the card against the same weights and batch on the
+    CPU, which replays the card's ReLU and max-pool decisions
+    (_Decisions). Limits as phase 14's: each loss within 1e-5 relative,
+    every running statistic after each step within 1e-5 + 1e-5 |cpu|,
+    each parameter's delta within 1e-3 of its norm, at most 1e-5 of the
+    replayed decisions disagreeing; no fused sweep launches. Then, on the
+    card: save_parameters and save_states after step 2, a fresh model
+    load_parameters and a fresh Trainer load_states, and its step 3
+    equal to the uninterrupted step 3 bit for bit (weights, running
+    statistics, momenta). cuDNN runs its deterministic algorithms in the
+    phase (restored after it)."""
+    import copy
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v2
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's default convolution backward algorithms may sum with
+    # atomics, and then no two runs of a step agree bit for bit: the
+    # resume check below needs the deterministic ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    steps, sched = 3, (0.01, 10, 2)
+
+    def trainer_of(net):
+        return mx.gluon.Trainer(net.collect_params(), "nag", dict(
+            V2_NAG, lr_scheduler=_v2_schedule(*sched)))
+
+    card_net = resnet18_v2(classes=10, ctx="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 13))
+    cpu_net = copy.deepcopy(card_net).cpu()
+    w0 = {k: v.detach().cpu().clone()
+          for k, v in card_net.named_parameters()}
+    rs = np.random.RandomState(SEED + 13)
+    x = torch.from_numpy(rs.randn(4, 3, 64, 64).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, (4,)).astype(np.float32))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    decisions = _Decisions()
+    losses, stats, resume = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, net in (("card", card_net), ("cpu", cpu_net)):
+            dev = next(net.parameters()).device
+            trainer = trainer_of(net)
+            _reset_train_counts()
+
+            def run():
+                got = []
+                for k in range(steps):
+                    if name == "card" and k == 2:
+                        net.save_parameters(os.path.join(tmp, "w.params"))
+                        trainer.save_states(os.path.join(tmp, "t.states"))
+                    got.append((float(_eager_step(net, loss_fn, trainer,
+                                                  x.to(dev), y.to(dev))),
+                                _running_stats(net)))
+                return got
+
+            got = decisions.run("record" if name == "card" else "replay",
+                                run)
+            losses[name] = [g[0] for g in got]
+            stats[name] = [g[1] for g in got]
+            if name == "card":
+                launches = _train_counts()
+                card_states = {i: [t.clone() for t in _state_leaves(s)]
+                               for i, s in trainer._updater.states.items()}
+                lrs = trainer.learning_rate
+        fresh = resnet18_v2(classes=10, ctx="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(SEED + 99))
+        fresh.load_parameters(os.path.join(tmp, "w.params"))
+        tr2 = trainer_of(fresh)
+        tr2.load_states(os.path.join(tmp, "t.states"))
+        replay = _Decisions()
+        replay.run("record", lambda: _eager_step(
+            fresh, loss_fn, tr2, x.cuda(), y.cuda()))
+        diff = [k for k, v in fresh.state_dict().items()
+                if not torch.equal(v, card_net.state_dict()[k])]
+        for i, s in tr2._updater.states.items():
+            for j, (a, b) in enumerate(zip(_state_leaves(s),
+                                           card_states[i])):
+                if not torch.equal(a, b):
+                    diff.append(f"state{i}.{j}")
+        resume = {"bits_equal": not diff, "differing": diff[:8],
+                  "n_differing": len(diff),
+                  "n_compared": len(fresh.state_dict()) + sum(
+                      len(card_states[i]) for i in card_states),
+                  "num_update": tr2.optimizer.num_update,
+                  "learning_rate": tr2.learning_rate,
+                  "uninterrupted_learning_rate": lrs}
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cudnn.deterministic = deterministic
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                        losses["cpu"]))
+    stat_err = max(float(((a[k] - b[k]).abs()
+                          - 1e-5 * b[k].abs()).max())
+                   for a, b in zip(stats["card"], stats["cpu"]) for k in a)
+    ratios = {}
+    cpu_params = dict(cpu_net.named_parameters())
+    for key, p in card_net.named_parameters():
+        dc = (cpu_params[key].detach() - w0[key]).flatten()
+        dg = (p.detach().cpu() - w0[key]).flatten()
+        ratios[key] = float((dg - dc).norm()) / float(dc.norm())
+    worst = max(ratios, key=ratios.get)
+    sweeps = {k: v for k, v in launches.items() if "sweep" in k and v}
+    emit({"phase": "resnet_v2_trainer_reference",
+          "model": "resnet18_v2(classes=10)", "dtype": "float32",
+          "entry_points": "autograd.record, autograd.backward, "
+                          "gluon.Trainer('nag', lr_scheduler="
+                          "CosineScheduler)",
+          "optimizer": dict(V2_NAG, schedule=sched), "batch": [4, 3, 64, 64],
+          "steps": steps, "losses": losses, "loss_max_rel_diff": loss_rel,
+          "loss_tol": 1e-5, "running_stats_excess_over_tol": stat_err,
+          "running_stats_tol": "1e-5 + 1e-5 |cpu|",
+          "delta_worst": [worst, ratios[worst]],
+          "delta_median": float(np.median(list(ratios.values()))),
+          "delta_tol": 1e-3, "decisions_replayed": decisions.elements,
+          "decision_disagreements": decisions.disagreements,
+          "sweep_launches": sweeps, "resume_step3": resume,
+          "seconds": time.perf_counter() - t0})
+    if not all(np.isfinite(losses["card"])) or loss_rel > 1e-5:
+        fail(f"f32 ResNet v2 Trainer losses on the card disagree with the "
+             f"CPU's: {losses}")
+    if stat_err > 1e-5:
+        fail(f"ResNet v2 running statistics on the card disagree with the "
+             f"CPU's by {stat_err} over 1e-5 + 1e-5 |cpu|")
+    if not ratios[worst] <= 1e-3:
+        fail(f"ResNet v2 parameter deltas on the card disagree with the "
+             f"CPU's: {worst} {ratios[worst]}")
+    if decisions.disagreements > 1e-5 * decisions.elements:
+        fail(f"the CPU would decide {decisions.disagreements} of "
+             f"{decisions.elements} ReLU and max-pool elements otherwise")
+    if sweeps:
+        fail(f"the NAG Trainer launched sweep kernels: {sweeps}")
+    if not resume["bits_equal"]:
+        fail(f"step 3 after save_states/load_states differs from the "
+             f"uninterrupted step 3: {resume}")
+    del cpu_net, card_net, fresh
+    torch.cuda.empty_cache()
+
+
+def _state_leaves(state) -> list:
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [x for s in state for x in _state_leaves(s)]
+    return [state._data if isinstance(state, NDArray) else state]
+
+
+def _master_and_momentum(p, state) -> tuple:
+    """A Trainer parameter's (f32 master, momentum) as f64 copies: the
+    master of a bf16 weight under multi_precision, the f32 weight itself
+    (BatchNorm's gamma and beta) otherwise."""
+    if isinstance(state, tuple):
+        return state[0]._data.double(), state[1]._data.double()
+    return p._var.detach().double(), state._data.double()
+
+
+def _nag_rule_excess(trainer, before, opt, lr) -> dict:
+    """How far one Trainer NAG step strayed from its rule, worked by hand
+    in f64 from ``before`` (each parameter's f32 master and momentum) and
+    the gradients the step read: g' = rescale * g + wd * w, mom' =
+    momentum * mom + g', w' = w - lr * (g' + momentum * mom'), each
+    within 1e-6 of its largest term (f32 rounding of each operation);
+    each bf16 weight its master rounded."""
+    mu, wd = opt["momentum"], opt["wd"]
+    rescale = trainer.optimizer.rescale_grad
+    worst, rounded = 0.0, True
+    for i, p in enumerate(trainer._params):
+        if p.grad_req == "null":
+            continue
+        w0, m0 = before[i]
+        st = trainer._updater.states[i]
+        w1, m1 = _master_and_momentum(p, st)
+        g = p._var.grad.double() * rescale + wd * w0
+        lim = 1e-6 * float((mu * m0.abs() + g.abs()).max())
+        worst = max(worst, float((m1 - (mu * m0 + g)).abs().max())
+                    / max(lim, 1e-30))
+        lim = 1e-6 * float((w0.abs() + lr * (g.abs() + mu * m1.abs()))
+                           .max())
+        worst = max(worst, float((w1 - (w0 - lr * (g + mu * m1)))
+                                 .abs().max()) / max(lim, 1e-30))
+        if p._var.dtype == torch.bfloat16:
+            rounded &= torch.equal(p._var.detach(), st[0]._data.to(
+                torch.bfloat16))
+    return {"worst_excess": worst, "bf16_is_master_rounded": bool(rounded),
+            "tol": "1e-6 of the largest term"}
+
+
+def phase_resnet_v2_trainer() -> dict:
+    """resnet50_v2(layout="NHWC") at its published widths and depth (1000
+    classes), bf16 with f32 BatchNorm, seeded random weights, at
+    GluonCV's per-device batch, 128 x 224, through the eager Gluon loop
+    of GluonCV's ImageNet recipe (train_imagenet.py): Trainer('nag',
+    momentum 0.9, wd 1e-4, multi_precision) with a cosine schedule from
+    lr 0.05 after a linear warmup of 3 updates, over 20 updates so that
+    the rate moves in the phase, cuDNN's autotuner on. 3 warm-up and 12
+    timed steps on one RandomState(0) batch. Checks: the loss finite and
+    falling over the first three steps; each step's learning rate the
+    schedule's worked by hand; step 2 (the first with a momentum) against
+    NAG's rule by hand in f64, each bf16 weight its master rounded; no
+    sweep kernel launched; exactly one per_param dispatch per trainable
+    parameter per step. Numbers: ms per step, images/s, host ms of the
+    forward, backward and Trainer.step, save_states and load_states MB/s
+    and peak memory."""
+    import gc
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, timed_steps, sched = 128, 12, (0.05, 20, 3)
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    net = resnet50_v2(layout="NHWC", dtype=torch.bfloat16,
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    opt = dict(V2_NAG, multi_precision=True)
+    trainer = mx.gluon.Trainer(net.collect_params(), "nag",
+                               dict(opt, lr_scheduler=_v2_schedule(*sched)))
+    n_train = sum(p.grad_req != "null" for p in trainer._params)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(batch, 3, 224, 224).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 1000, (batch,)).astype(np.float32)) \
+        .cuda()
+    lr_err, lrs = 0.0, []
+
+    def step(times=None):
+        loss = _eager_step(net, loss_fn, trainer, x, y, times)
+        n = trainer.optimizer.num_update
+        lrs.append(trainer.learning_rate)
+        nonlocal lr_err
+        lr_err = max(lr_err, abs(trainer.learning_rate
+                                 - _cosine_by_hand(n, *sched)))
+        return loss
+
+    warm = [float(step())]
+    before = {i: _master_and_momentum(trainer._params[i], s)
+              for i, s in trainer._updater.states.items()}
+    warm.append(float(step()))
+    rule = _nag_rule_excess(trainer, before, opt, lrs[-1])
+    del before
+    warm.append(float(step()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    timed, times = [], []
+    t1 = time.perf_counter()
+    try:
+        for _ in range(timed_steps):
+            timed.append(step(times))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        snap = mx.telemetry.snapshot()["metrics"]
+    finally:
+        mx.telemetry.disable()
+        mx.telemetry.reset()
+    dispatch = {s["labels"]["path"]: s["value"] for s in snap.get(
+        "mxnet_optimizer_dispatch_total", {"samples": []})["samples"]}
+    launches = _train_counts()
+    sweeps = {k: v for k, v in launches.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = warm + [float(v) for v in timed]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "t.states")
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        trainer.save_states(path)
+        save_s = time.perf_counter() - s0
+        mb = os.path.getsize(path) / 1e6
+        s0 = time.perf_counter()
+        trainer.load_states(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - s0
+    host = np.asarray(times) * 1e3
+    images_s = batch * timed_steps / wall
+    out = {"phase": "resnet_v2_trainer",
+           "model": "resnet50_v2(layout='NHWC')",
+           "dtype": "bfloat16, f32 BatchNorm, multi-precision nag",
+           "entry_points": "autograd.record, autograd.backward, "
+                           "gluon.Trainer('nag', lr_scheduler="
+                           "CosineScheduler)",
+           "optimizer": opt, "schedule": {"base_lr": sched[0],
+                                          "max_update": sched[1],
+                                          "warmup_steps": sched[2]},
+           "params": sum(p.numel() for p in net.parameters()),
+           "trainable_params": n_train, "batch": [batch, 3, 224, 224],
+           "steps": timed_steps, "ms_per_step": wall * 1e3 / timed_steps,
+           "images_per_s": images_s, "peak_mem_gib": peak,
+           "host_ms_median": {"forward": float(np.median(host[:, 0])),
+                              "backward": float(np.median(host[:, 1])),
+                              "trainer_step": float(np.median(host[:, 2]))},
+           "losses": losses, "learning_rates": lrs,
+           "lr_max_abs_err_vs_hand": lr_err, "update_rule_step2": rule,
+           "per_param_dispatches": dispatch,
+           "per_param_expected": n_train * timed_steps,
+           "sweep_launches": sweeps,
+           "states_mb": mb, "save_states_mb_s": mb / save_s,
+           "load_states_mb_s": mb / load_s,
+           "seconds": time.perf_counter() - t0}
+    torch.backends.cudnn.benchmark = bench
+    emit(out)
+    if not all(np.isfinite(losses)) \
+            or not losses[0] > losses[1] > losses[2]:
+        fail(f"bf16 ResNet-50 v2 Trainer loss is not finite or did not "
+             f"fall over the first three steps: {losses}")
+    if lr_err > 1e-12 or len(set(lrs)) < 3:
+        fail(f"the Trainer's learning rates {lrs} are not the schedule's "
+             f"(max error {lr_err})")
+    if rule["worst_excess"] > 1.0 or not rule["bf16_is_master_rounded"]:
+        fail(f"ResNet-50 v2's second NAG step broke its update rule: {rule}")
+    if sweeps:
+        fail(f"the NAG Trainer launched training kernels: {sweeps}")
+    if dispatch != {"per_param": float(n_train * timed_steps)}:
+        fail(f"per_param dispatches {dispatch}, not {n_train} a step")
+    del trainer, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 # ---------------------------------------------------------------------------
 # 16-17. mx.rtc over NVRTC, and the imperative mx.nd path
@@ -4957,8 +5583,12 @@ def main() -> None:
     gluon = phase_gluon()
     phase_llama_train_reference()
     llama = phase_llama_train()
+    llama_remat = phase_llama_remat()
     phase_resnet_train_reference()
     resnet = phase_resnet_train()
+    phase_optimizer_paths()
+    phase_resnet_v2_trainer_reference()
+    phase_resnet_v2_trainer()
     rtc = phase_rtc(card)
     imperative = phase_imperative(card)
     pk = "mxnet_tpu/pallas_kernels/"
@@ -5037,6 +5667,8 @@ def main() -> None:
             by_path["bert_train_dropout"] = train_drop[name]
         if llama.get(name):
             by_path["llama_train"] = llama[name]
+        if llama_remat.get(name):
+            by_path["llama_remat"] = llama_remat[name]
         if name == "fused_adamw_sweep":
             by_path["llama_train[scan]"] = llama[name + "[scan]"]
         if resnet.get(name):

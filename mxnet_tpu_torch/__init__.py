@@ -15,12 +15,14 @@ decode steps replaying one CUDA graph per batch bucket; either server
 multi-tenant (``register_model``, ``model=``/``priority=``) and hot
 reloaded from ``mx.checkpoint.CheckpointManager`` bundles, with
 ``mx.fault``, ``mx.tracing`` and ``mx.telemetry`` as in the reference; the
-fused step ``mx.parallel.TrainStep(net, loss, "adam" | "adamw" | "sgd" |
-"lamb", ...)`` (BERT masked-LM pretraining over
+fused step ``mx.parallel.TrainStep(net, loss, optimizer, ...)`` (BERT
+masked-LM pretraining over
 ``mx.gluon.model_zoo.nlp.BERTForPretrainFused`` at BERT's published
 dropout, Llama pretraining through
-``mxnet_tpu_torch.tools.pretrain_llama``, ResNet v1 training); and
-MXNet's eager Gluon loop::
+``mxnet_tpu_torch.tools.pretrain_llama`` with remat, ResNet v1 and v2
+training), with every optimizer of the reference (SGD, Adam, AdamW and
+LAMB through fused sweeps, the others per parameter) and
+``mx.lr_scheduler``; and MXNet's eager Gluon loop::
 
     trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
                                {"learning_rate": 1e-3, "wd": 0.01})
@@ -45,9 +47,9 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
 """
 from . import (autograd, base, checkpoint, context, convert, engine, fault,
-               gluon, init, initializer, kernels, ndarray, ops, optimizer,
-               parallel, random, random_state, rtc, serving, telemetry,
-               tracing)
+               gluon, init, initializer, kernels, lr_scheduler, ndarray, ops,
+               optimizer, parallel, random, random_state, rtc, serving,
+               telemetry, tracing)
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -55,6 +57,6 @@ from .context import Context, cpu, current_context, gpu, num_gpus
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "base", "checkpoint", "context",
            "convert", "engine", "fault", "gluon", "init", "initializer",
-           "kernels", "nd",
+           "kernels", "lr_scheduler", "nd",
            "ndarray", "ops", "optimizer", "parallel", "random",
            "random_state", "rtc", "serving", "telemetry", "tracing"]

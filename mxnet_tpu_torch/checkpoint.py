@@ -4,16 +4,17 @@ Counterpart of ``mxnet_tpu/checkpoint.py``: :func:`atomic_write` and
 :class:`CheckpointManager` write and read the same bundles, file for
 file. A bundle is a directory ``{prefix}-{step:08d}/`` holding
 ``params.params`` (the ``.params`` format, byte for byte the
-reference's, under the reference's structural names), ``rng.pkl``
+reference's, under the reference's structural names), ``trainer.states``
+(``Trainer.save_states``: the ``Updater``'s v2 states), ``rng.pkl``
 (:func:`~mxnet_tpu_torch.random_state.checkpoint_state`), ``meta.json``
 and ``MANIFEST.json``, written last with the sha256 of every payload
 file; the bundle is staged in a temporary directory and committed with
 one ``os.replace``. Each package loads the other's bundles.
+:func:`read_state_bytes` and :func:`apply_state_bytes` are the error
+contract of ``Trainer.load_states``.
 
-Not ported: ``trainer.states`` (``save(trainer=)`` and
-``restore(trainer=)`` raise: ``Trainer.save_states`` waits for
-ROADMAP.md's port queue 1, item 7), the ZeRO partition manifest, and
-``read_state_bytes``/``apply_state_bytes``.
+Not ported: the ZeRO partition manifest (ROADMAP.md, port queue 1,
+item 9).
 
 Telemetry: ``mxnet_checkpoint_write_seconds``. Fault sites:
 ``checkpoint.write`` (every atomic commit), ``checkpoint.read`` (every
@@ -35,8 +36,8 @@ from . import fault, telemetry
 from .base import MXNetError
 from .fault import _state as _fault_state
 
-__all__ = ["atomic_write", "CheckpointManager", "MANIFEST_NAME",
-           "FORMAT_VERSION"]
+__all__ = ["atomic_write", "read_state_bytes", "apply_state_bytes",
+           "CheckpointManager", "MANIFEST_NAME", "FORMAT_VERSION"]
 
 MANIFEST_NAME = "MANIFEST.json"
 FORMAT_VERSION = 1
@@ -45,12 +46,6 @@ _PARAMS_FILE = "params.params"
 _STATES_FILE = "trainer.states"
 _RNG_FILE = "rng.pkl"
 _META_FILE = "meta.json"
-
-
-def _no_trainer_states(what: str) -> MXNetError:
-    return MXNetError(
-        f"CheckpointManager.{what}(trainer=...): Trainer.save_states / "
-        "load_states are not ported yet (ROADMAP.md, port queue 1, item 7)")
 
 
 def _fsync_dir(path: str) -> None:
@@ -93,6 +88,33 @@ def atomic_write(path: str, data: bytes) -> None:
             pass
         raise
     _fsync_dir(d)
+
+
+def read_state_bytes(fname: str, context: str) -> bytes:
+    """Read an optimizer-state file, a failure raised as
+    :class:`MXNetError` naming the file."""
+    try:
+        with open(fname, "rb") as f:
+            return f.read()
+    except OSError as e:
+        raise MXNetError(
+            f"{context}: cannot read optimizer state file {fname!r}: "
+            f"{e}") from e
+
+
+def apply_state_bytes(states: bytes, apply, fname: str,
+                      context: str) -> None:
+    """Run ``apply(states)`` (an ``Updater.set_states``-like consumer),
+    a corrupt payload raised as :class:`MXNetError` naming the file; an
+    ``MXNetError`` of the consumer passes through as it is."""
+    try:
+        apply(states)
+    except MXNetError:
+        raise
+    except Exception as e:
+        raise MXNetError(
+            f"{context}: {fname!r} is not a valid optimizer state file "
+            f"(corrupt or wrong format): {e}") from e
 
 
 def _sha256_file(path: str) -> str:
@@ -309,12 +331,11 @@ class CheckpointManager:
         """Write + commit one bundle; returns the committed path.
 
         ``params``: Block or name -> tensor/NDArray/Parameter dict.
-        ``trainer`` raises: ``Trainer.save_states`` is not ported. The
-        RNG streams (``random_state.checkpoint_state()``) are always
-        captured. ``extra`` must be JSON-serializable.
+        ``trainer``: a Gluon Trainer whose updater states go into
+        ``trainer.states`` (``Trainer.save_states``). The RNG streams
+        (``random_state.checkpoint_state()``) are always captured.
+        ``extra`` must be JSON-serializable.
         """
-        if trainer is not None:
-            raise _no_trainer_states("save")
         t0 = time.perf_counter()
         step = int(step)
         if step < 0:
@@ -332,6 +353,9 @@ class CheckpointManager:
                 serialization.save(os.path.join(tmp, _PARAMS_FILE),
                                    self._param_payload(params))
                 written.append(_PARAMS_FILE)
+            if trainer is not None:
+                trainer.save_states(os.path.join(tmp, _STATES_FILE))
+                written.append(_STATES_FILE)
             from . import random_state
 
             atomic_write(os.path.join(tmp, _RNG_FILE),
@@ -447,12 +471,10 @@ class CheckpointManager:
         """One-call resume: pick the newest valid bundle (or ``step``)
         and apply it — params into ``block`` (``Block.load_parameters``:
         copied in place onto the block's own device, the card unless
-        the block was built on the CPU) and the RNG streams back into
-        ``mx.random``. ``trainer`` raises (``Trainer.load_states`` is not
-        ported). Returns the bundle's meta dict (``step``, ``epoch``,
-        ``extra``, ``path``)."""
-        if trainer is not None:
-            raise _no_trainer_states("restore")
+        the block was built on the CPU), optimizer states into
+        ``trainer`` (``Trainer.load_states``) and the RNG streams back
+        into ``mx.random``. Returns the bundle's meta dict (``step``,
+        ``epoch``, ``extra``, ``path``)."""
         step, man = self._resolve_valid(step)
         root = self.path(step)
         files = man["files"]
@@ -462,6 +484,12 @@ class CheckpointManager:
                     f"checkpoint {root!r} holds no params.params to "
                     "restore the block from")
             block.load_parameters(os.path.join(root, _PARAMS_FILE))
+        if trainer is not None:
+            if _STATES_FILE not in files:
+                raise MXNetError(
+                    f"checkpoint {root!r} holds no trainer.states to "
+                    "restore the trainer from")
+            trainer.load_states(os.path.join(root, _STATES_FILE))
         if restore_rng and _RNG_FILE in files:
             if _fault_state.enabled:
                 fault.check("checkpoint.read",

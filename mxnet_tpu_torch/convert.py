@@ -66,8 +66,11 @@ def llama_params_from_reference(named: Dict[str, np.ndarray]
     ``load_state_dict`` moves them to the model's device and dtype).
 
     Names match on their suffix after the model prefix (for example
-    ``llamamodel0_``). Raises :class:`MXNetError` on a missing name, an
-    unknown name, or a shape that disagrees with the rest."""
+    ``llamamodel0_``). A model built with ``tie_weights`` has no
+    ``lm_head_weight``: its head is the embedding, and ``lm_head.weight``
+    maps to the embedding's array. Raises :class:`MXNetError` on a
+    missing name, an unknown name, or a shape that disagrees with the
+    rest."""
     heads = [n for n in named if n.endswith("embed_weight")]
     if len(heads) != 1:
         raise MXNetError(f"expected exactly one '*embed_weight' parameter, "
@@ -90,6 +93,8 @@ def llama_params_from_reference(named: Dict[str, np.ndarray]
             raise MXNetError(f"unexpected parameter {name!r} (suffix "
                              f"{suffix!r}) for a Llama model")
         out[key] = _to_tensor(np.asarray(arr))
+    if "lm_head.weight" not in out and "embed.weight" in out:
+        out["lm_head.weight"] = out["embed.weight"]       # tie_weights
     n_layers = max(layers) + 1 if layers else 0
     if n_layers == 0 or "layer0.attention.kv_proj.weight" not in out \
             or "layer0.mlp.gate_up.weight" not in out:
@@ -213,6 +218,8 @@ def bert_params_from_reference(named: Dict[str, np.ndarray]
             raise MXNetError(f"unexpected parameter {name!r} (suffix "
                              f"{suffix!r}) for a BERT model")
         out[key] = _to_tensor(np.asarray(arr))
+    if "lm_head.weight" not in out and "embed.weight" in out:
+        out["lm_head.weight"] = out["embed.weight"]       # tie_weights
     n_layers = max(layers) + 1 if layers else 0
     needed = ("token_type_embed.weight", "position_embed.weight",
               "encoder.cells.0.ffn.ffn1.weight")
@@ -298,7 +305,7 @@ def bert_pretrain_params_from_reference(named: Dict[str, np.ndarray]
     return out
 
 
-# -- ResNet v1 ----------------------------------------------------------------
+# -- ResNet v1 and v2 ---------------------------------------------------------
 
 _RESNET_RE = re.compile(
     r"(?P<prefix>.*?)(?:stage(?P<stage>\d+)_)?(?P<kind>conv2d|batchnorm|dense)"
@@ -309,10 +316,13 @@ _BN_FIELDS = {"gamma", "beta", "running_mean", "running_var"}
 
 def resnet_params_from_reference(named: Dict[str, np.ndarray]
                                  ) -> Dict[str, torch.Tensor]:
-    """Map a JAX ``ResNetV1``'s named numpy parameters, BatchNorm's
-    running statistics included, onto the port's ``ResNetV1.state_dict()``
-    names (CPU tensors of the same dtype; ``load_state_dict`` moves them
-    to the model's device and dtype).
+    """Map a JAX ``ResNetV1``'s or ``ResNetV2``'s named numpy parameters,
+    BatchNorm's running statistics included, onto the port's
+    ``state_dict()`` names (CPU tensors of the same dtype;
+    ``load_state_dict`` moves them to the model's device and dtype). A v2
+    is told by its two or three BatchNorms outside the stages (v1 has at
+    most one), and its layers are read as :func:`_resnet_v2_layers`
+    says.
 
     The reference names its layers by process-wide counters
     (``resnetv10_stage2_conv2d7_weight``), so the layers of the stem and
@@ -329,7 +339,7 @@ def resnet_params_from_reference(named: Dict[str, np.ndarray]
     for name, arr in named.items():
         m = _RESNET_RE.fullmatch(name)
         if m is None:
-            raise MXNetError(f"unexpected parameter {name!r} for a ResNet v1 "
+            raise MXNetError(f"unexpected parameter {name!r} for a ResNet "
                              "model")
         prefixes.add(m["prefix"])
         key = (int(m["stage"] or 0), m["kind"], int(m["idx"]))
@@ -363,6 +373,9 @@ def resnet_params_from_reference(named: Dict[str, np.ndarray]
             out[f"{key}.{f}"] = _to_tensor(a)
 
     stem_convs, stem_bns = layers(0, "conv2d"), layers(0, "batchnorm")
+    if len(stem_bns) >= 2:
+        c = _resnet_v2_layers(groups, layers, stem_convs, stem_bns, conv, bn)
+        return _resnet_output(layers, c, out)
     if len(stem_convs) != 1 or len(stem_bns) > 1:
         raise MXNetError(f"expected one stem convolution and at most one "
                          f"stem BatchNorm, got {len(stem_convs)} and "
@@ -402,6 +415,10 @@ def resnet_params_from_reference(named: Dict[str, np.ndarray]
             elif c != c_in:
                 raise MXNetError(f"stage {s}, block {b}: {c_in} channels "
                                  f"in, {c} out, and no downsample")
+    return _resnet_output(layers, c, out)
+
+
+def _resnet_output(layers, c, out):
     dense = layers(0, "dense")
     if len(dense) != 1 or set(dense[0][1]) != {"weight", "bias"}:
         raise MXNetError("expected one classifier with a weight and a bias")
@@ -412,6 +429,56 @@ def resnet_params_from_reference(named: Dict[str, np.ndarray]
     out["output.weight"], out["output.bias"] = _to_tensor(w), \
         _to_tensor(bias)
     return out
+
+
+def _resnet_v2_layers(groups, layers, stem_convs, stem_bns, conv, bn):
+    """A ResNet v2's stem, stages and last BatchNorm, in construction
+    order: the data BatchNorm (no scale or shift), the stem convolution
+    and, unless the stem is a thumbnail, its BatchNorm; each block's
+    ``bn1``, ``conv1``, ``bn2``, ``conv2`` (``bn3``, ``conv3`` in a
+    bottleneck) and a first block's 1x1 ``downsample``; the last
+    BatchNorm. Returns the channels into the classifier."""
+    if len(stem_convs) != 1 or len(stem_bns) > 3:
+        raise MXNetError(f"expected one stem convolution and two or three "
+                         f"BatchNorms outside the stages, got "
+                         f"{len(stem_convs)} and {len(stem_bns)}")
+    thumbnail = len(stem_bns) == 2
+    bn("features.0", stem_bns[0], 3)
+    c = conv("features.1", stem_convs[0], 3)
+    if not thumbnail:
+        bn("features.2", stem_bns[1], c)
+    first = 2 if thumbnail else 5     # data bn, conv, [bn, relu, pool]
+    stages = sorted({k[0] for k in groups} - {0})
+    if not stages or stages != list(range(1, len(stages) + 1)):
+        raise MXNetError(f"stages {stages} are not 1, 2, ...")
+    for s in stages:
+        convs, bns = layers(s, "conv2d"), layers(s, "batchnorm")
+        if not convs:
+            raise MXNetError(f"stage {s}: no convolution")
+        per = 3 if convs[0][1]["weight"].shape[2:] == (1, 1) else 2
+        n_blocks, rem = divmod(len(bns), per)
+        ds = len(convs) - n_blocks * per
+        if rem or ds not in (0, 1) or n_blocks == 0:
+            raise MXNetError(f"stage {s}: {len(convs)} convolutions and "
+                             f"{len(bns)} BatchNorms do not make blocks of "
+                             f"{per}")
+        conv_it, bn_it = iter(convs), iter(bns)
+        for b in range(n_blocks):
+            base = f"features.{first + s - 1}.{b}"
+            c_in = c
+            for k in range(1, per + 1):
+                bn(f"{base}.bn{k}", next(bn_it), c)
+                c = conv(f"{base}.conv{k}", next(conv_it), c)
+            if b == 0 and ds:
+                c_ds = conv(f"{base}.downsample", next(conv_it), c_in)
+                if c_ds != c:
+                    raise MXNetError(f"stage {s}: the downsample gives "
+                                     f"{c_ds} channels, the body {c}")
+            elif c != c_in:
+                raise MXNetError(f"stage {s}, block {b}: {c_in} channels "
+                                 f"in, {c} out, and no downsample")
+    bn(f"features.{first + len(stages)}", stem_bns[-1], c)
+    return c
 
 
 def _shapes(fields):

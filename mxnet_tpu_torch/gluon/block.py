@@ -36,6 +36,17 @@ forward eagerly (ROADMAP.md, port queue 3: the dropout kernels take their
 seed as a host argument, so a graph would replay one mask). ``export``,
 ``optimize_for`` and ``SymbolBlock`` need the symbol API (ROADMAP.md,
 port queue 1, item 12).
+
+:func:`remat_call` rematerialises a block (reference ``:41-104``):
+its activations are recomputed in the backward instead of kept, under
+``torch.utils.checkpoint`` (non-reentrant). It does so only while
+autograd records (grad enabled and an input or a parameter of the block
+requiring grad), as the reference does only inside a trace; a call on
+NDArrays, in serving or under ``hybridize`` is a plain call. The
+recompute draws the forward's dropout seeds again
+(``random_state.seed_tape``/``replay_seeds``), runs in the forward's
+training mode, and leaves BatchNorm's running statistics alone
+(:func:`is_recomputing`), so they are updated once a step.
 """
 from __future__ import annotations
 
@@ -57,7 +68,8 @@ from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "tensor_ops",
-           "param_like"]
+           "param_like", "remat_call", "resolve_remat_policy",
+           "is_recomputing"]
 
 
 class _TensorOps:
@@ -105,6 +117,103 @@ def _raw(x):
 # ---------------------------------------------------------------------------
 # name scopes
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``'s counterpart: keep the
+    outputs of the matrix products with no batch dimension (``mm``,
+    ``addmm``), recompute everything else (every allocation included, so
+    a kernel's output buffer is never a saved tensor written again)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(policy):
+    """Normalise a remat policy (the one validator of ``remat_call``, the
+    model zoo's ``remat=`` and ``TrainStep(remat=...)``, so a typo raises
+    the same ``ValueError`` everywhere, at construction): None or
+    ``"full"`` save nothing (returns None); ``"dots"`` keeps the outputs
+    of the matrix products with no batch dimension and recomputes the
+    rest; a callable is a selective-checkpoint policy ``(ctx, op, *args,
+    **kwargs) -> CheckpointPolicy`` and passes through."""
+    if policy in (None, "full"):
+        return None
+    if policy == "dots":
+        return _dots_policy
+    if callable(policy):
+        return policy
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+class _RematState(threading.local):
+    def __init__(self):
+        self.recomputing = 0
+
+
+_remat_state = _RematState()
+
+
+def is_recomputing() -> bool:
+    """True inside the backward's recompute of a rematerialised span."""
+    return _remat_state.recomputing > 0
+
+
+def _records(block, args) -> bool:
+    if not torch.is_grad_enabled() or not args \
+            or not all(isinstance(a, torch.Tensor) for a in args):
+        return False
+    if any(a.requires_grad for a in args):
+        return True
+    return isinstance(block, nn.Module) and any(
+        p.requires_grad for p in block.parameters())
+
+
+def remat_call(block, *args, policy=None):
+    """``block(*args)`` rematerialised while autograd records (see the
+    module docstring), else a plain call. ``policy``: None or ``"full"``
+    (save nothing: the block's forward runs again in the backward) or
+    ``"dots"`` (the matrix products' outputs kept, the rest recomputed);
+    checked on every call."""
+    pol = resolve_remat_policy(policy)
+    if not _records(block, args):
+        return block(*args)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    from .. import random_state
+
+    training = autograd.is_training()
+    runs = [0]
+    tape_box = []
+
+    def run(*a):
+        first = runs[0] == 0
+        runs[0] += 1
+        if first:
+            with random_state.seed_tape() as tape:
+                out = block(*a)
+            tape_box.append(tape)
+            return out
+        prev = autograd.set_training(training)
+        _remat_state.recomputing += 1
+        try:
+            with random_state.replay_seeds(tape_box[0]):
+                return block(*a)
+        finally:
+            _remat_state.recomputing -= 1
+            autograd.set_training(prev)
+
+    kw = {"use_reentrant": False}
+    if pol is not None:
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(pol)
+    return checkpoint(run, *args, **kw)
 
 
 class _BlockScope(threading.local):

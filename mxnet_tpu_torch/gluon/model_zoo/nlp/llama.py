@@ -27,7 +27,8 @@ from .... import initializer
 from ....base import MXNetError, torch_dtype
 from ....kernels._build import capture_graph, replay_counts
 from ....ops.attention import paged_attention, rms_norm, rope_at
-from ...block import HybridBlock, param_like
+from ...block import (HybridBlock, param_like, remat_call,
+                      resolve_remat_policy)
 from ... import nn
 from .._build import materialize
 
@@ -153,18 +154,25 @@ class LlamaModel(HybridBlock):
     through the fused projection + CE head over vocabulary chunks of
     ``ce_chunk`` (default: the largest divisor of the vocabulary up to
     8192), and the (B, L, vocab) logits never exist; otherwise
-    ``forward(tokens)`` returns the logits. ``remat`` (per-block
-    rematerialisation) is not ported: only False or None."""
+    ``forward(tokens)`` returns the logits.
+
+    ``remat``: each block rematerialised in training
+    (``gluon.block.remat_call``): True or ``"full"`` saves nothing,
+    ``"dots"`` keeps the matrix products' outputs; False or None, none.
+    ``tie_weights``: the head shares the embedding's parameter
+    (``llamamodel0_embed_weight``, one entry of ``collect_params``, as
+    in the reference)."""
 
     def __init__(self, vocab_size=128256, num_layers=32, units=4096,
                  hidden_size=14336, num_heads=32, num_kv_heads=8,
-                 rope_theta=500000.0, eps=1e-5, remat=False,
-                 fused_ce=False, ce_chunk=None, prefix=None, params=None,
-                 ctx=None, dtype=None, generator=None):
+                 rope_theta=500000.0, eps=1e-5, tie_weights=False,
+                 remat=False, fused_ce=False, ce_chunk=None, prefix=None,
+                 params=None, ctx=None, dtype=None, generator=None):
         super().__init__(prefix=prefix, params=params)
-        if remat not in (False, None):
-            raise MXNetError(f"LlamaModel: remat={remat!r} is not ported "
-                             "yet (ROADMAP.md, port queue 1, item 8)")
+        # a bool (True: the "full" policy) or a policy name, checked here
+        self._remat = remat if isinstance(remat, str) else \
+            ("full" if remat else None)
+        resolve_remat_policy(self._remat)
         self._fused_ce = bool(fused_ce)
         if ce_chunk and vocab_size % int(ce_chunk):
             best = _best_ce_chunk(vocab_size)
@@ -195,9 +203,15 @@ class LlamaModel(HybridBlock):
                 self.blocks.append(blk)
                 self.register_child(blk, f"layer{i}")
             self.norm = RMSNorm(units, eps, prefix="norm_")
-            self.lm_head = nn.Dense(vocab_size, in_units=units,
-                                    flatten=False, use_bias=False,
-                                    prefix="lm_head_")
+            if tie_weights:
+                self.lm_head = nn.Dense(vocab_size, in_units=units,
+                                        flatten=False, use_bias=False,
+                                        params=self.embed.params,
+                                        prefix="embed_")
+            else:
+                self.lm_head = nn.Dense(vocab_size, in_units=units,
+                                        flatten=False, use_bias=False,
+                                        prefix="lm_head_")
         materialize(self, ctx, dtype, generator, initializer.Normal(0.02))
 
     def hybrid_forward(self, F, tokens, labels=None):
@@ -206,7 +220,8 @@ class LlamaModel(HybridBlock):
         ``labels`` (B, L)."""
         x = self.embed(tokens)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat_call(blk, x, policy=self._remat) if self._remat \
+                else blk(x)
         h = self.norm(x)
         if self._fused_ce:
             if labels is None:

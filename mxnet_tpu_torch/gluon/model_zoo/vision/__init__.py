@@ -1,9 +1,13 @@
 """Vision models of the port (counterpart of
-``mxnet_tpu/gluon/model_zoo/vision``): ResNet v1."""
-from .resnet import (BasicBlockV1, BottleneckV1, ResNetV1, get_resnet,
-                     resnet18_v1, resnet34_v1, resnet50_v1, resnet101_v1,
-                     resnet152_v1)
+``mxnet_tpu/gluon/model_zoo/vision``): ResNet v1 and v2."""
+from .resnet import (BasicBlockV1, BasicBlockV2, BottleneckV1, BottleneckV2,
+                     ResNetV1, ResNetV2, get_resnet, resnet18_v1,
+                     resnet18_v2, resnet34_v1, resnet34_v2, resnet50_v1,
+                     resnet50_v2, resnet101_v1, resnet101_v2, resnet152_v1,
+                     resnet152_v2)
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BottleneckV1",
+           "BasicBlockV2", "BottleneckV2", "get_resnet",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1"]
+           "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
+           "resnet101_v2", "resnet152_v2"]

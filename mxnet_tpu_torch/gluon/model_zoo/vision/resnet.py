@@ -1,13 +1,17 @@
-"""ResNet v1 for the vision model zoo.
+"""ResNet v1 and v2 for the vision model zoo.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py`` for
-``BasicBlockV1`` (``:29``), ``BottleneckV1`` (``:56``), ``ResNetV1``
-(``:148``), ``get_resnet`` (``:258``) and ``resnet18_v1`` ...
-``resnet152_v1``, with the reference's module tree (``features``,
-``body``, ``downsample``, ``output``; stages ``stage1_``...) and so its
+``BasicBlockV1`` (``:29``), ``BottleneckV1`` (``:56``), ``BasicBlockV2``
+(``:87``), ``BottleneckV2`` (``:114``), ``ResNetV1`` (``:148``),
+``ResNetV2`` (``:193``), ``get_resnet`` (``:258``), ``resnet18_v1`` ...
+``resnet152_v1`` and ``resnet18_v2`` ... ``resnet152_v2``, with the
+reference's module tree (``features``, ``body``, ``downsample``,
+``output``; stages ``stage1_``...; v2's ``bn1``/``conv1``...) and so its
 parameter and structural names. In this v1 the bottleneck's stride sits
 on its first 1x1 convolution (``:62``), not on the 3x3 as in
-torchvision's "v1.5".
+torchvision's "v1.5"; v2 ("Identity Mappings in Deep Residual
+Networks") is pre-activation, its stride on the 3x3, its data
+normalised by a first BatchNorm without scale or shift.
 
 ``layout="NHWC"`` builds the model channels-last inside with NCHW at the
 API edge, as the reference: the forward turns the (N, 3, H, W) input
@@ -19,8 +23,7 @@ context. The shapes are given (no deferred ``in_channels``), so
 ``generator=`` at construction initialize at once as the reference's
 default initializer does (``Uniform(0.07)`` weights, zero biases and
 beta, unit gamma, running statistics zero and one), BatchNorm in
-float32 under a half-precision ``dtype``. ResNet v2 waits in
-``ROADMAP.md``.
+float32 under a half-precision ``dtype``.
 """
 from __future__ import annotations
 
@@ -33,9 +36,11 @@ from ...block import HybridBlock
 from ... import nn
 from .._build import materialize
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BottleneckV1",
+           "BasicBlockV2", "BottleneckV2", "get_resnet",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1"]
+           "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
+           "resnet101_v2", "resnet152_v2"]
 
 
 class _Layers:
@@ -48,9 +53,10 @@ class _Layers:
         return nn.Conv2D(channels, kernel, stride, pad, use_bias=False,
                          in_channels=in_channels, layout=self.layout)
 
-    def bn(self, channels):
+    def bn(self, channels, scale=True, center=True):
         return nn.BatchNorm(axis=-1 if self.layout == "NHWC" else 1,
-                            in_channels=channels)
+                            in_channels=channels, scale=scale,
+                            center=center)
 
 
 class _Residual(HybridBlock):
@@ -100,6 +106,63 @@ class BottleneckV1(_Residual):
                                       layers) if downsample else None
 
 
+class _ResidualV2(HybridBlock):
+    """Pre-activation: BatchNorm and ReLU before each convolution, the
+    downsample taken from the first activation, no ReLU after the
+    sum."""
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.conv2(F.Activation(self.bn2(x), act_type="relu"))
+        if hasattr(self, "conv3"):
+            x = self.conv3(F.Activation(self.bn3(x), act_type="relu"))
+        return x + residual
+
+
+class BasicBlockV2(_ResidualV2):
+    """Pre-activation residual block (18/34-layer v2), the stride on the
+    first 3x3."""
+
+    def __init__(self, channels, stride, downsample, in_channels, layers,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = layers.bn(in_channels)
+        self.conv1 = layers.conv(channels, 3, stride, 1, in_channels)
+        self.bn2 = layers.bn(channels)
+        self.conv2 = layers.conv(channels, 3, 1, 1, channels)
+        self.downsample = layers.conv(channels, 1, stride, 0, in_channels) \
+            if downsample else None
+
+
+class BottleneckV2(_ResidualV2):
+    """Pre-activation bottleneck (50/101/152-layer v2), the stride on
+    the 3x3."""
+
+    def __init__(self, channels, stride, downsample, in_channels, layers,
+                 **kwargs):
+        super().__init__(**kwargs)
+        mid = channels // 4
+        self.bn1 = layers.bn(in_channels)
+        self.conv1 = layers.conv(mid, 1, 1, 0, in_channels)
+        self.bn2 = layers.bn(mid)
+        self.conv2 = layers.conv(mid, 3, stride, 1, mid)
+        self.bn3 = layers.bn(mid)
+        self.conv3 = layers.conv(channels, 1, 1, 0, mid)
+        self.downsample = layers.conv(channels, 1, stride, 0, in_channels) \
+            if downsample else None
+
+
+def _nhwc_input(x):
+    """NCHW at the API edge, channels-last inside: one reorder."""
+    t = x._data if isinstance(x, NDArray) else x
+    t = t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    return NDArray(t) if isinstance(x, NDArray) else t
+
+
 class ResNetV1(HybridBlock):
     """ResNet v1 ("Deep Residual Learning for Image Recognition").
 
@@ -147,11 +210,60 @@ class ResNetV1(HybridBlock):
 
     def hybrid_forward(self, F, x):
         if self._layout == "NHWC":
-            # NCHW at the API edge, channels-last inside: one reorder
-            t = x._data if isinstance(x, NDArray) else x
-            t = t.contiguous(memory_format=torch.channels_last) \
-                .permute(0, 2, 3, 1)
-            x = NDArray(t) if isinstance(x, NDArray) else t
+            x = _nhwc_input(x)
+        return self.output(self.features(x))
+
+
+class ResNetV2(HybridBlock):
+    """ResNet v2 ("Identity Mappings in Deep Residual Networks"): the
+    input normalised by a BatchNorm without scale or shift, the stem,
+    the pre-activation stages, a last BatchNorm and ReLU, global average
+    pooling, flatten and the classifier. Arguments as :class:`ResNetV1`
+    (``block``: :class:`BasicBlockV2` or :class:`BottleneckV2`); the
+    thumbnail stem is one 3x3 convolution."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, layout="NCHW", prefix=None, params=None,
+                 ctx=None, dtype=None, generator=None):
+        super().__init__(prefix=prefix, params=params)
+        if len(layers) != len(channels) - 1:
+            raise ValueError("ResNetV2: one channel count per stage, after "
+                             "the stem's")
+        if layout not in ("NCHW", "NHWC"):
+            raise ValueError(f"ResNetV2: layout {layout!r} is not NCHW or "
+                             "NHWC")
+        self._layout = layout
+        mk = _Layers(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(mk.bn(3, scale=False, center=False))
+            if thumbnail:
+                self.features.add(mk.conv(channels[0], 3, 1, 1, 3))
+            else:
+                self.features.add(mk.conv(channels[0], 7, 2, 3, 3),
+                                  mk.bn(channels[0]), nn.Activation("relu"),
+                                  nn.MaxPool2D(3, 2, 1, layout=layout))
+            in_c = channels[0]
+            for i, num_layer in enumerate(layers):
+                stage = nn.HybridSequential(prefix=f"stage{i + 1}_")
+                out_c = channels[i + 1]
+                with stage.name_scope():
+                    stage.add(block(out_c, 1 if i == 0 else 2,
+                                    out_c != in_c, in_c, mk, prefix=""))
+                    for _ in range(num_layer - 1):
+                        stage.add(block(out_c, 1, False, out_c, mk,
+                                        prefix=""))
+                self.features.add(stage)
+                in_c = out_c
+            self.features.add(mk.bn(in_c), nn.Activation("relu"),
+                              nn.GlobalAvgPool2D(layout=layout),
+                              nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_c)
+        materialize(self, ctx, dtype, generator, initializer.Uniform(0.07))
+
+    def hybrid_forward(self, F, x):
+        if self._layout == "NHWC":
+            x = _nhwc_input(x)
         return self.output(self.features(x))
 
 
@@ -162,24 +274,27 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_VERSIONS = {1: (ResNetV1, {"basic_block": BasicBlockV1,
+                            "bottle_neck": BottleneckV1}),
+             2: (ResNetV2, {"basic_block": BasicBlockV2,
+                            "bottle_neck": BottleneckV2})}
 
 
 def get_resnet(version, num_layers, pretrained=False, **kwargs):
-    """ResNet v``version`` with ``num_layers`` layers (reference
-    ``get_resnet``); ``kwargs`` go to :class:`ResNetV1`. Only v1 is
-    ported, and no pretrained weights (no model store)."""
+    """ResNet v``version`` (1 or 2) with ``num_layers`` layers
+    (reference ``get_resnet``); ``kwargs`` go to :class:`ResNetV1` or
+    :class:`ResNetV2`. No pretrained weights (no model store)."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
-    if version != 1:
-        raise MXNetError(f"ResNet v{version} is not ported yet (ROADMAP.md, "
-                         "port queue 1, item 8)")
+    if version not in _VERSIONS:
+        raise MXNetError(f"Invalid resnet version: {version}.")
     if pretrained:
         raise MXNetError("pretrained weights need the model store, not "
                          "ported yet (ROADMAP.md, port queue 1, item 10)")
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    net_class, blocks = _VERSIONS[version]
+    return net_class(blocks[block_type], layers, channels, **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -200,3 +315,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

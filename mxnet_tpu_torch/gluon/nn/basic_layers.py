@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ... import autograd
-from ..block import Block, HybridBlock, _raw
+from ..block import Block, HybridBlock, _raw, is_recomputing
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Flatten",
@@ -222,6 +222,10 @@ class BatchNorm(HybridBlock):
         if not isinstance(ret, (list, tuple)):
             return ret
         out, mean, var = ret
+        if is_recomputing():
+            # the backward's recompute of a rematerialised span: the
+            # forward already folded this batch into the statistics
+            return out
         m = self._momentum
         with torch.no_grad():
             for run, stat in ((running_mean, mean), (running_var, var)):

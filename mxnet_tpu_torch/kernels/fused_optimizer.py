@@ -495,9 +495,10 @@ def fused_lamb_sweep(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                          f"{ws[0].device}")
     if ws[0].dtype != torch.float32:
         raise MXNetError("fused_lamb_sweep: the update target is f32 (the "
-                         "master of a multi-precision bucket); LAMB on "
-                         "half-precision weights without multi_precision "
-                         "is not ported (ROADMAP.md, port queue 1, item 7)")
+                         "master of a multi-precision bucket); a "
+                         "half-precision weight without multi_precision "
+                         "takes LAMB's per-parameter update "
+                         "(optimizer.multi_tensor.sweepable)")
     _check("fused_lamb_sweep", ws, gs, [means, vars_], lows, torch.float32)
     dev = ws[0].device
     n = len(ws)

@@ -17,7 +17,9 @@ per-member norms, phase 2), the hand-written kernels on a CUDA tensor
 and their plain versions on a CPU one; and the eager consumer that
 ``gluon.Trainer`` runs (``plan_eager``/``apply_eager_plan``,
 ``:878-1003``). ``parallel.TrainStep`` and the Trainer share
-:func:`sweep_bucket`.
+:func:`sweep_bucket`; a parameter the sweep cannot take (:func:`sweepable`)
+and every parameter of another optimizer, or of a subclass of these four,
+take the optimizer's per-parameter ``update`` instead.
 
 Unlike the JAX sweep, which packs each bucket into flat buffers and
 returns new arrays, the port's sweep updates the members in place where
@@ -32,11 +34,15 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..kernels import (fused_adam_sweep, fused_adamw_sweep, fused_lamb_sweep,
                        fused_sgd_sweep)
+from ..kernels.fused_optimizer import _COMBOS, _layout
+from ..ndarray import NDArray
 
 __all__ = ["family_of", "family_static", "state_roles", "collect_scalars",
+           "sweepable",
            "plan_buckets", "packed_apply", "sweep_bucket", "plan_eager",
            "apply_eager_plan", "Bucket", "EagerPlan"]
 
@@ -59,6 +65,26 @@ def family_of(optimizer) -> Optional[str]:
 
     return {SGD: "sgd", Adam: "adam", AdamW: "adamw",
             LAMB: "lamb"}.get(type(optimizer))
+
+
+def sweepable(family: str, weight: torch.Tensor, grad: torch.Tensor,
+              multi_precision: bool) -> bool:
+    """Whether the sweep kernels take this parameter (on either device,
+    so that the CPU routes as the card does): an f32 update target (a
+    bf16 weight's master under ``multi_precision``) or a bf16 one, an f32
+    or bf16 grad, the weight and grad dense in one memory order, and
+    LAMB's target f32."""
+    low = weight.dtype in (torch.float16, torch.bfloat16)
+    mp = multi_precision and low
+    if mp and weight.dtype != torch.bfloat16:
+        return False
+    target = torch.float32 if mp else weight.dtype
+    if (target, grad.dtype) not in _COMBOS:
+        return False
+    if family == "lamb" and target != torch.float32:
+        return False
+    order = _layout(weight)
+    return order is not None and order == _layout(grad)
 
 
 def family_static(optimizer, family: str) -> tuple:
@@ -210,6 +236,11 @@ def _as_tuple(state) -> tuple:
     return state if isinstance(state, tuple) else (state,)
 
 
+def _t(x):
+    """The tensor of a state leaf (an NDArray after ``set_states``)."""
+    return x._data if isinstance(x, NDArray) else x
+
+
 def sweep_bucket(optimizer, family: str, static: tuple, bucket: Bucket,
                  ks: Sequence[int], params: Sequence[torch.Tensor],
                  grads: Sequence[torch.Tensor], states: Sequence) -> None:
@@ -221,13 +252,13 @@ def sweep_bucket(optimizer, family: str, static: tuple, bucket: Bucket,
     the new masters)."""
     params = [p.detach() for p in params]
     if bucket.mp:
-        ins = {"w": [s[0] for s in states], "g": list(grads)}
+        ins = {"w": [_t(s[0]) for s in states], "g": list(grads)}
         base, low = [s[1] for s in states], params
     else:
         ins = {"w": params, "g": list(grads)}
         base, low = states, None
     for ri, role in enumerate(state_roles(family, dict(static))):
-        ins[role] = [_as_tuple(s)[ri] for s in base]
+        ins[role] = [_t(_as_tuple(s)[ri]) for s in base]
     packed_apply(family, static, ins, collect_scalars(optimizer, family, ks),
                  optimizer.rescale_grad, low=low)
 
@@ -243,8 +274,8 @@ class EagerPlan(NamedTuple):
 
 def plan_eager(optimizer, updater, items) -> EagerPlan:
     """Plan one eager step over ``items`` (``(index, weight, grad)`` for
-    each dense trainable parameter) of an optimizer with a sweep family
-    (:func:`family_of`; the port has no per-parameter path): each
+    each parameter the sweep takes, :func:`sweepable`) of an optimizer
+    with a sweep family (:func:`family_of`): each
     missing state is created in ``updater.states`` (the lazy ``Updater``
     contract) and the items are bucketed by dtype; no count advances and
     no weight moves."""
@@ -265,6 +296,7 @@ def apply_eager_plan(optimizer, updater, plan: EagerPlan, items) -> None:
     for i, _, _ in items:
         optimizer._update_count(i)
     for b in plan.buckets:
+        telemetry.record_optimizer_dispatch("fused_sweep")
         ks = [items[pos][0] for pos in b.members]
         sweep_bucket(optimizer, plan.family, plan.static, b, ks,
                      [items[pos][1] for pos in b.members],

@@ -18,6 +18,13 @@ one u32 seed each, so a stream here hands out seeds:
 Seeds are Python ints handed to the kernels by value: no device tensor
 and no host synchronisation. The state is per thread, as the
 reference's is.
+
+A rematerialised span (``gluon.block.remat_call``) runs its forward
+twice, once in the forward and once in the backward's recompute; both
+runs must draw the same seeds, or the recompute's dropout masks differ
+from the forward's. :func:`seed_tape` records the seeds a span draws and
+:func:`replay_seeds` hands them out again, in order. The reference needs
+nothing of the kind: its keys are values in the traced program.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from .kernels.dropout import hash_u32
 
 __all__ = ["seed", "next_seed", "next_init_seed", "scoped_seed",
            "preserved_stream", "checkpoint_state",
-           "restore_checkpoint_state"]
+           "restore_checkpoint_state", "seed_tape", "replay_seeds"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
@@ -43,6 +50,8 @@ def _global():
         _state.streams = {}          # device name -> torch.Generator (CPU)
         _state.base_seed = _DEFAULT_SEED
         _state.scoped = []           # [step_seed, draws so far] frames
+        _state.tapes = []            # seed lists being recorded
+        _state.replays = []          # [seeds, next position] frames
     return _state
 
 
@@ -83,14 +92,22 @@ def next_seed(device=None) -> int:
     scope's draws; otherwise a draw from ``device``'s stream (the CPU's
     when None)."""
     st = _global()
-    if st.scoped:
+    if st.replays:
+        frame = st.replays[-1]
+        s = frame[0][frame[1]]
+        frame[1] += 1
+    elif st.scoped:
         frame = st.scoped[-1]
         k = frame[1]
         frame[1] = k + 1
-        return hash_u32(k, frame[0])
-    gen = _stream(st, _sig(device))
-    return int(torch.randint(0, 2 ** 32, (1,), generator=gen,
-                             dtype=torch.int64))
+        s = hash_u32(k, frame[0])
+    else:
+        gen = _stream(st, _sig(device))
+        s = int(torch.randint(0, 2 ** 32, (1,), generator=gen,
+                              dtype=torch.int64))
+    for tape in st.tapes:
+        tape.append(s)
+    return s
 
 
 def next_init_seed() -> int:
@@ -113,6 +130,31 @@ def scoped_seed(step_seed: int):
         yield
     finally:
         st.scoped.pop()
+
+
+@contextlib.contextmanager
+def seed_tape():
+    """Record every :func:`next_seed` drawn inside the scope into the
+    list it yields (tapes nest: each records the draws of its scope)."""
+    st = _global()
+    tape = []
+    st.tapes.append(tape)
+    try:
+        yield tape
+    finally:
+        st.tapes.remove(tape)
+
+
+@contextlib.contextmanager
+def replay_seeds(tape):
+    """Inside the scope, :func:`next_seed` hands out ``tape``'s seeds
+    again, in order, whatever stream or scope is active."""
+    st = _global()
+    st.replays.append([list(tape), 0])
+    try:
+        yield
+    finally:
+        st.replays.pop()
 
 
 @contextlib.contextmanager

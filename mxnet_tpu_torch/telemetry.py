@@ -37,7 +37,8 @@ __all__ = [
     "record_serving_reload", "record_serving_shed",
     "record_decode_step", "record_token", "set_tenant_queue_depth",
     "record_preemption", "record_kvcache_defrag", "set_kvcache_pages",
-    "record_training_step", "TrainingTelemetry", "xla_cost_analysis",
+    "record_training_step", "record_optimizer_dispatch",
+    "record_step_skipped", "TrainingTelemetry", "xla_cost_analysis",
     "LATENCY_BUCKETS", "STEP_BUCKETS", "SERVING_BUCKETS",
     "OCCUPANCY_BUCKETS",
 ]
@@ -604,6 +605,27 @@ def set_kvcache_pages(free: int, used: int, reserved: int = 0) -> None:
     g.labels("free").set(free)
     g.labels("used").set(used)
     g.labels("reserved").set(reserved)
+
+
+def record_optimizer_dispatch(path: str, n: int = 1) -> None:
+    """One optimizer-phase update dispatch on the eager Trainer path.
+    ``path``: ``per_param`` (one updater call per parameter) or
+    ``fused_sweep`` (one multi-tensor sweep per dtype bucket)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_optimizer_dispatch_total",
+            "Optimizer-phase update dispatches by path "
+            "(per_param/fused_sweep).", ("path",)).labels(path).inc(n)
+
+
+def record_step_skipped(reason: str) -> None:
+    """One training step skipped by an anomaly guard. ``reason``:
+    ``nonfinite_grad`` (the Trainer's ``check_nonfinite`` guard)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_steps_skipped_total",
+            "Training steps skipped by anomaly guards, by reason.",
+            ("reason",)).labels(reason).inc()
 
 
 def record_training_step(seconds: float, examples: float,

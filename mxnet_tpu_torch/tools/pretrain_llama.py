@@ -17,11 +17,15 @@ card is synchronised at the middle step and the remaining steps are
 timed as one span that ends in a synchronisation. The last line is a
 JSON record of the run, with every step's loss.
 
+Remat follows the JAX tool (``:111``): each block is rematerialised
+(``LlamaModel(remat=...)``) for every config but ``tiny``, ``--remat
+[full|dots]`` picks the policy (bare ``--remat`` is ``full``) and
+``--no-remat`` turns it off, as the JAX benchmark (``bench_llama.py``)
+runs.
+
 Not ported yet, each raising :class:`MXNetError` with its ROADMAP.md
 item: a mesh over more than one device, ``--compile-only``, ``--data``
-from a record file, ``--save-dir``, ``--remat`` and ``--no-fused-ce``.
-Remat is off by default here (the JAX tool turns it on for every
-config but ``tiny``; its own benchmark runs ``--no-remat``).
+from a record file, ``--save-dir`` and ``--no-fused-ce``.
 """
 from __future__ import annotations
 
@@ -95,11 +99,30 @@ def _make_data(source, batch, seq, vocab, device):
         yield tokens, labels
 
 
+def default_remat(config):
+    """The driver's remat when neither ``--remat`` nor ``--no-remat`` is
+    given: ``"full"`` for every config but ``tiny``."""
+    return "full" if config != "tiny" else None
+
+
+def resolve_remat(config, remat):
+    """``--remat``'s value as ``LlamaModel``'s ``remat``: None (the flag
+    absent) takes :func:`default_remat`; False is off; True is
+    ``"full"``; a policy name passes through."""
+    if remat is None:
+        return default_remat(config)
+    if remat is True:
+        return "full"
+    return remat or None
+
+
 def build(config, *, ctx=None, dtype="bfloat16", lr=3e-4,
-          weight_decay=0.1):
-    """``(net, step)``: ``LlamaModel(**CONFIGS[config], fused_ce=True)``
-    on ``ctx`` in ``dtype``, its weights drawn from seed 0, under a
-    ``TrainStep`` with the pretraining tool's multi-precision AdamW."""
+          weight_decay=0.1, remat=None):
+    """``(net, step)``: ``LlamaModel(**CONFIGS[config], fused_ce=True,
+    remat=...)`` on ``ctx`` in ``dtype``, its weights drawn from seed 0,
+    under a ``TrainStep`` with the pretraining tool's multi-precision
+    AdamW. ``remat`` as ``--remat`` takes it (:func:`resolve_remat`:
+    None is the driver's default, on for every config but ``tiny``)."""
     from .. import parallel
     from ..base import torch_dtype
     from ..context import resolve_device
@@ -108,7 +131,8 @@ def build(config, *, ctx=None, dtype="bfloat16", lr=3e-4,
     device = resolve_device(ctx)
     gen = torch.Generator(device=device).manual_seed(0)
     net = LlamaModel(**CONFIGS[config], fused_ce=True, ctx=device,
-                     dtype=torch_dtype(dtype), generator=gen)
+                     dtype=torch_dtype(dtype), generator=gen,
+                     remat=resolve_remat(config, remat))
     step = parallel.TrainStep(
         net, _FusedLossPassthrough(), "adamw", loss_only=True,
         optimizer_params={"learning_rate": lr, "wd": weight_decay,
@@ -129,8 +153,6 @@ def _refuse(args) -> None:
              "the compilation service, item 10"),
             ("--save-dir", args.save_dir is not None,
              "checkpointing, item 10"),
-            ("--remat", args.remat not in (None, False),
-             "TrainStep's remat, item 8"),
             ("--no-fused-ce", not args.fused_ce,
              "gluon/loss.py, item 6")):
         if bad:
@@ -152,7 +174,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--weight-decay", type=float, default=0.1)
-    ap.add_argument("--remat", nargs="?", const=True, default=None)
+    ap.add_argument("--remat", nargs="?", const=True, default=None,
+                    choices=("full", "dots", True),
+                    help="rematerialise each block; the optional value "
+                         "picks the policy (default: on for every config "
+                         "but tiny)")
     ap.add_argument("--no-remat", dest="remat", action="store_false")
     ap.add_argument("--data", default="synthetic")
     ap.add_argument("--save-dir", default=None)
@@ -173,8 +199,9 @@ def main(argv=None):
     batch = args.batch or (4 if args.config == "proxy1b" else 2)
     device = resolve_device(cpu() if args.ctx == "cpu" else None)
     data = _make_data(args.data, batch, seq, cfg["vocab_size"], device)
+    remat = resolve_remat(args.config, args.remat)
     _, step = build(args.config, ctx=device, dtype=args.dtype, lr=args.lr,
-                    weight_decay=args.weight_decay)
+                    weight_decay=args.weight_decay, remat=remat)
     tokens, labels = next(data)
 
     t0 = time.perf_counter()
@@ -203,7 +230,8 @@ def main(argv=None):
     on_card = device.type == "cuda"
     print(json.dumps({
         "config": args.config, "params": n_params, "batch": batch,
-        "seq": seq, "device": (torch.cuda.get_device_name(device)
+        "seq": seq, "remat": remat,
+        "device": (torch.cuda.get_device_name(device)
                                if on_card else "cpu"),
         "tokens_per_sec": tok_s,
         # MFU is a device metric: the card's only

@@ -300,7 +300,6 @@ def _tiny(**kw):
     ({"mesh": {"dp": 2}}, "items 9 and 11"),
     ({"rules": object()}, "item 11"),
     ({"seq_axis": "sp"}, "item 11"),
-    ({"remat": "full"}, "item 8"),
     ({"donate_inputs": True}, "item 8"),
 ])
 def test_trainstep_refuses_what_needs_a_later_slice(kwargs, item):
@@ -314,7 +313,9 @@ def test_trainstep_refuses_dropout_and_unported_optimizers():
     """A model with dropout is no longer refused: TrainStep trains it,
     with its dropout sites drawing from the step's scoped seeds (tests/
     test_torch_dropout.py holds the step against the JAX one). The
-    optimizers without a fused sweep are still refused."""
+    optimizers without a fused sweep, and a subclass of a fused one, are
+    no longer refused either: they take the per-parameter update
+    (tests/test_torch_optimizers.py holds them against the reference)."""
     for kw in ({"dropout": 0.1}, {"attn_dropout": 0.1}):
         step = TrainStep(_tiny(**kw), lambda o, *a: o, "adam",
                          loss_only=True)
@@ -322,8 +323,11 @@ def test_trainstep_refuses_dropout_and_unported_optimizers():
         tok = rs.randint(0, 64, (2, 16)).astype(np.int32)
         loss = step((tok, tok), ())[0]
         assert torch.isfinite(loss)
-    with pytest.raises(mx.MXNetError, match="queue 1, item 7"):
-        TrainStep(_tiny(), lambda o, *a: o, "nag")
+    step = TrainStep(_tiny(), lambda o, *a: o, "nag", loss_only=True,
+                     optimizer_params={"momentum": 0.9})
+    tok = np.random.RandomState(1).randint(0, 64, (2, 16)).astype(np.int32)
+    assert torch.isfinite(step((tok, tok), ())[0])
+    assert step._per_param and not step._buckets
     with pytest.raises(mx.MXNetError, match="unknown optimizer"):
         mx.optimizer.create("nosuch")
 
@@ -331,5 +335,6 @@ def test_trainstep_refuses_dropout_and_unported_optimizers():
         pass
 
     assert multi_tensor.family_of(MyAdam()) is None
-    with pytest.raises(mx.MXNetError, match="no fused sweep"):
-        TrainStep(_tiny(), lambda o, *a: o, MyAdam())
+    step = TrainStep(_tiny(), lambda o, *a: o, MyAdam(), loss_only=True)
+    assert torch.isfinite(step((tok, tok), ())[0])
+    assert not step._buckets

@@ -455,11 +455,14 @@ def test_trainstep_returns_tuple_outputs_detached():
 # ---------------------------------------------------------------------------
 
 def test_llama_refuses_remat_and_a_mesh():
-    for remat in (True, "full", "dots"):
-        with pytest.raises(mx.MXNetError, match="item 8"):
-            LlamaModel(**TINY, remat=remat, ctx=mx.cpu())
-    for remat in (False, None):
-        LlamaModel(**TINY, remat=remat, ctx=mx.cpu())
+    """Remat is ported (tests/test_torch_remat.py holds it): every
+    policy builds, an unknown one raises the reference's ValueError; a
+    mesh is still refused."""
+    for remat, want in ((True, "full"), ("full", "full"), ("dots", "dots"),
+                        (False, None), (None, None)):
+        assert LlamaModel(**TINY, remat=remat, ctx=mx.cpu())._remat == want
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        LlamaModel(**TINY, remat="sometimes", ctx=mx.cpu())
     net = LlamaModel(**TINY, fused_ce=True, ctx=mx.cpu())
     with pytest.raises(mx.MXNetError, match="items 9 and 11"):
         TrainStep(net, lambda o, *a: o, "adamw", mesh={"dp": 2})
@@ -495,7 +498,6 @@ def test_proxy1b_preset_and_ce_chunk():
     (["--compile-only"], "item 10"),
     (["--data", "tokens.rec"], "item 10"),
     (["--save-dir", "ckpt"], "item 10"),
-    (["--remat"], "item 8"),
     (["--no-fused-ce"], "item 6"),
 ])
 def test_pretrain_tool_refuses_what_is_not_ported(flag, item):

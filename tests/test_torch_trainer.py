@@ -289,8 +289,12 @@ def _jax_run(optname, okw, steps, dtype, mp, grad_req=None, mixed=False,
             p.grad_req = grad_req
     for i, (lr_mult, wd_mult) in (mults or {}).items():
         params[i].lr_mult, params[i].wd_mult = lr_mult, wd_mult
-    tr = jgluon.Trainer(net.collect_params(), optname,
-                        dict(okw, multi_precision=mp))
+    if isinstance(optname, type):     # an optimizer class, built here
+        tr = jgluon.Trainer(net.collect_params(),
+                            optname(**dict(okw, multi_precision=mp)))
+    else:
+        tr = jgluon.Trainer(net.collect_params(), optname,
+                            dict(okw, multi_precision=mp))
     rs2 = np.random.RandomState(11)
     x = jmx.nd.array(rs2.randn(8, 32).astype(np.float32)).astype(dtype)
     y = jmx.nd.array(rs2.randn(8, 8).astype(np.float32)).astype(dtype)
@@ -330,7 +334,12 @@ def _port_run(optname, okw, steps, dtype, mp, grad_req=None, mixed=False,
         params[1].grad_req = grad_req
     for i, (lr_mult, wd_mult) in (mults or {}).items():
         params[i].lr_mult, params[i].wd_mult = lr_mult, wd_mult
-    tr = Trainer(net.collect_params(), optname, dict(okw, multi_precision=mp))
+    if isinstance(optname, type):
+        tr = Trainer(net.collect_params(),
+                     optname(**dict(okw, multi_precision=mp)))
+    else:
+        tr = Trainer(net.collect_params(), optname,
+                     dict(okw, multi_precision=mp))
     rs2 = np.random.RandomState(11)
     dt = getattr(torch, dtype)
     x = torch.from_numpy(rs2.randn(8, 32).astype(np.float32)).to(dt)
@@ -351,6 +360,8 @@ def _port_run(optname, okw, steps, dtype, mp, grad_req=None, mixed=False,
 def _leaves(state):
     if state is None:
         return []
+    if isinstance(state, mx.nd.NDArray):
+        return [state._data]
     if isinstance(state, torch.Tensor):
         return [state]
     return [t for s in state for t in _leaves(s)]
@@ -884,18 +895,19 @@ def test_trainer_refuses_what_needs_a_later_slice():
                      ({"update_on_kvstore": True}, "item 9"),
                      ({"compression_params": {"type": "2bit"}}, "item 9"),
                      ({"overlap_comms": True}, "item 9"),
-                     ({"partition": "zero1"}, "item 9"),
-                     ({"check_nonfinite": True}, "item 7")):
+                     ({"partition": "zero1"}, "item 9")):
         with pytest.raises(mx.MXNetError, match=item):
             Trainer(params, "sgd", **kw)
-    with pytest.raises(mx.MXNetError, match="item 7"):
-        Trainer(params, "nag")
+    # ported in this slice: check_nonfinite, every optimizer, and a
+    # subclass of a fused family (the per-parameter path)
+    assert Trainer(params, "sgd", check_nonfinite=True)._check_nonfinite
+    assert isinstance(Trainer(params, "nag").optimizer,
+                      mx.optimizer.NAG)
 
     class MyLamb(LAMB):
         pass
 
-    with pytest.raises(mx.MXNetError, match="no fused sweep"):
-        Trainer(params, MyLamb())
+    assert pmt.family_of(Trainer(params, MyLamb()).optimizer) is None
     with pytest.raises(mx.MXNetError, match="must be None"):
         Trainer(params, LAMB(), {"learning_rate": 0.1})
     with pytest.raises(mx.MXNetError, match="list or dict"):
@@ -923,3 +935,338 @@ def test_trainer_module_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the per-parameter path, check_nonfinite, trainer states
+# ---------------------------------------------------------------------------
+
+class _JaxSGDSub(jopt.SGD):
+    pass
+
+
+class _PortSGDSub(mx.optimizer.SGD):
+    pass
+
+
+PER_PARAM = [
+    ("nag", "nag", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}),
+    ("rmsprop", "rmsprop", {"learning_rate": 0.01, "gamma1": 0.95}),
+    ("sgd_subclass", (_JaxSGDSub, _PortSGDSub),
+     {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}),
+]
+
+
+@pytest.mark.parametrize("dtype,mp", [("float32", False), ("bfloat16", True)])
+@pytest.mark.parametrize("case,optname,okw", PER_PARAM,
+                         ids=[c[0] for c in PER_PARAM])
+def test_per_parameter_path_matches_the_jax_trainer(case, optname, okw,
+                                                    dtype, mp):
+    """Three ``Trainer`` steps of NAG, RMSProp and a subclass of
+    SGD (the per-parameter ``Updater``, no sweep), in f32 and in bf16 with
+    f32 masters, against the JAX Trainer's: losses, weights and states
+    within :data:`TOL`; one ``per_param`` dispatch per parameter a step
+    and no fused sweep."""
+    jname, pname = optname if isinstance(optname, tuple) else (optname,
+                                                               optname)
+    telemetry = mx.telemetry
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        port = _port_run(pname, okw, 3, dtype, mp)
+        snap = telemetry.snapshot()
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    _compare(port, _jax_run(jname, okw, 3, dtype, mp), TOL[dtype], case)
+    assert pmt.family_of(port[3].optimizer) is None
+    got = _dispatches(snap)
+    assert got == {"per_param": 12.0}, got
+
+
+def _dispatches(snap):
+    fam = snap["metrics"].get("mxnet_optimizer_dispatch_total",
+                              {"samples": []})
+    return {tuple(x["labels"].values())[0]: x["value"]
+            for x in fam["samples"]}
+
+
+def test_fused_and_unsweepable_parameters_split():
+    """Under LAMB, a parameter the sweep cannot take (a bf16 weight
+    without ``multi_precision``: LAMB's kernel takes f32 targets) goes
+    through the per-parameter update, the rest through one sweep per
+    dtype bucket."""
+    net = _port_net("float32", mixed=True)
+    tr = Trainer(net.collect_params(), "lamb", {"learning_rate": 0.01})
+    x = torch.ones(8, 32)
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    try:
+        with mx.autograd.record():
+            loss = (net(x) ** 2).mean(dim=1)
+        mx.autograd.backward(loss)
+        tr.step(8)
+        got = _dispatches(mx.telemetry.snapshot())
+    finally:
+        mx.telemetry.disable()
+        mx.telemetry.reset()
+    assert got == {"fused_sweep": 1.0, "per_param": 2.0}, got
+    assert isinstance(tr._updater.states[1][0], mx.nd.NDArray)
+    assert isinstance(tr._updater.states[0][0], torch.Tensor)
+
+
+def test_check_nonfinite_skips_and_counts(monkeypatch):
+    """A step whose gradients hold NaN or Inf is skipped (weights and
+    states untouched, the counts not advanced) and counted in
+    ``steps_skipped`` and telemetry, as the JAX Trainer does; a finite
+    step after it goes on from where the run was. The environment
+    variable turns the guard on too."""
+    results = {}
+    for pkg in ("port", "jax"):
+        if pkg == "port":
+            net = _port_net()
+            tr = Trainer(net.collect_params(), "adam",
+                         {"learning_rate": 0.01}, check_nonfinite=True)
+            params = list(net.collect_params().values())
+        else:
+            jnet = jgluon.nn.HybridSequential()
+            jnet.add(jgluon.nn.Dense(16, in_units=32),
+                     jgluon.nn.Dense(8, in_units=16))
+            jnet.initialize()
+            rs = np.random.RandomState(7)
+            params = list(jnet.collect_params().values())
+            for p in params:
+                p.set_data(jmx.nd.array(rs.randn(*p.shape)
+                                        .astype(np.float32)))
+            tr = jgluon.Trainer(jnet.collect_params(), "adam",
+                                {"learning_rate": 0.01},
+                                check_nonfinite=True)
+            net = jnet
+        rs2 = np.random.RandomState(11)
+        xs = rs2.randn(8, 32).astype(np.float32)
+        weights = []
+        for step in range(3):
+            x = xs.copy()
+            if step == 1:
+                x[0, 0] = np.nan if pkg == "port" else np.inf
+            if pkg == "port":
+                with mx.autograd.record():
+                    loss = (net(torch.from_numpy(x)) ** 2).mean(dim=1)
+                mx.autograd.backward(loss)
+            else:
+                with jag.record():
+                    loss = (net(jmx.nd.array(x)) ** 2).mean(axis=1)
+                loss.backward()
+            tr.step(8)
+            weights.append([_np(p.data()) for p in params])
+        results[pkg] = (weights, tr.steps_skipped,
+                        tr.optimizer.num_update)
+    (pw, pskip, pn), (jw, jskip, jn) = results["port"], results["jax"]
+    assert pskip == jskip == 1 and pn == jn == 2
+    for a, b in zip(pw[1], pw[0]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(pw[2], jw[2]):
+        _close(a, b, TOL["float32"], "after the skipped step")
+    monkeypatch.setenv("MXNET_CHECK_NONFINITE", "1")
+    assert Trainer(_port_net().collect_params(), "sgd")._check_nonfinite
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    try:
+        net = _port_net()
+        tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+        for p in net.collect_params().values():
+            p._grad_tensor().fill_(float("inf"))
+        tr.step(1)
+        fam = mx.telemetry.snapshot()["metrics"][
+            "mxnet_steps_skipped_total"]
+        assert fam["samples"][0]["value"] == 1.0
+        assert tr.steps_skipped == 1
+    finally:
+        mx.telemetry.disable()
+        mx.telemetry.reset()
+
+
+def _port_steps(net, tr, steps, start=0):
+    rs2 = np.random.RandomState(11)
+    xs = [rs2.randn(8, 32).astype(np.float32) for _ in range(start + steps)]
+    for x in xs[start:]:
+        with mx.autograd.record():
+            loss = (0.5 * torch.square(net(torch.from_numpy(x)))).mean(dim=1)
+        mx.autograd.backward(loss)
+        tr.step(8)
+
+
+def _jax_net():
+    jnet = jgluon.nn.HybridSequential()
+    jnet.add(jgluon.nn.Dense(16, in_units=32), jgluon.nn.Dense(8, in_units=16))
+    jnet.initialize()
+    rs = np.random.RandomState(7)
+    for p in jnet.collect_params().values():
+        p.set_data(jmx.nd.array(rs.randn(*p.shape).astype(np.float32)))
+    return jnet
+
+
+def _jax_steps(jnet, tr, steps, start=0):
+    rs2 = np.random.RandomState(11)
+    xs = [rs2.randn(8, 32).astype(np.float32) for _ in range(start + steps)]
+    for x in xs[start:]:
+        with jag.record():
+            loss = (0.5 * jnet(jmx.nd.array(x)) ** 2).mean(axis=1)
+        loss.backward()
+        tr.step(8)
+
+
+def _sched():
+    return mx.lr_scheduler.CosineScheduler(max_update=10, base_lr=0.05,
+                                           warmup_steps=2,
+                                           warmup_begin_lr=0.01)
+
+
+@pytest.mark.parametrize("optname,okw,dtype", [
+    ("nag", {"momentum": 0.9, "wd": 1e-4, "multi_precision": True},
+     "bfloat16"),
+    ("adam", {"wd": 1e-3}, "float32"),
+    ("lamb", {"wd": 0.01, "multi_precision": True}, "bfloat16"),
+])
+def test_save_load_states_resume_bit_for_bit(tmp_path, optname, okw, dtype):
+    """Two steps, ``save_parameters`` and ``save_states``; a fresh model
+    and Trainer loaded from both take step 3 equal bit for bit to the
+    uninterrupted run's, the scheduler and the counts resumed."""
+    def trainer(net):
+        return Trainer(net.collect_params(), optname,
+                       dict(okw, lr_scheduler=_sched()))
+
+    net = _port_net(dtype)
+    tr = trainer(net)
+    _port_steps(net, tr, 2)
+    net.save_parameters(str(tmp_path / "w.params"))
+    tr.save_states(str(tmp_path / "t.states"))
+    _port_steps(net, tr, 1, start=2)
+    net2 = _port_net(dtype)
+    net2.load_parameters(str(tmp_path / "w.params"), ctx=mx.cpu())
+    tr2 = trainer(net2)
+    tr2.load_states(str(tmp_path / "t.states"))
+    assert tr2.optimizer.num_update == 2
+    assert tr2.optimizer._index_update_count == {i: 2 for i in range(4)}
+    _port_steps(net2, tr2, 1, start=2)
+    assert tr2.learning_rate == tr.learning_rate
+    for p, q in zip(net.collect_params().values(),
+                    net2.collect_params().values()):
+        assert torch.equal(p.tensor, q.tensor), p.name
+    for i in tr._updater.states:
+        for a, b in zip(_leaves(tr._updater.states[i]),
+                        _leaves(tr2._updater.states[i])):
+            assert a.dtype == b.dtype and torch.equal(a, b), i
+    with pytest.raises(mx.MXNetError, match="cannot read"):
+        tr2.load_states(str(tmp_path / "missing.states"))
+    (tmp_path / "bad.states").write_bytes(b"not a pickle")
+    with pytest.raises(mx.MXNetError, match="not a valid optimizer state"):
+        tr2.load_states(str(tmp_path / "bad.states"))
+
+
+@pytest.mark.parametrize("optname,okw", [
+    ("nag", {"learning_rate": 0.05, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.01}),
+])
+def test_trainer_states_cross_load_with_the_jax_trainer(tmp_path, optname,
+                                                        okw):
+    """Two steps in one package, its ``save_states`` loaded by the other
+    package's Trainer over the same weights, a third step there: equal
+    to the first package's third step within :data:`TOL`, both ways."""
+    # the port first, the reference resumes
+    net = _port_net()
+    tr = Trainer(net.collect_params(), optname, dict(okw))
+    _port_steps(net, tr, 2)
+    tr.save_states(str(tmp_path / "p.states"))
+    w2 = [_np(p.data()).copy() for p in net.collect_params().values()]
+    _port_steps(net, tr, 1, start=2)
+    jnet = _jax_net()
+    for p, w in zip(jnet.collect_params().values(), w2):
+        p.set_data(jmx.nd.array(w))
+    jtr = jgluon.Trainer(jnet.collect_params(), optname, dict(okw))
+    jtr.load_states(str(tmp_path / "p.states"))
+    assert jtr.optimizer.num_update == 2
+    _jax_steps(jnet, jtr, 1, start=2)
+    for p, q in zip(net.collect_params().values(),
+                    jnet.collect_params().values()):
+        _close(_np(p.data()), _np(q.data().data), TOL["float32"], p.name)
+    # the reference first, the port resumes
+    jnet = _jax_net()
+    jtr = jgluon.Trainer(jnet.collect_params(), optname, dict(okw))
+    _jax_steps(jnet, jtr, 2)
+    jtr.save_states(str(tmp_path / "j.states"))
+    jw2 = [_np(p.data().data) for p in jnet.collect_params().values()]
+    _jax_steps(jnet, jtr, 1, start=2)
+    net = _port_net()
+    for p, w in zip(net.collect_params().values(), jw2):
+        p.set_data(w)
+    tr = Trainer(net.collect_params(), optname, dict(okw))
+    tr.load_states(str(tmp_path / "j.states"))
+    assert tr.optimizer.num_update == 2
+    _port_steps(net, tr, 1, start=2)
+    for p, q in zip(net.collect_params().values(),
+                    jnet.collect_params().values()):
+        _close(_np(p.data()), _np(q.data().data), TOL["float32"], p.name)
+
+
+def test_checkpoint_bundle_with_trainer_states_loads_in_each_package(
+        tmp_path):
+    """``CheckpointManager.save(params=, trainer=)`` writes
+    ``trainer.states`` beside the parameters; each package's
+    ``restore(block=, trainer=)`` takes the other's bundle, and the
+    restored states equal the saved ones."""
+    from mxnet_tpu import checkpoint as jckpt
+
+    net = _port_net()
+    tr = Trainer(net.collect_params(), "nag",
+                 {"learning_rate": 0.05, "momentum": 0.9})
+    _port_steps(net, tr, 2)
+    mx.checkpoint.CheckpointManager(str(tmp_path / "p")).save(
+        2, params=net, trainer=tr)
+    jnet = _jax_net()
+    jtr = jgluon.Trainer(jnet.collect_params(), "nag",
+                         {"learning_rate": 0.05, "momentum": 0.9})
+    meta = jckpt.CheckpointManager(str(tmp_path / "p")).restore(
+        block=jnet, trainer=jtr, restore_rng=False)
+    assert meta["step"] == 2 and jtr.optimizer.num_update == 2
+    for i, st in tr._updater.states.items():
+        np.testing.assert_array_equal(
+            _np(jtr._updaters[0].states[i].data), _np(st))
+    # and back: the reference's bundle restores the port's trainer
+    _jax_steps(jnet, jtr, 1, start=2)
+    jckpt.CheckpointManager(str(tmp_path / "j")).save(3, params=jnet,
+                                                      trainer=jtr)
+    net2 = _port_net()
+    tr2 = Trainer(net2.collect_params(), "nag",
+                  {"learning_rate": 0.05, "momentum": 0.9})
+    mx.checkpoint.CheckpointManager(str(tmp_path / "j")).restore(
+        block=net2, trainer=tr2, restore_rng=False)
+    assert tr2.optimizer.num_update == 3
+    for i, st in jtr._updaters[0].states.items():
+        np.testing.assert_array_equal(_np(tr2._updater.states[i]),
+                                      _np(st.data))
+    for p, q in zip(net2.collect_params().values(),
+                    jnet.collect_params().values()):
+        np.testing.assert_array_equal(_np(p.data()), _np(q.data().data))
+
+
+@pytest.mark.parametrize("optname", ["adam", "lamb", "sgd"])
+def test_fused_sweeps_read_the_scheduler(optname):
+    """An ``lr_scheduler`` in ``optimizer_params``: the fused sweeps read
+    each step's rate from it (``Optimizer.learning_rate`` at the advanced
+    count), five steps against the JAX Trainer with the same cosine
+    schedule and warmup, within :data:`TOL`."""
+    from mxnet_tpu import lr_scheduler as jls
+
+    kw = dict(max_update=6, base_lr=0.05, final_lr=0.001, warmup_steps=2,
+              warmup_begin_lr=0.005)
+    okw = {"momentum": 0.9} if optname == "sgd" else {}
+    port = _port_run(optname, dict(
+        okw, lr_scheduler=mx.lr_scheduler.CosineScheduler(**kw)), 5,
+        "float32", False)
+    ref = _jax_run(optname, dict(okw, lr_scheduler=jls.CosineScheduler(
+        **kw)), 5, "float32", False)
+    _compare(port, ref, TOL["float32"], optname)
+    tr = port[3]
+    assert pmt.family_of(tr.optimizer) == optname
+    assert tr.learning_rate == jls.CosineScheduler(**kw)(5)
