@@ -228,16 +228,39 @@ package. Phases, each printing JSON lines and failing loudly:
              ms, host ms and launches of each, the byte bound), and that
              kernel alone on the largest parameter (the word embedding)
              beside its plain version, torch.sub and its byte bound;
-18. summary — one {"kernels": [...]} line (the Pallas sites' kernels
-             and an mx.rtc entry for mxnet_tpu/rtc.py:62: the imperative
-             path's user SGD kernel, the rtc phase's axpy beside it), and
-             the eager path's step beside TrainStep's at the same shape
-             and dropout.
+17a. dp_reference — the data-parallel comms: BERTForPretrainFused at
+             BERT-base widths cut to 2 layers, f32, TF32 off, dropout
+             0.1 / 0.1, Adam, two batch slices a step, three steps each
+             way: Trainer(kvstore='nccl'), with overlap_comms, and with
+             partition='zero1' at world 1, each bit for bit with
+             kvstore=None on the card; two CPU contexts cpu(0)/cpu(1),
+             one slice each, against the card (losses to 1e-5, deltas
+             to 1e-3); a one-rank NCCL group through comm.py's three
+             primitives, the bits unchanged;
+17b. dp_train — bf16 BERT-base not cut, multi-precision Adam lr 1e-4,
+             (32, 512), dropout 0.1 / 0.1: Trainer(kvstore='nccl',
+             overlap_comms=True) in turns with kvstore=None, then with
+             2-bit compression, then partition='zero1', 3 warm-up and 20
+             timed steps each: ms per step, samples/s, peak memory, host
+             ms of forward, backward and step, buckets and bytes per
+             step, last_overlap_stats, the loss finite and falling, and
+             exactly the model's launches, one Adam sweep per dtype
+             bucket and one twobit_quantize per gradient bucket per step
+             with compression (none without); the kernels phase holds
+             twobit_quantize bit for bit against its plain version on a
+             25 MB bf16 bucket and an f32 bucket holding the edge values;
+18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
+             hash_dropout and twobit_quantize beside them, and an mx.rtc
+             entry for mxnet_tpu/rtc.py:62: the imperative path's user
+             SGD kernel, the rtc phase's axpy beside it), and the eager
+             path's step beside TrainStep's at the same shape and
+             dropout.
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -1624,6 +1647,92 @@ def lamb_case(flush, gen) -> dict:
     return rec
 
 
+TWOBIT_T = 0.5
+
+
+def _nan_bits_equal(a, b) -> bool:
+    """Equal NaN positions and equal bits everywhere else."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    if a.dtype != b.dtype or not torch.equal(na, nb):
+        return False
+    return torch.equal(a[~na].contiguous().view(torch.uint8),
+                       b[~nb].contiguous().view(torch.uint8))
+
+
+def _twobit_edges(n, dtype, gen):
+    """n seeded values with t, -t, t +- 1 ulp, +-0, NaN and +-inf each
+    placed at 64 seeded positions."""
+    t = torch.tensor(TWOBIT_T, dtype=dtype)
+    inf = torch.tensor(float("inf"), dtype=dtype)
+    up, down = torch.nextafter(t, inf), torch.nextafter(t, -inf)
+    zero = torch.tensor(0.0, dtype=dtype)
+    edges = torch.stack([t, -t, up, down, -up, -down, zero, -zero,
+                         inf - inf, inf, -inf]).float()
+    g = torch.randn(n, device="cuda", generator=gen) * 0.6
+    idx = torch.randint(0, n, (64 * len(edges),), device="cuda",
+                        generator=gen)
+    g[idx] = edges.cuda().repeat(64)
+    return g.to(dtype)
+
+
+def twobit_case(flush, gen) -> list:
+    """The kvstore's 2-bit quantizer with error feedback against its
+    plain version (run on the CPU), bit for bit with NaN positions equal:
+    five steps over a 25 MB bf16 bucket (the kvstore's default bucket
+    cap), five over a 4M-element f32 bucket with t, t +- 1 ulp, +-0,
+    NaN and +-inf placed in it; the same bits on a second call; one
+    kernel per call (a graph capture's kernel nodes). Work per element:
+    g and r read, q and r written (12 B in bf16, 16 B in f32), about
+    five f32 operations. No single PyTorch call computes it."""
+    from mxnet_tpu_torch.kernels import (twobit_quantize,
+                                         twobit_quantize_reference)
+    from mxnet_tpu_torch.kernels._build import kernels_per_call
+
+    recs = []
+    for dtype, n, edges in ((torch.bfloat16, (25 << 20) // 2, False),
+                            (torch.float32, 1 << 22, True)):
+        r_card = torch.zeros(n, device="cuda")
+        r_cpu = torch.zeros(n)
+        same = True
+        for _ in range(5):
+            g = _twobit_edges(n, dtype, gen) if edges else \
+                (torch.randn(n, device="cuda", generator=gen) * 0.6).to(dtype)
+            q = twobit_quantize(g, r_card, TWOBIT_T)
+            qp = twobit_quantize_reference(g.cpu(), r_cpu, TWOBIT_T)
+            same = same and _nan_bits_equal(q, qp) \
+                and _nan_bits_equal(r_card, r_cpu)
+        r1, r2 = r_card.clone(), r_card.clone()
+        q1 = twobit_quantize(g, r1, TWOBIT_T)
+        q2 = twobit_quantize(g, r2, TWOBIT_T)
+        twice = _nan_bits_equal(q1, q2) and _nan_bits_equal(r1, r2)
+        per_call = kernels_per_call(
+            lambda: twobit_quantize(g, r1, TWOBIT_T, out=q1))
+        r_t, q_t = torch.zeros(n, device="cuda"), torch.empty_like(g)
+        size = g.element_size()
+        b_ms, b_by = bound((2.0 * size + 8.0) * n, 5.0 * n, torch.float32)
+        rec = {"phase": "kernels", "kernel": "twobit_quantize",
+               "shape": [n], "dtype": _dname(dtype), "threshold": TWOBIT_T,
+               "edge_values": edges, "steps": 5, "bit_identical": same,
+               "same_bits_twice": twice, "kernels_per_call": per_call,
+               "max_abs_err": 0.0 if same else None,
+               "ms": time_ms(lambda: twobit_quantize(g, r_t, TWOBIT_T,
+                                                     out=q_t), flush),
+               "plain_ms": time_ms(lambda: twobit_quantize_reference(
+                   g, r_t, TWOBIT_T), flush),
+               "library_ms": None, "library": "null (no single call)",
+               "bound_ms": b_ms, "bound_by": b_by}
+        rec["device_ms"] = _queued_ms(
+            lambda: twobit_quantize(g, r_t, TWOBIT_T, out=q_t), flush)
+        rec["plain_device_ms"] = _queued_ms(
+            lambda: twobit_quantize_reference(g, r_t, TWOBIT_T), flush)
+        rec["ok"] = same and twice and per_call == 1
+        emit(rec)
+        recs.append(rec)
+        del r_card, r_cpu, r1, r2, r_t, q_t
+    return recs
+
+
 def _warm_card(seconds=2.0) -> None:
     """Keep the card busy with bf16 GEMMs for ``seconds`` so its clocks
     have ramped up before anything is timed."""
@@ -1693,6 +1802,7 @@ def phase_kernels() -> dict:
     recs.append(adamw_case(flush, gen))
     recs.append(sgd_case(flush, gen))
     recs.append(lamb_case(flush, gen))
+    recs.extend(twobit_case(flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -1711,6 +1821,9 @@ def phase_kernels() -> dict:
     for r in recs:
         if r["dtype"] != "bfloat16":
             continue
+        # the 25 MB bf16 bucket: the kvstore's default cap
+        if r["kernel"] == "twobit_quantize":
+            pick["twobit_quantize"] = r
         if r["kernel"] == "fused_rms_norm_bwd":
             pick["fused_rms_norm_bwd"] = r
         if r["kernel"] == "fused_layer_norm_bwd" and r["residual"]:
@@ -2790,14 +2903,15 @@ def _train_wrappers() -> dict:
                                          fused_layer_norm,
                                          fused_layer_norm_bwd,
                                          fused_rms_norm, fused_rms_norm_bwd,
-                                         hash_dropout, hash_dropout_bwd)
+                                         hash_dropout, hash_dropout_bwd,
+                                         twobit_quantize)
 
     return {f.__name__: f for f in (
         fused_layer_norm, fused_layer_norm_bwd, fused_bias_gelu,
         fused_bias_gelu_bwd, flash_attention, flash_attention_bwd,
         fused_adam_sweep, hash_dropout, hash_dropout_bwd, fused_rms_norm,
         fused_rms_norm_bwd, fused_adamw_sweep, fused_sgd_sweep,
-        fused_lamb_sweep)}
+        fused_lamb_sweep, twobit_quantize)}
 
 
 # the other counters some wrappers keep beside ``launches``
@@ -5548,6 +5662,393 @@ def phase_imperative(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16-17. data-parallel comms: the kvstore, overlap, 2-bit compression, ZeRO
+# ---------------------------------------------------------------------------
+
+DP_OPT = {"learning_rate": 1e-4}
+
+
+def _dp_step(net, trainer, tok, lab, halves=1, times=None):
+    """One eager step as a user writes it, over ``halves`` equal slices of
+    the batch, each its own forward under one record() (the CPU copy's
+    two contexts see the same slices, so both draw the same dropout
+    masks); one backward of every slice's loss, Trainer.step over all
+    positions. Returns the slices' mean losses (on the device)."""
+    import mxnet_tpu_torch as mx
+
+    n = tok.shape[0] // halves
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        losses = [net(tok[i * n:(i + 1) * n], lab[i * n:(i + 1) * n])
+                  for i in range(halves)]
+    t1 = time.perf_counter()
+    mx.autograd.backward(losses)
+    t2 = time.perf_counter()
+    trainer.step(sum(int(l.numel()) for l in losses))
+    if times is not None:
+        times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return [l.detach().float().mean() for l in losses]
+
+
+def _sd_bits(net) -> dict:
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def phase_dp_reference() -> None:
+    """BERTForPretrainFused at BERT-base widths, depth cut to 2 layers,
+    f32 (TF32 off), dropout 0.1 / 0.1, Adam lr 1e-4 (multi-precision off:
+    f32 weights), the eager Gluon path over a (4, 128) batch fed as two
+    (2, 128) slices, three steps each way. On the card, each held bit for
+    bit against Trainer(kvstore=None) (losses and every weight):
+    Trainer(kvstore='nccl') (one worker, one copy: the buckets packed and
+    unpacked only), the same with overlap_comms on, and partition='zero1'
+    (world 1: the sharded sweep over one shard). Against the CPU with
+    two contexts cpu(0) and cpu(1), one slice each, kvstore 'device'
+    (split_and_load's layout): each loss within 1e-5 relative, each
+    parameter's delta within 1e-3 of its norm (the key third of each
+    QKV bias, whose true gradient is 0, moving less than lr per step),
+    as phases 10 and 12 hold theirs. Last, a one-rank NCCL group runs
+    comm.py's reduce_scatter, allreduce and all_gather over the card's
+    gradient buckets: the bits come back unchanged."""
+    import copy
+
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+    from mxnet_tpu_torch.kvstore import bucketing, comm
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, lr = 3, DP_OPT["learning_rate"]
+    base = BERTForPretrainFused(
+        num_layers=2, dropout=0.1, attn_dropout=0.1, ctx=mx.cpu(),
+        generator=torch.Generator().manual_seed(SEED + 7))
+    units = base.config["units"]
+    w0 = _sd_bits(base)
+    rs = np.random.RandomState(SEED + 7)
+    tok = torch.from_numpy(rs.randint(0, 30000, (4, 128)).astype(np.int32))
+    lab = torch.from_numpy(rs.randint(0, 30000, (4, 128)).astype(np.int32))
+
+    def card_run(**kw):
+        """Three steps; also the Adam sweep's launches in them and the
+        optimizer's dispatches by path (telemetry)."""
+        net = copy.deepcopy(base).cuda()
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   dict(DP_OPT), **kw)
+        mx.random.seed(SEED + 7, ctx=torch.device("cuda"))
+        _reset_train_counts()
+        mx.telemetry.reset()
+        mx.telemetry.enable()
+        try:
+            losses = [[float(x) for x in _dp_step(net, trainer, tok.cuda(),
+                                                  lab.cuda(), halves=2)]
+                      for _ in range(steps)]
+            snap = mx.telemetry.snapshot()["metrics"]
+        finally:
+            mx.telemetry.disable()
+            mx.telemetry.reset()
+        dispatch = {s["labels"]["path"]: s["value"] for s in snap.get(
+            "mxnet_optimizer_dispatch_total", {"samples": []})["samples"]}
+        return net, trainer, losses, {
+            "adam_sweeps": _train_counts()["fused_adam_sweep"],
+            "optimizer_dispatch": dispatch}
+
+    ref_net, _, ref_losses, _ = card_run(kvstore=None)
+    ref_w = _sd_bits(ref_net)
+    checks = {}
+    for name, kw in (("nccl", {"kvstore": "nccl"}),
+                     ("nccl_overlap", {"kvstore": "nccl",
+                                       "overlap_comms": True}),
+                     ("zero1_world1", {"kvstore": "nccl",
+                                       "partition": "zero1"})):
+        net, trainer, losses, counts = card_run(**kw)
+        w = _sd_bits(net)
+        checks[name] = {
+            "losses_equal": losses == ref_losses,
+            "weights_bit_identical": all(torch.equal(w[k], ref_w[k])
+                                         for k in ref_w),
+            "overlap_stats": trainer.last_overlap_stats,
+            "partition": trainer.partition, **counts}
+        if trainer._zero is not None:
+            # the sharded sweep ran for every trainable parameter: none
+            # fell back, and each step's sweeps were the engine's, one
+            # per ZeRO bucket (no Trainer sweep dispatched)
+            zero = trainer._zero
+            trainable = [i for i, p in enumerate(trainer._params)
+                         if p.grad_req != "null"]
+            checks[name].update(
+                fallback=dict(zero.fallback_reasons),
+                eligible_all=zero.eligible_indices() == trainable,
+                zero_buckets=len(zero._buckets))
+        del net, trainer
+    # the CPU copy on two contexts, one slice each
+    cpu_net = copy.deepcopy(base)
+    ctxs = [mx.cpu(0), mx.cpu(1)]
+    cpu_net.collect_params().reset_ctx(ctxs)
+    trainer = mx.gluon.Trainer(cpu_net.collect_params(), "adam",
+                               dict(DP_OPT), kvstore="device")
+    mx.random.seed(SEED + 7, ctx=torch.device("cpu"))
+    cpu_losses = []
+    for _ in range(steps):
+        toks = mx.gluon.utils.split_and_load(tok.numpy(), ctxs)
+        labs = mx.gluon.utils.split_and_load(lab.numpy(), ctxs)
+        with mx.autograd.record():
+            ls = [cpu_net(a.astype("int32"), b.astype("int32"))
+                  for a, b in zip(toks, labs)]
+        mx.autograd.backward(ls)
+        trainer.step(sum(int(np.prod(l.shape)) for l in ls))
+        cpu_losses.append([float(l.asnumpy().mean()) for l in ls])
+    copies_equal = all(
+        torch.equal(p.list_data()[0]._data, p.list_data()[1]._data)
+        for p in cpu_net.collect_params().values())
+    cpu_sd = cpu_net.state_dict()
+    ratios, key_bias = {}, []
+    for key, start in w0.items():
+        dc = (cpu_sd[key] - start).flatten()
+        dg = (ref_w[key].cpu() - start).flatten()
+        if key.endswith("qkv_proj.bias"):
+            k_part = torch.arange(units, 2 * units)
+            key_bias.append(max(float(dc[k_part].abs().max()),
+                                float(dg[k_part].abs().max())))
+            keep = torch.ones_like(dc, dtype=torch.bool)
+            keep[k_part] = False
+            dc, dg = dc[keep], dg[keep]
+        norm = float(dc.norm())
+        if norm > 0:
+            ratios[key] = float((dg - dc).norm()) / norm
+        elif float(dg.norm()) != 0.0:
+            ratios[key] = float("inf")
+    loss_rel = max(abs(a - b) / abs(b) for ra, rb in zip(ref_losses,
+                                                         cpu_losses)
+                   for a, b in zip(ra, rb))
+    worst = max(ratios, key=ratios.get)
+    # one-rank NCCL: comm.py's primitives over the card's gradient buckets
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        grads = [p.grad for p in ref_net.parameters() if p.grad is not None]
+        flat = bucketing.pack(grads)
+        rs_out = comm.reduce_scatter(flat)
+        ar_out = comm.allreduce(flat)
+        ag_out = comm.all_gather(rs_out, flat.numel())
+        torch.cuda.synchronize()
+        nccl = {"elements": flat.numel(), "world": comm.world(),
+                "reduce_scatter_same_bits": torch.equal(rs_out, flat),
+                "allreduce_same_bits": torch.equal(ar_out, flat),
+                "all_gather_same_bits": torch.equal(ag_out, flat),
+                "backend": dist.get_backend()}
+    finally:
+        dist.destroy_process_group()
+    out = {"phase": "dp_reference",
+           "model": "BERTForPretrainFused(num_layers=2)", "dtype": "float32",
+           "entry_points": "gluon.Trainer(kvstore=None|'nccl'|'device', "
+                           "overlap_comms, partition='zero1'), "
+                           "autograd.record, autograd.backward, "
+                           "gluon.utils.split_and_load",
+           "dropout": 0.1, "attn_dropout": 0.1, "batch": [4, 128],
+           "slices": 2, "steps": steps, "optimizer": ["adam", DP_OPT],
+           "card_losses": ref_losses, "card_checks": checks,
+           "cpu_two_contexts": {"losses": cpu_losses,
+                                "loss_max_rel_diff": loss_rel,
+                                "loss_tol": 1e-5,
+                                "delta_worst": [worst, ratios[worst]],
+                                "delta_median": float(np.median(
+                                    list(ratios.values()))),
+                                "delta_tol": 1e-3,
+                                "key_bias_max_abs_delta": max(key_bias),
+                                "key_bias_tol": steps * lr,
+                                "copies_bit_identical": copies_equal},
+           "nccl_one_rank": nccl, "seconds": time.perf_counter() - t0}
+    emit(out)
+    for name, c in checks.items():
+        if not (c["losses_equal"] and c["weights_bit_identical"]):
+            fail(f"dp_reference: {name} is not bit for bit with "
+                 f"kvstore=None: {c}")
+    if not checks["nccl_overlap"]["overlap_stats"] or \
+            checks["nccl_overlap"]["overlap_stats"][
+                "dispatched_in_backward"] < 1:
+        fail(f"dp_reference: overlap_comms exchanged nothing inside the "
+             f"backward: {checks['nccl_overlap']}")
+    z = checks["zero1_world1"]
+    if z["partition"] != "zero1" or z["fallback"] or not z["eligible_all"] \
+            or z["adam_sweeps"] != steps * z["zero_buckets"] \
+            or z["optimizer_dispatch"] != {
+                "zero_sweep": steps * z["zero_buckets"]}:
+        fail(f"dp_reference: partition='zero1' did not run the sharded "
+             f"sweep over every trainable parameter: {z}")
+    if not all(np.isfinite(sum(ref_losses, []))) or loss_rel > 1e-5:
+        fail(f"dp_reference: card losses {ref_losses} disagree with the "
+             f"two CPU contexts' {cpu_losses}")
+    if ratios[worst] > 1e-3 or max(key_bias) > steps * lr \
+            or not copies_equal:
+        fail(f"dp_reference: deltas disagree with the CPU's: {worst} "
+             f"{ratios[worst]}, key bias {max(key_bias)}, copies equal "
+             f"{copies_equal}")
+    if not all(v for k, v in nccl.items() if k.endswith("same_bits")):
+        fail(f"dp_reference: a one-rank NCCL primitive changed the bits: "
+             f"{nccl}")
+    del ref_net, cpu_net, base
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+DP_TRAIN_OPT = {"learning_rate": 1e-4, "multi_precision": True}
+DP_CONFIGS = (
+    ("nccl_overlap", {"kvstore": "nccl", "overlap_comms": True}),
+    ("no_store", {"kvstore": None}),
+    ("nccl_overlap_2", {"kvstore": "nccl", "overlap_comms": True}),
+    ("no_store_2", {"kvstore": None}),
+    ("nccl_2bit", {"kvstore": "nccl", "overlap_comms": True,
+                   "compression_params": {"type": "2bit",
+                                          "threshold": 0.5}}),
+    ("nccl_zero1", {"kvstore": "nccl", "partition": "zero1"}))
+
+
+def _dp_train_one(name, kw, tok, lab, timed_steps) -> dict:
+    import gc
+    import warnings
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BERTForPretrainFused
+    from mxnet_tpu_torch.kvstore import bucketing
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = BERTForPretrainFused(dropout=0.1, attn_dropout=0.1, ctx="cuda",
+                               dtype=torch.bfloat16, generator=gen)
+    cfg = net.config
+    if (cfg["num_layers"], cfg["units"], cfg["hidden_size"],
+            cfg["num_heads"], cfg["vocab_size"], cfg["max_length"]) != (
+                12, 768, 3072, 12, 30522, 512):
+        fail(f"dp_train: not BERT-base at full width and depth: {cfg}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   dict(DP_TRAIN_OPT), **kw)
+        mx.random.seed(SEED)
+        warm = [float(_dp_step(net, trainer, tok, lab)[0])
+                for _ in range(3)]
+    store = trainer._kvstore
+    kv_buckets = len(store.plan_pushpull(*trainer._grad_exchange_args())) \
+        if store is not None else 0
+    kv_bytes = sum(g._data.numel() * g._data.element_size()
+                   for gs in trainer._grad_exchange_args()[1] for g in gs) \
+        if store is not None else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    timed, times = [], []
+    t1 = time.perf_counter()
+    for _ in range(timed_steps):
+        timed.append(_dp_step(net, trainer, tok, lab, times=times)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    buckets = _trainer_buckets(trainer)
+    per_step = _per_step(cfg, buckets, 0.1, 0.1, wgmma=True)
+    if "compression_params" in kw:
+        per_step["twobit_quantize"] = kv_buckets
+    want = {k: v * timed_steps for k, v in per_step.items()}
+    host = np.asarray(times) * 1e3
+
+    losses = warm + [float(x) for x in timed]
+    rec = {"config": name, "trainer_kwargs": {k: v for k, v in kw.items()},
+           "ms_per_step": wall * 1e3 / timed_steps,
+           "samples_per_s": 32 * timed_steps / wall,
+           "peak_mem_gib": peak,
+           "host_ms_forward": float(np.median(host[:, 0])),
+           "host_ms_backward": float(np.median(host[:, 1])),
+           "host_ms_trainer_step": float(np.median(host[:, 2])),
+           "kv_buckets_per_step": kv_buckets,
+           "kv_bucket_bytes_per_step": kv_bytes,
+           "last_overlap_stats": trainer.last_overlap_stats,
+           "partition": trainer.partition,
+           "zero_fallback": (None if trainer._zero is None else
+                             dict(collections.Counter(
+                                 trainer._zero.fallback_reasons.values()))),
+           "warnings": sorted({str(w.message)[:120] for w in caught}),
+           "losses": losses, "launches": launches,
+           "launches_expected": want, "launches_per_step": per_step,
+           "dtype_buckets": buckets}
+    del trainer, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_dp_train() -> dict:
+    """BERTForPretrainFused(bert_12_768_12), not cut (12 layers, 768
+    units, 3072 FFN, 12 heads, vocab 30522), bf16 with seeded random
+    weights, multi-precision Adam lr 1e-4, dropout 0.1 / 0.1, one (32,
+    512) batch of RandomState(0) tokens and labels, on the eager Gluon
+    path: Trainer(kvstore='nccl', overlap_comms=True) in turns with
+    kvstore=None (twice each, so the two are read on one card in one
+    process), then with compression_params={'type': '2bit', 'threshold':
+    0.5}, then partition='zero1' (BERT-base's bf16 members with f32
+    masters fall outside the sharded sweep, as in the reference, and
+    update replicated); 3 warm-up and 20 timed steps each. Reports ms per
+    step, samples/s, peak memory, host ms of the forward, backward and
+    Trainer.step, the kvstore's buckets, bytes and collectives per step,
+    last_overlap_stats, and the launches: exactly the model's per step,
+    one Adam sweep per dtype bucket, and exactly one twobit_quantize per
+    gradient bucket per step with compression and none without. Every
+    loss must be finite, and the last timed loss below the first warm-up
+    loss."""
+    t0 = time.perf_counter()
+    timed_steps = 20
+    rs = np.random.RandomState(0)
+    tok = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
+        np.int32)).cuda()
+    lab = torch.from_numpy(rs.randint(0, 30000, (32, 512)).astype(
+        np.int32)).cuda()
+    runs = [_dp_train_one(name, kw, tok, lab, timed_steps)
+            for name, kw in DP_CONFIGS]
+    by = {r["config"]: r for r in runs}
+    out = {"phase": "dp_train", "model": "BERTForPretrainFused "
+           "(bert_12_768_12)", "dtype": "bfloat16, multi-precision adam",
+           "optimizer": DP_TRAIN_OPT, "dropout": 0.1, "attn_dropout": 0.1,
+           "batch": [32, 512], "steps": timed_steps, "warmup": 3,
+           "runs": runs,
+           "overlap_vs_no_store_ms": [
+               by["nccl_overlap"]["ms_per_step"] - by["no_store"]["ms_per_step"],
+               by["nccl_overlap_2"]["ms_per_step"]
+               - by["no_store_2"]["ms_per_step"]],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    for r in runs:
+        losses = r["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"dp_train {r['config']}: loss not finite or not falling: "
+                 f"{losses}")
+        if r["launches"] != r["launches_expected"]:
+            fail(f"dp_train {r['config']}: launch counts {r['launches']} "
+                 f"are not {r['launches_expected']}")
+        if r["trainer_kwargs"].get("overlap_comms") and \
+                r["last_overlap_stats"]["dispatched_in_backward"] < 1:
+            fail(f"dp_train {r['config']}: overlap exchanged nothing inside "
+                 f"the backward: {r['last_overlap_stats']}")
+    return {"twobit_quantize": by["nccl_2bit"]["launches"]["twobit_quantize"],
+            "fused_adam_sweep": by["nccl_overlap"]["launches"][
+                "fused_adam_sweep"],
+            "ms_per_step": {k: v["ms_per_step"] for k, v in by.items()}}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -5591,6 +6092,8 @@ def main() -> None:
     phase_resnet_v2_trainer()
     rtc = phase_rtc(card)
     imperative = phase_imperative(card)
+    phase_dp_reference()
+    dp = phase_dp_train()
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -5632,6 +6135,9 @@ def main() -> None:
                                          pk + "flash_attention.py:914"),
         # not a Pallas site: dropout_op's hash branch, which XLA fuses
         "hash_dropout": ("dropout.cu", "mxnet_tpu/ops/nn.py:1079"),
+        # not a Pallas site: the kvstore's 2-bit quantizer, which XLA fuses
+        "twobit_quantize": ("gradient_compression.cu",
+                            "mxnet_tpu/kvstore/gradient_compression.py:68"),
     }
     bwd_sites = [pk + "flash_attention.py:937", pk + "flash_attention.py:959",
                  pk + "flash_attention.py:977"]
@@ -5642,6 +6148,10 @@ def main() -> None:
     notes = {
         "hash_dropout": "not a Pallas site: dropout_op's hash branch, "
                         "which XLA fuses into its neighbours",
+        "twobit_quantize": "not a Pallas site: the kvstore's 2-bit "
+                           "quantizer with error feedback (_q), which XLA "
+                           "fuses; one launch per gradient bucket per step "
+                           "with compression_params",
         "fused_rms_norm_bwd": "_norm_bwd_pallas in RMS mode, reached "
                               "through _rms_bwd (fused_layers.py:479)",
         "fused_adamw_sweep": "the adamw family: one overflow scan and one "
@@ -5679,6 +6189,9 @@ def main() -> None:
             by_path["imperative"] = imperative["step_launches"][name]
         if gluon.get(name):
             by_path["gluon_train"] = gluon[name]
+        if dp.get(name):
+            by_path["dp_train" + ("_2bit" if name == "twobit_quantize"
+                                  else "")] = dp[name]
         if name == "fused_lamb_sweep":
             for sub in ("[phase1]", "[norms]"):
                 by_path["bert_trainer" + sub] = trainer[name + sub]
@@ -5697,7 +6210,8 @@ def main() -> None:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                "shape": r["shape"], "dtype": r["dtype"]}
         for key in ("device_ms", "library_device_ms", "ctas", "splits",
-                    "same_bits_twice", "empty_kernel_device_ms"):
+                    "same_bits_twice", "empty_kernel_device_ms",
+                    "kernels_per_call", "plain_device_ms"):
             if key in r:
                 rec[key] = r[key]
         if name in counts:

@@ -33,7 +33,14 @@ LAMB through fused sweeps, the others per parameter) and
 
 with ``mx.gluon.Parameter``/``ParameterDict`` (``lr_mult``,
 ``wd_mult``, ``grad_req``) and ``mx.gluon.Block.collect_params``. Dropout
-is seeded by ``mx.random.seed``.
+is seeded by ``mx.random.seed``. Data parallelism as MXNet's users write
+it: parameters on several contexts (``initialize(ctx=[...])``,
+``gluon.utils.split_and_load``), ``mx.kv.create`` and the ``Trainer``'s
+``kvstore=`` (``device``/``local``, ``nccl``/``tpu_sync``,
+``dist_sync``/``dist_device_sync`` across processes started by
+``python -m mxnet_tpu_torch.tools.launch``), with ``update_on_kvstore``,
+2-bit ``compression_params``, ``overlap_comms`` and ZeRO
+``partition="zero1"|"zero2"``.
 
 The imperative half of MXNet: ``mx.nd`` (``NDArray`` over one
 ``torch.Tensor``, on ``mx.current_context()``, the card by default; the
@@ -47,9 +54,10 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
 """
 from . import (autograd, base, checkpoint, context, convert, engine, fault,
-               gluon, init, initializer, kernels, lr_scheduler, ndarray, ops,
-               optimizer, parallel, random, random_state, rtc, serving,
-               telemetry, tracing)
+               gluon, init, initializer, kernels, kvstore, lr_scheduler,
+               ndarray, ops, optimizer, parallel, random, random_state, rtc,
+               serving, telemetry, tracing)
+from . import kvstore as kv
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -57,6 +65,6 @@ from .context import Context, cpu, current_context, gpu, num_gpus
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "base", "checkpoint", "context",
            "convert", "engine", "fault", "gluon", "init", "initializer",
-           "kernels", "lr_scheduler", "nd",
+           "kernels", "kv", "kvstore", "lr_scheduler", "nd",
            "ndarray", "ops", "optimizer", "parallel", "random",
            "random_state", "rtc", "serving", "telemetry", "tracing"]

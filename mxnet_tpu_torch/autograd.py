@@ -30,13 +30,17 @@ at ``backward``.
 :func:`grad` returns the gradients of heads as new NDArrays (to any
 order with ``create_graph``: the gradient is itself on the tape), and
 :class:`Function` runs a user's ``forward``/``backward`` on NDArrays as a
-``torch.autograd.Function``. ``watch_grad_ready`` waits for the
-data-parallel comms (ROADMAP.md, port queue 1, item 9).
+``torch.autograd.Function``. :func:`watch_grad_ready` registers a
+callback fired inside :func:`backward` the moment a watched array's
+gradient buffer is written, with the rest of the reverse sweep still to
+run (reference ``autograd.py:191-227``): the overlapped-comms ``Trainer``
+exchanges a gradient bucket from it.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import torch
 
@@ -45,7 +49,8 @@ from .base import MXNetError
 __all__ = ["is_training", "set_training", "train_mode", "predict_mode",
            "is_recording", "set_recording", "record", "pause", "backward",
            "is_on_tape", "saved_tensor_hooks", "holds_live_save",
-           "mark_variables", "grad", "Function"]
+           "mark_variables", "grad", "Function", "watch_grad_ready",
+           "unwatch_grad_ready", "backward_sweep_seq"]
 
 _state = threading.local()
 
@@ -198,6 +203,85 @@ def holds_live_save(t: torch.Tensor) -> bool:
     return _key(t) in _saves
 
 
+# id(tensor) -> (weakref to the tensor, weakref to the watched array,
+# callback reference). A bound-method callback is held weakly (its owner
+# may go away), a plain function strongly (it is the registration); dead
+# entries are pruned at the start of every watched sweep, and the tensor
+# identity is checked on fire (an id can be reused).
+_GRAD_READY_WATCH = {}
+# id of the running (or last) watched backward sweep: a consumer with
+# per-sweep state tells a new sweep from the one that raised midway
+_BACKWARD_SEQ = 0
+
+
+def backward_sweep_seq() -> int:
+    """The current watched-backward sweep id."""
+    return _BACKWARD_SEQ
+
+
+def watch_grad_ready(arrays, callback) -> None:
+    """Call ``callback(array)`` when the gradient buffer of ``array`` (an
+    NDArray over a leaf, such as a parameter's ``list_data()``) is
+    written during :func:`backward`, while the reverse sweep still runs:
+    the buffer is written from a hook on the leaf as soon as autograd
+    has summed its gradient, instead of after the sweep. A bound-method
+    callback keeps only a weak reference to its owner. Nothing fires for
+    :func:`grad` (its gradients are new arrays, not buffer writes)."""
+    try:
+        cb_ref = weakref.WeakMethod(callback)
+    except TypeError:
+        cb_ref = lambda _cb=callback: _cb   # noqa: E731
+    for a in arrays:
+        t = a._data
+        _GRAD_READY_WATCH[id(t)] = (weakref.ref(t), weakref.ref(a), cb_ref)
+
+
+def unwatch_grad_ready(arrays) -> None:
+    for a in arrays:
+        _GRAD_READY_WATCH.pop(id(a._data), None)
+
+
+def _write_grad(var, g) -> None:
+    """``var``'s gradient ``g`` into its buffer by its ``grad_req`` (the
+    caller turns the tape off)."""
+    if var.grad is None:
+        var.grad = torch.zeros_like(var)
+    if getattr(var, "_mx_grad_req", "write") == "add":
+        var.grad.add_(g)
+    else:
+        var.grad.copy_(g)
+
+
+def _watch_hooks(leaves, written) -> list:
+    """Hooks on the watched ``leaves``: each writes its leaf's buffer and
+    fires the callback; ``written`` collects the leaves done so. Returns
+    the hook handles."""
+    global _BACKWARD_SEQ
+    for k, (tref, aref, cref) in list(_GRAD_READY_WATCH.items()):
+        if tref() is None or aref() is None or cref() is None:
+            _GRAD_READY_WATCH.pop(k, None)
+    hooked = [v for v in leaves if id(v) in _GRAD_READY_WATCH
+              and _GRAD_READY_WATCH[id(v)][0]() is v]
+    if not hooked:
+        return []
+    _BACKWARD_SEQ += 1
+    return [v.register_hook(_make_hook(v, written)) for v in hooked]
+
+
+def _make_hook(var, written):
+    _, aref, cref = _GRAD_READY_WATCH[id(var)]
+
+    def hook(g):
+        with torch.no_grad():
+            _write_grad(var, g)
+        written.add(id(var))
+        arr, cb = aref(), cref()
+        if arr is not None and cb is not None:
+            cb(arr)
+
+    return hook
+
+
 def _tensors(xs) -> list:
     return [getattr(x, "_data", x) for x in xs]
 
@@ -231,19 +315,19 @@ def backward(heads, head_grads=None, retain_graph: bool = False) -> None:
     leaves = _leaves(heads)
     hgs = [torch.ones_like(h) if hg is None else hg
            for h, hg in zip(heads, head_grads)]
-    grads = torch.autograd.grad(heads, leaves, hgs,
-                                retain_graph=retain_graph,
-                                allow_unused=True)
+    written = set()
+    handles = _watch_hooks(leaves, written) if _GRAD_READY_WATCH else []
+    try:
+        grads = torch.autograd.grad(heads, leaves, hgs,
+                                    retain_graph=retain_graph,
+                                    allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
     with torch.no_grad():
         for var, g in zip(leaves, grads):
-            if g is None:
-                continue
-            if var.grad is None:
-                var.grad = torch.zeros_like(var)
-            if getattr(var, "_mx_grad_req", "write") == "add":
-                var.grad.add_(g)
-            else:
-                var.grad.copy_(g)
+            if g is not None and id(var) not in written:
+                _write_grad(var, g)
 
 
 def _nd(t):

@@ -13,8 +13,12 @@ one ``os.replace``. Each package loads the other's bundles.
 :func:`read_state_bytes` and :func:`apply_state_bytes` are the error
 contract of ``Trainer.load_states``.
 
-Not ported: the ZeRO partition manifest (ROADMAP.md, port queue 1,
-item 9).
+A ZeRO-partitioned trainer's bundle also holds ``zero.json``, its
+partition plan (mode, world, rank, bucket layout; reference
+``checkpoint.py:488``), so that rejoin tooling can choose which rank
+bundles to gather before unpickling any tensor; its ``trainer.states``
+is that rank's shard file (``states_path``), the unit
+``Trainer.load_states_resharded`` gathers.
 
 Telemetry: ``mxnet_checkpoint_write_seconds``. Fault sites:
 ``checkpoint.write`` (every atomic commit), ``checkpoint.read`` (every
@@ -45,6 +49,8 @@ FORMAT_VERSION = 1
 _PARAMS_FILE = "params.params"
 _STATES_FILE = "trainer.states"
 _RNG_FILE = "rng.pkl"
+# the partition plan of a ZeRO-sharded trainer.states
+_ZERO_FILE = "zero.json"
 _META_FILE = "meta.json"
 
 
@@ -356,6 +362,13 @@ class CheckpointManager:
             if trainer is not None:
                 trainer.save_states(os.path.join(tmp, _STATES_FILE))
                 written.append(_STATES_FILE)
+                zman = trainer.partition_manifest() \
+                    if hasattr(trainer, "partition_manifest") else None
+                if zman is not None:
+                    atomic_write(
+                        os.path.join(tmp, _ZERO_FILE),
+                        json.dumps(zman, indent=1).encode("utf-8"))
+                    written.append(_ZERO_FILE)
             from . import random_state
 
             atomic_write(os.path.join(tmp, _RNG_FILE),
@@ -464,7 +477,24 @@ class CheckpointManager:
                             os.path.join(root, _RNG_FILE))
             with open(os.path.join(root, _RNG_FILE), "rb") as f:
                 out["rng"] = pickle.loads(f.read())
+        out["zero"] = self.partition_manifest(step)
         return out
+
+    def partition_manifest(self, step: int) -> Optional[Dict]:
+        """The bundle's ZeRO partition plan (``zero.json``), or None for
+        a replicated bundle. ``step`` names an existing bundle; no
+        checksum pass runs here."""
+        p = os.path.join(self.path(step), _ZERO_FILE)
+        try:
+            with open(p, "rb") as f:
+                return json.loads(f.read().decode("utf-8"))
+        except (OSError, ValueError, UnicodeDecodeError):
+            return None
+
+    def states_path(self, step: int) -> str:
+        """Path of the bundle's ``trainer.states`` (this rank's shard
+        file under ZeRO)."""
+        return os.path.join(self.path(step), _STATES_FILE)
 
     def restore(self, block=None, trainer=None, restore_rng: bool = True,
                 step: Optional[int] = None) -> Dict:

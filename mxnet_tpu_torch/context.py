@@ -43,7 +43,6 @@ class Context:
             device_type = Context.devstr2type[device_type]
         self.device_typeid = device_type
         self.device_id = int(device_id)
-        self._old_ctx = None
 
     @property
     def device_type(self) -> str:
@@ -63,12 +62,19 @@ class Context:
     __repr__ = __str__
 
     def __enter__(self):
-        self._old_ctx = getattr(Context._default_ctx, "value", None)
-        Context._default_ctx.value = self
+        # the outer scope goes on a per-thread stack, not on the instance,
+        # so one Context may be entered twice (nested) or held by many
+        # arrays
+        d = Context._default_ctx
+        if not hasattr(d, "outer"):
+            d.outer = []
+        d.outer.append(getattr(d, "value", None))
+        d.value = self
         return self
 
     def __exit__(self, ptype, value, trace):
-        Context._default_ctx.value = self._old_ctx
+        d = Context._default_ctx
+        d.value = d.outer.pop()
 
     def torch_device(self) -> torch.device:
         """The ``torch.device`` of this context; a GPU context is checked

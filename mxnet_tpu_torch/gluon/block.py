@@ -61,11 +61,12 @@ from torch import nn
 
 from .. import autograd
 from ..base import MXNetError, name_manager, torch_dtype
-from ..context import cpu, current_context
+from ..context import Context, cpu, current_context
 from ..ndarray import NDArray
 from ..ops.registry import get_op
 from .parameter import (DeferredInitializationError, Parameter,
-                        ParameterDict)
+                        ParameterDict, _contexts, current_replica,
+                        multi_context_live, replica_scope)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "tensor_ops",
            "param_like", "remat_call", "resolve_remat_policy",
@@ -108,6 +109,17 @@ def param_like(param: Parameter, x):
     storage when ``x`` is an NDArray, else its tensor (for a forward body
     that reads another block's parameter)."""
     return param.data() if isinstance(x, NDArray) else param.tensor
+
+
+def _input_context(args):
+    """The context of the first NDArray (or tensor) among ``args``, and
+    whether it was read off a tensor's device; (None, False) if none."""
+    for a in args:
+        if isinstance(a, NDArray):
+            return a.context, False
+        if isinstance(a, torch.Tensor):
+            return Context.from_device(a.device), True
+    return None, False
 
 
 def _raw(x):
@@ -402,6 +414,16 @@ class Block(nn.Module):
         self.add_module(name or str(len(self._modules)), block)
         return block
 
+    def __call__(self, *args, **kwargs):
+        # while some parameter lives on several contexts, the outermost
+        # call picks its copy: the one on its first input's context
+        if multi_context_live() and current_replica() is None:
+            ctx, from_tensor = _input_context(args)
+            if ctx is not None:
+                with replica_scope(ctx, from_tensor):
+                    return super().__call__(*args, **kwargs)
+        return super().__call__(*args, **kwargs)
+
     def register_forward_pre_hook(self, hook, **kwargs) -> _HookHandle:
         """``hook(block, args)`` before each forward."""
         return _HookHandle(super().register_forward_pre_hook(hook,
@@ -513,11 +535,12 @@ class Block(nn.Module):
             if p._var is None:
                 # allocated from the file's value: nothing to draw first
                 p.shape = tuple(v.shape)
-                dev = (p._deferred_init[1] if ctx is None
-                       and p._deferred_init is not None
-                       else ctx or current_context()).torch_device()
+                ctxs = (p._deferred_init[1] if ctx is None
+                        and p._deferred_init is not None
+                        else _contexts(ctx))
                 p._deferred_init = None
-                p._set_var(v._data.to(dev, torch_dtype(p.dtype)))
+                p._set_var(v._data.to(ctxs[0].torch_device(),
+                                      torch_dtype(p.dtype)), ctxs)
                 continue
             if tuple(v.shape) != tuple(p._var.shape):
                 raise MXNetError(f"{filename}: {name} has shape "

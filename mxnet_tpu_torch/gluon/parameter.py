@@ -24,14 +24,31 @@ every holder and clears their hybridized graphs.
 buffer (the reference's ``_init_grad``), zeros made at its first use
 (``grad()``, a backward, a ``Trainer`` step), so a model that is only
 served holds none; ``autograd.backward`` overwrites or adds into it;
-``"null"`` turns ``requires_grad`` off and drops it. The port runs a parameter on one device: ``initialize`` on
-several contexts waits for the data-parallel comms (ROADMAP.md, port
-queue 1, item 9), ``var()`` for the symbol API (item 12), and
-``abstract_init`` (a meta-device placeholder) is not ported.
+``"null"`` turns ``requires_grad`` off and drops it.
+
+A parameter may live on several contexts (``initialize(ctx=[...])``,
+``reset_ctx``; reference ``:125``, ``:251-294``): one tensor per
+context, each its own leaf with its own gradient buffer, all made from
+one initial value. Each context holds its own tensor even where two
+contexts share a torch device (``cpu(0)``, ``cpu(1)``). ``data(ctx)``,
+``grad(ctx)``, ``list_data()``, ``list_grad()`` and ``list_ctx()`` hand
+them out; ``data()`` with no context inside a forward gives the copy of
+the context the outermost block call's input lives on
+(:func:`replica_scope`), so ``net(x)`` for ``x`` on ``cpu(1)`` runs on
+the ``cpu(1)`` copy, and an input on none of the parameter's contexts
+raises, as in the reference. A torch tensor names only its device: where
+several of the contexts share it (``cpu(0)``, ``cpu(1)``), the read
+raises instead of guessing (pass NDArrays, ``split_and_load``). Blocks
+register the first context's tensor. A parameter on one context skips
+all of this.
+``var()`` waits for the symbol API (ROADMAP.md, port queue 1, item 12),
+and ``abstract_init`` (a meta-device placeholder) is not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
 import weakref
 from collections import OrderedDict
 from typing import List, Optional
@@ -44,7 +61,7 @@ from ..base import MXNetError, torch_dtype
 from ..context import Context, cpu, current_context
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError"]
+           "DeferredInitializationError", "replica_scope", "current_replica"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -59,17 +76,57 @@ def dtype_name(dtype) -> str:
     return str(torch_dtype(dtype)).split(".")[-1]
 
 
-def _one_context(ctx) -> Context:
+def _ctx(c) -> Context:
+    return c if isinstance(c, Context) else Context(c)
+
+
+def _contexts(ctx) -> List[Context]:
+    """``ctx`` (None: :func:`current_context`; a context; a list of them)
+    as a list of distinct contexts."""
     if ctx is None:
-        return current_context()
+        return [current_context()]
     if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(
-                f"a parameter lives on one device in the port, not {ctx}; "
-                "several devices need the data-parallel comms (ROADMAP.md, "
-                "port queue 1, item 9)")
-        ctx = ctx[0]
-    return ctx if isinstance(ctx, Context) else Context(ctx)
+        out = [_ctx(c) for c in ctx]
+        if not out:
+            raise MXNetError("an empty context list")
+        if len(set(out)) != len(out):
+            raise MXNetError(f"duplicate contexts in {out}")
+        return out
+    return [_ctx(ctx)]
+
+
+_replica = threading.local()
+# the parameters that live on more than one context now: while it is
+# empty, a block call opens no replica scope
+_MULTI_CONTEXT = weakref.WeakSet()
+
+
+def multi_context_live() -> bool:
+    """Whether any parameter lives on several contexts."""
+    return bool(_MULTI_CONTEXT)
+
+
+def current_replica() -> Optional[Context]:
+    """The context of the outermost block call's input on this thread,
+    or None outside a block call."""
+    state = getattr(_replica, "state", None)
+    return None if state is None else state[0]
+
+
+@contextlib.contextmanager
+def replica_scope(ctx: Context, from_tensor: bool = False):
+    """Within it, a parameter on several contexts hands out its ``ctx``
+    copy to ``data()``/``tensor`` (``Block.__call__`` opens it around the
+    outermost call; an inner scope leaves an outer one in place).
+    ``from_tensor``: ``ctx`` was read off a torch tensor's device, which
+    names no one of several contexts on that device."""
+    prev = getattr(_replica, "state", None)
+    if prev is None:
+        _replica.state = (ctx, from_tensor)
+    try:
+        yield
+    finally:
+        _replica.state = prev
 
 
 class Parameter:
@@ -101,11 +158,13 @@ class Parameter:
         self.grad_stype = grad_stype
         self._stype = stype
         self._var: Optional[torch.Tensor] = None
+        self._copies: List[torch.Tensor] = []    # one per context
+        self._ctxs: List[Context] = []
         self._memory_format = torch.contiguous_format
         self._deferred_init = None          # (init, ctx, default_init)
         self._owners = []     # [(weakref to a block, attribute name)]
-        self._nd = None
-        self._grad_nd = None
+        self._nds = {}
+        self._grad_nds = {}
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
@@ -117,8 +176,9 @@ class Parameter:
         new = self.__class__.__new__(self.__class__)
         memo[id(self)] = new
         for k, v in self.__dict__.items():
-            if k != "_owners":
+            if k not in ("_owners", "_nds", "_grad_nds"):
                 new.__dict__[k] = copy.deepcopy(v, memo)
+        new._nds, new._grad_nds = {}, {}
         # the holders are copied with the tree that holds them (memo)
         new._owners = [(weakref.ref(copy.deepcopy(ref(), memo)), name)
                        for ref, name in self._owners if ref() is not None]
@@ -188,7 +248,7 @@ class Parameter:
         if self._var is not None and not force_reinit:
             return
         default_init = default_init or initializer.Uniform()
-        ctx = _one_context(ctx)
+        ctx = _contexts(ctx)
         if not self._shape_known():
             if self.allow_deferred_init:
                 self._deferred_init = (init, ctx, default_init)
@@ -199,11 +259,11 @@ class Parameter:
                 "the shape")
         self._finish_init(init, ctx, default_init)
 
-    def _finish_init(self, init, ctx, default_init) -> None:
+    def _finish_init(self, init, ctxs, default_init) -> None:
         from ..ndarray import NDArray
 
         host = torch.zeros(self._shape, dtype=torch.float32,
-                           device=ctx.torch_device())
+                           device=ctxs[0].torch_device())
         if init is not None:
             ini = initializer.create(init)
         elif self.init is not None:
@@ -213,7 +273,7 @@ class Parameter:
         ini(initializer.InitDesc(self.name, global_init=ini), NDArray(host))
         self._deferred_init = None
         self._set_var(host.to(torch_dtype(self._dtype),
-                              memory_format=self._memory_format))
+                              memory_format=self._memory_format), ctxs)
 
     def _finish_deferred_init(self, inferred_shape=None) -> None:
         """Complete a deferred initialization once the shape is known
@@ -227,39 +287,65 @@ class Parameter:
                 f"Parameter {self.name} shape still unknown: {self._shape}")
         self._finish_init(*self._deferred_init)
 
-    def _set_var(self, t: torch.Tensor) -> None:
-        """Own ``t`` (a new storage): wrap it, give it its gradient buffer
-        and register it with every holder."""
-        t = t.detach()
-        var = torch.nn.Parameter(t, requires_grad=False) \
+    def _wrap(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.nn.Parameter(t, requires_grad=False) \
             if self._differentiable else t
+
+    def _set_var(self, t: torch.Tensor, ctxs=None) -> None:
+        """Own ``t`` (a new storage) on the first of ``ctxs`` (default:
+        the contexts held now, when ``t`` is on the first one's device)
+        and a copy of it on each other context: wrap each, give each its
+        gradient buffer and register the first with every holder."""
+        t = t.detach()
+        if ctxs is None:
+            ctxs = self._ctxs if self._ctxs and \
+                self._ctxs[0].torch_device() == t.device \
+                else [Context.from_device(t.device)]
+        var = self._wrap(t)
+        self._copies = [var] + [
+            self._wrap(t.to(c.torch_device(), copy=True))
+            for c in ctxs[1:]]
+        self._ctxs = list(ctxs)
+        self._note_contexts()
         self._adopt(var)
         self._init_grad()
 
+    def _note_contexts(self) -> None:
+        if len(self._ctxs) > 1:
+            _MULTI_CONTEXT.add(self)
+        else:
+            _MULTI_CONTEXT.discard(self)
+
     def _adopt(self, var: torch.Tensor) -> None:
-        """Make ``var`` this parameter's storage in every holder (a
-        holder whose ``_apply`` moved it already holds it) and clear the
-        holders' hybridized graphs."""
+        """Make ``var`` this parameter's storage (its first context's) in
+        every holder (a holder whose ``_apply`` moved it already holds
+        it) and clear the holders' hybridized graphs."""
         self._var = var
-        self._nd = self._grad_nd = None
+        if not self._copies or var.device != self._copies[0].device:
+            # moved to another device (a holder's _apply): one context
+            self._copies = [var]
+            self._ctxs = [Context.from_device(var.device)]
+            self._note_contexts()
+        self._copies[0] = var
+        self._nds, self._grad_nds = {}, {}
         for block, name in self._holders():
             block._register_var(name, var)
             block._clear_cached_op()
 
     def _init_grad(self) -> None:
-        var = self._var
         if not self._differentiable:
             return
-        var.requires_grad_(self._grad_req != "null")
-        var._mx_grad_req = self._grad_req       # read by autograd.backward
-        if self._grad_req == "null":
-            var.grad = None
-        self._grad_nd = None
+        for var in self._copies:
+            var.requires_grad_(self._grad_req != "null")
+            var._mx_grad_req = self._grad_req   # read by autograd.backward
+            if self._grad_req == "null":
+                var.grad = None
+        self._grad_nds = {}
 
-    def _grad_tensor(self):
-        """The gradient buffer, zeros made at its first use; None with
-        ``grad_req="null"``."""
-        var = self._var
+    def _grad_tensor(self, i: int = 0):
+        """The gradient buffer of the ``i``-th context's tensor, zeros
+        made at its first use; None with ``grad_req="null"``."""
+        var = self._copies[i]
         if self._grad_req == "null":
             return None
         if var.grad is None:
@@ -293,62 +379,111 @@ class Parameter:
                     "(deferred shape); run a forward pass first")
             raise MXNetError(f"Parameter {self.name} has not been "
                              "initialized; call .initialize() first")
-        if ctx is not None and _one_context(ctx) != self.context:
+        dev, c0 = self._var.device, self._ctxs[0]
+        if dev.type != c0.device_type or (
+                dev.type == "cuda" and (dev.index or 0) != c0.device_id):
+            # a holder's _apply moved the storage in place (torch swaps a
+            # parameter's data): one context, where it now lies
+            self._copies = [self._var]
+            self._ctxs = [Context.from_device(dev)]
+            self._note_contexts()
+            self._nds, self._grad_nds = {}, {}
+        if ctx is not None and _ctx(ctx) not in self._ctxs:
             raise MXNetError(
                 f"Parameter {self.name} was not initialized on context "
-                f"{ctx}; it lives on {[self.context]}")
+                f"{ctx}; it lives on {self._ctxs}")
+
+    def _index(self, ctx=None) -> int:
+        """The position of ``ctx``'s copy (None: the current replica's
+        inside a block call, else the first)."""
+        self._check_initialized(ctx)
+        if ctx is not None:
+            return self._ctxs.index(_ctx(ctx))
+        state = getattr(_replica, "state", None)
+        if len(self._ctxs) == 1 or state is None:
+            return 0
+        ctx, from_tensor = state
+        if from_tensor:
+            dev = ctx.torch_device()
+            on_dev = [i for i, c in enumerate(self._ctxs)
+                      if c.torch_device() == dev]
+            if len(on_dev) == 1:
+                return on_dev[0]
+            if on_dev:
+                raise MXNetError(
+                    f"Parameter {self.name} lives on {self._ctxs}; a torch "
+                    f"tensor on {dev} does not say which of "
+                    f"{[self._ctxs[i] for i in on_dev]} it is for: pass "
+                    "NDArrays (gluon.utils.split_and_load)")
+        elif ctx in self._ctxs:
+            return self._ctxs.index(ctx)
+        raise MXNetError(
+            f"Parameter {self.name} was not initialized on context {ctx} "
+            f"(the block's input's); it lives on {self._ctxs}")
 
     @property
     def context(self) -> Context:
-        return Context.from_device(self._var.device)
+        """The first context."""
+        self._check_initialized()
+        return self._ctxs[0]
 
     @property
     def tensor(self) -> torch.Tensor:
-        """The tensor this parameter owns (its ``nn.Parameter``), for code
-        that runs on torch tensors."""
+        """The tensor this parameter owns (its ``nn.Parameter``) on the
+        current replica's context (the first outside a block call), for
+        code that runs on torch tensors."""
+        var = self._var
+        if var is not None and len(self._copies) == 1:
+            return var
+        if var is None and self._deferred_init is not None \
+                and self._shape_known():
+            self._finish_deferred_init()
+        return self._copies[self._index()]
+
+    def data(self, ctx=None):
+        """An NDArray over this parameter's storage on ``ctx`` (None: as
+        :attr:`tensor` chooses), no copy."""
+        from ..ndarray import NDArray
+
         if self._var is None and self._deferred_init is not None \
                 and self._shape_known():
             self._finish_deferred_init()
-        self._check_initialized()
-        return self._var
-
-    def data(self, ctx=None):
-        """An NDArray over this parameter's storage (no copy)."""
-        from ..ndarray import NDArray
-
-        var = self.tensor
-        self._check_initialized(ctx)
-        if self._nd is None or self._nd._tensor is not var \
-                or self._nd._ctx != self.context:
-            self._nd = NDArray(var)
-        return self._nd
+        i = self._index(ctx)
+        var = self._copies[i]
+        nd = self._nds.get(i)
+        if nd is None or nd._tensor is not var:
+            nd = self._nds[i] = NDArray(var, ctx=self._ctxs[i])
+        return nd
 
     def list_data(self) -> list:
-        return [self.data()]
+        """One NDArray per context, in :meth:`list_ctx` order."""
+        self._check_initialized()
+        return [self.data(c) for c in self._ctxs]
 
     def grad(self, ctx=None):
-        """An NDArray over the gradient buffer (no copy)."""
+        """An NDArray over the gradient buffer on ``ctx`` (no copy)."""
         from ..ndarray import NDArray
 
-        self._check_initialized(ctx)
-        g = self._grad_tensor()
+        i = self._index(ctx)
+        g = self._grad_tensor(i)
         if g is None:
             raise MXNetError(f"Parameter {self.name} has grad_req='null'; "
                              "no gradient buffer")
-        if self._grad_nd is None or self._grad_nd._tensor is not g \
-                or self._grad_nd._ctx != self.context:
-            self._grad_nd = NDArray(g)
-        return self._grad_nd
+        nd = self._grad_nds.get(i)
+        if nd is None or nd._tensor is not g:
+            nd = self._grad_nds[i] = NDArray(g, ctx=self._ctxs[i])
+        return nd
 
     def list_grad(self) -> list:
         self._check_initialized()
-        return [] if self._grad_req == "null" else [self.grad()]
+        return [] if self._grad_req == "null" else \
+            [self.grad(c) for c in self._ctxs]
 
     def list_ctx(self) -> List[Context]:
         if self._var is None and self._deferred_init is not None:
-            return [self._deferred_init[1]]
+            return list(self._deferred_init[1])
         self._check_initialized()
-        return [self.context]
+        return list(self._ctxs)
 
     # ------------------------------------------------------------------
     # mutation
@@ -370,23 +505,26 @@ class Parameter:
         if not isinstance(src, torch.Tensor):
             src = torch.from_numpy(np.ascontiguousarray(np.asarray(src)))
         with torch.no_grad():
-            self._var.copy_(src)
+            for var in self._copies:
+                var.copy_(src)
 
     def zero_grad(self) -> None:
-        if self._var is not None and self._var.grad is not None:
-            self._var.grad.zero_()
+        for var in self._copies:
+            if var.grad is not None:
+                var.grad.zero_()
 
     def reset_ctx(self, ctx) -> None:
-        """Move to ``ctx`` (a new storage there)."""
-        ctx = _one_context(ctx)
+        """Move to ``ctx`` (a context or a list of them): a new storage on
+        each, copied from the first context's value."""
+        ctxs = _contexts(ctx)
         if self._var is None and self._deferred_init is not None:
             init, _, default = self._deferred_init
-            self._deferred_init = (init, ctx, default)
+            self._deferred_init = (init, ctxs, default)
             return
         self._check_initialized()
-        if ctx != self.context:
-            self._set_var(self._var.detach().to(ctx.torch_device(),
-                                                copy=True))
+        if ctxs != self._ctxs:
+            self._set_var(self._var.detach().to(ctxs[0].torch_device(),
+                                                copy=True), ctxs)
 
     def cast(self, dtype) -> None:
         """Change the dtype (a new storage, its gradient buffer anew;
@@ -394,9 +532,9 @@ class Parameter:
         self._dtype = dtype_name(dtype)
         if self._var is None or self._var.dtype == torch_dtype(dtype):
             return
-        var = self._var
-        var.grad = None
-        self._set_var(var.detach().to(torch_dtype(self._dtype)))
+        for var in self._copies:
+            var.grad = None
+        self._set_var(self._var.detach().to(torch_dtype(self._dtype)))
 
     def var(self):
         raise MXNetError("Parameter.var: the symbol API is not ported yet "

@@ -17,6 +17,8 @@ from .fused_optimizer import (adam_sweep_reference, adamw_sweep_reference,
                               fused_adam_sweep, fused_adamw_sweep,
                               fused_lamb_sweep, fused_sgd_sweep,
                               lamb_sweep_reference, sgd_sweep_reference)
+from .gradient_compression import (twobit_quantize,
+                                   twobit_quantize_reference)
 from .paged_attention import (paged_attention_kernel,
                               paged_attention_reference,
                               paged_attention_split_reference, paged_splits)
@@ -36,7 +38,8 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "fused_adamw_sweep", "adamw_sweep_reference",
            "fused_lamb_sweep", "lamb_sweep_reference",
            "paged_attention_kernel", "paged_attention_reference",
-           "paged_attention_split_reference", "paged_splits"]
+           "paged_attention_split_reference", "paged_splits",
+           "twobit_quantize", "twobit_quantize_reference"]
 
 
 def launch_counters() -> dict:

@@ -65,7 +65,9 @@ class NDArray:
 
     ``NDArray(tensor)`` wraps the tensor without a copy (the reference's
     ``NDArray(data=...)``); its context is the tensor's device, and a
-    ``ctx`` given beside it must agree."""
+    ``ctx`` given beside it must agree (any ``cpu(i)`` names the host:
+    several CPU contexts, each array keeping its own, as in the
+    reference; ops and views keep their input's)."""
 
     __array_priority__ = 100.0
 
@@ -74,10 +76,20 @@ class NDArray:
         if not isinstance(data, torch.Tensor):
             raise TypeError(f"NDArray wraps a torch.Tensor, not "
                             f"{type(data).__name__}; use mx.nd.array")
-        self._ctx = Context.from_device(data.device)
-        if ctx is not None and Context(ctx) != self._ctx:
-            raise MXNetError(f"NDArray: the tensor is on {self._ctx}, not "
-                             f"{ctx}")
+        if ctx is None:
+            self._ctx = Context.from_device(data.device)
+        else:
+            if not isinstance(ctx, Context):
+                ctx = Context(ctx)
+            # the CPU contexts cpu(0), cpu(1)... all name the host, as the
+            # reference's several CPU contexts do
+            dev = data.device
+            if dev.type != ("cuda" if ctx.device_typeid == 2 else "cpu") \
+                    or (dev.type == "cuda"
+                        and (dev.index or 0) != ctx.device_id):
+                raise MXNetError(f"NDArray: the tensor is on "
+                                 f"{Context.from_device(dev)}, not {ctx}")
+            self._ctx = ctx
         self._tensor = data
         # a view: its root base and how to derive it from the base's tensor
         self._base = _base
@@ -180,7 +192,7 @@ class NDArray:
         if g is None:
             return None
         if self._grad_nd is None or self._grad_nd._tensor is not g:
-            self._grad_nd = NDArray(g)
+            self._grad_nd = NDArray(g, ctx=self._ctx)
         return self._grad_nd
 
     @property
@@ -233,11 +245,11 @@ class NDArray:
             return other
         if isinstance(other, Context):
             return NDArray(self._data.detach().to(other.torch_device(),
-                                                  copy=True))
+                                                  copy=True), ctx=other)
         raise TypeError(f"copyto does not support type {type(other)}")
 
     def copy(self) -> "NDArray":
-        return NDArray(self._data.detach().clone())
+        return NDArray(self._data.detach().clone(), ctx=self._ctx)
 
     def astype(self, dtype, copy: bool = True) -> "NDArray":
         dt = torch_dtype(dtype)
@@ -266,7 +278,7 @@ class NDArray:
         self.attach_grad("null")
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return NDArray(self._data.detach(), ctx=self._ctx)
 
     def backward(self, out_grad=None, retain_graph=False,
                  train_mode=True) -> None:
@@ -297,9 +309,10 @@ class NDArray:
             with torch.set_grad_enabled(autograd.is_recording()):
                 out = fn(self._data)
         if self._base is None:
-            return NDArray(out, _base=self, _view=fn)
+            return NDArray(out, ctx=self._ctx, _base=self, _view=fn)
         outer = self._view
-        return NDArray(out, _base=self._base, _view=lambda t: fn(outer(t)))
+        return NDArray(out, ctx=self._ctx, _base=self._base,
+                       _view=lambda t: fn(outer(t)))
 
     def reshape_like(self, other):
         return self.reshape(other.shape)
@@ -431,9 +444,9 @@ class NDArray:
         with torch.set_grad_enabled(autograd.is_recording()):
             out = self._data[key]
             if flips:
-                return NDArray(torch.flip(out, flips))
+                return NDArray(torch.flip(out, flips), ctx=self._ctx)
         if out._base is None:              # advanced indexing copied
-            return NDArray(out)
+            return NDArray(out, ctx=self._ctx)
         return self._make_view(lambda t: t[key], out)
 
     def __setitem__(self, key, value):
@@ -717,7 +730,7 @@ def imperative_invoke(opdef, tensor_args, attrs, out=None, ctx=None):
             if multi else registry.invoke(opdef, [t], attrs), out=r)
             for i, r in enumerate(result if multi else [result])]
     else:
-        outputs = [NDArray(_fresh(r, inputs))
+        outputs = [_wrap(_fresh(r, inputs), ctx)
                    for r in (result if multi else [result])]
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]
@@ -732,27 +745,35 @@ def imperative_invoke(opdef, tensor_args, attrs, out=None, ctx=None):
 # ---------------------------------------------------------------------------
 
 
+def _wrap(t: torch.Tensor, ctx: Context) -> NDArray:
+    """An op's output on ``ctx`` when that names its device (a
+    ``cpu(i)`` input gives ``cpu(i)`` outputs), else on its device."""
+    if ctx.device_type == "cpu" and t.device.type == "cpu":
+        return NDArray(t, ctx=ctx)
+    return NDArray(t)
+
+
 def array(source_array, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     """A new NDArray holding a copy of ``source_array`` (an NDArray, a
     tensor or anything numpy takes) on ``ctx`` (default:
     :func:`current_context`). float64 data becomes float32 unless
     ``dtype`` says otherwise (reference: ``mx.nd.array``)."""
-    dev = (ctx if isinstance(ctx, Context) else
-           Context(ctx) if ctx is not None else current_context()
-           ).torch_device()
+    ctx = (ctx if isinstance(ctx, Context) else
+           Context(ctx) if ctx is not None else current_context())
+    dev = ctx.torch_device()
     if isinstance(source_array, NDArray):
         source_array = source_array._data
     if isinstance(source_array, torch.Tensor):
         src = source_array.detach()
         dt = src.dtype if dtype is None else torch_dtype(dtype)
-        return NDArray(src.to(device=dev, dtype=dt, copy=True))
+        return NDArray(src.to(device=dev, dtype=dt, copy=True), ctx=ctx)
     src = _np.asarray(source_array)
     if dtype is None and src.dtype == _np.float64:
         dtype = "float32"
     # a private copy: the array never aliases the caller's numpy buffer
     t = torch.from_numpy(_np.array(src, order="C"))
     dt = t.dtype if dtype is None else torch_dtype(dtype)
-    return NDArray(t.to(device=dev, dtype=dt))
+    return NDArray(t.to(device=dev, dtype=dt), ctx=ctx)
 
 
 def empty(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
@@ -761,7 +782,7 @@ def empty(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         shape = (shape,)
     return NDArray(torch.empty(tuple(shape),
                                dtype=torch_dtype(dtype or "float32"),
-                               device=ctx.torch_device()))
+                               device=ctx.torch_device()), ctx=ctx)
 
 
 def waitall() -> None:

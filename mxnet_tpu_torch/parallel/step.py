@@ -83,8 +83,9 @@ def _refuse(mesh, rules, seq_axis, donate_inputs):
     if mesh is not None and _mesh_size(mesh) > 1:
         raise MXNetError(
             f"TrainStep: a mesh over {_mesh_size(mesh)} devices needs the "
-            "data-parallel comms and parallelism slices (ROADMAP.md, port "
-            "queue 1, items 9 and 11); the port's step runs on one device")
+            "parallelism slice (ROADMAP.md, port queue 1, item 11); the "
+            "port's step runs on one device (data parallelism runs through "
+            "gluon.Trainer's kvstore)")
     for name, value, item in (("rules", rules, 11),
                               ("seq_axis", seq_axis, 11)):
         if value is not None:

@@ -39,6 +39,10 @@ __all__ = [
     "record_preemption", "record_kvcache_defrag", "set_kvcache_pages",
     "record_training_step", "record_optimizer_dispatch",
     "record_step_skipped", "TrainingTelemetry", "xla_cost_analysis",
+    "record_kv", "record_kv_collective", "record_kv_bucket",
+    "record_kv_bucket_fallback", "record_kv_compression",
+    "record_kv_overlap", "record_optimizer_state_bytes",
+    "record_optimizer_bucket", "BYTES_BUCKETS",
     "LATENCY_BUCKETS", "STEP_BUCKETS", "SERVING_BUCKETS",
     "OCCUPANCY_BUCKETS",
 ]
@@ -98,6 +102,10 @@ SERVING_BUCKETS: Tuple[float, ...] = (
 # batch occupancy (real rows / padded bucket capacity): eighths of a batch
 OCCUPANCY_BUCKETS: Tuple[float, ...] = (
     0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+# payload sizes (gradient buckets): 4 KB .. 1 GB, x4 geometric
+BYTES_BUCKETS: Tuple[float, ...] = (
+    4096, 16384, 65536, 262144, 1 << 20, 4 << 20, 16 << 20, 64 << 20,
+    256 << 20, 1 << 30)
 
 
 class _Counter:
@@ -648,6 +656,116 @@ def record_training_step(seconds: float, examples: float,
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel comms (reference telemetry.py:826-960, the same metric names)
+# ---------------------------------------------------------------------------
+
+def record_kv(op: str, nbytes: float, seconds: float) -> None:
+    """One kvstore operation (push/pull/allreduce/row_sparse_pull)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_kvstore_calls_total",
+            "KVStore operations by kind.", ("op",)).labels(op).inc()
+    counter("mxnet_kvstore_bytes_total",
+            "Payload bytes moved through the kvstore by kind.",
+            ("op",)).labels(op).inc(float(nbytes))
+    histogram("mxnet_kvstore_seconds",
+              "Host-side kvstore call latency by kind.",
+              ("op",)).labels(op).observe(seconds)
+
+
+def record_kv_collective(path: str, n: int = 1) -> None:
+    """One gradient-reduction dispatch on the comms path. ``path``:
+    ``per_key`` (one reduce per parameter — the reference shape),
+    ``bucketed`` (one exchange per fused gradient bucket), or ``zero``
+    (one reduce-scatter + shard update + all-gather per ZeRO bucket);
+    the reference's ``hierarchical`` label is kept in the help text and
+    never recorded here (its topology is not ported)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_kvstore_collective_dispatch_total",
+            "Gradient-reduction collective dispatches by path "
+            "(per_key/bucketed/hierarchical/zero).", ("path",)).labels(path).inc(n)
+
+
+def record_kv_bucket(nbytes: float, nkeys: int) -> None:
+    """One fused gradient bucket exchanged by batched pushpull."""
+    if not _state.enabled:
+        return
+    histogram("mxnet_kvstore_bucket_bytes",
+              "Payload bytes per fused gradient bucket.",
+              buckets=BYTES_BUCKETS).observe(float(nbytes))
+    counter("mxnet_kvstore_bucketed_keys_total",
+            "Parameter keys coalesced through bucketed pushpull."
+            ).inc(nkeys)
+
+
+def record_kv_bucket_fallback(reason: str, nkeys: int = 1) -> None:
+    """Keys that fell OFF the fused bucketed-pushpull path back to the
+    per-key exchange, or outside the ZeRO sharded sweep. ``reason``:
+    ``row_sparse`` (non-default storage), ``zero_family`` (optimizer
+    family the ZeRO shard sweep cannot reproduce bit-exactly, e.g.
+    LAMB's cross-member trust-ratio norms), ``zero_multi_precision``,
+    ``zero_sparse``, ``zero_layout`` (a weight not row-major).
+    Observability for coverage gaps that used to be silent."""
+    if not _state.enabled:
+        return
+    counter("mxnet_kvstore_bucket_fallback_total",
+            "Keys excluded from fused bucketed pushpull by reason.",
+            ("reason",)).labels(reason).inc(nkeys)
+
+
+def record_optimizer_state_bytes(mode: str, nbytes: float) -> None:
+    """Persistent optimizer-state bytes held by THIS rank, by layout
+    ``mode``: ``replicated`` (every rank holds the full state — the
+    reference KVStore shape), ``zero1`` / ``zero2`` (this rank's shard
+    under ZeRO partitioning). The ZeRO engine publishes BOTH its actual
+    per-rank bytes and the replicated-equivalent total, so the ~1/world
+    memory drop is read directly off the gauge pair."""
+    if not _state.enabled:
+        return
+    gauge("mxnet_optimizer_state_bytes",
+          "Per-rank persistent optimizer-state bytes by layout mode.",
+          ("mode",)).labels(mode).set(float(nbytes))
+
+
+def record_kv_compression(ratio: float, elements: int) -> None:
+    """One compressed bucket. ``ratio``: logical wire compression
+    (uncompressed payload bits / 2-bit payload, e.g. 16x for fp32)."""
+    if not _state.enabled:
+        return
+    gauge("mxnet_kvstore_compression_ratio",
+          "Logical wire compression of the most recent compressed "
+          "bucket (uncompressed bits / 2-bit quantized bits).").set(ratio)
+    counter("mxnet_kvstore_compressed_elements_total",
+            "Gradient elements through the 2-bit quantizer.").inc(elements)
+
+
+def record_optimizer_bucket(nbytes: float, nparams: int) -> None:
+    """One fused optimizer bucket swept (packed multi-tensor update)."""
+    if not _state.enabled:
+        return
+    histogram("mxnet_optimizer_bucket_bytes",
+              "Parameter bytes per fused optimizer sweep bucket.",
+              buckets=BYTES_BUCKETS).observe(float(nbytes))
+    counter("mxnet_optimizer_bucketed_params_total",
+            "Parameters updated through fused multi-tensor sweeps."
+            ).inc(nparams)
+
+
+def record_kv_overlap(when: str, n: int = 1) -> None:
+    """One gradient-bucket pushpull dispatched by the overlapped-comms
+    trainer. ``when``: ``backward`` (issued from the grad-ready hook
+    while autograd's reverse sweep was still running — the overlap win)
+    or ``step`` (flushed by Trainer.step for buckets whose members never
+    became ready in the backward)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_kvstore_overlap_dispatch_total",
+            "Overlapped-comms bucket dispatches by phase "
+            "(backward/step).", ("when",)).labels(when).inc(n)
 
 
 # ---------------------------------------------------------------------------

@@ -147,8 +147,7 @@ def _refuse(args) -> None:
     world = math.prod(parse_mesh(args.mesh).values())
     for flag, bad, item in (
             (f"--mesh {args.mesh}", world > 1,
-             "the data-parallel comms and parallelism slices, items 9 and "
-             "11"),
+             "the parallelism slice, item 11"),
             ("--compile-only", args.compile_only,
              "the compilation service, item 10"),
             ("--save-dir", args.save_dir is not None,

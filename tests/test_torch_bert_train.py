@@ -297,7 +297,7 @@ def _tiny(**kw):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": {"dp": 2}}, "items 9 and 11"),
+    ({"mesh": {"dp": 2}}, "item 11"),
     ({"rules": object()}, "item 11"),
     ({"seq_axis": "sp"}, "item 11"),
     ({"donate_inputs": True}, "item 8"),

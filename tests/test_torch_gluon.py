@@ -730,8 +730,10 @@ def test_parameter_grad_req_reset_ctx_and_set_data():
     with pytest.raises(mx.MXNetError, match="shape"):
         p.set_data(np.zeros(4, np.float32))
     p.reset_ctx(mx.cpu())
-    with pytest.raises(mx.MXNetError, match="item 9"):
-        p.initialize(ctx=[mx.cpu(0), mx.cpu(1)], force_reinit=True)
+    p.initialize(ctx=[mx.cpu(0), mx.cpu(1)], force_reinit=True)
+    assert p.list_ctx() == [mx.cpu(0), mx.cpu(1)]
+    assert [d.context for d in p.list_data()] == [mx.cpu(0), mx.cpu(1)]
+    assert p.list_data()[0]._data is not p.list_data()[1]._data
     deferred = gluon.Parameter("d", shape=(0, 2), allow_deferred_init=True)
     deferred.initialize(ctx=mx.cpu())
     deferred.set_data(np.ones((3, 2), np.float32))

@@ -464,7 +464,7 @@ def test_llama_refuses_remat_and_a_mesh():
     with pytest.raises(ValueError, match="unknown remat policy"):
         LlamaModel(**TINY, remat="sometimes", ctx=mx.cpu())
     net = LlamaModel(**TINY, fused_ce=True, ctx=mx.cpu())
-    with pytest.raises(mx.MXNetError, match="items 9 and 11"):
+    with pytest.raises(mx.MXNetError, match="item 11"):
         TrainStep(net, lambda o, *a: o, "adamw", mesh={"dp": 2})
     with pytest.raises(ValueError, match="labels"):
         net(torch.zeros(1, 4, dtype=torch.int32))
@@ -494,7 +494,7 @@ def test_proxy1b_preset_and_ce_chunk():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "dp=2"], "items 9 and 11"),
+    (["--mesh", "dp=2"], "item 11"),
     (["--compile-only"], "item 10"),
     (["--data", "tokens.rec"], "item 10"),
     (["--save-dir", "ckpt"], "item 10"),

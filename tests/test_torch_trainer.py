@@ -884,20 +884,29 @@ def test_backward_reaches_every_parameter_of_bert(bert_weights):
 
 
 def test_trainer_refuses_what_needs_a_later_slice():
-    """What the one-device Trainer does not take raises, naming the
-    ROADMAP item; the local kvstores and an optimizer instance are
-    taken."""
+    """What the Trainer does not take raises: the kvstore types the
+    reference refuses, ``update_on_kvstore`` without a store, an unknown
+    partition mode; the data-parallel options (ROADMAP.md, queue 1, item
+    9) are taken, and so are the local kvstores and an optimizer
+    instance."""
     net = _port_dense()
     params = net.collect_params()
-    for kw, item in (({"kvstore": "dist_sync"}, "item 9"),
-                     ({"kvstore": "tpu_sync"}, "item 9"),
-                     ({"kvstore": object()}, "item 9"),
-                     ({"update_on_kvstore": True}, "item 9"),
-                     ({"compression_params": {"type": "2bit"}}, "item 9"),
-                     ({"overlap_comms": True}, "item 9"),
-                     ({"partition": "zero1"}, "item 9")):
-        with pytest.raises(mx.MXNetError, match=item):
-            Trainer(params, "sgd", **kw)
+    # a store is made for several contexts (or a collective type name)
+    params.reset_ctx([mx.cpu(0), mx.cpu(1)])
+    for kw, what in (({"kvstore": "dist_async"}, "dist_async"),
+                     ({"kvstore": "horovod"}, "horovod"),
+                     ({"update_on_kvstore": True, "kvstore": None},
+                      "requires a kvstore")):
+        with pytest.raises(mx.MXNetError, match=what):
+            Trainer(params, "sgd", **kw).step(1)
+    params.reset_ctx(mx.cpu())
+    with pytest.raises(mx.MXNetError, match="partition mode"):
+        Trainer(params, "sgd", partition="zero3")
+    for kw in ({"kvstore": "tpu_sync"}, {"kvstore": "nccl"},
+               {"update_on_kvstore": True, "kvstore": "tpu_sync"},
+               {"compression_params": {"type": "2bit"}, "kvstore": "nccl"},
+               {"overlap_comms": True}, {"partition": "zero1"}):
+        Trainer(params, "sgd", **kw).step(1)
     # ported in this slice: check_nonfinite, every optimizer, and a
     # subclass of a fused family (the per-parameter path)
     assert Trainer(params, "sgd", check_nonfinite=True)._check_nonfinite
