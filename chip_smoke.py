@@ -249,6 +249,34 @@ package. Phases, each printing JSON lines and failing loudly:
              with compression (none without); the kernels phase holds
              twobit_quantize bit for bit against its plain version on a
              25 MB bf16 bucket and an f32 bucket holding the edge values;
+17c. data_llama — proxy1b (700.5M parameters, not cut, --no-remat)
+             through mxnet_tpu_torch.tools.pretrain_llama.main with
+             --data <tmp>/tokens.rec --save-dir <tmp>/ckpt --steps 4
+             --save-every 4, the record file (32 records of 2049
+             RandomState(0) int32 ids, the first 8 the synthetic batch)
+             written with mx.recordio: the first loss equal to the
+             synthetic path's bit for bit, every step's batch its
+             records' ids, exactly 21/21 RMSNorm, 10/10 flash and one
+             AdamW scan and sweep a step, the .params reloading into a
+             fresh net bit for bit, the .states leaves byte for byte the
+             step's; bytes written, the save's MB/s, tokens/s of the
+             synced span; <tmp> removed;
+17d. data_resnet — phase 15's ResNet-50 cell fed by mx.io: an
+             NDArrayIter over 4 batches of seeded uint8 NCHW images ->
+             DeviceFeedIter(step=, depth=2, make_normalize_transform(
+             ImageNet, bf16)), two passes in turns with a staged batch:
+             each staged batch the CPU transform of its source bit for
+             bit, the loss finite and falling, 2 SGD sweeps a step,
+             images/s fed and staged, the data wait per step;
+17e. data_gluon — examples/train_mnist_gluon.py's loop on the card:
+             MNIST (the seeded surrogate) -> transform_first(ToTensor())
+             -> DataLoader(64, shuffle, num_workers=4, pin_memory=True),
+             LeNet, record/backward/Trainer('sgd', momentum 0.9),
+             mx.metric.Accuracy and callback.Speedometer over two
+             passes: thread and fork workers' batches bit for bit those
+             of num_workers=0 from one sampler seed, the accuracy
+             rising, one SGD sweep a step, no /dev/shm block left after
+             an early break;
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
              hash_dropout and twobit_quantize beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
@@ -261,6 +289,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import subprocess
 import sys
@@ -6049,6 +6078,474 @@ def phase_dp_train() -> dict:
             "ms_per_step": {k: v["ms_per_step"] for k, v in by.items()}}
 
 
+# ---------------------------------------------------------------------------
+# 17c-17e. training fed from files: record files, mx.io with the device
+# feed, gluon.data with metric and callback
+# ---------------------------------------------------------------------------
+
+IMAGENET_MEAN_STD = ([123.68, 116.78, 103.94], [58.4, 57.1, 57.4])
+
+
+class _StepSpy:
+    """A ``TrainStep`` seen through: each call's batch kept (a device
+    clone, no sync) and everything else passed on."""
+
+    def __init__(self, step):
+        self._step = step
+        self.batches = []
+
+    def __call__(self, data, label):
+        self.batches.append(tuple(t.clone() for t in data))
+        return self._step(data, label)
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+
+def phase_data_llama(card: str) -> dict:
+    """The proxy1b Llama (700.5M parameters, full depth and width,
+    --no-remat as phase 13) through the driver's own main() with --data
+    <tmp>/tokens.rec --save-dir <tmp>/ckpt --steps 4 --save-every 4, the
+    record file written here with mx.recordio: 32 records of 2049
+    RandomState(0) int32 ids, the first 8 the rows _make_data("synthetic")
+    draws. Checks: the first step's loss equals the synthetic path's
+    first loss from the same seed-0 weights bit for bit; every step's
+    batch is its 8 records' ids (tokens arr[:2048], labels arr[1:]);
+    exactly 21/21 RMSNorm, 10/10 flash, one AdamW scan and one sweep per
+    step; the .params reloads into a fresh build("proxy1b") net bit for
+    bit; the .states leaves equal the step's states byte for byte.
+    Prints the bytes written, the save's MB/s and the synced span's
+    tokens/s. <tmp> (about 10 GB) is removed at the end."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.recordio import MXRecordIO
+    from mxnet_tpu_torch.tools import pretrain_llama as pl
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, seq, steps = 8, 2048, 4
+    cfg = pl.CONFIGS["proxy1b"]
+    dev = torch.device("cuda")
+    toks = np.random.RandomState(0).randint(
+        0, cfg["vocab_size"], (32, seq + 1)).astype(np.int32)
+    synth = np.random.RandomState(0).randint(0, cfg["vocab_size"],
+                                             (batch, seq + 1))
+    if not np.array_equal(toks[:batch], synth):
+        fail("data_llama: the records' first rows are not the synthetic "
+             "batch")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_llama_")
+    try:
+        rec = os.path.join(tmp, "tokens.rec")
+        w = MXRecordIO(rec, "w")
+        for row in toks:
+            w.write(row.tobytes())
+        w.close()
+        # the synthetic path's first loss, from the same seed-0 weights
+        net, step = pl.build("proxy1b", ctx="cuda", remat=False)
+        tok, lab = next(pl._make_data("synthetic", batch, seq,
+                                      cfg["vocab_size"], dev))
+        synth_loss = float(step((tok, lab), ())[0])
+        del net, step, tok, lab
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        built, saves = [], []
+        build, save = pl.build, pl._save
+
+        def spy_build(*a, **kw):
+            net, step = build(*a, **kw)
+            built.append((net, _StepSpy(step)))
+            return built[-1]
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            paths = save(*a, **kw)
+            saves.append((time.perf_counter() - t, paths))
+            return paths
+
+        ckpt = os.path.join(tmp, "ckpt")
+        out = io.StringIO()
+        pl.build, pl._save = spy_build, timed_save
+        _reset_train_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = pl.main(["--config", "proxy1b", "--no-remat",
+                              "--batch", str(batch), "--seq", str(seq),
+                              "--steps", str(steps), "--data", rec,
+                              "--save-dir", ckpt, "--save-every", "4"])
+        finally:
+            pl.build, pl._save = build, save
+        launches = _train_counts()
+        lines = out.getvalue().strip().splitlines()
+        run = json.loads(lines[-1])
+        net, spy = built[0]
+        per_step = _llama_per_step(cfg, len(spy._buckets), wgmma=True)
+        want = {k: v * steps for k, v in per_step.items()}
+        batches_ok = all(
+            np.array_equal(tk.cpu().numpy(), toks[8 * k:8 * k + 8, :seq])
+            and np.array_equal(lb.cpu().numpy(),
+                               toks[8 * k:8 * k + 8, 1:])
+            for k, (tk, lb) in enumerate(spy.batches))
+        save_s, paths = saves[0]
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        # the .params into a fresh seed-0 net, bit for bit
+        fresh, _ = build("proxy1b", ctx="cuda", remat=False)
+        fresh.load_parameters(paths[0])
+        params_equal = all(
+            torch.equal(a, b) for a, b in zip(fresh.parameters(),
+                                              net.parameters()))
+        del fresh
+        # the .states leaves against the step's states, byte for byte
+        with open(paths[1], "rb") as f:
+            saved = pickle.load(f)
+        leaves = [leaf for st in spy._states for leaf in
+                  pl._state_leaves(st)]
+        states_equal = (len(leaves) == len(saved["leaves"]) and all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes()
+            for a, b in zip(leaves, saved["leaves"])))
+        del leaves, saved
+        rec_out = {
+            "phase": "data_llama", "card": card,
+            "model": "LlamaModel(fused_ce=True), proxy1b, no remat",
+            "driver": "mxnet_tpu_torch.tools.pretrain_llama.main",
+            "records": [int(toks.shape[0]), seq + 1], "rc": rc,
+            "batch": [batch, seq], "steps": steps,
+            "losses": run["losses"], "synthetic_first_loss": synth_loss,
+            "first_loss_bits_equal": run["losses"][0] == synth_loss,
+            "batches_are_the_records": batches_ok,
+            "tokens_per_s_synced_span": run["tokens_per_sec"],
+            "mfu": run["mfu"], "save_s": save_s, "bytes_written": nbytes,
+            "save_mb_per_s": nbytes / save_s / 1e6,
+            "params_reload_bit_equal": params_equal,
+            "states_byte_equal": states_equal,
+            "num_update": spy.optimizer.num_update,
+            "launches": launches, "launches_expected": want,
+            "saved_lines": [s for s in lines if s.startswith("saved ")]}
+        del built, net, spy
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_out["tmp_removed"] = not os.path.exists(tmp)
+    rec_out["seconds"] = time.perf_counter() - t0
+    emit(rec_out)
+    losses = rec_out["losses"]
+    if rc != 0 or len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"data_llama: the driver's run failed: rc {rc}, {losses}")
+    if not rec_out["first_loss_bits_equal"]:
+        fail(f"data_llama: the first loss from records {losses[0]!r} is "
+             f"not the synthetic path's {synth_loss!r}")
+    if not batches_ok or len(rec_out["saved_lines"]) != 1:
+        fail(f"data_llama: batches from the records {batches_ok}, saved "
+             f"lines {rec_out['saved_lines']}")
+    if launches != want:
+        fail(f"data_llama launch counts {launches} are not {want}")
+    if not (params_equal and states_equal and rec_out["tmp_removed"]):
+        fail(f"data_llama: params reload {params_equal}, states "
+             f"{states_equal}, tmp removed {rec_out['tmp_removed']}")
+    return launches
+
+
+def _learnable_images(n, classes, seed):
+    """uint8 NCHW images, each its class's fixed random prototype plus
+    noise (as the vision datasets' surrogate), and float labels."""
+    rs = np.random.RandomState(seed)
+    protos = rs.randint(0, 256, (classes, 3, 224, 224)).astype(np.int16)
+    labels = rs.randint(0, classes, (n,))
+    noise = rs.randint(-48, 49, (n, 3, 224, 224)).astype(np.int16)
+    imgs = np.clip(protos[labels] * 0.6 + noise, 0, 255).astype(np.uint8)
+    return imgs, labels.astype(np.float32)
+
+
+def phase_data_resnet(card: str) -> dict:
+    """resnet50_v1(layout="NHWC") at phase 15's cell (bf16, 256 x 224,
+    SGD lr 0.1, momentum 0.9, multi-precision, cuDNN autotuner on), fed
+    as examples/train_resnet_imagenet.py feeds it: an mx.io.NDArrayIter
+    over 4 batches of seeded uint8 NCHW images (8 classes' prototypes
+    plus noise) → DeviceFeedIter(step=step, depth=2, device_transform=
+    make_normalize_transform(ImageNet mean/std, "bfloat16")), two passes
+    after two warm-up steps on the staged batch.
+    Checks: each staged batch equals the CPU transform of its source bit
+    for bit; the loss finite and lower at the last step than the first;
+    exactly 2 SGD sweeps a step. In turns with the same steps on a staged
+    synthetic batch (feed, staged, feed, staged): images/s of each and
+    the data wait per step (the time next() blocks)."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, nb = 256, 4
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    net = resnet50_v1(layout="NHWC", dtype=torch.bfloat16,
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                 optimizer_params=dict(RESNET_OPT))
+    imgs, labels = _learnable_images(batch * nb, 8, 1)
+    tf = mx.io.make_normalize_transform(*IMAGENET_MEAN_STD, "bfloat16")
+    src = mx.io.NDArrayIter(imgs, labels, batch_size=batch)
+    feed = mx.io.DeviceFeedIter(src, step=step, depth=2,
+                                device_transform=tf)
+    x_syn = tf(torch.from_numpy(imgs[:batch]).cuda())[0]
+    y_syn = torch.from_numpy(labels[:batch]).cuda()
+    for _ in range(2):              # cuDNN's autotuner, out of the turns
+        step(x_syn, y_syn)
+    losses, staged, waits = [], [], []
+    feed_s, syn_s = [], []
+    _reset_train_counts()
+    n_steps = 0
+    for turn in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if turn % 2 == 0:                       # the feed: one pass
+            feed.reset()
+            while True:
+                tw = time.perf_counter()
+                try:
+                    b = feed.next()
+                except StopIteration:
+                    break
+                waits.append(time.perf_counter() - tw)
+                staged.append(b.data[0]._data.clone())
+                losses.append(step(b.data[0], b.label[0])[0])
+                n_steps += 1
+            torch.cuda.synchronize()
+            feed_s.append(time.perf_counter() - t1)
+        else:                                   # the staged batch
+            for _ in range(nb):
+                step(x_syn, y_syn)
+                n_steps += 1
+            torch.cuda.synchronize()
+            syn_s.append(time.perf_counter() - t1)
+    launches = _train_counts()
+    feed.close()
+    losses = [float(v) for v in losses]
+    bits = []
+    for k, t in enumerate(staged):
+        j = k % nb
+        want = tf(torch.from_numpy(imgs[j * batch:(j + 1) * batch]))[0]
+        bits.append(torch.equal(t.cpu().view(torch.int16),
+                                want.view(torch.int16)))
+    per_step = _resnet_per_step(len(step._buckets))
+    want = {k: v * n_steps for k, v in per_step.items()}
+    out = {"phase": "data_resnet", "card": card, "warmup_steps": 2,
+           "model": "resnet50_v1(layout='NHWC')",
+           "dtype": "bfloat16, multi-precision sgd", "optimizer": RESNET_OPT,
+           "feed": "NDArrayIter(uint8 NCHW) -> DeviceFeedIter(step, depth=2, "
+                   "make_normalize_transform(ImageNet, bfloat16))",
+           "batch": [batch, 3, 224, 224], "batches_per_pass": nb,
+           "steps": n_steps, "losses_fed": losses,
+           "staged_bits_equal": bits,
+           "images_per_s_fed": [batch * nb / s for s in feed_s],
+           "images_per_s_staged": [batch * nb / s for s in syn_s],
+           "data_wait_ms_per_step": [1e3 * w for w in waits],
+           "data_wait_ms_mean": 1e3 * float(np.mean(waits)),
+           "h2d_mb_per_batch": imgs[:batch].nbytes / 1e6,
+           "launches": launches, "launches_expected": want,
+           "seconds": time.perf_counter() - t0}
+    torch.backends.cudnn.benchmark = bench
+    emit(out)
+    if not all(bits) or len(bits) != 2 * nb:
+        fail(f"data_resnet: staged batches differ from the CPU transform "
+             f"of their sources: {bits}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"data_resnet: the fed loss is not finite or did not fall: "
+             f"{losses}")
+    if launches != want or per_step["fused_sgd_sweep"] != 2:
+        fail(f"data_resnet launch counts {launches} are not {want}")
+    del step, net, feed, staged, x_syn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lenet(mx):
+    """examples/train_mnist_gluon.py's LeNet."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(20, kernel_size=5, activation="relu"),
+            nn.MaxPool2D(pool_size=2, strides=2),
+            nn.Conv2D(50, kernel_size=5, activation="relu"),
+            nn.MaxPool2D(pool_size=2, strides=2),
+            nn.Flatten(), nn.Dense(500, activation="relu"), nn.Dense(10))
+    return net
+
+
+def _shm_blocks() -> set:
+    import os
+
+    try:
+        return set(os.listdir("/dev/shm"))
+    except OSError:
+        return set()
+
+
+def phase_data_gluon(card: str) -> dict:
+    """The eager Gluon loop examples/train_mnist_gluon.py writes, at its
+    widths (LeNet, batch 64): gluon.data.vision.MNIST (local files, else
+    the seeded surrogate) with transform_first(ToTensor()), through
+    DataLoader(shuffle=True, num_workers=4, pin_memory=True), two passes
+    of autograd.record / backward / Trainer('sgd', lr 0.02, momentum
+    0.9), mx.metric.Accuracy and callback.Speedometer. Checks: thread and
+    fork workers (MXNET_TPU_FORK_WORKERS=1, shared memory) give the
+    batches num_workers=0 gives from one sampler seed, bit for bit; the
+    training accuracy rises from the first pass to the second; the SGD
+    sweep launches once a step; no /dev/shm block is left after an
+    early break out of a fork loader."""
+    import logging
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    t0 = time.perf_counter()
+    bs = 64
+    ctx = mx.gpu()
+    mnist = gluon.data.vision.MNIST(train=True)
+    train = mnist.transform_first(gluon.data.vision.transforms.ToTensor())
+    n = len(train)
+
+    def loader(workers, fork=False, **kw):
+        old = os.environ.get("MXNET_TPU_FORK_WORKERS")
+        if fork:
+            os.environ["MXNET_TPU_FORK_WORKERS"] = "1"
+        try:
+            return gluon.data.DataLoader(train, bs, num_workers=workers,
+                                         pin_memory=True, **kw)
+        finally:
+            if fork and old is None:
+                del os.environ["MXNET_TPU_FORK_WORKERS"]
+
+    def first(ld, k=6):
+        out = []
+        for i, (x, y) in enumerate(ld):
+            if i == k:
+                break
+            out.append((x._data.clone(), y._data.clone()))
+        return out
+
+    sampler = lambda: gluon.data.RandomSampler(  # noqa: E731
+        n, rng=np.random.RandomState(7))
+    ref = first(loader(0, sampler=sampler()))
+    same = {}
+    for mode, kw in (("threads", {}), ("fork", {"fork": True})):
+        got = first(loader(4, sampler=sampler(), **kw))
+        same[mode] = len(got) == len(ref) and all(
+            torch.equal(a, c) and torch.equal(b, d)
+            for (a, b), (c, d) in zip(got, ref))
+    on_card = all(x.is_cuda for x, _ in ref)
+    shm_before = _shm_blocks()
+    for i, _ in enumerate(loader(4, fork=True, sampler=sampler(),
+                                 prefetch=8)):
+        if i == 1:
+            break
+    _ = None
+    import gc
+
+    gc.collect()
+    shm_left = sorted(_shm_blocks() - shm_before)
+
+    net = _lenet(mx)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.02, "momentum": 0.9})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    train_loader = loader(4, shuffle=True)
+    speed_lines = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            speed_lines.append(record.getMessage())
+
+    handler = _Keep()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    Param = collections.namedtuple("BatchEndParam",
+                                   "epoch nbatch eval_metric locals")
+    speedometer = mx.callback.Speedometer(bs, frequent=50)
+    accs, epoch_s, waits, steps = [], [], [], 0
+    _reset_train_counts()
+    try:
+        for epoch in range(2):
+            metric = mx.metric.Accuracy()
+            te = time.perf_counter()
+            batches = iter(train_loader)
+            for i in itertools.count():
+                tw = time.perf_counter()
+                try:
+                    x, y = next(batches)
+                except StopIteration:
+                    break
+                waits.append(time.perf_counter() - tw)
+                x, y = x.as_in_context(ctx), y.as_in_context(ctx)
+                with autograd.record():
+                    out = net(x)
+                    loss = loss_fn(out, y)
+                loss.backward()
+                trainer.step(x.shape[0])
+                metric.update([y], [out])
+                speedometer(Param(epoch, i, metric, None))
+                steps += 1
+            epoch_s.append(time.perf_counter() - te)
+            accs.append(metric.get()[1])
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    launches = _train_counts()
+    want = {**dict.fromkeys(_train_counts(), 0), "fused_sgd_sweep": steps}
+    # the loader alone, one pass: what the workers deliver without a step
+    tl = time.perf_counter()
+    for _ in loader(4, shuffle=True):
+        pass
+    loader_only = n / (time.perf_counter() - tl)
+    out = {"phase": "data_gluon", "card": card,
+           "model": "LeNet (examples/train_mnist_gluon.py)",
+           "data": "MNIST -> transform_first(ToTensor()) -> DataLoader("
+                   "64, shuffle, num_workers=4, pin_memory)",
+           "mnist": {"synthetic": mnist.synthetic, "samples": n},
+           "batches_equal_to_num_workers_0": same,
+           "pinned_batches_on_card": on_card,
+           "shm_blocks_left_after_break": shm_left,
+           "train_accuracy": accs, "steps": steps,
+           "samples_per_s": [n / s for s in epoch_s],
+           "ms_per_step": [1e3 * s / (steps // 2) for s in epoch_s],
+           "data_wait_ms_per_step_mean": 1e3 * float(np.mean(waits)),
+           "data_wait_share": float(np.sum(waits)) / sum(epoch_s),
+           "loader_only_samples_per_s": loader_only,
+           "speedometer": speed_lines[-2:],
+           "launches": launches, "launches_expected": want,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not all(same.values()) or not on_card:
+        fail(f"data_gluon: worker batches differ from num_workers=0 "
+             f"{same}, on card {on_card}")
+    if shm_left:
+        fail(f"data_gluon: /dev/shm blocks left after an early break: "
+             f"{shm_left}")
+    if not accs[1] > accs[0]:
+        fail(f"data_gluon: the training accuracy did not rise: {accs}")
+    if launches != want:
+        fail(f"data_gluon launch counts {launches} are not {want}")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -6094,6 +6591,9 @@ def main() -> None:
     imperative = phase_imperative(card)
     phase_dp_reference()
     dp = phase_dp_train()
+    data_llama = phase_data_llama(card)
+    data_resnet = phase_data_resnet(card)
+    data_gluon = phase_data_gluon(card)
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -6192,6 +6692,13 @@ def main() -> None:
         if dp.get(name):
             by_path["dp_train" + ("_2bit" if name == "twobit_quantize"
                                   else "")] = dp[name]
+        for path, got in (("data_llama", data_llama),
+                          ("data_resnet", data_resnet),
+                          ("data_gluon", data_gluon)):
+            if got.get(name):
+                by_path[path] = got[name]
+        if name == "fused_adamw_sweep":
+            by_path["data_llama[scan]"] = data_llama[name + "[scan]"]
         if name == "fused_lamb_sweep":
             for sub in ("[phase1]", "[norms]"):
                 by_path["bert_trainer" + sub] = trainer[name + sub]

@@ -42,6 +42,15 @@ it: parameters on several contexts (``initialize(ctx=[...])``,
 2-bit ``compression_params``, ``overlap_comms`` and ZeRO
 ``partition="zero1"|"zero2"``.
 
+Training from files as MXNet scripts feed it: ``mx.recordio`` record
+files (read and written by a native scanner built with ``g++``),
+``mx.gluon.data`` (datasets, samplers, the ``DataLoader`` with thread or
+fork workers and ``pin_memory``, the vision datasets and transforms),
+``mx.io`` (``NDArrayIter``, ``CSVIter``, ``MNISTIter``,
+``PrefetchingIter`` and ``DeviceFeedIter``, which copies batches to the
+card on a stream of its own ahead of the step), ``mx.metric`` and
+``mx.callback``.
+
 The imperative half of MXNet: ``mx.nd`` (``NDArray`` over one
 ``torch.Tensor``, on ``mx.current_context()``, the card by default; the
 registered ops, ``attach_grad``/``backward``, ``.params`` files
@@ -53,18 +62,20 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
     mod.get_kernel("axpy", "const float *x, float *y, float a") \
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
 """
-from . import (autograd, base, checkpoint, context, convert, engine, fault,
-               gluon, init, initializer, kernels, kvstore, lr_scheduler,
-               ndarray, ops, optimizer, parallel, random, random_state, rtc,
-               serving, telemetry, tracing)
+from . import (autograd, base, callback, checkpoint, context, convert,
+               engine, fault, gluon, init, initializer, io, kernels, kvstore,
+               lr_scheduler, metric, ndarray, ops, optimizer, parallel,
+               random, random_state, recordio, rtc, serving, telemetry,
+               tracing)
 from . import kvstore as kv
 from . import ndarray as nd
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
-           "current_context", "autograd", "base", "checkpoint", "context",
-           "convert", "engine", "fault", "gluon", "init", "initializer",
-           "kernels", "kv", "kvstore", "lr_scheduler", "nd",
-           "ndarray", "ops", "optimizer", "parallel", "random",
-           "random_state", "rtc", "serving", "telemetry", "tracing"]
+__all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu", "num_gpus",
+           "current_context", "autograd", "base", "callback", "checkpoint",
+           "context", "convert", "engine", "fault", "gluon", "init",
+           "initializer", "io", "kernels", "kv", "kvstore", "lr_scheduler",
+           "metric", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "random", "random_state", "recordio", "rtc", "serving",
+           "telemetry", "tracing"]

@@ -9,6 +9,14 @@ otherwise (the reference's default is ``cpu(0)``). Asking for a GPU
 where CUDA is unavailable raises :class:`MXNetError` — there is no
 silent fallback to the CPU. The CPU is reached only by passing
 ``ctx=mx.cpu()`` or by ``with mx.cpu():`` (the CPU tests do).
+
+``mx.cpu_pinned()`` is host memory in page-locked pages
+(``Tensor.pin_memory()``): the staging context of the input pipeline
+(``gluon.data.DataLoader(pin_memory=True)``, ``io.DeviceFeedIter``),
+from which a copy to the card runs asynchronously. As in the reference
+(``mxnet_tpu/io/device_feed.py:65-84``), a batch staged onto the card
+keeps that label: an NDArray in ``cpu_pinned`` may hold a pinned host
+tensor or the card's copy of one.
 """
 from __future__ import annotations
 
@@ -18,16 +26,16 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "num_gpus", "current_context",
-           "resolve_device"]
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "num_gpus",
+           "current_context", "resolve_device"]
 
 
 class Context:
     """A device context (reference: ``mxnet_tpu/context.py :: Context``),
     with the reference's device-type ids (``include/mxnet/base.h``:
-    kCPU = 1, kGPU = 2)."""
+    kCPU = 1, kGPU = 2, kCPUPinned = 3)."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
     devstr2type = {v: k for k, v in devtype2str.items()}
 
     _default_ctx = threading.local()
@@ -79,7 +87,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """The ``torch.device`` of this context; a GPU context is checked
         against the cards present."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         gpu(self.device_id)             # raises where the card is missing
         return torch.device("cuda", self.device_id)
@@ -98,6 +106,12 @@ class Context:
 
 def cpu(device_id: int = 0) -> Context:
     return Context(1, device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory, the staging context of the input
+    pipeline (reference ``context.py:148``)."""
+    return Context(3, device_id)
 
 
 def num_gpus() -> int:

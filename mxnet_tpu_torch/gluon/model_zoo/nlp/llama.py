@@ -27,6 +27,7 @@ from .... import initializer
 from ....base import MXNetError, torch_dtype
 from ....kernels._build import capture_graph, replay_counts
 from ....ops.attention import paged_attention, rms_norm, rope_at
+from ....ops.nn import embedding
 from ...block import (HybridBlock, param_like, remat_call,
                       resolve_remat_policy)
 from ... import nn
@@ -271,7 +272,7 @@ def _paged_forward(params, tokens, positions, page_table, lengths,
     b, l = tokens.shape
     w_pages = page_table.shape[1]
 
-    x = F.embedding(tokens, embed_w)                      # (B, L, U)
+    x = embedding(tokens, embed_w)  # (B, L, U); NaN rows for a bad id
     real = positions < lengths[:, None]
     page_of = (positions // ps).clamp(0, w_pages - 1)
     page_ids = torch.gather(page_table.long(), 1, page_of)

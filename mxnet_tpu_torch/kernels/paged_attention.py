@@ -56,6 +56,9 @@ def paged_attention_reference(q, k_arena, v_arena, page_table, lengths, *,
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
     valid = (torch.arange(slots.shape[1], device=q.device)[None, :]
              < lengths.long()[:, None])                           # (B, T)
+    # slots past a row's length are zeros, as the kernel's zero-filled
+    # copies: a stale NaN there must not reach P.V as 0 * NaN
+    v = v.masked_fill(~valid[:, :, None, None], 0.0)
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -104,6 +107,7 @@ def paged_attention_split_reference(q, k_arena, v_arena, page_table,
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
     tok = torch.arange(slots.shape[1], device=q.device)[None, :]
     n = lengths.long().clamp(0, width * ps)[:, None]
+    v = v.masked_fill(~(tok < n)[:, :, None, None], 0.0)  # as above
     m_all = torch.full(s.shape[:-1], float("-inf"), device=q.device)
     parts = []
     for sp in range(int(n_split)):

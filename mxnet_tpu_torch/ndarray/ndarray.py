@@ -84,7 +84,11 @@ class NDArray:
             # the CPU contexts cpu(0), cpu(1)... all name the host, as the
             # reference's several CPU contexts do
             dev = data.device
-            if dev.type != ("cuda" if ctx.device_typeid == 2 else "cpu") \
+            # cpu_pinned labels a pinned host tensor or the card's copy of
+            # one (a staged input batch, as the reference labels it)
+            if ctx.device_typeid == 3:
+                pass
+            elif dev.type != ("cuda" if ctx.device_typeid == 2 else "cpu") \
                     or (dev.type == "cuda"
                         and (dev.index or 0) != ctx.device_id):
                 raise MXNetError(f"NDArray: the tensor is on "
@@ -235,7 +239,18 @@ class NDArray:
     # context and dtype
     # ------------------------------------------------------------------
     def as_in_context(self, ctx: Context) -> "NDArray":
-        return self if ctx == self._ctx else self.copyto(ctx)
+        if ctx == self._ctx:
+            return self
+        if self._ctx.device_typeid == 3 and ctx.device_typeid == 2:
+            # a staged input batch going to the card: the card's copy
+            # changes label without another copy, and a pinned host
+            # tensor crosses asynchronously (the copy is ordered on the
+            # current stream, which reads it). Any other move, to the
+            # host above all, is copyto's synchronous copy.
+            return NDArray(self._data.detach().to(ctx.torch_device(),
+                                                  non_blocking=True),
+                           ctx=ctx)
+        return self.copyto(ctx)
 
     as_in_ctx = as_in_context
 

@@ -135,16 +135,20 @@ def _paged_reference(q, k_arena, v_arena, page_table, lengths,
              + torch.arange(ps, device=q.device)).reshape(b, -1)  # (B, T)
     k = k_arena[slots]                                  # (B, T, KV, D)
     v = v_arena[slots]
+    key_pos = torch.arange(slots.shape[1], device=q.device)
+    live = key_pos[None, :] < lengths.long()[:, None]   # (B, T)
+    # a slot past the row's length (a freed page's stale values, NaN
+    # after a request with a bad token id) is read as zeros: its
+    # probability is 0, and 0 * NaN would poison the row
+    v = v.masked_fill(~live[:, :, None, None], 0.0)
     if kv != h:
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)
     k = k.transpose(1, 2)                               # (B, H, T, D)
     v = v.transpose(1, 2)
     scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
-    key_pos = torch.arange(slots.shape[1], device=q.device)
     mask = key_pos[None, None, None, :] <= q_positions[:, None, :, None]
-    mask = mask & (key_pos[None, None, None, :]
-                   < lengths.long()[:, None, None, None])
+    mask = mask & live[:, None, None, :]
     scores = scores.masked_fill(~mask, -1e9)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.matmul(probs, v)

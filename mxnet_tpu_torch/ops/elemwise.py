@@ -22,11 +22,15 @@ rounded; integer ``mod`` by zero 0; integer ``power`` by ``jnp``'s
 binary exponentiation over the exponent's low 6 bits; ``hypot`` of
 integers in float; ``cbrt`` taken in f32 and rounded once; ``sign`` of
 NaN NaN and of -0 -0; half the gradient at the ties of ``maximum``,
-``minimum`` and ``clip``; ``abs``'s gradient 1 at +-0; the gradients of
+``minimum`` and ``clip`` and none at NaN; ``abs``'s gradient 1 at +-0;
+``relu`` +0 at -0 with no gradient at NaN; the gradient of ``gamma`` and
+``gammaln`` NaN at +-0; the gradients of
 ``power`` and ``hypot`` at 0 as ``jnp``'s; ``Cast`` of a float to an
 integer type saturating, NaN to 0.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as _np
 import torch
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from ..base import torch_dtype
 from .registry import register
 
-__all__ = ["cast_scalar"]
+__all__ = ["cast_scalar", "relu"]
 
 # ---------------------------------------------------------------------------
 # binary arithmetic
@@ -283,11 +287,47 @@ _scalar_op("_mod_scalar", lambda d, s: _mod(d, torch.full_like(d, s)))
 _scalar_op("_rmod_scalar", lambda d, s: _mod(torch.full_like(d, s), d))
 _scalar_op("_power_scalar", _power_scalar)
 _scalar_op("_rpower_scalar", lambda d, s: _power(torch.full_like(d, s), d))
-# against a full tensor, as jnp.maximum: half the gradient at a tie
-_scalar_op("_maximum_scalar",
-           lambda d, s: torch.maximum(d, torch.full_like(d, s)))
-_scalar_op("_minimum_scalar",
-           lambda d, s: torch.minimum(d, torch.full_like(d, s)))
+
+
+
+class _ExtremumScalar(torch.autograd.Function):
+    """``jnp.maximum``/``jnp.minimum`` of an array and a scalar: NaN
+    wins, and -0 orders below +0 (torch's keep ``d`` at a tie of zeros);
+    the gradient 1 where ``d`` wins, half at a tie, 0 at NaN (torch
+    passes it whole there)."""
+
+    @staticmethod
+    def forward(ctx, d, s, upper):
+        full = torch.full_like(d, s)
+        # at a tie of zeros the result is +0 for max, -0 for min: d's
+        # zero wins when the scalar's sign says it is the worse one
+        tie_d = math.copysign(1.0, s) < 0 if upper else \
+            math.copysign(1.0, s) > 0
+        wins = d > s if upper else d < s
+        wins = wins | torch.isnan(d)
+        if tie_d:
+            wins = wins | (d == s)
+        ctx.save_for_backward(d)
+        ctx.s, ctx.upper = s, upper
+        return torch.where(wins, d, full)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        wins = d > ctx.s if ctx.upper else d < ctx.s
+        share = torch.where(wins, 1.0, torch.where(d == ctx.s, 0.5, 0.0))
+        return g * share.to(g.dtype), None, None
+
+
+def _extremum_scalar(d, s, upper):
+    if _int(d):
+        full = torch.full_like(d, s)
+        return torch.maximum(d, full) if upper else torch.minimum(d, full)
+    return _ExtremumScalar.apply(d, s, upper)
+
+
+_scalar_op("_maximum_scalar", lambda d, s: _extremum_scalar(d, s, True))
+_scalar_op("_minimum_scalar", lambda d, s: _extremum_scalar(d, s, False))
 _scalar_op("_equal_scalar", lambda d, s: (d == s).to(d.dtype))
 _scalar_op("_not_equal_scalar", lambda d, s: (d != s).to(d.dtype))
 _scalar_op("_greater_scalar", lambda d, s: (d > s).to(d.dtype))
@@ -363,6 +403,51 @@ def _abs(x):
     return torch.abs(x) if _int(x) else _Abs.apply(x)
 
 
+class _Relu(torch.autograd.Function):
+    """``jax.nn.relu``: +0.0 at -0.0 (torch keeps -0.0), NaN at NaN, and
+    the gradient 1 where x > 0 only (torch passes it at NaN)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        # threshold's test is x <= 0 ? 0 : x, one pass as torch.relu:
+        # -0.0 gives +0.0 and NaN stays NaN
+        y = F.threshold(x, 0.0, 0.0)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device))
+
+
+def relu(x):
+    """``relu`` as the reference's (``mxnet_tpu/ops/elemwise.py:175``)."""
+    return torch.relu(x) if _int(x) else _Relu.apply(x)
+
+
+class _Digamma(torch.autograd.Function):
+    """``lgamma`` (``log_gamma=True``) or ``exp(lgamma)`` whose gradient
+    is NaN at +-0, as ``jax.scipy.special.digamma``'s pole (torch's
+    digamma gives -inf at +0 and +inf at -0)."""
+
+    @staticmethod
+    def forward(ctx, x, log_gamma):
+        y = torch.lgamma(x)
+        if not log_gamma:
+            y = torch.exp(y)
+        ctx.save_for_backward(x, y)
+        ctx.log_gamma = log_gamma
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        psi = torch.where(x == 0, float("nan"), torch.digamma(x))
+        return g * (psi if ctx.log_gamma else psi * y), None
+
+
 def _sign(x):
     """``jnp.sign``: NaN for NaN and -0 for -0 (torch gives 0 and +0);
     the gradient 0."""
@@ -407,11 +492,11 @@ _unary("degrees", torch.rad2deg)
 _unary("radians", torch.deg2rad)
 _unary("sigmoid", torch.sigmoid)
 _unary("softsign", F.softsign)
-_unary("relu", torch.relu)
+_unary("relu", relu)
 _unary("erf", torch.erf)
 _unary("erfinv", torch.erfinv)
-_unary("gamma", lambda x: torch.exp(torch.lgamma(x)))
-_unary("gammaln", torch.lgamma)
+_unary("gamma", lambda x: _Digamma.apply(x, False))
+_unary("gammaln", lambda x: _Digamma.apply(x, True))
 _unary("reciprocal", lambda x: 1.0 / x)
 _unary("negative", torch.negative, aliases=["_np_negative"])
 # the output is a fresh array, as every op's is (imperative_invoke copies

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from .. import autograd, random_state
 from ..base import MXNetError, torch_dtype
 from ..kernels import fused_bias_gelu, fused_layer_norm, hash_dropout
+from .elemwise import relu
 from .registry import attr, register
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
@@ -234,11 +235,32 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     return out
 
 
+def _take_fill(weight):
+    """``jnp.take``'s fill value for an index out of range: NaN for a
+    float table, the lowest value of a signed and the highest of an
+    unsigned integer one."""
+    if weight.dtype.is_floating_point:
+        return float("nan")
+    info = torch.iinfo(weight.dtype)
+    return info.min if info.min < 0 else info.max
+
+
 def embedding(data, weight):
     """Rows of ``weight`` at the indices ``data``, which may arrive as
     floats (the serving batcher casts every sample to its dtype) and are
-    truncated to int64, as the JAX op truncates them to int32."""
-    return F.embedding(data.to(torch.int64), weight)
+    truncated to int64, as the JAX op truncates them to int32. As
+    ``jnp.take`` (``mxnet_tpu/ops/nn.py:1042``): an index in [-n, 0)
+    counts from the end and one outside [-n, n) gives a row of
+    ``_take_fill`` with no gradient. The gather runs on clamped indices
+    and the bad rows are masked after it, with no host sync and no
+    data-dependent branch (the decode step runs inside CUDA graphs), so
+    a bad id never reaches ``F.embedding``'s device-side assert."""
+    idx = data.to(torch.int64)
+    n = weight.shape[0]
+    valid = (idx >= -n) & (idx < n)
+    safe = torch.where(idx < 0, idx + n, idx).clamp_(0, max(n - 1, 0))
+    rows = F.embedding(safe, weight)
+    return rows.masked_fill(~valid.unsqueeze(-1), _take_fill(weight))
 
 
 def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5):
@@ -287,17 +309,61 @@ def fused_bias_gelu_op(data, bias):
     return fused_bias_gelu(data, bias)
 
 
+def _erf_gelu(x):
+    """``jax.nn.gelu(approximate=False)``'s ``x * (erf(x / sqrt2) + 1) /
+    2``, in f32 for a half input and rounded once: +inf at +inf (torch's
+    vectorised CPU ``F.gelu`` gives NaN there) and NaN at -inf, with the
+    gradient the formula's (NaN at +-inf, as the reference's)."""
+    xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+    y = xf * (torch.erf(xf / 1.4142135623730951) + 1.0) / 2.0
+    return y.to(x.dtype)
+
+
+class _SigmoidGated(torch.autograd.Function):
+    """silu or mish (``fn``, with ATen's backward ``fn_backward``), whose
+    gradient is +0.0 at finite x <= -88: there the reference's f32
+    sigmoid flushes to zero, so its silu's and mish's gradients are +0.0
+    (torch gives -0.0 or a subnormal). The incoming gradient is zeroed
+    where x <= -88 (``threshold_backward``), ATen's backward then gives
+    -0.0 there (NaN at x = -inf, as the reference's) and adding +0.0
+    makes it +0.0: two passes beside the backward's own, each over
+    tensors of one dtype."""
+
+    @staticmethod
+    def forward(ctx, x, fn, fn_backward):
+        ctx.save_for_backward(x)
+        ctx.fn, ctx.fn_backward = fn, fn_backward
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        g = torch.ops.aten.threshold_backward(g, x, -88.0)
+        if torch.is_grad_enabled():     # create_graph: a gradient on the tape
+            (gx,) = torch.autograd.grad(ctx.fn(x), x, g, create_graph=True)
+            return gx + 0.0, None, None
+        return ctx.fn_backward(g, x).add_(0.0), None, None
+
+
+def _silu(x):
+    return _SigmoidGated.apply(x, F.silu, torch.ops.aten.silu_backward)
+
+
+def _mish(x):
+    return _SigmoidGated.apply(x, F.mish, torch.ops.aten.mish_backward)
+
+
 _ACTIVATIONS = {
-    "relu": torch.relu,
+    "relu": relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "softrelu": F.softplus,
     "softsign": F.softsign,
-    "silu": F.silu,
-    "swish": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "silu": _silu,
+    "swish": _silu,
+    "gelu": _erf_gelu,
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
-    "mish": F.mish,
+    "mish": _mish,
 }
 
 
@@ -511,22 +577,24 @@ def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
                lower_bound=0.125, upper_bound=0.334):
     """``LeakyReLU`` in each ``act_type`` of the reference
     (``ops/nn.py:852``); ``rrelu`` takes the mean slope, as there."""
-    neg = data < 0
+    # the reference's branch test: +-0 and NaN take the negative side,
+    # in the value and the gradient
+    pos = data > 0
     if act_type == "leaky":
-        return torch.where(neg, slope * data, data)
+        return torch.where(pos, data, slope * data)
     if act_type == "prelu":
         g = gamma
         if g.dim() < data.dim() and g.numel() > 1:
             g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
-        return torch.where(neg, g * data, data)
+        return torch.where(pos, data, g * data)
     if act_type == "elu":
-        return torch.where(neg, slope * torch.expm1(data), data)
+        return torch.where(pos, data, slope * torch.expm1(data))
     if act_type == "selu":
         scale, alpha = _SELU
-        return scale * torch.where(neg, alpha * torch.expm1(data), data)
+        return scale * torch.where(pos, data, alpha * torch.expm1(data))
     if act_type == "gelu":
-        return F.gelu(data, approximate="none")
+        return _erf_gelu(data)
     if act_type == "rrelu":
-        return torch.where(neg, (lower_bound + upper_bound) / 2.0 * data,
-                           data)
+        return torch.where(pos, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
     raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not known")

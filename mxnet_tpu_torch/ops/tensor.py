@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
+from .elemwise import _abs
 from .registry import register
 
 __all__ = ["reshape_with_magic"]
@@ -341,7 +342,8 @@ _reduce("min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
 def norm(data, *, ord=2, axis=None, keepdims=False):
     ax = _axes(data, axis, False)
     if ord == 1:
-        return torch.sum(torch.abs(data), dim=ax, keepdim=keepdims)
+        # the registered abs: its gradient is 1 at +-0, as jnp.abs's
+        return torch.sum(_abs(data), dim=ax, keepdim=keepdims)
     return torch.sqrt(torch.sum(torch.square(data), dim=ax,
                                 keepdim=keepdims))
 

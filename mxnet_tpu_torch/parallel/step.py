@@ -173,6 +173,8 @@ class TrainStep:
                 opt.multi_precision)]
 
     def _to_device(self, x):
+        if isinstance(x, NDArray):      # an io batch: its tensor, no copy
+            x = x._data
         if isinstance(x, torch.Tensor):
             return x.to(self._device)
         return torch.as_tensor(np.asarray(x), device=self._device)

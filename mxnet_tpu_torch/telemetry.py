@@ -39,6 +39,7 @@ __all__ = [
     "record_preemption", "record_kvcache_defrag", "set_kvcache_pages",
     "record_training_step", "record_optimizer_dispatch",
     "record_step_skipped", "TrainingTelemetry", "xla_cost_analysis",
+    "record_data_wait", "set_data_queue_depth",
     "record_kv", "record_kv_collective", "record_kv_bucket",
     "record_kv_bucket_fallback", "record_kv_compression",
     "record_kv_overlap", "record_optimizer_state_bytes",
@@ -634,6 +635,29 @@ def record_step_skipped(reason: str) -> None:
     counter("mxnet_steps_skipped_total",
             "Training steps skipped by anomaly guards, by reason.",
             ("reason",)).labels(reason).inc()
+
+
+def record_data_wait(seconds: float, stage: str = "device_feed") -> None:
+    """Time the consumer blocked waiting on an input-pipeline stage.
+
+    The host-vs-device starvation discriminator: a real-data step whose
+    ``mxnet_data_wait_seconds`` sum approaches wall time is host-starved
+    (feed the device more); one near zero is device-bound (the pipeline
+    keeps up)."""
+    if not _state.enabled:
+        return
+    histogram("mxnet_data_wait_seconds",
+              "Time the training loop blocked waiting for the input "
+              "pipeline, by stage.", ("stage",)).labels(stage).observe(seconds)
+
+
+def set_data_queue_depth(stage: str, depth: int) -> None:
+    """Prefetched batches currently ready in a pipeline stage's queue."""
+    if not _state.enabled:
+        return
+    gauge("mxnet_data_queue_depth",
+          "Prefetched batches ready per input-pipeline stage.",
+          ("stage",)).labels(stage).set(depth)
 
 
 def record_training_step(seconds: float, examples: float,

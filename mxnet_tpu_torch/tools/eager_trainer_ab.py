@@ -2,20 +2,26 @@
 turns, on one card.
 
     python3 mxnet_tpu_torch/tools/eager_trainer_ab.py [--full] OLD NEW NEW OLD
+    python3 mxnet_tpu_torch/tools/eager_trainer_ab.py --phases resnet_train \
+        OLD NEW NEW OLD
 
 Each argument is the root of a checkout of this repository (with its
 ``chip_smoke.py``). Each runs in a process of its own, from its root:
 the card's name and power limit, the kernels' build, then the
 ``bert_trainer`` phase (BERT-base bf16, Trainer + LAMB, (32, 512)) and
 the ``resnet_v2_trainer`` phase (resnet50_v2 bf16, Trainer + NAG, 128 x
-224), each with its own checks; with ``--full``, the whole of
+224), each with its own checks (``--phases a,b`` names other phases of
+``chip_smoke.py`` to run instead, e.g. ``resnet_train``); with
+``--full``, the whole of
 ``chip_smoke.py`` instead, so that the two phases run after every phase
 before them, as in a whole run. Two versions of the port are compared in
 one call this way; give them in the order old, new, new, old so that a
 drift of the card over the call shows. Prints one JSON line per run
-(ms per step and the host ms of the forward, backward and
-``Trainer.step``, medians over the timed steps) and a last line with
-every run; exits non-zero if a run failed. Needs one CUDA card.
+(ms per step, the host ms of the forward, backward and
+``Trainer.step``, medians over the timed steps, where the phase reports
+them, and its device ms by kind, where it profiles a step) and a last
+line with every run; exits non-zero if a run failed. Needs one CUDA
+card.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ sys.path.insert(0, {root!r})
 import chip_smoke as c
 c.phase_device()
 c.phase_build()
-c.phase_bert_trainer()
-c.phase_resnet_v2_trainer()
+for name in {phases!r}:
+    getattr(c, "phase_" + name)()
 """
 
 # the whole run, with the resnet_v2_trainer phase watched from outside:
@@ -132,11 +138,13 @@ def watch_resnet_v2(c, root: str) -> None:
 _PHASES = ("bert_trainer", "resnet_v2_trainer")
 
 
-def _host(d: dict) -> dict:
+def _host(d: dict):
     if "host_ms_median" in d:
         h = d["host_ms_median"]
         return {"forward": h["forward"], "backward": h["backward"],
                 "trainer_step": h["trainer_step"]}
+    if "host_ms_forward" not in d:
+        return None
     return {"forward": d["host_ms_forward"],
             "backward": d["host_ms_backward"],
             "trainer_step": d["host_ms_trainer_step"]}
@@ -158,12 +166,12 @@ def _device_kernels(prof) -> dict:
             "top": [[k, n, us / 1e3] for k, n, us in rows[:12]]}
 
 
-def run_tree(root: str, full: bool = False,
+def run_tree(root: str, full: bool = False, phases=_PHASES,
              timeout: float = 1200.0) -> dict:
     """One checkout's phases in a fresh process."""
     root = os.path.abspath(root)
     code = (_RUN_FULL if full else _RUN).format(
-        root=root, tool=os.path.abspath(__file__))
+        root=root, tool=os.path.abspath(__file__), phases=tuple(phases))
     p = subprocess.run([sys.executable, "-c", code], cwd=root,
                        capture_output=True, text=True, timeout=timeout)
     out = {"tree": root, "full": full, "rc": p.returncode}
@@ -175,23 +183,35 @@ def run_tree(root: str, full: bool = False,
             out["card"] = d["card"]
         elif d.get("phase") == "resnet_v2_trainer_host":
             out["resnet_v2_trainer_host"] = d
-        elif d.get("phase") in _PHASES:
-            out[d["phase"]] = {"ms_per_step": d["ms_per_step"],
-                               "host_ms": _host(d)}
+        elif d.get("phase") in phases and "settings" in d:
+            # llama_remat: ms per step in each remat setting
+            out[d["phase"]] = {k: v["ms_per_step"]
+                               for k, v in d["settings"].items()}
+        elif d.get("phase") in phases:
+            out[d["phase"]] = {
+                "ms_per_step": d["ms_per_step"], "host_ms": _host(d),
+                "device_ms_by_kind": d.get("step_breakdown", {}).get(
+                    "device_ms_per_step_by_kind")}
     if p.returncode != 0:
         out["stderr_tail"] = p.stderr[-2000:]
     return out
 
 
 def main(argv) -> int:
+    argv = list(argv)
     full = "--full" in argv
+    phases = _PHASES
+    if "--phases" in argv:
+        i = argv.index("--phases")
+        phases = tuple(argv[i + 1].split(","))
+        del argv[i:i + 2]
     roots = [a for a in argv if a != "--full"]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
     for root in roots:
-        r = run_tree(root, full)
+        r = run_tree(root, full, phases)
         print(json.dumps(r), flush=True)
         runs.append(r)
     print(json.dumps({"runs": runs}), flush=True)

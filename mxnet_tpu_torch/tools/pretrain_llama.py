@@ -9,13 +9,29 @@
     python -m mxnet_tpu_torch.tools.pretrain_llama --config tiny --steps 3 \
         --ctx cpu
 
+    # from a record file of int32 token ids, checkpointed every 100 steps
+    python -m mxnet_tpu_torch.tools.pretrain_llama --config proxy1b \
+        --data tokens.rec --save-dir ckpt --save-every 100
+
 ``LlamaModel(fused_ce=True)`` under ``parallel.TrainStep`` with
 multi-precision AdamW (lr 3e-4, wd 0.1, beta 0.9 / 0.95), bf16 weights
-drawn from seed 0, on synthetic ``RandomState(0)`` tokens staged on the
-device once. Throughput is the synced span, as in the JAX tool: the
-card is synchronised at the middle step and the remaining steps are
-timed as one span that ends in a synchronisation. The last line is a
-JSON record of the run, with every step's loss.
+drawn from seed 0. Data (``_make_data``, as the JAX tool's): ``--data
+synthetic`` (the default) draws ``RandomState(0)`` tokens once and
+stages them on the device; ``--data <path.rec>`` reads records of int32
+ids with ``mx.recordio`` (a record shorter than seq + 1 is skipped;
+tokens ``arr[:seq]``, labels ``arr[1:seq + 1]``; the file is reopened at
+its end, forever), a new batch every step. Throughput is the synced
+span, as in the JAX tool: the card is synchronised at the middle step
+and the remaining steps are timed as one span that ends in a
+synchronisation, with the checkpoint writes taken out. The last line is
+a JSON record of the run, with every step's loss.
+
+``--save-dir`` writes ``llama-{step:07d}.params`` (``save_parameters``,
+loadable by the JAX package's ``LlamaModel``) and
+``llama-{step:07d}.states``, the JAX tool's pickle ``{"num_update",
+"leaves"}``: per trainable parameter its optimizer state flattened in
+order (the f32 master, then the moments), as the JAX ``TrainStep``'s
+``_state_leaf_nds``; every ``--save-every`` steps and after the last.
 
 Remat follows the JAX tool (``:111``): each block is rematerialised
 (``LlamaModel(remat=...)``) for every config but ``tiny``, ``--remat
@@ -24,14 +40,16 @@ Remat follows the JAX tool (``:111``): each block is rematerialised
 runs.
 
 Not ported yet, each raising :class:`MXNetError` with its ROADMAP.md
-item: a mesh over more than one device, ``--compile-only``, ``--data``
-from a record file, ``--save-dir`` and ``--no-fused-ce``.
+item: a mesh over more than one device, ``--compile-only`` and
+``--no-fused-ce``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
+import pickle
 import sys
 import time
 
@@ -81,22 +99,86 @@ class _FusedLossPassthrough:
 
 
 def _make_data(source, batch, seq, vocab, device):
-    """Synthetic next-token batches: ``RandomState(0)`` ids, drawn once
-    and staged on ``device``, yielded again and again (the JAX tool's
-    ``_make_data`` with its staged batch; int32 labels, as the fused CE
-    head takes them)."""
-    from ..base import MXNetError
+    """Next-token batches ``(tokens, labels)``, int32 (the fused CE head
+    takes int32 labels), on ``device``: ``"synthetic"`` is
+    ``RandomState(0)`` ids drawn once, staged once and yielded again and
+    again; a path is a record file of int32 ids read forever (the JAX
+    tool's ``_make_data``)."""
+    if source == "synthetic":
+        rs = np.random.RandomState(0)
+        toks = rs.randint(0, vocab, (batch, seq + 1))
+        tokens = torch.from_numpy(toks[:, :-1].astype(np.int32)).to(device)
+        labels = torch.from_numpy(toks[:, 1:].astype(np.int32)).to(device)
+        while True:
+            yield tokens, labels
+    yield from _record_batches(source, batch, seq, device)
 
-    if source != "synthetic":
-        raise MXNetError(f"--data {source}: record files need the "
-                         "runtime-services slice (recordio, ROADMAP.md, "
-                         "port queue 1, item 10)")
-    rs = np.random.RandomState(0)
-    toks = rs.randint(0, vocab, (batch, seq + 1))
-    tokens = torch.from_numpy(toks[:, :-1].astype(np.int32)).to(device)
-    labels = torch.from_numpy(toks[:, 1:].astype(np.int32)).to(device)
+
+def _record_batches(path, batch, seq, device):
+    """Batches of ``batch`` records of ``path``: each record's first
+    ``seq`` ids and the same shifted by one; a record shorter than seq +
+    1 is skipped, a batch left partial at the end of the file is
+    dropped, and the file is reopened there. Host batches are pinned so
+    the copy to the card does not wait for the queued steps."""
+    from ..base import MXNetError
+    from ..recordio import MXRecordIO
+
+    def put(rows):
+        t = torch.from_numpy(np.stack(rows))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
     while True:
-        yield tokens, labels
+        reader = MXRecordIO(path, "r")
+        buf_t, buf_l, full = [], [], 0
+        while True:
+            rec = reader.read()
+            if rec is None:
+                break
+            arr = np.frombuffer(rec, dtype=np.int32)
+            if arr.shape[0] < seq + 1:
+                continue
+            buf_t.append(arr[:seq])
+            buf_l.append(arr[1:seq + 1])
+            if len(buf_t) == batch:
+                full += 1
+                yield put(buf_t), put(buf_l)
+                buf_t, buf_l = [], []
+        reader.close()
+        if not full:
+            raise MXNetError(f"--data {path}: no {batch} records of at "
+                             f"least seq + 1 = {seq + 1} int32 ids")
+
+
+def _state_leaves(state) -> list:
+    """An optimizer state's tensors in the order the JAX package's
+    ``jax.tree_util.tree_flatten`` lists them (tuples in order, None
+    skipped), as host numpy."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [leaf for s in state for leaf in _state_leaves(s)]
+    t = getattr(state, "_data", state)         # an NDArray's tensor
+    return [t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16
+            else t.detach().cpu().numpy()]
+
+
+def _save(net, step, save_dir, i) -> list:
+    """Write ``llama-{i:07d}.params`` and ``.states`` under ``save_dir``
+    (the JAX tool's ``_save``); returns the two paths."""
+    from ..checkpoint import atomic_write
+
+    os.makedirs(save_dir, exist_ok=True)
+    params = os.path.join(save_dir, f"llama-{i:07d}.params")
+    states = os.path.join(save_dir, f"llama-{i:07d}.states")
+    net.save_parameters(params)
+    leaves = [leaf for st in (step._states or []) for leaf in
+              _state_leaves(st)]
+    atomic_write(states, pickle.dumps(
+        {"num_update": step.optimizer.num_update, "leaves": leaves}))
+    print(f"saved checkpoint @ step {i} -> {save_dir}", flush=True)
+    return [params, states]
 
 
 def default_remat(config):
@@ -150,13 +232,14 @@ def _refuse(args) -> None:
              "the parallelism slice, item 11"),
             ("--compile-only", args.compile_only,
              "the compilation service, item 10"),
-            ("--save-dir", args.save_dir is not None,
-             "checkpointing, item 10"),
             ("--no-fused-ce", not args.fused_ce,
              "gluon/loss.py, item 6")):
         if bad:
             raise MXNetError(f"{flag} is not ported yet (ROADMAP.md, port "
                              f"queue 1, {item})")
+    if args.save_every < 1:
+        raise MXNetError(f"--save-every {args.save_every}: must be at "
+                         "least 1")
 
 
 def _sync(device) -> None:
@@ -181,6 +264,7 @@ def main(argv=None):
     ap.add_argument("--no-remat", dest="remat", action="store_false")
     ap.add_argument("--data", default="synthetic")
     ap.add_argument("--save-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=1000)
     ap.add_argument("--no-fused-ce", dest="fused_ce", action="store_false",
                     default=True)
     ap.add_argument("--compile-only", action="store_true")
@@ -199,8 +283,10 @@ def main(argv=None):
     device = resolve_device(cpu() if args.ctx == "cpu" else None)
     data = _make_data(args.data, batch, seq, cfg["vocab_size"], device)
     remat = resolve_remat(args.config, args.remat)
-    _, step = build(args.config, ctx=device, dtype=args.dtype, lr=args.lr,
-                    weight_decay=args.weight_decay, remat=remat)
+    # build resolves --remat itself: given the resolved None (--no-remat)
+    # it would take the config's default again
+    net, step = build(args.config, ctx=device, dtype=args.dtype, lr=args.lr,
+                      weight_decay=args.weight_decay, remat=args.remat)
     tokens, labels = next(data)
 
     t0 = time.perf_counter()
@@ -209,9 +295,10 @@ def main(argv=None):
           f"{time.perf_counter() - t0:.1f}s; {n_params / 1e6:.0f}M params, "
           f"{device})", flush=True)
     # synced span: synchronise at the middle step, time the rest as one
-    # span that ends in a synchronisation
+    # span that ends in a synchronisation; checkpoint writes are taken out
     sync_at = min(max(2, args.steps // 2), max(args.steps - 1, 1))
-    t_span, span_steps = None, 0
+    t_span, span_steps, save_s = None, 0, 0.0
+    t_end = None
     for i in range(2, args.steps + 1):
         tokens, labels = next(data)
         losses.append(step((tokens, labels), ())[0])
@@ -220,11 +307,26 @@ def main(argv=None):
             t_span = time.perf_counter()
         elif i > sync_at:
             span_steps += 1
-    _sync(device)
+        if i == args.steps:
+            _sync(device)
+            t_end = time.perf_counter()
+        if args.save_dir and i % args.save_every == 0:
+            # the queued steps finish first: the host copy of the weights
+            # would wait for them, and that wait is the steps' time
+            _sync(device)
+            t_save = time.perf_counter()
+            _save(net, step, args.save_dir, i)
+            if t_span is not None and i < args.steps:
+                save_s += time.perf_counter() - t_save
+    if t_end is None:           # --steps 1
+        _sync(device)
+        t_end = time.perf_counter()
+    if args.save_dir and args.steps % args.save_every != 0:
+        _save(net, step, args.save_dir, args.steps)
     if t_span is not None and span_steps > 0:
-        tok_s = batch * seq * span_steps / (time.perf_counter() - t_span)
+        tok_s = batch * seq * span_steps / (t_end - t_span - save_s)
     else:           # too few steps for a span: the whole run
-        tok_s = batch * seq * args.steps / (time.perf_counter() - t0)
+        tok_s = batch * seq * args.steps / (t_end - t0)
     losses = [float(x) for x in losses]
     on_card = device.type == "cuda"
     print(json.dumps({

@@ -981,3 +981,35 @@ def test_port_gluon_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# a served Llama request with a token id out of the vocabulary
+# ---------------------------------------------------------------------------
+
+def test_llama_server_survives_a_token_id_out_of_the_vocabulary():
+    """The decode step gathers embeddings as ``jnp.take`` does (NaN rows
+    for an id outside the table, no device-side assert on the card,
+    where ``F.embedding`` would leave the CUDA context unusable): the bad
+    request returns its tokens and the server answers the next request
+    as a fresh server does (the plain paged attention reads a freed
+    page's stale NaN slots as zeros, as the kernel's zero-filled
+    copies)."""
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import llama_tiny
+    from mxnet_tpu_torch.serving import Server
+
+    mx.random.seed(3)
+    net = llama_tiny(ctx=mx.cpu())
+    vocab = net.embed.weight.shape[0]
+    kw = dict(batch_buckets=(1, 2), slo_ms=50.0, dtype="float32",
+              decode_pages=16, page_size=4, len_buckets=(8, 16))
+    good = np.array([5, 9, 2, 7, 1], np.int32)
+    bad = np.array([3, vocab + 5, 4], np.int32)
+    with Server(net, ctx=mx.cpu(), **kw) as srv:
+        want = srv.submit_generate(good, 6).result(timeout=60)
+    with Server(net, ctx=mx.cpu(), **kw) as srv:
+        out = srv.submit_generate(bad, 5).result(timeout=60)
+        assert out.dtype == np.int32 and len(out) == 5
+        got = srv.submit_generate(good, 6).result(timeout=60)
+        assert srv.stats()["errors"] == 0
+    np.testing.assert_array_equal(got, want)
