@@ -7,7 +7,8 @@ Needs one CUDA card and the checkout around this file; exits non-zero
 without a result line otherwise. It imports nothing of JAX or of the JAX
 package. Phases, each printing JSON lines and failing loudly:
 
-1. device  — the card's name and power limit, as nvidia-smi gives them;
+1. device  — the card's name and power limit, as nvidia-smi gives them,
+             mx.runtime's feature list and storage.memory_info;
 2. build   — nvcc builds every kernel from the checkout's sources, one
              process per source, all at once (into build/kernels/,
              listed in .gitignore);
@@ -277,6 +278,21 @@ package. Phases, each printing JSON lines and failing loudly:
              of num_workers=0 from one sampler seed, the accuracy
              rising, one SGD sweep a step, no /dev/shm block left after
              an early break;
+17f. data_image — the reference's ImageNet pipeline on the card:
+             1024 seeded JPEG records (320-500 x 240-375, quality 90,
+             30-110 KB) written by recordio.pack_img through nvJPEG's
+             encoder; nvJPEG's decode of tests/torch_image_fixtures
+             against Pillow's pixels (gray within 2, 4:4:4 within 3,
+             subsampled PSNR >= 40 dB and mean |diff| <= 1.0); the
+             ImageRecordIter chain (resize 256, crop, flip, ImageNet
+             mean/std) on the card against the CPU from the card's
+             decoded images and the same seeds (uint8 steps bit for
+             bit, float32 within 1e-6); resnet50_v1 at phase 15's cell
+             fed by mx.io.ImageRecordIter on the card in turns with a
+             staged batch: the loss finite, 2 SGD sweeps and one
+             batched nvJPEG call per fed step, images/s fed and staged,
+             the data wait, nvJPEG's ms per batch and image and its
+             backend; a profiler round whose table names mx_sgd_sweep;
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
              hash_dropout and twobit_quantize beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
@@ -334,9 +350,20 @@ def phase_device() -> str:
         timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import runtime, storage
+
+    features = runtime.Features()
+    print(f"features: {features!r}", flush=True)
+    free, total = storage.memory_info(mx.gpu(0))
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "card": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "features": {n: f.enabled for n, f in sorted(features.items())},
+          "memory_free_bytes": free, "memory_total_bytes": total})
+    for need in ("CUDA", "CUDNN", "NVJPEG"):
+        if not features.is_enabled(need):
+            fail(f"runtime feature {need} is off on this card")
     return card
 
 
@@ -6546,6 +6573,358 @@ def phase_data_gluon(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17f. data_image: ResNet-50 v1 from JPEG records, decoded on the card
+# ---------------------------------------------------------------------------
+
+IMAGE_RECORDS = 1024
+IMAGE_CLASSES = 8
+IMAGENET_CHW_MEAN_STD = ((123.68, 116.28, 103.53), (58.395, 57.12, 57.375))
+
+
+def _photo(h, w, rs, base, gen):
+    """A seeded (h, w, 3) uint8 image on the card: smooth gradients, a
+    fine texture, hard-edged rectangles and discs, noise; at quality 90
+    such a file is 30-110 KB, as photographs of this size are."""
+    y = torch.arange(h, dtype=torch.float32, device="cuda")[:, None]
+    x = torch.arange(w, dtype=torch.float32, device="cuda")[None, :]
+    chans = []
+    for c in range(3):
+        fx, fy = rs.uniform(0.005, 0.06, 2)
+        ph = rs.uniform(0, 6.28)
+        gx, gy = rs.uniform(0.15, 0.6, 2)
+        chans.append(float(base[c])
+                     + 70 * torch.sin(fx * x + ph) * torch.cos(fy * y + ph)
+                     + 25 * torch.sin(gx * x + 2 * ph) * torch.sin(gy * y))
+    img = torch.stack(chans, -1)
+    for _ in range(6):
+        y0, x0 = rs.randint(0, h), rs.randint(0, w)
+        hh, ww = rs.randint(h // 10, h // 3), rs.randint(w // 10, w // 3)
+        img[y0:y0 + hh, x0:x0 + ww] = torch.from_numpy(
+            rs.uniform(0, 255, 3).astype(np.float32)).cuda()
+    for _ in range(3):
+        cy, cx, r = rs.randint(0, h), rs.randint(0, w), rs.randint(10, 60)
+        disc = (y - cy) ** 2 + (x - cx) ** 2 < r * r
+        img[disc] = torch.from_numpy(
+            rs.uniform(0, 255, 3).astype(np.float32)).cuda()
+    img = img + 12 * torch.randn(img.shape, generator=gen, device="cuda")
+    return img.clamp_(0, 255).to(torch.uint8)
+
+
+def _write_jpeg_records(rec, idx, n, seed) -> dict:
+    """n seeded JPEG records (sizes 320-500 x 240-375, quality 90, each
+    class a colour cast the net can learn) written by recordio.pack_img
+    on the card (nvJPEG's encoder), with their .idx."""
+    from mxnet_tpu_torch import recordio
+
+    rs = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    labels = rs.randint(0, IMAGE_CLASSES, n)
+    casts = rs.uniform(60, 195, (IMAGE_CLASSES, 3))
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    sizes, enc_s = [], 0.0
+    for k in range(n):
+        h, wd = rs.randint(240, 376), rs.randint(320, 501)
+        img = _photo(h, wd, rs, casts[labels[k]], gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = recordio.pack_img(recordio.IRHeader(0, float(labels[k]), k, 0),
+                                img, quality=90)
+        enc_s += time.perf_counter() - t0
+        w.write_idx(k, buf)
+        sizes.append(len(buf))
+    w.close()
+    return {"records": n, "quality": 90, "mean_kb": float(np.mean(sizes)) / 1e3,
+            "min_kb": min(sizes) / 1e3, "max_kb": max(sizes) / 1e3,
+            "file_mb": sum(sizes) / 1e6,
+            "encode_ms_per_image": 1e3 * enc_s / n}
+
+
+def _fixture_fidelity() -> dict:
+    """nvJPEG's decode of tests/torch_image_fixtures against Pillow's
+    pixels kept beside each file, one file at a time and in a batch, held
+    to the limits of tests/torch_image_fixtures/fidelity.py (the card
+    test's)."""
+    import importlib.util
+    import os
+
+    from mxnet_tpu_torch.kernels import jpeg
+
+    spec = importlib.util.spec_from_file_location(
+        "fidelity", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "torch_image_fixtures",
+                                 "fidelity.py"))
+    fidelity = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fidelity)
+    files = fidelity.load()
+    out, misses = {}, []
+
+    def judge(name, got, route):
+        rec, ok = fidelity.judge(got, files[name][1], files[name][2])
+        if not ok:
+            misses.append((name, route, rec))
+        out.setdefault(name, {})[route] = rec
+
+    for name, (data, _, kind) in files.items():
+        judge(name, jpeg.decode(data, fmt="Y" if kind == "gray" else "RGB")
+              .cpu().numpy(), "single")
+    color = [n for n in files if files[n][2] != "gray"]
+    for n, t in zip(color, jpeg.decode_batch([files[n][0] for n in color])):
+        judge(n, t.cpu().numpy(), "batch[" + jpeg.last_backend + "]")
+    return {"fixtures": out, "misses": misses,
+            "limits": {"max_diff": fidelity.MAX_DIFF,
+                       "min_psnr_db": fidelity.MIN_PSNR_DB,
+                       "max_mean_diff": fidelity.MAX_MEAN_DIFF}}
+
+
+def _chain_card_vs_cpu(it, rec, idx) -> dict:
+    """The iterator's first batch on the card, data and labels, against
+    the same chain on the CPU fed the card's decode of the batch's files
+    (one batched nvJPEG call, as the iterator's) with each sample's seed:
+    the uint8 steps (resize, crop, flip) on the card and on the CPU bit
+    for bit, the batch's normalized float32 within 1e-6 of the CPU
+    chain's, its labels the records'."""
+    from mxnet_tpu_torch import image, recordio
+    from mxnet_tpu_torch.kernels import jpeg
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    n = it.batch_size
+    order = list(it._order[:n])
+    seeds = [it._sample_seed(k) for k in range(n)]
+    batch = it.next()
+    data = batch.data[0]._data.cpu()
+    labels = batch.label[0]._data.cpu()
+    reader = recordio.MXIndexedRecordIO(idx, rec, "r")
+    records = [recordio.unpack(reader.read_idx(k)) for k in order]
+    reader.close()
+    decoded = jpeg.decode_batch([p for _, p in records])
+    cast = next(i for i, a in enumerate(it.auglist)
+                if isinstance(a, image.CastAug))
+    geometry = it.auglist[:cast]
+    uint8_equal, max_err, shapes = 0, 0.0, set()
+    for j, (img, seed) in enumerate(zip(decoded, seeds)):
+        u8 = []
+        for dev_img in (img, img.cpu()):
+            with image._sample_draws(seed):
+                x = NDArray(dev_img)
+                for aug in geometry:
+                    x = aug(x)
+            u8.append(x._data.cpu())
+        uint8_equal += int(torch.equal(*u8))
+        cpu_f = image._decode_augment(None, it.auglist, 3, it._dtype, seed,
+                                      image=NDArray(img.cpu()))
+        max_err = max(max_err, float((data[j] - cpu_f).abs().max()))
+        shapes.add(tuple(img.shape))
+    want_labels = torch.tensor([float(h.label) for h, _ in records])
+    return {"samples": n, "distinct_source_sizes": len(shapes),
+            "chain": [type(a).__name__ for a in it.auglist],
+            "uint8_bit_equal": uint8_equal, "float32_max_abs_err": max_err,
+            "labels_equal": bool(torch.equal(labels, want_labels)),
+            "pad": batch.pad}
+
+
+def phase_data_image(card: str) -> dict:
+    """ResNet-50 v1 trained from a JPEG record file, decoded and augmented
+    on the card: the reference's ImageNet pipeline (im2rec records ->
+    ImageRecordIter -> ResNet) with nvJPEG for Pillow.
+
+    A record file of 1024 seeded images (320-500 x 240-375, 8 classes,
+    quality 90) written by recordio.pack_img on the card, with its .idx;
+    nvJPEG against the committed Pillow fixtures; the iterator's first
+    batch (256) against the same chain on the CPU; then
+    resnet50_v1(layout="NHWC") at phase 15's cell (bf16, 256 x 224, SGD
+    lr 0.1, momentum 0.9, multi-precision) through
+    mx.io.ImageRecordIter(shuffle, resize=256, rand_crop, rand_mirror,
+    ImageNet mean/std, seed) on the card: a
+    warm-up pass and two cuDNN warm-up steps, then four passes in turns
+    with the same steps on a staged batch (fed, staged, fed, staged).
+    Checks: the loss finite, exactly 2 SGD sweeps a step, one batched
+    nvJPEG call per fed batch; then a profiler round (set_state('run')
+    around two fed steps) whose table names mx_sgd_sweep and whose
+    chrome trace parses. Reports images/s fed and staged, the data wait
+    per step, nvJPEG's decode ms per batch and image and its backend."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.kernels import jpeg
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mx_data_image_")
+    bench = torch.backends.cudnn.benchmark
+    try:
+        rec, idx = os.path.join(tmp, "img.rec"), os.path.join(tmp, "img.idx")
+        written = _write_jpeg_records(rec, idx, IMAGE_RECORDS, SEED)
+        fidelity = _fixture_fidelity()
+        batch = 256
+        nb = IMAGE_RECORDS // batch
+        (mr, mg, mb), (sr, sg, sb) = IMAGENET_CHW_MEAN_STD
+        it = mx.io.ImageRecordIter(
+            path_imgrec=rec, path_imgidx=idx, data_shape=(3, 224, 224),
+            batch_size=batch, shuffle=True, resize=256, rand_crop=True,
+            rand_mirror=True, mean_r=mr, mean_g=mg, mean_b=mb, std_r=sr,
+            std_g=sg, std_b=sb, seed=SEED, ctx=mx.gpu(0))
+        chain = _chain_card_vs_cpu(it, rec, idx)
+        # nvJPEG alone on one batch's files, three times
+        reader = mx.recordio.MXIndexedRecordIO(idx, rec, "r")
+        payloads = [mx.recordio.unpack(reader.read_idx(k))[1]
+                    for k in range(batch)]
+        reader.close()
+        decode_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            jpeg.decode_batch(payloads)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t1))
+        # the iterator alone: a warm-up pass (coefficient tables, states),
+        # then one pass timed, each batch synchronised
+        for _ in it:
+            pass
+        it.reset()
+        iter_ms = []
+        while True:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            try:
+                b = it.next()
+            except StopIteration:
+                break
+            torch.cuda.synchronize()
+            iter_ms.append(1e3 * (time.perf_counter() - t1))
+        del b
+
+        torch.backends.cudnn.benchmark = True
+        net = resnet50_v1(layout="NHWC", dtype=torch.bfloat16,
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(SEED))
+        step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                     optimizer_params=dict(RESNET_OPT))
+        it.reset()
+        first = it.next()
+        x_syn = first.data[0]._data.to(torch.bfloat16)
+        y_syn = first.label[0]._data.clone()
+        del first
+        for _ in range(2):            # cuDNN's autotuner, out of the turns
+            step(x_syn, y_syn)
+        losses, waits, feed_s, syn_s = [], [], [], []
+        _reset_train_counts()
+        jpeg.decode_batch.launches = 0
+        n_steps = fed_batches = 0
+        for turn in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if turn % 2 == 0:                   # fed from the records
+                it.reset()
+                while True:
+                    tw = time.perf_counter()
+                    try:
+                        b = it.next()
+                    except StopIteration:
+                        break
+                    waits.append(time.perf_counter() - tw)
+                    losses.append(step(b.data[0]._data.to(torch.bfloat16),
+                                       b.label[0]._data)[0])
+                    fed_batches += 1
+                    n_steps += 1
+                torch.cuda.synchronize()
+                feed_s.append(time.perf_counter() - t1)
+            else:                               # the staged batch
+                for _ in range(nb):
+                    step(x_syn, y_syn)
+                    n_steps += 1
+                torch.cuda.synchronize()
+                syn_s.append(time.perf_counter() - t1)
+        launches = _train_counts()
+        decodes = jpeg.decode_batch.launches
+        losses = [float(v) for v in losses]
+        per_step = _resnet_per_step(len(step._buckets))
+        want = {k: v * n_steps for k, v in per_step.items()}
+        # a profiler round on the card: two fed steps
+        profiler.set_config(filename=os.path.join(tmp, "profile.json"))
+        it.reset()
+        profiler.set_state("run")
+        for _ in range(2):
+            b = it.next()
+            step(b.data[0]._data.to(torch.bfloat16), b.label[0]._data)
+        profiler.set_state("stop")
+        trace = json.loads(profiler.dumps(format="chrome_trace"))
+        table = profiler.dumps(reset=True)
+        device_rows = table.split("Device kernels:", 1)[-1].split(
+            "Kernel entry points:", 1)[0]
+        sweep_row = [ln for ln in table.splitlines()
+                     if ln.startswith("mx_sgd_sweep")]
+        prof = {"table_names_mx_sgd_sweep": bool(sweep_row),
+                "mx_sgd_sweep_row": sweep_row[0] if sweep_row else None,
+                "sgd_kernel_in_device_section": "sgd_kernel" in device_rows,
+                "device_kernel_rows": len(device_rows.strip().splitlines())
+                - 1,
+                "chrome_trace_events": len(trace["traceEvents"]),
+                "table_head": table.splitlines()[:3]}
+        it.close()
+        out = {"phase": "data_image", "card": card,
+               "model": "resnet50_v1(layout='NHWC')",
+               "dtype": "bfloat16, multi-precision sgd",
+               "optimizer": RESNET_OPT,
+               "feed": "mx.io.ImageRecordIter(shuffle, resize=256, rand_crop, "
+                       "rand_mirror, ImageNet mean/std, seed, ctx=gpu(0)): "
+                       "nvJPEG batched decode + augmenters on the card",
+               "record_file": written, "fidelity": fidelity,
+               "nvjpeg": {"version": jpeg.version(),
+                          "backend": jpeg.last_backend,
+                          "hardware_refusal": jpeg.hardware_refusal,
+                          "decode_ms_per_batch": decode_ms,
+                          "decode_ms_per_image":
+                              [v / batch for v in decode_ms],
+                          "batch": batch},
+               "chain_card_vs_cpu": chain,
+               "iterator_ms_per_batch": iter_ms,
+               "batch": [batch, 3, 224, 224], "batches_per_pass": nb,
+               "steps": n_steps, "warmup_steps": 2, "losses_fed": losses,
+               "images_per_s_fed": [batch * nb / t for t in feed_s],
+               "images_per_s_staged": [batch * nb / t for t in syn_s],
+               "data_wait_ms_per_step": [1e3 * w for w in waits],
+               "data_wait_ms_mean": 1e3 * float(np.mean(waits)),
+               "decode_batched_calls": decodes, "fed_batches": fed_batches,
+               "launches": launches, "launches_expected": want,
+               "profiler": prof,
+               "seconds": time.perf_counter() - t0}
+        emit(out)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        shutil.rmtree(tmp, ignore_errors=True)
+    if fidelity["misses"]:
+        fail(f"data_image: nvJPEG misses the fixture limits: "
+             f"{fidelity['misses']}")
+    if chain["uint8_bit_equal"] != chain["samples"] or \
+            not chain["float32_max_abs_err"] <= 1e-6 or \
+            not chain["labels_equal"] or chain["pad"]:
+        fail(f"data_image: the card's augmenter chain differs from the "
+             f"CPU's: {chain}")
+    if not all(np.isfinite(losses)):
+        fail(f"data_image: the fed loss is not finite: {losses}")
+    if launches != want or per_step["fused_sgd_sweep"] != 2:
+        fail(f"data_image launch counts {launches} are not {want}")
+    if decodes != fed_batches or fed_batches != 2 * nb:
+        fail(f"data_image: {decodes} batched nvJPEG calls for "
+             f"{fed_batches} fed batches")
+    if not (prof["table_names_mx_sgd_sweep"]
+            and prof["sgd_kernel_in_device_section"]):
+        fail(f"data_image: the profiler table does not name the SGD sweep: "
+             f"{prof}")
+    del step, net, x_syn, y_syn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -6594,6 +6973,7 @@ def main() -> None:
     data_llama = phase_data_llama(card)
     data_resnet = phase_data_resnet(card)
     data_gluon = phase_data_gluon(card)
+    data_image = phase_data_image(card)
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -6694,7 +7074,8 @@ def main() -> None:
                                   else "")] = dp[name]
         for path, got in (("data_llama", data_llama),
                           ("data_resnet", data_resnet),
-                          ("data_gluon", data_gluon)):
+                          ("data_gluon", data_gluon),
+                          ("data_image", data_image)):
             if got.get(name):
                 by_path[path] = got[name]
         if name == "fused_adamw_sweep":

@@ -49,7 +49,12 @@ fork workers and ``pin_memory``, the vision datasets and transforms),
 ``mx.io`` (``NDArrayIter``, ``CSVIter``, ``MNISTIter``,
 ``PrefetchingIter`` and ``DeviceFeedIter``, which copies batches to the
 card on a stream of its own ahead of the step), ``mx.metric`` and
-``mx.callback``.
+``mx.callback``; images as the reference reads them: ``mx.image``
+(``imdecode``, the augmenters, ``ImageIter``, ``ImageDetIter``) decoding
+JPEG on the card with nvJPEG and augmenting there, ``io.ImageRecordIter``,
+the image datasets and ``pretrained=True`` from a local model store.
+The runtime's instruments: ``mx.profiler`` over ``torch.profiler``,
+``mx.monitor``, ``mx.storage``, ``mx.runtime`` and ``mx.test_utils``.
 
 The imperative half of MXNet: ``mx.nd`` (``NDArray`` over one
 ``torch.Tensor``, on ``mx.current_context()``, the card by default; the
@@ -63,10 +68,11 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
 """
 from . import (autograd, base, callback, checkpoint, context, convert,
-               engine, fault, gluon, init, initializer, io, kernels, kvstore,
-               lr_scheduler, metric, ndarray, ops, optimizer, parallel,
-               random, random_state, recordio, rtc, serving, telemetry,
-               tracing)
+               engine, fault, gluon, image, init, initializer, io, kernels,
+               kvstore, lr_scheduler, metric, monitor, ndarray, ops,
+               optimizer, parallel, profiler, random, random_state,
+               recordio, rtc, runtime, serving, storage, telemetry,
+               test_utils, tracing)
 from . import kvstore as kv
 from . import ndarray as nd
 from .base import MXNetError
@@ -74,8 +80,9 @@ from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu", "num_gpus",
            "current_context", "autograd", "base", "callback", "checkpoint",
-           "context", "convert", "engine", "fault", "gluon", "init",
+           "context", "convert", "engine", "fault", "gluon", "image", "init",
            "initializer", "io", "kernels", "kv", "kvstore", "lr_scheduler",
-           "metric", "nd", "ndarray", "ops", "optimizer", "parallel",
-           "random", "random_state", "recordio", "rtc", "serving",
-           "telemetry", "tracing"]
+           "metric", "monitor", "nd", "ndarray", "ops", "optimizer",
+           "parallel", "profiler", "random", "random_state", "recordio",
+           "rtc", "runtime", "serving", "storage", "telemetry",
+           "test_utils", "tracing"]

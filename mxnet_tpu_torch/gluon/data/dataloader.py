@@ -79,11 +79,13 @@ def _as_numpy_sample(sample, in_child=False):
 
 
 _worker_dataset = None
+_in_fork_worker = False       # True in a forked worker process
 
 
 def _worker_initializer(dataset):
-    global _worker_dataset
+    global _worker_dataset, _in_fork_worker
     _worker_dataset = dataset
+    _in_fork_worker = True
     torch.set_num_threads(1)
 
 

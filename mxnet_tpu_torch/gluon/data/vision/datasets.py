@@ -10,8 +10,12 @@ dtypes and a learnable class structure (each class a fixed random
 prototype plus noise). ``synthetic`` says which one is in use. Samples
 are CPU NDArrays (HWC uint8) and int32 labels.
 
-``ImageRecordDataset`` and ``ImageFolderDataset`` decode images through
-``image/``, which is not ported yet: both raise :class:`MXNetError`.
+``ImageRecordDataset`` and ``ImageFolderDataset`` decode each image in
+``__getitem__`` through ``mx.image.imdecode`` on ``ctx`` (default: the
+current context, the card, where nvJPEG decodes; ``ctx=mx.cpu()``
+decodes with Pillow). A forked ``DataLoader`` worker must not touch the
+card: there a decode on the card raises :class:`MXNetError`, and only a
+dataset made with ``ctx=mx.cpu()`` decodes.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import struct
 import numpy as _np
 
 from ....base import MXNetError
+from ....context import Context
 from ..dataset import Dataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
@@ -181,23 +186,88 @@ class CIFAR100(CIFAR10):
             proto_seed=self._SEED)
 
 
-def _needs_image(name):
-    raise MXNetError(f"{name} decodes images through image/, which is not "
-                     "ported yet (ROADMAP.md, port queue 1, item 10: "
-                     "image/)")
+def _decode_device(ctx, name):
+    """The device a dataset decodes on, refused in a forked DataLoader
+    worker when it is the card."""
+    from ....image import _dev
+    from .. import dataloader
+
+    dev = _dev(ctx)
+    if dev.type == "cuda" and dataloader._in_fork_worker:
+        raise MXNetError(
+            f"{name} decodes on the card ({dev}), which a forked DataLoader "
+            "worker must not touch: use thread workers (the default), "
+            "io.ImageRecordIter, or make the dataset with ctx=mx.cpu() to "
+            "decode on the host")
+    return dev
 
 
 class ImageRecordDataset(Dataset):
     """Dataset over an image RecordIO file (reference:
-    datasets.py::ImageRecordDataset); needs ``image/``."""
+    datasets.py::ImageRecordDataset): ``(image, label)`` with the image
+    decoded on ``ctx`` (``flag`` 0 for gray)."""
 
-    def __init__(self, filename, flag=1, transform=None):
-        _needs_image("ImageRecordDataset")
+    def __init__(self, filename, flag=1, transform=None, ctx=None):
+        from ..dataset import RecordFileDataset
+
+        self._record = RecordFileDataset(filename)
+        self._flag = flag
+        self._transform = transform
+        self._ctx = ctx
+
+    def __len__(self):
+        return len(self._record)
+
+    def __getitem__(self, idx):
+        from .... import image, recordio
+
+        dev = _decode_device(self._ctx, "ImageRecordDataset")
+        header, img_bytes = recordio.unpack(self._record[idx])
+        img = image.imdecode(img_bytes, flag=self._flag, ctx=dev)
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class ImageFolderDataset(Dataset):
     """Images organized as root/<class>/<img> (reference:
-    datasets.py::ImageFolderDataset); needs ``image/``."""
+    datasets.py::ImageFolderDataset): ``synsets`` the sorted class
+    folders, ``items`` (path, label) sorted within each; ``.npy`` files
+    load as arrays, the others decode on ``ctx``."""
 
-    def __init__(self, root, flag=1, transform=None):
-        _needs_image("ImageFolderDataset")
+    def __init__(self, root, flag=1, transform=None, ctx=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._ctx = ctx
+        self._exts = {".jpg", ".jpeg", ".png", ".npy"}
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                if os.path.splitext(filename)[1].lower() in self._exts:
+                    self.items.append((os.path.join(path, filename), label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        from .... import image
+        from ....ndarray import array as nd_array
+
+        path, label = self.items[idx]
+        dev = _decode_device(self._ctx, "ImageFolderDataset")
+        if path.endswith(".npy"):
+            img = nd_array(_np.load(path), ctx=Context.from_device(dev))
+        else:
+            with open(path, "rb") as f:
+                img = image.imdecode(f.read(), flag=self._flag, ctx=dev)
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label

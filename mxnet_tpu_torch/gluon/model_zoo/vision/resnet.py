@@ -27,6 +27,8 @@ float32 under a half-precision ``dtype``.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .... import initializer
@@ -280,21 +282,32 @@ _VERSIONS = {1: (ResNetV1, {"basic_block": BasicBlockV1,
                             "bottle_neck": BottleneckV2})}
 
 
-def get_resnet(version, num_layers, pretrained=False, **kwargs):
+def get_resnet(version, num_layers, pretrained=False, ctx=None,
+               root=os.path.join("~", ".mxnet", "models"), **kwargs):
     """ResNet v``version`` (1 or 2) with ``num_layers`` layers
     (reference ``get_resnet``); ``kwargs`` go to :class:`ResNetV1` or
-    :class:`ResNetV2`. No pretrained weights (no model store)."""
+    :class:`ResNetV2`. ``pretrained=True`` loads
+    ``resnet{num_layers}_v{version}``'s ``.params`` file through
+    :mod:`~mxnet_tpu_torch.gluon.model_zoo.model_store` (a file under
+    ``root`` the user already has, sha1-checked; nothing is downloaded)
+    onto ``ctx``."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
     if version not in _VERSIONS:
         raise MXNetError(f"Invalid resnet version: {version}.")
-    if pretrained:
-        raise MXNetError("pretrained weights need the model store, not "
-                         "ported yet (ROADMAP.md, port queue 1, item 10)")
     block_type, layers, channels = resnet_spec[num_layers]
     net_class, blocks = _VERSIONS[version]
-    return net_class(blocks[block_type], layers, channels, **kwargs)
+    if not pretrained:
+        kwargs["ctx"] = ctx
+    net = net_class(blocks[block_type], layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+
+        net.load_parameters(
+            get_model_file(f"resnet{num_layers}_v{version}", root=root),
+            ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

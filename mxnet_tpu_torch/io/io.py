@@ -517,10 +517,41 @@ class MNISTIter(NDArrayIter):
                          shuffle=shuffle, **kwargs)
 
 
-def ImageRecordIter(*args, **kwargs):
+def ImageRecordIter(path_imgrec=None, path_imgidx=None, data_shape=None,
+                    batch_size=128, shuffle=False, rand_crop=False,
+                    rand_mirror=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                    std_r=1.0, std_g=1.0, std_b=1.0, resize=0,
+                    label_width=1, **kwargs):
     """Record-file image iterator (reference: the C++ ImageRecordIter of
-    ``iter_image_recordio_2.cc``): it decodes through ``image/``, which
-    is not ported yet."""
-    raise MXNetError("ImageRecordIter decodes images through image/, which "
-                     "is not ported yet (ROADMAP.md, port queue 1, item 10: "
-                     "image/)")
+    ``iter_image_recordio_2.cc``, exposed via io.py): a thin factory over
+    ``mx.image.ImageIter`` with the classic flat kwargs. On the card the
+    batch is decoded by nvJPEG and augmented there (``ctx=``, default the
+    card); ``dtype="uint8"`` with normalization refuses, as the
+    reference's."""
+    from ..image import CreateAugmenter, ImageIter
+
+    if data_shape is None:
+        raise MXNetError("ImageRecordIter requires data_shape")
+    mean = None
+    std = None
+    if any(v != 1.0 for v in (std_r, std_g, std_b)):
+        std = _np.array([std_r, std_g, std_b], _np.float32)
+    if any(v != 0.0 for v in (mean_r, mean_g, mean_b)) or std is not None:
+        # std-only normalization still needs the ColorNormalizeAug (a
+        # zero mean), as the C++ iterator's independent std divide
+        mean = _np.array([mean_r, mean_g, mean_b], _np.float32)
+    dtype = kwargs.get("dtype", "float32")
+    if mean is not None and _np.issubdtype(_np.dtype(dtype), _np.integer):
+        raise MXNetError(
+            f"ImageRecordIter: mean/std normalization produces floats — "
+            f"incompatible with dtype={dtype!r} (an integer cast would "
+            "wrap). Ship integer pixels and normalize on device via "
+            "io.DeviceFeedIter(device_transform=io.make_normalize_"
+            "transform(mean, std)), or use a float dtype")
+    aug = CreateAugmenter(data_shape, resize=resize, rand_crop=rand_crop,
+                          rand_mirror=rand_mirror, mean=mean, std=std,
+                          dtype=dtype)
+    return ImageIter(batch_size=batch_size, data_shape=data_shape,
+                     path_imgrec=path_imgrec, path_imgidx=path_imgidx,
+                     shuffle=shuffle, aug_list=aug, label_width=label_width,
+                     **kwargs)

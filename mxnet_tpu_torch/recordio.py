@@ -286,31 +286,52 @@ def unpack(s: bytes):
 
 
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
-    """Encode an HWC uint8 image and pack it (reference: pack_img; PIL
-    replaces cv2, imported here: the card's machine has none, so this and
-    ``unpack_img`` run where PIL is installed)."""
+    """Encode an HWC uint8 image and pack it (reference: pack_img, where
+    Pillow replaces cv2). An image on the card (an NDArray or tensor on a
+    CUDA device) is encoded there by nvJPEG, JPEG only (4:2:0, as
+    Pillow's default for RGB; the bytes differ from Pillow's, the pixels
+    they decode to agree to the codecs' rounding); any other image by
+    Pillow on the host."""
     import io as _io
 
-    from PIL import Image
+    import torch
 
-    img = np.asarray(img, dtype=np.uint8)
-    buf = _io.BytesIO()
+    from .ndarray import NDArray
+
     fmt = img_fmt.lower().lstrip(".")
     fmt = {"jpg": "JPEG", "jpeg": "JPEG", "png": "PNG"}.get(fmt)
     if fmt is None:
         raise MXNetError(f"unsupported image format {img_fmt!r}")
-    Image.fromarray(img).save(buf, format=fmt,
-                              **({"quality": quality} if fmt == "JPEG" else {}))
+    t = img._data if isinstance(img, NDArray) else img
+    if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+        if fmt != "JPEG":
+            raise MXNetError(
+                f"pack_img on the card encodes JPEG only (nvJPEG), not "
+                f"{img_fmt!r}: PNG and the other codecs are ROADMAP.md queue "
+                "1 item 10 (image codecs); pass a host image for Pillow")
+        from .kernels import jpeg
+
+        return pack(header, jpeg.encode(t.to(torch.uint8), quality))
+    from .image import _pil
+
+    if isinstance(t, torch.Tensor):
+        t = t.detach().numpy()
+    img = np.asarray(t, dtype=np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    buf = _io.BytesIO()
+    _pil().fromarray(img).save(
+        buf, format=fmt, **({"quality": quality} if fmt == "JPEG" else {}))
     return pack(header, buf.getvalue())
 
 
-def unpack_img(s, iscolor=1):
-    """Inverse of pack_img: (IRHeader, HWC uint8 ndarray)."""
-    import io as _io
-
-    from PIL import Image
+def unpack_img(s, iscolor=1, ctx=None):
+    """Inverse of pack_img: (IRHeader, HWC uint8 NDArray) decoded on
+    ``ctx`` (default: the current context, the card), as
+    ``mx.image.imdecode``: by nvJPEG on the card, by Pillow on the CPU
+    (the reference returns Pillow's numpy array; gray is one channel
+    here, ``(H, W, 1)``)."""
+    from .image import imdecode
 
     header, payload = unpack(s)
-    img = Image.open(_io.BytesIO(payload))
-    img = img.convert("RGB" if iscolor else "L")
-    return header, np.asarray(img)
+    return header, imdecode(payload, flag=1 if iscolor else 0, ctx=ctx)

@@ -39,8 +39,8 @@ __all__ = [
     "record_preemption", "record_kvcache_defrag", "set_kvcache_pages",
     "record_training_step", "record_optimizer_dispatch",
     "record_step_skipped", "TrainingTelemetry", "xla_cost_analysis",
-    "record_data_wait", "set_data_queue_depth",
-    "record_kv", "record_kv_collective", "record_kv_bucket",
+    "record_data_wait", "set_data_queue_depth", "record_images_decoded",
+    "chrome_counter_events", "record_kv", "record_kv_collective", "record_kv_bucket",
     "record_kv_bucket_fallback", "record_kv_compression",
     "record_kv_overlap", "record_optimizer_state_bytes",
     "record_optimizer_bucket", "BYTES_BUCKETS",
@@ -649,6 +649,35 @@ def record_data_wait(seconds: float, stage: str = "device_feed") -> None:
     histogram("mxnet_data_wait_seconds",
               "Time the training loop blocked waiting for the input "
               "pipeline, by stage.", ("stage",)).labels(stage).observe(seconds)
+
+
+def record_images_decoded(n: int) -> None:
+    """Images decoded and augmented by the input pipeline."""
+    if not _state.enabled or n <= 0:
+        return
+    counter("mxnet_data_decoded_images_total",
+            "Images decoded and augmented by the input pipeline.").inc(n)
+
+
+def chrome_counter_events(ts_us: Optional[float] = None) -> List[Dict]:
+    """Current counter/gauge values as chrome-trace ``ph:"C"`` events
+    (``profiler.dumps(format="chrome_trace")`` merges them onto its
+    timeline); histograms contribute their ``_count`` and ``_sum``
+    series."""
+    if ts_us is None:
+        ts_us = time.perf_counter() * 1e6
+    events: List[Dict] = []
+    for name, fam in sorted(snapshot()["metrics"].items()):
+        for s in fam["samples"]:
+            series = "/".join(v for v in s["labels"].values()) or "value"
+            if fam["type"] == "histogram":
+                args = {series + "_count": s["count"],
+                        series + "_sum": s["sum"]}
+            else:
+                args = {series: s["value"]}
+            events.append({"name": name, "ph": "C", "pid": 0, "tid": 0,
+                           "ts": ts_us, "args": args})
+    return events
 
 
 def set_data_queue_depth(stage: str, depth: int) -> None:

@@ -36,7 +36,7 @@ import json
 import os
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = [
     "enable", "disable", "enabled", "reset",
@@ -45,6 +45,7 @@ __all__ = [
     "begin_batch", "end_batch",
     "record_event", "events", "recorder", "FlightRecorder",
     "dump", "dump_jsonl", "maybe_dump", "dump_path", "now_us",
+    "chrome_trace_events",
 ]
 
 
@@ -473,3 +474,49 @@ if os.environ.get("MXNET_TRACING_OUT"):
 
     _state.enabled = True
     atexit.register(maybe_dump, "atexit")
+
+
+def chrome_trace_events() -> List[Dict]:
+    """The flight-recorder ring as chrome-trace events (merged into
+    ``profiler.dumps(format="chrome_trace")``): one ``ph:"X"`` per span
+    (once per span_id: a batch span is copied into every trace it
+    served), ``ph:"s"``/``ph:"f"`` flow pairs linking each request's
+    ``batch.wait`` span to its batch ``dispatch`` span, and one instant
+    event per recorder event; epoch microseconds."""
+    events: List[Dict] = []
+    seen = set()
+    for rec in _recorder.traces():
+        for d in rec.get("spans", []):
+            sid = d.get("span_id")
+            if sid in seen:
+                continue
+            seen.add(sid)
+            pid = d.get("pid", 0)
+            tid = d.get("proc", "")
+            args = {"trace_id": d.get("trace_id")}
+            if d.get("tags"):
+                args.update(d["tags"])
+            if d.get("notes"):
+                args["notes"] = [n[1] for n in d["notes"]]
+            events.append({"name": d.get("name", "span"), "ph": "X",
+                           "cat": "serving", "pid": pid, "tid": tid,
+                           "ts": d.get("ts", 0), "dur": d.get("dur", 0),
+                           "args": args})
+            end_ts = d.get("ts", 0) + d.get("dur", 0)
+            if d.get("flow_out") is not None:
+                events.append({"name": "batch", "ph": "s",
+                               "cat": "serving", "id": d["flow_out"],
+                               "pid": pid, "tid": tid, "ts": end_ts})
+            for fid in d.get("flows_in", ()):
+                events.append({"name": "batch", "ph": "f", "bp": "e",
+                               "cat": "serving", "id": fid, "pid": pid,
+                               "tid": tid, "ts": d.get("ts", 0)})
+    for ev in _recorder.events():
+        events.append({"name": ev.get("event", "event"), "ph": "i",
+                       "cat": "serving", "s": "g",
+                       "pid": ev.get("pid", 0),
+                       "tid": ev.get("proc", ""),
+                       "ts": ev.get("ts", 0),
+                       "args": {k: v for k, v in ev.items()
+                                if k not in ("event", "ts")}})
+    return events

@@ -356,11 +356,28 @@ def test_vision_datasets_read_local_files_as_the_reference(name, tmp_path):
 
 
 def test_image_datasets_need_the_image_module(tmp_path):
+    """The image datasets decode through mx.image (their items against the
+    JAX package's: tests/test_torch_image_iter.py)."""
+    from mxnet_tpu_torch import image, recordio
     from mxnet_tpu_torch.gluon.data import vision as pv
 
-    for cls in (pv.ImageRecordDataset, pv.ImageFolderDataset):
-        with pytest.raises(MXNetError, match="image/"):
-            cls(str(tmp_path))
+    img = _img(3, (12, 10, 3))
+    packed = recordio.pack_img(recordio.IRHeader(0, 2.0, 0, 0), img,
+                               img_fmt=".png")
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "x.idx"),
+                                   str(tmp_path / "x.rec"), "w")
+    w.write_idx(0, packed)
+    w.close()
+    (tmp_path / "cls").mkdir()
+    (tmp_path / "cls" / "a.png").write_bytes(recordio.unpack(packed)[1])
+    rec = pv.ImageRecordDataset(str(tmp_path / "x.rec"), ctx=mx.cpu())
+    folder = pv.ImageFolderDataset(str(tmp_path), ctx=mx.cpu())
+    for got, label in (rec[0], folder[0]):
+        want = image.imdecode(recordio.unpack(packed)[1], ctx=mx.cpu())
+        assert np.array_equal(got.asnumpy(), want.asnumpy())
+        assert np.array_equal(got.asnumpy(), img)
+    assert rec[0][1] == 2.0 and folder[0][1] == 0
+    assert folder.synsets == ["cls"]
 
 
 def _img(seed=0, shape=(9, 11, 3)):

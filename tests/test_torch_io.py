@@ -151,10 +151,24 @@ def test_mnist_iter_is_the_references(tmp_path, flat):
 
 
 def test_sparse_and_image_iterators_raise_naming_their_items(tmp_path):
+    from mxnet_tpu_torch import recordio as prec
+    from mxnet_tpu_torch.kernels import jpeg
+
     with pytest.raises(MXNetError, match="item 12"):
         pio.LibSVMIter(str(tmp_path / "x.libsvm"), (4,), 2)
-    with pytest.raises(MXNetError, match="image/"):
-        pio.ImageRecordIter(path_imgrec="x.rec", data_shape=(3, 8, 8))
+    # ImageRecordIter reads images now (tests/test_torch_image_iter.py);
+    # what the card's codec does not decode raises naming its item
+    rec = str(tmp_path / "x.rec")
+    w = prec.MXRecordIO(rec, "w")
+    png = prec.pack_img(prec.IRHeader(0, 1.0, 0, 0),
+                        np.zeros((8, 8, 3), np.uint8), img_fmt=".png")
+    w.write(png)
+    w.close()
+    it = pio.ImageRecordIter(path_imgrec=rec, data_shape=(3, 8, 8),
+                             batch_size=1, ctx=mx.cpu())
+    assert it.next().data[0].shape == (1, 3, 8, 8)
+    with pytest.raises(MXNetError, match="item 10"):
+        jpeg.decode(prec.unpack(png)[1])
 
 
 class _Broken(pio.DataIter):

@@ -165,8 +165,9 @@ def test_pack_img_unpack_img_are_the_references():
     packed = prec.pack_img(h, img, img_fmt=".png")
     assert packed == jrec.pack_img(jrec.IRHeader(0, 1.0, 3, 0), img,
                                    img_fmt=".png")
-    _, back = prec.unpack_img(packed)
-    np.testing.assert_array_equal(back, img)
+    _, back = prec.unpack_img(packed, ctx=mx.cpu())
+    np.testing.assert_array_equal(back.asnumpy(), img)
+    np.testing.assert_array_equal(jrec.unpack_img(packed)[1], img)
 
 
 def test_the_scanner_builds_into_build_native(tmp_path):
