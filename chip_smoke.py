@@ -293,6 +293,36 @@ package. Phases, each printing JSON lines and failing loudly:
              batched nvJPEG call per fed step, images/s fed and staged,
              the data wait, nvJPEG's ms per batch and image and its
              backend; a profiler round whose table names mx_sgd_sweep;
+17g. coldstart — the compilation service's cold-start meter,
+             mxnet_tpu_torch/tools/coldstart_bench.py: Llama-3-8B at
+             full width (32 layers, bf16, phase 5's seed) behind
+             serving.Server with decode graphs per batch bucket, the
+             hybridized bert_12_768_12 predict at (32, 128) and (32, 512)
+             through a head whose mx.rtc kernel scales the pooled output,
+             and proxy1b's first TrainStep, each in fresh processes in
+             three regimes (cold: NVRTC tier emptied, a manifest
+             recorded; warm_disk: the CUBIN read from disk;
+             warm_manifest: compiler.warm_start over that manifest before
+             the first request): seconds from import to first_response,
+             warm_start_done and first_train_step, the first dispatch's
+             ms; fails unless the warm processes record zero
+             cached_op/serving_decode/train_step misses after
+             warm_start (warm_start's failed count 0), give the cold
+             process's tokens, BERT outputs and first loss bit for bit,
+             load the CUBIN from disk with no NVRTC compile, and launch
+             rows 1, 2, 1', 3, 10 and 13 inside the graphs warm_start
+             captured;
+17h. compile_only — tools/pretrain_llama.py --config 8b --compile-only
+             in a subprocess: under 1 GiB allocated on the card, params
+             equal to param_count, argument bytes the analytic parameters
+             x 14 B plus the batch, fits false, the FLOPs within 1% of
+             6·N·tokens plus the causal attention's 6·L·B·S²·units; then
+             proxy1b (remat off, 8 x 2048) under abstract_init through
+             TrainStep.aot_compile and live on the card: the AOT
+             argument bytes the live step's parameters, states and batch
+             byte for byte, the AOT temp bytes beside the live peak less
+             the arguments, the FLOPs within 1% of the analytic count,
+             MFU beside the step's ms;
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
              hash_dropout and twobit_quantize beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
@@ -5245,6 +5275,16 @@ def _raises_mxnet_error(fn) -> str:
     fail(f"expected an MXNetError from {fn}")
 
 
+def _empty_nvrtc_tier() -> None:
+    """Remove the NVRTC disk tier's CUBINs (an earlier run's), so the next
+    module made compiles."""
+    import shutil
+
+    from mxnet_tpu_torch.compiler import persistent
+
+    shutil.rmtree(persistent.base_dir() / "nvrtc", ignore_errors=True)
+
+
 def phase_rtc(card: str) -> dict:
     """mx.rtc.CudaModule on the card: each module compiled by NVRTC to an
     sm_90a CUBIN; upstream MXNet's axpy as a template (axpy<float>,
@@ -5260,7 +5300,9 @@ def phase_rtc(card: str) -> dict:
     cached get_kernel's ms and the host us per launch; and the refusals
     (a syntax error with NVRTC's log, a dtype mismatch, a strided view,
     a 2048-thread block, a CPU NDArray, a CPU launch), each an
-    MXNetError."""
+    MXNetError. The NVRTC disk tier is emptied first, so each module's
+    ``compile_ms`` is an NVRTC compile (its ``image_source`` says so), as
+    is that of ``imperative``'s module after it."""
     import mxnet_tpu_torch as mx
 
     C = _rtc_cases()
@@ -5268,6 +5310,7 @@ def phase_rtc(card: str) -> dict:
     flush = _L2Flush()
     t0 = time.perf_counter()
     out = {"phase": "rtc", "card": card}
+    _empty_nvrtc_tier()
     mods = {
         "upstream": mx.rtc.CudaModule(C.UPSTREAM_SRC, options=C.FMAD_OFF,
                                       exports=C.UPSTREAM_EXPORTS),
@@ -5275,6 +5318,10 @@ def phase_rtc(card: str) -> dict:
         "row_sum": mx.rtc.CudaModule(C.ROW_SUM_SRC),
         "bert_axpy": mx.rtc.CudaModule(C.BERT_AXPY_SRC, options=C.FMAD_OFF)}
     out["compile_ms"] = {k: m.compile_ms for k, m in mods.items()}
+    out["image_source"] = {k: m.image_source for k, m in mods.items()}
+    if set(out["image_source"].values()) != {"nvrtc"}:
+        fail(f"rtc: an image came from elsewhere than NVRTC: "
+             f"{out['image_source']}")
     sig = "const float *x, float *y, float alpha, int n"
     tg = time.perf_counter()
     for _ in range(1000):
@@ -5699,7 +5746,11 @@ def phase_imperative(card: str) -> dict:
                         "host_us_per_launch": host_b * 1e3 / len(names)},
         "library_foreach_add": {"device_ms": dev_lib, "host_ms": host_lib},
         "bound_ms": bound_ms, "bound_by": by,
-        "compile_ms": mod.compile_ms, "kernel": kernel}
+        "compile_ms": mod.compile_ms, "image_source": mod.image_source,
+        "kernel": kernel}
+    if mod.image_source != "nvrtc":
+        fail(f"imperative: the SGD module's image came from "
+             f"{mod.image_source}, not NVRTC")
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     if step_launches != step_want:
@@ -6925,6 +6976,183 @@ def phase_data_image(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17g-17h. the compilation service
+# ---------------------------------------------------------------------------
+
+def _repo():
+    import pathlib
+
+    return pathlib.Path(__file__).resolve().parent
+
+
+def phase_coldstart(card: str) -> dict:
+    """The cold-start meter (see 17g and the tool's docstring), in its
+    own processes; returns the warm-manifest serving run's launches by
+    kernel (counted from just after warm_start)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.coldstart_bench",
+         "--seed", str(SEED)], cwd=_repo(), capture_output=True, text=True,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        rec = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"coldstart: no result (rc={proc.returncode}):\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    runs = rec["coldstart"]
+    summary = {}
+    for regime, paths in runs.items():
+        summary[regime] = {
+            "events_s": {**paths["serve"]["events"],
+                         **{k: v for k, v in paths["train"]["events"].items()
+                            if k == "first_train_step"}},
+            "import_s": paths["serve"]["import_s"],
+            "first_generate_ms": paths["serve"]["first_dispatch_ms"],
+            "first_bert_ms": {k: v for k, v in
+                              paths["serve"]["latency"].items()
+                              if k.startswith("bert")},
+            "first_train_step_ms": paths["train"]["first_dispatch_ms"],
+            "misses_after_warmup": {**paths["serve"]["misses_after_warmup"],
+                                    **paths["train"]["misses_after_warmup"]},
+            "nvrtc": paths["serve"]["nvrtc"],
+            "warm_report": {p: paths[p]["warm_report"]
+                            for p in ("serve", "train")},
+            "process_s": {p: paths[p]["process_s"]
+                          for p in ("serve", "train")}}
+    warm = runs["warm_manifest"]["serve"]
+    emit({"phase": "coldstart", "card": card, "build": rec["build"],
+          "regimes": summary, "gates": rec["gates"],
+          "warm_manifest_launches": warm["launches"],
+          "warm_manifest_graph_launches": warm["graph_launches"],
+          "tokens_cold": runs["cold"]["serve"]["tokens"],
+          "loss_cold": runs["cold"]["train"]["loss"],
+          "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0 or not rec["gates"]["ok"]:
+        fail(f"coldstart: gates failed: {rec['gates']}")
+    return warm["launches"]
+
+
+def _llama_flops(cfg, batch, seq) -> float:
+    """6·N·tokens (N: the parameters outside the embedding table) plus
+    the causal attention's 6·L·B·S²·units."""
+    from mxnet_tpu_torch.tools.pretrain_llama import param_count
+
+    n = param_count(cfg) - cfg["vocab_size"] * cfg["units"]
+    return (6.0 * n * batch * seq
+            + 6.0 * cfg["num_layers"] * batch * seq * seq * cfg["units"])
+
+
+def phase_compile_only(card: str) -> dict:
+    """17h: the 8b recipe without its weights, then proxy1b AOT against
+    live on the card."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.tools import pretrain_llama as pl
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.pretrain_llama",
+         "--config", "8b", "--compile-only"], cwd=_repo(),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"compile_only: 8b --compile-only failed:\n"
+             f"{proc.stderr[-6000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg8 = pl.CONFIGS["8b"]
+    n8 = pl.param_count(cfg8)
+    b8, s8 = rec["batch"], rec["seq"]
+    want8 = _llama_flops(cfg8, b8, s8)
+    emit({"phase": "compile_only", "config": "8b", "card": card, **rec,
+          "analytic_argument_bytes": n8 * 14 + 2 * b8 * s8 * 4,
+          "analytic_flops": want8,
+          "flops_over_analytic": rec["flops_per_step"] / want8,
+          "process_s": time.perf_counter() - t0})
+    if not rec["device_max_allocated_bytes"] < 2 ** 30:
+        fail(f"compile_only: 8b allocated {rec['device_max_allocated_bytes']}"
+             " bytes on the card")
+    if not rec["params"] == rec["params_in_net"] == n8:
+        fail(f"compile_only: params {rec['params']} / "
+             f"{rec['params_in_net']} are not param_count's {n8}")
+    if rec["argument_bytes_per_device"] != n8 * 14 + 2 * b8 * s8 * 4:
+        fail(f"compile_only: 8b argument bytes "
+             f"{rec['argument_bytes_per_device']} are not the analytic "
+             f"{n8 * 14 + 2 * b8 * s8 * 4}")
+    if rec["fits"] is not False:
+        fail(f"compile_only: 8b fits={rec['fits']} on an 80 GB card")
+    if abs(rec["flops_per_step"] / want8 - 1) > 0.01:
+        fail(f"compile_only: 8b FLOPs {rec['flops_per_step']} are not "
+             f"within 1% of {want8}")
+
+    # proxy1b: AOT on meta, then live, at llama_train's cell
+    batch, seq = 8, 2048
+    cfg = pl.CONFIGS["proxy1b"]
+    tok = (torch.Size([batch, seq]), torch.int32)
+    t1 = time.perf_counter()
+    _, aot_step = pl.build("proxy1b", ctx=mx.gpu(0), remat=False,
+                           abstract=True)
+    compiled = aot_step.aot_compile((tok, tok), ())
+    aot_s = time.perf_counter() - t1
+    mem = compiled.memory_analysis()
+    flops = compiled.cost_analysis()["flops"]
+    want = _llama_flops(cfg, batch, seq)
+    net, step = pl.build("proxy1b", ctx=mx.gpu(0), remat=False)
+    rs = np.random.RandomState(0)
+    toks = rs.randint(0, cfg["vocab_size"], (batch, seq + 1))
+    data = (torch.from_numpy(toks[:, :-1].astype(np.int32)).cuda(),
+            torch.from_numpy(toks[:, 1:].astype(np.int32)).cuda())
+    live_args = step.argument_bytes(data, ())
+    meta_flops = telemetry.xla_cost_analysis(step, (data, ()))["flops"]
+    for _ in range(3):
+        step(data, ())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = 5
+    t2 = time.perf_counter()
+    for _ in range(timed):
+        loss = step(data, ())[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t2) * 1e3 / timed
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "compile_only", "config": "proxy1b", "card": card,
+           "batch": [batch, seq], "remat": False, "aot_s": aot_s,
+           "aot_argument_bytes": mem.argument_size_in_bytes,
+           "live_argument_bytes": live_args,
+           "aot_temp_bytes": mem.temp_size_in_bytes,
+           "live_peak_bytes": peak,
+           "live_peak_less_arguments_bytes": peak - live_args,
+           "aot_output_bytes": mem.output_size_in_bytes,
+           "flops_per_step": flops, "xla_cost_analysis_flops": meta_flops,
+           "analytic_flops": want, "flops_over_analytic": flops / want,
+           "ms_per_step": ms, "steps": timed, "loss": float(loss),
+           "mfu": flops / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16],
+           "mfu_6n": 6.0 * pl.param_count(cfg) * batch * seq
+           / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]}
+    emit(out)
+    if mem.argument_size_in_bytes != live_args:
+        fail(f"compile_only: proxy1b AOT argument bytes "
+             f"{mem.argument_size_in_bytes} are not the live step's "
+             f"{live_args}")
+    if abs(flops / want - 1) > 0.01 or meta_flops != flops:
+        fail(f"compile_only: proxy1b FLOPs {flops} (live step's count "
+             f"{meta_flops}) are not within 1% of {want}")
+    if not np.isfinite(out["loss"]):
+        fail(f"compile_only: proxy1b loss {out['loss']}")
+    del net, step, aot_step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -6974,6 +7202,8 @@ def main() -> None:
     data_resnet = phase_data_resnet(card)
     data_gluon = phase_data_gluon(card)
     data_image = phase_data_image(card)
+    coldstart = phase_coldstart(card)
+    phase_compile_only(card)
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -7075,7 +7305,8 @@ def main() -> None:
         for path, got in (("data_llama", data_llama),
                           ("data_resnet", data_resnet),
                           ("data_gluon", data_gluon),
-                          ("data_image", data_image)):
+                          ("data_image", data_image),
+                          ("coldstart", coldstart)):
             if got.get(name):
                 by_path[path] = got[name]
         if name == "fused_adamw_sweep":
@@ -7128,12 +7359,15 @@ def main() -> None:
         "source": "tests/test_torch_cuda_rtc.py",
         "replaces": "mxnet_tpu/rtc.py:62",
         "launches": sgd["user_kernel"]["launches"],
-        "launches_by_path": {"imperative": sgd["user_kernel"]["launches"]},
+        "launches_by_path": {"imperative": sgd["user_kernel"]["launches"],
+                             "coldstart": coldstart["mx.rtc:scale_bf16"]},
         "max_abs_err": k13["max_abs_err"], "ms": k13["ms"],
         "plain_ms": k13["plain_ms"], "bound_ms": k13["bound_ms"],
         "bound_by": k13["bound_by"], "library_ms": k13["library_ms"],
         "shape": k13["shape"], "dtype": k13["dtype"],
         "compile_ms": dict(rtc["compile_ms"], sgd=sgd["compile_ms"]),
+        "image_source": dict(rtc["image_source"],
+                             sgd=sgd["image_source"]),
         "note": "the user's kernels, compiled by NVRTC (mxnet_tpu_torch/"
                 "rtc.py) from CUDA source at run time; the row is the "
                 "imperative path's user SGD kernel, one launch per "

@@ -66,23 +66,36 @@ user's CUDA source compiled by NVRTC and launched on NDArrays::
     mod = mx.rtc.CudaModule(source, options=["--fmad=false"])
     mod.get_kernel("axpy", "const float *x, float *y, float a") \
         .launch([x, y, 2.5], mx.gpu(0), (n // 256,), (256,))
+
+The compilation service, ``mx.compiler``: signature keys, site caches
+over the CUDA graphs and the steps' entries, a manifest of every
+signature (``MXNET_COMPILE_MANIFEST``) that ``mx.compiler.warm_start``
+replays before the first traffic, and a disk tier for the ``nvcc``
+outputs and NVRTC CUBINs; ``gluon.parameter.abstract_init`` with
+``TrainStep.aot_compile`` checks a recipe on the ``meta`` device.
 """
-from . import (autograd, base, callback, checkpoint, context, convert,
-               engine, fault, gluon, image, init, initializer, io, kernels,
-               kvstore, lr_scheduler, metric, monitor, ndarray, ops,
-               optimizer, parallel, profiler, random, random_state,
-               recordio, rtc, runtime, serving, storage, telemetry,
-               test_utils, tracing)
-from . import kvstore as kv
-from . import ndarray as nd
-from .base import MXNetError
-from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
+import time as _time
+
+# the cold-start clock's zero (compiler.seconds_since_import)
+_IMPORT_T0 = _time.monotonic()
+
+from . import (autograd, base, callback, checkpoint, compiler,  # noqa: E402
+               context, convert, engine, fault, gluon, image, init,
+               initializer, io, kernels, kvstore, lr_scheduler, metric,
+               monitor, ndarray, ops, optimizer, parallel, profiler,
+               random, random_state, recordio, rtc, runtime, serving,
+               storage, telemetry, test_utils, tracing)
+from . import kvstore as kv  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+from .base import MXNetError  # noqa: E402
+from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: E402
+                      gpu, num_gpus)
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu", "num_gpus",
            "current_context", "autograd", "base", "callback", "checkpoint",
-           "context", "convert", "engine", "fault", "gluon", "image", "init",
-           "initializer", "io", "kernels", "kv", "kvstore", "lr_scheduler",
-           "metric", "monitor", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "profiler", "random", "random_state", "recordio",
-           "rtc", "runtime", "serving", "storage", "telemetry",
+           "compiler", "context", "convert", "engine", "fault", "gluon",
+           "image", "init", "initializer", "io", "kernels", "kv", "kvstore",
+           "lr_scheduler", "metric", "monitor", "nd", "ndarray", "ops",
+           "optimizer", "parallel", "profiler", "random", "random_state",
+           "recordio", "rtc", "runtime", "serving", "storage", "telemetry",
            "test_utils", "tracing"]

@@ -31,7 +31,9 @@ A :class:`HybridBlock` defines ``hybrid_forward(F, x, *args,
 ``hybridize()`` turns on :class:`_CachedGraph`: a hybridized block called
 outside ``record()`` (and outside training mode) on CUDA NDArrays runs one
 ``torch.cuda.CUDAGraph`` per signature (input, parameter shapes and
-dtypes). Under ``record()``, in training mode or on the CPU it runs its
+dtypes), kept in the compilation service's ``cached_op`` site cache and
+warmed from a manifest by ``compiler.warm_start``
+(:func:`warm_cached_op_spec`). Under ``record()``, in training mode or on the CPU it runs its
 forward eagerly (ROADMAP.md, port queue 3: the dropout kernels take their
 seed as a host argument, so a graph would replay one mask). ``export``,
 ``optimize_for`` and ``SymbolBlock`` need the symbol API (ROADMAP.md,
@@ -51,6 +53,7 @@ training mode, and leaves BatchNorm's running statistics alone
 from __future__ import annotations
 
 import copy
+import functools
 import re
 import threading
 import weakref
@@ -594,34 +597,79 @@ class _Captured:
     __slots__ = ("graph", "inputs", "outputs", "tree", "launches")
 
 
+def _replay(captured: _Captured, owner, args):
+    """Copy ``args`` into the graph's static inputs, replay it, move the
+    launch counters by one replay, and hand out fresh NDArrays (copies
+    of the static outputs)."""
+    from ..kernels._build import replay_counts
+
+    with torch.no_grad():
+        for buf, a in zip(captured.inputs, args):
+            if buf is not None:
+                buf.copy_(a._data)
+    captured.graph.replay()
+    replay_counts(captured.launches)
+    graph = owner()
+    if graph is not None:
+        graph.replays += 1
+    return _unflatten(captured.tree, [NDArray(o.clone())
+                                      for o in captured.outputs])
+
+
+def _evicted(owner, key, entry) -> None:
+    """A graph left its block's cache: drop it and its static tensors now
+    (its share of the pool goes back to the pool), and the pool itself
+    once no graph of the block is left."""
+    entry.graph = entry.inputs = entry.outputs = None
+    graph = owner()
+    if graph is not None and not len(graph._cache):
+        graph._pool = None
+
+
+def _arg_avals(args) -> tuple:
+    from ..compiler import keys
+
+    return tuple(None if a is None else keys.aval(a._data) for a in args)
+
+
 class _CachedGraph:
     """One ``torch.cuda.CUDAGraph`` per call signature of a hybridized
     block (the counterpart of the reference's ``_CachedGraph``,
     ``block.py:440-690``, and of MXNet's ``CachedOp``).
 
-    The signature is the inputs' shapes and dtypes (None where an
-    optional input is left out) and the parameters' shapes and dtypes;
-    graphs serve predict mode only (a training-mode call runs eagerly),
-    so the training flag is always off here. A signature's graph is
-    captured at its first call
-    (or by :meth:`HybridBlock.warmup`) over static input buffers, into
-    the block's private memory pool, by ``kernels._build.capture_graph``
-    as the decode graphs are (a warm-up forward on a side stream, the
-    cyclic GC off, the launch counters put back and moved per replay). A
-    failed capture raises :class:`MXNetError`; nothing runs eagerly in its
-    place.
+    The graphs live in the block's compilation-service site cache,
+    ``SiteCache("cached_op")``, keyed by ``compiler.signature``: the
+    inputs' shape, dtype, device and memory order (None where an
+    optional input is left out), the parameters' shapes and dtypes, the
+    platform and the routing knobs. Graphs serve predict mode only (a
+    training-mode call runs eagerly), so the training flag is always off
+    here. A signature's graph is captured at its first call (or by
+    :meth:`HybridBlock.warmup`, or by ``compiler.warm_start`` from a
+    manifest) over static input buffers, into the block's private memory
+    pool, by ``kernels._build.capture_graph`` as the decode graphs are
+    (a warm-up forward on a side stream, the cyclic GC off, the launch
+    counters put back and moved per replay), and journaled to the
+    signature manifest when one records. A failed capture raises
+    :class:`MXNetError`; nothing runs eagerly in its place.
 
-    Each call copies the inputs into the static buffers, replays, and
-    hands out fresh NDArrays (copies of the static outputs). The
-    parameters are read where they lie: an in-place update
-    (``Trainer.step``) needs no recapture, while a parameter whose
+    Each entry is the signature's :class:`_Captured`; its key is the
+    exact signature, and :meth:`HybridBlock.forward` sends every other
+    call (under ``record()``, in training mode, on the CPU) to the eager
+    forward before the lookup. A replay copies the inputs into the
+    static buffers and hands out fresh NDArrays (copies of the static
+    outputs). An evicted entry drops its graph and buffers at once. The parameters are read where they lie: an in-place
+    update (``Trainer.step``) needs no recapture, while a parameter whose
     storage was replaced (``cast``, ``reset_ctx``, a deferred or
     reallocating load) clears every graph, and the pool with them.
-    Holds its block through a weak reference."""
+    Holds its block, and its entries hold it, through weak references:
+    no cycle, so no graph is ever freed by a cycle collection."""
 
     def __init__(self, block):
+        from ..compiler.service import SiteCache
+
         self._block = weakref.ref(block)
-        self._graphs = {}
+        self._cache = SiteCache("cached_op", on_evict=functools.partial(
+            _evicted, weakref.ref(self)))
         self._pool = None
         self._params = None
         self._vars = None
@@ -632,19 +680,24 @@ class _CachedGraph:
         return None                 # a copy of the block captures anew
 
     def clear(self) -> None:
-        self._graphs = {}
+        self._cache.clear()
         self._pool = None           # a pool whose graphs are gone is spent
         self._params = self._vars = None
+
+    @property
+    def _graphs(self) -> dict:
+        """The captured graphs (:class:`_Captured`) by signature key, the
+        least recently used first."""
+        return dict(self._cache.items())
 
     def _param_state(self, block):
         if self._params is None:
             self._params = list(block.collect_params().values())
         return tuple(p._var for p in self._params)
 
-    def __call__(self, args):
-        from ..kernels._build import replay_counts
-
-        block = self._block()
+    def _settled_vars(self, block, args) -> tuple:
+        """The parameters' tensors, their shapes settled from ``args``;
+        every graph is cleared when one was replaced since the last call."""
         vars_ = self._param_state(block)
         if any(v is None for v in vars_):
             block._infer_and_init(args)
@@ -655,22 +708,41 @@ class _CachedGraph:
                 self.clear()
                 vars_ = self._param_state(block)
             self._vars = vars_
-        sig = (tuple(None if a is None else (a.shape, str(a._data.dtype))
-                     for a in args),
-               tuple((tuple(v.shape), v.dtype) for v in vars_))
-        entry = self._graphs.get(sig)
-        if entry is None:
-            entry = self._capture(block, args)
-            self._graphs[sig] = entry
-        with torch.no_grad():
-            for buf, a in zip(entry.inputs, args):
-                if buf is not None:
-                    buf.copy_(a._data)
-        entry.graph.replay()
-        replay_counts(entry.launches)
-        self.replays += 1
-        return _unflatten(entry.tree, [NDArray(o.clone())
-                                       for o in entry.outputs])
+        return vars_
+
+    def _key(self, avals, vars_, device):
+        from ..compiler import keys
+
+        return keys.signature(
+            "cached_op", id(self), avals=avals,
+            extra=(tuple((tuple(v.shape), str(v.dtype)) for v in vars_),),
+            platform=keys.platform(device))
+
+    def __call__(self, args):
+        block = self._block()
+        vars_ = self._settled_vars(block, args)
+        avals = _arg_avals(args)
+        dev = next(a._data.device for a in args if a is not None)
+        key = self._key(avals, vars_, dev)
+        entry = self._cache.lookup(key)
+        if entry is self._cache.MISS:
+            entry = self._seat(block, args, key)
+        return _replay(entry, weakref.ref(self), args)
+
+    def _seat(self, block, args, key):
+        """Capture ``args``' signature and keep it under ``key``."""
+        from ..compiler import keys, manifest
+
+        entry = self._capture(block, args)
+        sig = key.avals
+        self._cache.insert(key, entry)
+        if manifest.recorder() is not None:
+            manifest.record_signature("cached_op", {
+                "graph": keys.graph_ident(block),
+                "args": tuple(None if a is None else (a[0], a[1], a[3])
+                              for a in sig),
+                "training": False, "routing": key.routing}, key.platform)
+        return entry
 
     def _capture(self, block, args) -> _Captured:
         from ..kernels._build import capture_graph
@@ -697,7 +769,7 @@ class _CachedGraph:
                 f"{block.name}: capturing the hybridized graph of input "
                 f"shapes {[None if a is None else a.shape for a in args]}")
         except MXNetError:
-            if not self._graphs:
+            if not len(self._cache):
                 self._pool = None
             raise
         flat = []
@@ -706,6 +778,49 @@ class _CachedGraph:
         entry.inputs = inputs
         self.captures += 1
         return entry
+
+
+def warm_cached_op_spec(block, spec) -> str:
+    """``compiler.warm_start``'s ``cached_op`` replay: capture one recorded
+    input signature into ``block``'s graph cache over zero inputs on the
+    card its parameters live on (hybridizing it first if it is not). A
+    block on the CPU has no graphs: skipped."""
+    from ..context import Context
+    from ..ndarray import zeros
+
+    if not isinstance(block, HybridBlock) or spec.get("training"):
+        return "skipped"
+    params = list(block.collect_params().values())
+    dev = next((p._var.device for p in params if p._var is not None), None)
+    if dev is None:
+        ctxs = next((p._deferred_init[1] for p in params
+                     if p._deferred_init is not None), None)
+        dev = ctxs[0].torch_device() if ctxs else None
+    if dev is None or dev.type != "cuda":
+        return "skipped"
+    if not block._active:
+        block.hybridize()
+    args = []
+    for a in spec.get("args") or ():
+        if a is None:
+            args.append(None)
+            continue
+        shape, dtype, last = a
+        x = zeros(tuple(shape), ctx=Context.from_device(dev), dtype=dtype)
+        if last:
+            x = NDArray(x._data.contiguous(
+                memory_format=torch.channels_last))
+        args.append(x)
+    if not any(a is not None for a in args):
+        return "skipped"
+    graph = block._graph()
+    with autograd.pause(), autograd.predict_mode():
+        vars_ = graph._settled_vars(block, args)
+        key = graph._key(_arg_avals(args), vars_, dev)
+        if key in graph._cache:
+            return "deduped"
+        graph._seat(block, args, key)
+    return "replayed"
 
 
 # ---------------------------------------------------------------------------

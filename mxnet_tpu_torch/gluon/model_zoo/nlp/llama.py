@@ -18,6 +18,7 @@ query heads, RMSNorm through its forward and backward kernels, and with
 from __future__ import annotations
 
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -306,6 +307,27 @@ def _paged_forward(params, tokens, positions, page_table, lengths,
     return h_last @ head_w.T
 
 
+_DECODE_SITE = "serving_decode"
+_engines = weakref.WeakSet()        # the live engines, for warm_start
+
+
+def warm_decode_spec(model, spec) -> str:
+    """``compiler.warm_start``'s ``serving_decode`` replay: capture the
+    recorded bucket in each live engine of ``model`` with the recorded
+    dtype and page size (an engine exists once a server serving the model
+    has started); skipped when there is none."""
+    engines = [e for e in list(_engines)
+               if e._model() is model and e.page_size == spec["page_size"]
+               and e._ident[2] == spec["dtype"]]
+    if not engines:
+        return "skipped"
+    b, w = int(spec["batch"]), int(spec["width"])
+    fresh = [e for e in engines if e._key(b, w) not in e._cache]
+    for e in fresh:
+        e._step(b, w, record=False)
+    return "replayed" if fresh else "deduped"
+
+
 class _DecodeStep:
     """One decode batch bucket's step: static input buffers on the
     engine's device (tokens, lengths, page table at a fixed (B, W)) and
@@ -408,11 +430,21 @@ class LlamaDecodeEngine:
     count the graphs captured and replayed (on the CPU, ``captures``
     counts the static-buffer steps built, at the same points).
 
+    The steps live in the engine's own compilation-service site cache,
+    ``SiteCache("serving_decode")`` (a graph binds its engine's buffers,
+    so replicas never share one, and the graphs are freed with the
+    engine), keyed by the engine's architecture, the bucket, the dtype
+    and the page size; each is journaled to the signature manifest when
+    one records, and ``compiler.warm_start(blocks=[model])`` captures
+    the recorded buckets of the model's live engines, and only those
+    (:func:`warm_decode_spec`).
+
     Not thread-safe by design: exactly one scheduler thread drives it
     (the :class:`~mxnet_tpu_torch.serving.server.Server` contract).
     """
 
     def __init__(self, model, pool, dtype="float32"):
+        from ....compiler.service import SiteCache
         from ....serving.kvcache import make_kv_arena
 
         self.cfg = dict(model._decode_cfg)
@@ -423,11 +455,15 @@ class LlamaDecodeEngine:
         self.k_arena, self.v_arena = make_kv_arena(
             self.cfg["num_layers"], pool, self.cfg["num_kv_heads"],
             self.cfg["head_dim"], dtype=self.dtype, device=self.device)
-        self._steps = {}
+        self._ident = ("llama", tuple(sorted(self.cfg.items())),
+                       str(self.dtype).split(".")[-1])
+        self._cache = SiteCache(_DECODE_SITE)
+        self._buckets = set()       # the (batch, width) buckets seated
         self._graph_pool = None     # the buckets' shared graph memory
         self.captures = 0
         self.replays = 0
         self._set_params(model)
+        _engines.add(self)
 
     @torch.no_grad()
     def _set_params(self, model) -> None:
@@ -435,6 +471,8 @@ class LlamaDecodeEngine:
         the model already holds that dtype)."""
         def w(p):
             return p.tensor.detach().to(self.device, self.dtype)
+
+        self._model = weakref.ref(model)
 
         self._params = (
             w(model.embed.weight),
@@ -450,12 +488,13 @@ class LlamaDecodeEngine:
         """Serve ``model``'s weights from now on: drop every decode graph
         and recapture each bucket over the new tensors (one capture per
         bucket). The arenas stay where they are."""
-        keys = list(self._steps)
-        self._steps = {}
+        buckets = sorted(self._buckets)
+        self._cache.clear()
+        self._buckets.clear()
         # a pool whose graphs are all gone cannot take another capture
         self._graph_pool = None
         self._set_params(model)
-        for b, w in keys:
+        for b, w in buckets:
             self._step(b, w)
 
     def capture(self, batch_buckets, width: int) -> None:
@@ -465,31 +504,54 @@ class LlamaDecodeEngine:
         for b in batch_buckets:
             self._step(int(b), int(width))
 
-    def _step(self, b: int, w: int) -> _DecodeStep:
-        step = self._steps.get((b, w))
-        if step is None:
-            step = _DecodeStep(self, b, w)
-            if self.device.type == "cuda":
-                if self._graph_pool is None:
-                    self._graph_pool = torch.cuda.graph_pool_handle()
-                try:
-                    step.capture(self, self._graph_pool)
-                except MXNetError:
-                    if not self._steps:
-                        self._graph_pool = None
-                    raise
-            self._steps[(b, w)] = step
-            self.captures += 1
+    def _key(self, b: int, w: int):
+        from ....compiler import keys
+
+        return keys.signature(
+            _DECODE_SITE, self._ident,
+            avals=((b, 1), (b, w), self._ident[2]), attrs=(self.page_size,),
+            platform=keys.platform(self.device))
+
+    def _step(self, b: int, w: int, record: bool = True) -> _DecodeStep:
+        from ....compiler import manifest
+
+        key = self._key(b, w)
+        step = self._cache.lookup(key, record=record)
+        if step is not self._cache.MISS:
+            return step
+        step = _DecodeStep(self, b, w)
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            try:
+                step.capture(self, self._graph_pool)
+            except MXNetError:
+                if not self._buckets:
+                    self._graph_pool = None
+                raise
+        self._cache.insert(key, step)
+        self._buckets.add((b, w))
+        self.captures += 1
+        model = self._model()
+        if manifest.recorder() is not None and model is not None:
+            from ....compiler import keys
+
+            manifest.record_signature(_DECODE_SITE, {
+                "graph": keys.graph_ident(model), "batch": b, "width": w,
+                "dtype": self._ident[2], "page_size": self.page_size,
+                "routing": key.routing}, key.platform)
         return step
 
     def buckets(self) -> list:
         """The (batch, page-table width) buckets with a decode step."""
-        return sorted(self._steps)
+        return sorted(self._buckets)
 
     def graph(self, b: int, w: int):
         """The captured ``torch.cuda.CUDAGraph`` of bucket ``(b, w)`` and
         the launch counts one replay adds (None on the CPU)."""
-        step = self._steps[(b, w)]
+        step = self._cache.lookup(self._key(b, w), record=False)
+        if step is self._cache.MISS:
+            raise KeyError((b, w))
         return step.graph, dict(step.launches)
 
     def _tensor(self, a, dtype):

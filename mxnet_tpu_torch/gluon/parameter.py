@@ -41,8 +41,16 @@ several of the contexts share it (``cpu(0)``, ``cpu(1)``), the read
 raises instead of guessing (pass NDArrays, ``split_and_load``). Blocks
 register the first context's tensor. A parameter on one context skips
 all of this.
-``var()`` waits for the symbol API (ROADMAP.md, port queue 1, item 12),
-and ``abstract_init`` (a meta-device placeholder) is not ported.
+``var()`` waits for the symbol API (ROADMAP.md, port queue 1, item 12).
+
+Under :class:`abstract_init` (reference ``:32``, ``:142-175``) a
+parameter initializes to a tensor on the ``meta`` device: its shape and
+dtype, no storage, no initializer run (a shape still unknown defers as
+usual and becomes a meta tensor when it settles, even outside the
+context). Such a net runs through ``TrainStep.aot_compile`` and
+``telemetry.xla_cost_analysis``; a read of a value (``data()``,
+``list_data()``, a save) raises :class:`MXNetError`, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -61,13 +69,33 @@ from ..base import MXNetError, torch_dtype
 from ..context import Context, cpu, current_context
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError", "replica_scope", "current_replica"]
+           "DeferredInitializationError", "replica_scope", "current_replica",
+           "abstract_init"]
 
 _GRAD_REQS = ("write", "add", "null")
 
 
 class DeferredInitializationError(MXNetError):
     """A parameter was read before its deferred shape was known."""
+
+
+_abstract_scope = threading.local()
+
+
+class abstract_init:
+    """Within it, parameters initialize on the ``meta`` device: shapes and
+    dtypes, never materialised (see the module docstring). For checking a
+    recipe too large for the card (``TrainStep.aot_compile``,
+    ``tools/pretrain_llama.py --compile-only``)."""
+
+    def __enter__(self):
+        self._prev = getattr(_abstract_scope, "on", False)
+        _abstract_scope.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _abstract_scope.on = self._prev
+        return False
 
 
 def dtype_name(dtype) -> str:
@@ -150,6 +178,10 @@ class Parameter:
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
+        # as declared, 0 for an axis left to inference (compiler.keys'
+        # graph_ident reads it)
+        self.declared_shape = self._shape
+        self._abstract = False
         self._dtype = dtype_name(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
@@ -249,6 +281,8 @@ class Parameter:
             return
         default_init = default_init or initializer.Uniform()
         ctx = _contexts(ctx)
+        if getattr(_abstract_scope, "on", False):
+            self._abstract = True
         if not self._shape_known():
             if self.allow_deferred_init:
                 self._deferred_init = (init, ctx, default_init)
@@ -262,6 +296,12 @@ class Parameter:
     def _finish_init(self, init, ctxs, default_init) -> None:
         from ..ndarray import NDArray
 
+        if self._abstract:
+            self._deferred_init = None
+            self._set_var(torch.empty(self._shape,
+                                      dtype=torch_dtype(self._dtype),
+                                      device="meta"), ctxs[:1])
+            return
         host = torch.zeros(self._shape, dtype=torch.float32,
                            device=ctxs[0].torch_device())
         if init is not None:
@@ -298,8 +338,8 @@ class Parameter:
         gradient buffer and register the first with every holder."""
         t = t.detach()
         if ctxs is None:
-            ctxs = self._ctxs if self._ctxs and \
-                self._ctxs[0].torch_device() == t.device \
+            ctxs = self._ctxs if self._ctxs and (
+                self._abstract or self._ctxs[0].torch_device() == t.device) \
                 else [Context.from_device(t.device)]
         var = self._wrap(t)
         self._copies = [var] + [
@@ -372,6 +412,11 @@ class Parameter:
     # access
     # ------------------------------------------------------------------
     def _check_initialized(self, ctx=None) -> None:
+        if self._abstract and self._var is not None:
+            raise MXNetError(
+                f"Parameter {self.name} was built under abstract_init() and "
+                "holds no values; it can only be used through "
+                "TrainStep.aot_compile and telemetry.xla_cost_analysis")
         if self._var is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version (counterpart of ``mxnet_tpu/pallas_kernels``)."""
+version (counterpart of ``mxnet_tpu/pallas_kernels``): a CUDA tensor
+launches the kernel, a CPU or ``meta`` tensor takes the plain version."""
 from .dropout import (hash_dropout, hash_dropout_bwd,
                       hash_dropout_reference)
 from .flash import (flash_attention, flash_attention_bwd,
@@ -44,9 +45,12 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
 
 def launch_counters() -> dict:
     """``{(wrapper, attribute): count}`` over every launch counter of the
-    kernel wrappers above (``launches``, ``wgmma_launches``, ...): what a
-    CUDA graph capture puts back and each replay adds again."""
-    out = {}
+    kernel wrappers above (``launches``, ``wgmma_launches``, ...) and of
+    each live ``mx.rtc`` kernel: what a CUDA graph capture puts back and
+    each replay adds again."""
+    from .. import rtc
+
+    out = {(k, "launches"): k.launches for k in rtc.live_kernels()}
     for name in __all__:
         fn = globals()[name]
         for attr, v in vars(fn).items():

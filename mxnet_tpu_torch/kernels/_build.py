@@ -3,10 +3,15 @@
 Each ``csrc/*.cu`` file is one kernel library with a plain C interface,
 compiled by ``nvcc`` into its own shared object and loaded with
 ``ctypes``. Builds happen at first use, from the checkout's own sources,
-into ``build/kernels/<hash>/`` at the repository root (listed in
-``.gitignore``), where ``<hash>`` covers every source, header and flag:
-an edited source gets a fresh directory, an unchanged one is reused.
-All sources compile in parallel, one ``nvcc`` process each.
+into ``<disk tier>/kernels/<hash>/`` (the compilation service's layout,
+``compiler/persistent.py``: ``build/kernels/<hash>/`` at the repository
+root by default, listed in ``.gitignore``), where ``<hash>`` covers
+every source, header and flag and the ``nvcc`` version: an edited
+source or another compiler gets a fresh directory, an unchanged one is
+reused. All sources compile in parallel, one ``nvcc`` process each; the
+build runs once per process through the service's single-flight table,
+and each load touches the directory's ``.used`` stamp, so the tier's
+collection (``compiler.gc_cache``) keeps what is in use.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -27,10 +32,11 @@ from torch.autograd import _profiler_enabled
 from torch.profiler import record_function as _record_function
 
 from ..base import MXNetError
+from ..compiler.persistent import USED_STAMP
 
 __all__ = ["SOURCES", "build_all", "build_dir", "load", "check", "call",
            "kernels_per_call", "graph_kernel_names", "capture_graph",
-           "replay_counts"]
+           "replay_counts", "nvcc_version"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -46,6 +52,8 @@ LINK_FLAGS = {"jpeg_codec.cu": ("-lnvjpeg",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_version_lock = threading.Lock()    # load() holds _lock over build_dir()
+_nvcc_version = []          # read once per process
 last_build_seconds = None   # wall time of this process's build, if any
 
 
@@ -60,15 +68,34 @@ def _nvcc() -> str:
         "PATH): the port's CUDA kernels cannot be built")
 
 
+def nvcc_version() -> str:
+    """``nvcc --version``'s output (``"none"`` where there is no
+    ``nvcc``), read once per process."""
+    with _version_lock:
+        if not _nvcc_version:
+            try:
+                out = subprocess.run([_nvcc(), "--version"],
+                                     capture_output=True, text=True,
+                                     timeout=60, check=True).stdout
+            except (MXNetError, OSError, subprocess.SubprocessError):
+                out = "none"
+            _nvcc_version.append(out.strip())
+        return _nvcc_version[0]
+
+
 def build_dir() -> Path:
-    """``build/kernels/<hash>`` for the current sources and flags."""
+    """``<disk tier>/kernels/<hash>`` for the current sources, flags and
+    ``nvcc``."""
+    from ..compiler import persistent
+
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(LINK_FLAGS.items())).encode())
+    h.update(nvcc_version().encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    return REPO_ROOT / "build" / "kernels" / h.hexdigest()[:16]
+    return persistent.kernels_dir() / h.hexdigest()[:16]
 
 
 def _lib_path(out: Path, src: str) -> Path:
@@ -77,10 +104,19 @@ def _lib_path(out: Path, src: str) -> Path:
 
 def build_all() -> Path:
     """Compile every missing kernel library, all ``nvcc`` processes
-    started together; raise :class:`MXNetError` naming each failure.
-    Returns the build directory."""
-    global last_build_seconds
+    started together, once per process (concurrent callers share the
+    one build; a failed one is tried again by the next caller); raise
+    :class:`MXNetError` naming each failure. Returns the build
+    directory."""
+    from ..compiler.service import exec_table
+
     out = build_dir()
+    return exec_table.get_or_build("kernels:" + out.name,
+                                   lambda: _build_all(out))
+
+
+def _build_all(out: Path) -> Path:
+    global last_build_seconds
     todo = [s for s in SOURCES if not _lib_path(out, s).exists()]
     if not todo:
         return out
@@ -127,8 +163,41 @@ def load(src: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(out, src)))
             lib.mx_error_string.argtypes = [ctypes.c_int]
             lib.mx_error_string.restype = ctypes.c_char_p
+            _loaded(out, src)
             _libs[src] = lib
         return lib
+
+
+def _loaded(out: Path, src: str) -> None:
+    """Record this process's load of library ``src`` from build directory
+    ``out``: the disk tier's stamp (the directory's last use, for the
+    collection; at the first load) and the manifest's ``kernels`` entry
+    of the library."""
+    from ..compiler import keys, manifest
+
+    if not _libs:
+        try:
+            (out / USED_STAMP).touch()
+        except OSError:
+            pass
+    manifest.record_signature("kernels", {"build": out.name, "lib": src},
+                              keys.platform())
+
+
+def warm_spec(spec) -> str:
+    """``compiler.warm_start``'s ``kernels`` replay: build what is missing
+    and load the recorded library (one the recording process loaded, and
+    no other), before its first launch."""
+    src = spec.get("lib")
+    if spec.get("build") != build_dir().name or src not in SOURCES:
+        return "skipped"
+    import torch
+
+    if not torch.cuda.is_available():
+        return "skipped"
+    fresh = src not in _libs
+    load(src)
+    return "replayed" if fresh else "deduped"
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -278,11 +347,11 @@ def capture_graph(body, device, pool, what):
         if gc_was:
             gc.enable()
         after = launch_counters()
-        for (fn, attr), n in before.items():
-            setattr(fn, attr, n)            # a capture launches nothing
+        for (fn, attr) in after:            # a capture launches nothing
+            setattr(fn, attr, before.get((fn, attr), 0))
     graph.instantiate()
-    return graph, out, {k: after[k] - n for k, n in before.items()
-                        if after[k] != n}
+    return graph, out, {k: n - before.get(k, 0) for k, n in after.items()
+                        if n != before.get(k, 0)}
 
 
 def replay_counts(delta) -> None:

@@ -217,7 +217,7 @@ def _apply(x, p, seed, axes, what):
     p, seed = check_dropout(p, seed, what)
     if p == 0.0:
         return x, False
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return hash_dropout_reference(x, p, seed, axes), False
     if x.device.type != "cuda":
         raise MXNetError(f"{what}: unsupported device {x.device}")

@@ -56,6 +56,7 @@ import math
 import torch
 
 from ..base import MXNetError
+from ..compiler import flops as _flops
 from . import _build
 from .dropout import attn_keep_mask, check_dropout, dropout_thresh, f32, \
     kernel_args
@@ -248,15 +249,25 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False, layout="bhld",
     ``lse`` (B * H, Lq) float32; ``dropout`` in [0, 1) with a u32
     ``seed`` when above 0. See the module docstring."""
     dropout, seed = check_dropout(dropout, seed, "flash_attention")
-    _, _, lq, lk, d = _check(q, k, v, causal, layout)
+    b, h, lq, lk, d = _check(q, k, v, causal, layout)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return _reference(q, k, v, scale, causal, lk - lq, layout, dropout,
+    if _flops.active():
+        _flops.add("flash_attention",
+                   4 * b * h * d * _flops.attention_pairs(lq, lk, causal))
+        with _flops.uncounted():
+            return _fwd(q, k, v, scale, causal, lk - lq, layout, dropout,
+                        seed)
+    return _fwd(q, k, v, scale, causal, lk - lq, layout, dropout, seed)
+
+
+def _fwd(q, k, v, scale, causal, offset, layout, dropout, seed):
+    if q.device.type in ("cpu", "meta"):
+        return _reference(q, k, v, scale, causal, offset, layout, dropout,
                           seed)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, scale, causal, lk - lq, layout, dropout, seed)
+    return _launch(q, k, v, scale, causal, offset, layout, dropout, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -385,16 +396,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False,
     tensor takes the plain version; a CUDA tensor launches the kernels
     (delta pre-pass, dK/dV, dQ; one count) or raises."""
     dropout, seed = check_dropout(dropout, seed, "flash_attention_bwd")
-    _, _, lq, lk, d = _check(q, k, v, causal, layout)
+    b, h, lq, lk, d = _check(q, k, v, causal, layout)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return _bwd_reference(q, k, v, o, lse, do, scale, causal, lk - lq,
+    args = (q, k, v, o, lse, do, scale, causal, lk - lq, layout, dropout,
+            seed)
+    if _flops.active():
+        # dQ, dK, dV and dP: four products; the recompute of QK^T is not
+        # counted
+        _flops.add("flash_attention_bwd",
+                   8 * b * h * d * _flops.attention_pairs(lq, lk, causal))
+        with _flops.uncounted():
+            return _bwd(*args)
+    return _bwd(*args)
+
+
+def _bwd(q, k, v, o, lse, do, scale, causal, offset, layout, dropout, seed):
+    if q.device.type in ("cpu", "meta"):
+        return _bwd_reference(q, k, v, o, lse, do, scale, causal, offset,
                               layout, dropout, seed)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    return _launch_bwd(q, k, v, o, lse, do, scale, causal, lk - lq, layout,
+    return _launch_bwd(q, k, v, o, lse, do, scale, causal, offset, layout,
                        dropout, seed)
 
 

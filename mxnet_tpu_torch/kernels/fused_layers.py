@@ -140,7 +140,7 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
 
 
 def _rms_norm_fwd(x, weight, eps, return_rstd):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_rms_norm_reference(x, weight, eps=eps,
                                         return_rstd=return_rstd)
     if x.device.type != "cuda" or weight.device != x.device:
@@ -210,7 +210,7 @@ def fused_rms_norm_bwd(x, weight, rstd, dy):
     :func:`fused_rms_norm_bwd_reference`. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (one launch: dx and dw,
     the CTAs' f32 partial rows of dw summed in the kernel) or raises."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_rms_norm_bwd_reference(x, weight, rstd, dy)
     if x.device.type != "cuda" or any(t.device != x.device
                                       for t in (weight, rstd, dy)):
@@ -347,7 +347,7 @@ def fused_layer_norm(x, gamma, beta, residual=None, *, eps: float = 1e-5,
 
 def _layer_norm_fwd(x, gamma, beta, residual, eps, return_stats, dropout,
                     seed):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_layer_norm_reference(x, gamma, beta, residual, eps=eps,
                                           dropout=dropout, seed=seed,
                                           return_stats=return_stats)
@@ -460,7 +460,7 @@ def fused_layer_norm_bwd(x, gamma, mean, rstd, dy, residual=None,
     launch: the CTAs' f32 partial rows of dgamma/dbeta are summed in the
     kernel, in a fixed order) or raises."""
     dropout, seed = check_dropout(dropout, seed, "fused_layer_norm_bwd")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_layer_norm_bwd_reference(x, gamma, mean, rstd, dy,
                                               residual, dropout, seed)
     tensors = [x, gamma, mean, rstd, dy] + (
@@ -582,7 +582,7 @@ def fused_bias_gelu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 
 def _bias_gelu_fwd(x, bias):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_bias_gelu_reference(x, bias)
     if x.device.type != "cuda" or bias.device != x.device:
         raise MXNetError(f"fused_bias_gelu: x on {x.device}, bias on "
@@ -641,7 +641,7 @@ def fused_bias_gelu_bwd(x, bias, dy):
     the plain version; a CUDA tensor launches the kernel (f32 partial rows
     of dbias per row block of CTAs, summed here, as ``_bias_gelu_pallas``
     sums its partials) or raises."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_bias_gelu_bwd_reference(x, bias, dy)
     if x.device.type != "cuda" or bias.device != x.device \
             or dy.device != x.device:

@@ -190,7 +190,7 @@ def _check(q, k_arena, v_arena, page_table, lengths, page_size) -> None:
 def paged_attention_kernel(q, k_arena, v_arena, page_table, lengths, *,
                            page_size: int, scale: float) -> torch.Tensor:
     """Decode attention over paged K/V (see the module docstring)."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_attention_reference(q, k_arena, v_arena, page_table,
                                          lengths, page_size=page_size,
                                          scale=scale)

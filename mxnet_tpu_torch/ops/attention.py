@@ -13,6 +13,7 @@ import math
 import torch
 
 from .. import autograd, random_state
+from ..compiler import flops as _flops
 from ..kernels import flash_attention, fused_rms_norm, paged_attention_kernel
 from ..kernels.dropout import attn_keep_mask, dropout_thresh, f32
 from .registry import register
@@ -167,6 +168,25 @@ def paged_attention(query, k_arena, v_arena, page_table, lengths,
     :func:`_paged_reference`, as the JAX op does off the TPU kernel."""
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
+    lq = query.shape[2]
+    if _flops.active():
+        # 4·H·D per attended (query, key) pair of a real query row
+        b, h, _, d = query.shape
+        pos = q_positions if q_positions is not None else (
+            lengths.long()[:, None] - lq
+            + torch.arange(lq, device=query.device)[None, :])
+        real = pos < lengths.long()[:, None]
+        _flops.add("paged_attention",
+                   4 * h * d * int(((pos + 1) * real).sum()))
+        with _flops.uncounted():
+            return _paged(query, k_arena, v_arena, page_table, lengths,
+                          q_positions, page_size, scale)
+    return _paged(query, k_arena, v_arena, page_table, lengths, q_positions,
+                  page_size, scale)
+
+
+def _paged(query, k_arena, v_arena, page_table, lengths, q_positions,
+           page_size, scale):
     lq = query.shape[2]
     if lq == 1 and query.is_cuda:
         return paged_attention_kernel(query.contiguous(), k_arena, v_arena,

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..compiler import flops as _flops
 from .registry import register
 
 __all__ = ["softmax_ce_head"]
@@ -74,6 +75,14 @@ class _SoftmaxCEHead(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hidden, weight, bias, labels, chunk):
+        _flops.add("softmax_ce_head",
+                   2 * hidden.shape[0] * weight.shape[0] * hidden.shape[1])
+        with _flops.uncounted():
+            return _SoftmaxCEHead._forward(ctx, hidden, weight, bias,
+                                           labels, chunk)
+
+    @staticmethod
+    def _forward(ctx, hidden, weight, bias, labels, chunk):
         n = hidden.shape[0]
         dev = hidden.device
         m = torch.full((n,), _NEG, dtype=torch.float32, device=dev)
@@ -97,7 +106,17 @@ class _SoftmaxCEHead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        hidden, weight, bias, labels, lse2 = ctx.saved_tensors
+        # dX and dW; the recompute of each chunk's logits is not counted
+        saved = ctx.saved_tensors
+        hidden, weight = saved[:2]
+        _flops.add("softmax_ce_head_bwd",
+                   4 * hidden.shape[0] * weight.shape[0] * hidden.shape[1])
+        with _flops.uncounted():
+            return _SoftmaxCEHead._backward(ctx, g, saved)
+
+    @staticmethod
+    def _backward(ctx, g, saved):
+        hidden, weight, bias, labels, lse2 = saved
         chunk = ctx.chunk
         gf = g.float()
         dx = torch.zeros(hidden.shape, dtype=torch.float32,

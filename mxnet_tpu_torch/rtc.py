@@ -50,6 +50,17 @@ Where the trouble lies, and what this module does about it:
 * The launch goes on PyTorch's current stream of the card, with no
   synchronisation, so the kernel is ordered with the NDArray ops before
   and after it, as the reference engine orders an rtc launch.
+* The disk tier and the table: a module's CUBIN is keyed by the
+  fingerprint of (source, options, name expressions, target arch, the
+  card's ``sm_XY``, the NVRTC version) (:func:`cubin_key`). It is built
+  once per process through the compilation service's single-flight
+  ``ExecutableTable``, and read back from
+  ``<MXNET_XLA_CACHE_DIR>/nvrtc/<sm>-<nvrtc version>/<fingerprint>.cubin``
+  (the lowered names beside it, ``.names``) before NVRTC is asked, then
+  loaded with ``cuModuleLoadData``; a compile writes both atomically.
+  ``CudaModule.compiles`` and ``CudaModule.disk_loads`` count the two
+  ways a process got its images. Each module is journaled (site
+  ``nvrtc``) for ``compiler.warm_start``.
 * Writes: a non-``const`` pointer argument is written as any NDArray
   write is (raising under ``autograd.record()`` for an array on the
   tape, copying on write where a live graph saved it), and its versions
@@ -58,10 +69,13 @@ Where the trouble lies, and what this module does about it:
 from __future__ import annotations
 
 import ctypes
+import json
+import logging
 import os
 import re
 import threading
 import time
+import weakref
 from typing import Dict, List, NamedTuple, Sequence
 
 import torch
@@ -69,8 +83,11 @@ import torch
 from .base import MXNetError, integer_types, numeric_types
 from .context import Context
 
+_log = logging.getLogger(__name__)
+
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "parse_signature",
-           "check_dims", "check_shared_mem", "check_args"]
+           "check_dims", "check_shared_mem", "check_args", "cubin_key",
+           "cubin_path", "live_kernels"]
 
 # upstream's _DTYPE_CPP_TO_NP, and __nv_bfloat16 for the bf16 arrays
 _CPP_DTYPES = {
@@ -237,6 +254,8 @@ _NVRTC_API = {
     "nvrtcGetLoweredName": [_P, ctypes.c_char_p,
                             ctypes.POINTER(ctypes.c_char_p)],
     "nvrtcDestroyProgram": [_PP],
+    "nvrtcVersion": [ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_int)],
 }
 _CUDA_API = {
     "cuInit": [ctypes.c_uint],
@@ -288,6 +307,12 @@ class _Driver:
         raise MXNetError(f"mx.rtc: {what} not found; tried "
                          + "; ".join(tried))
 
+    def version(self) -> str:
+        """NVRTC's ``major.minor``."""
+        major, minor = ctypes.c_int(), ctypes.c_int()
+        self.rtc("nvrtcVersion", ctypes.byref(major), ctypes.byref(minor))
+        return f"{major.value}.{minor.value}"
+
     def rtc(self, name, *args) -> None:
         rc = getattr(self.nvrtc, name)(*args)
         if rc != 0:
@@ -330,12 +355,75 @@ def _driver() -> _Driver:
         return _driver_instance
 
 
+def cubin_key(source: str, options: Sequence[str], exports: Sequence[str],
+              arch: str, sm: str, nvrtc_version: str) -> str:
+    """The fingerprint a module's CUBIN is kept under: everything that
+    decides the image NVRTC would produce."""
+    from .compiler import keys
+
+    return keys.fingerprint(("nvrtc", source, tuple(options),
+                             tuple(exports), arch, sm, nvrtc_version))
+
+
+def cubin_path(fp: str, sm: str, nvrtc_version: str):
+    """Where the disk tier keeps the CUBIN of fingerprint ``fp``."""
+    from .compiler import persistent
+
+    return persistent.nvrtc_dir(sm, nvrtc_version) / f"{fp}.cubin"
+
+
+def _read_image(path, exports):
+    """``(cubin buffer, lowered names)`` from the disk tier, or None when
+    the entry is absent or incomplete."""
+    from .compiler import persistent
+
+    data = persistent.read_entry(path)
+    if data is None:
+        return None
+    lowered = {}
+    if exports:
+        names = persistent.read_entry(path.with_suffix(".names"))
+        try:
+            stored = json.loads(names.decode()) if names else None
+        except ValueError:
+            stored = None
+        if not isinstance(stored, dict) or set(stored) != set(exports):
+            return None
+        lowered = {k: v.encode() for k, v in stored.items()}
+    return ctypes.create_string_buffer(data, len(data)), lowered
+
+
+def _write_image(path, cubin, lowered) -> None:
+    """Keep a compiled image: the names first, the CUBIN last, each
+    written atomically, so a reader that finds the CUBIN finds both."""
+    from .compiler import persistent
+
+    if lowered:
+        persistent.write_atomic(path.with_suffix(".names"), json.dumps(
+            {k: v.decode() for k, v in lowered.items()}).encode())
+    persistent.write_atomic(path, cubin.raw)
+
+
+_live_kernels = weakref.WeakSet()
+
+
+def live_kernels() -> list:
+    """The :class:`CudaKernel` objects alive now (their launch counters
+    are ``kernels.launch_counters()``'s too)."""
+    return list(_live_kernels)
+
+
 class CudaModule:
     """A CUDA source compiled by NVRTC (reference: upstream
     ``mx.rtc.CudaModule``). ``options`` are NVRTC options added after the
     port's own; ``exports`` the template instantiations to compile and
-    look up by name (``"axpy<float>"``). The compile time is kept in
-    ``compile_ms``."""
+    look up by name (``"axpy<float>"``). The time to get the image (a
+    compile, a read from the disk tier, or the table's copy) is kept in
+    ``compile_ms``, where it came from in ``image_source`` (``"nvrtc"``,
+    ``"disk"`` or ``"table"``)."""
+
+    compiles = 0        # NVRTC compiles this process ran
+    disk_loads = 0      # images read back from the disk tier
 
     def __init__(self, source: str, options: Sequence[str] = (),
                  exports: Sequence[str] = ()):
@@ -348,23 +436,30 @@ class CudaModule:
                         f"-I{self._drv.include}", *options]
         self.exports = list(exports)
         t0 = time.perf_counter()
-        self._cubin, self._lowered = self._compile(source)
+        (self._cubin, self._lowered), self.image_source = _image(
+            self._drv, source, self.options, self.exports)
         self.compile_ms = (time.perf_counter() - t0) * 1e3
+        from .compiler import keys, manifest
+
+        manifest.record_signature(
+            "nvrtc", {"source": source, "options": tuple(options),
+                      "exports": tuple(self.exports)}, keys.platform())
         self._lock = threading.Lock()
         self._modules: Dict[int, ctypes.c_void_p] = {}
         self._functions: Dict[tuple, ctypes.c_void_p] = {}
 
-    def _compile(self, source: str):
-        drv = self._drv
+    @staticmethod
+    def _compile(drv, source: str, options, exports):
+        CudaModule.compiles += 1
         prog = ctypes.c_void_p()
         drv.rtc("nvrtcCreateProgram", ctypes.byref(prog), source.encode(),
                 b"mx_rtc.cu", 0, None, None)
         try:
-            for name in self.exports:
+            for name in exports:
                 drv.rtc("nvrtcAddNameExpression", prog, name.encode())
-            opts = (ctypes.c_char_p * len(self.options))(
-                *[o.encode() for o in self.options])
-            rc = drv.nvrtc.nvrtcCompileProgram(prog, len(self.options), opts)
+            opts = (ctypes.c_char_p * len(options))(
+                *[o.encode() for o in options])
+            rc = drv.nvrtc.nvrtcCompileProgram(prog, len(options), opts)
             if rc != 0:
                 size = ctypes.c_size_t()
                 drv.rtc("nvrtcGetProgramLogSize", prog, ctypes.byref(size))
@@ -379,7 +474,7 @@ class CudaModule:
             cubin = ctypes.create_string_buffer(size.value)
             drv.rtc("nvrtcGetCUBIN", prog, cubin)
             lowered = {}
-            for name in self.exports:
+            for name in exports:
                 out = ctypes.c_char_p()
                 drv.rtc("nvrtcGetLoweredName", prog, name.encode(),
                         ctypes.byref(out))
@@ -414,6 +509,57 @@ class CudaModule:
         return fn
 
 
+def _image(drv, source, options, exports):
+    """``((cubin, lowered names), where from)`` for a module: the table's
+    copy, else the disk tier's, else an NVRTC compile (kept on disk when
+    the tier is on and the compile took at least
+    ``MXNET_XLA_CACHE_MIN_COMPILE_S``)."""
+    from .compiler import keys, persistent
+    from .compiler.service import exec_table
+
+    version = drv.version()
+    sm = keys.platform().split(":")[-1]
+    fp = cubin_key(source, options, exports, ARCH, sm, version)
+    path = cubin_path(fp, sm, version) if persistent.cache_dir() else None
+    where = []
+
+    def build():
+        if path is not None:
+            got = _read_image(path, exports)
+            if got is not None:
+                CudaModule.disk_loads += 1
+                where.append("disk")
+                return got
+        t0 = time.perf_counter()
+        cubin, lowered = CudaModule._compile(drv, source, options, exports)
+        if path is not None and \
+                time.perf_counter() - t0 >= persistent.min_compile_s():
+            try:
+                _write_image(path, cubin, lowered)
+            except OSError:
+                # the tier is best-effort: an unwritable directory costs
+                # the next process a compile, never this one its module
+                _log.debug("mx.rtc: CUBIN not kept at %s", path,
+                           exc_info=True)
+        where.append("nvrtc")
+        return cubin, lowered
+
+    image = exec_table.get_or_build("nvrtc:" + fp, build)
+    return image, (where[0] if where else "table")
+
+
+def warm_spec(spec) -> str:
+    """``compiler.warm_start``'s ``nvrtc`` replay: get the module's image
+    into the table (from disk, else NVRTC) without loading it."""
+    if not torch.cuda.is_available():
+        return "skipped"
+    drv = _driver()
+    options = [f"--gpu-architecture={ARCH}", "-std=c++17",
+               f"-I{drv.include}", *spec["options"]]
+    _, where = _image(drv, spec["source"], options, list(spec["exports"]))
+    return "deduped" if where == "table" else "replayed"
+
+
 class CudaKernel:
     """A kernel of a :class:`CudaModule` with its declared parameters
     (reference: upstream ``mx.rtc.CudaKernel``). ``launches`` counts the
@@ -425,6 +571,7 @@ class CudaKernel:
         self.signature = sig
         self.launches = 0
         self._smem_enabled: Dict[int, int] = {}
+        _live_kernels.add(self)
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on ``ctx`` (a GPU context) over ``grid_dims`` blocks of

@@ -60,7 +60,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import autograd, fault, telemetry, tracing
+from .. import autograd, compiler, fault, telemetry, tracing
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..fault import _state as _fault_state
@@ -948,9 +948,8 @@ class Server:
                     r.trace.finish(type(e).__name__)
             return
         tracing.end_batch(bsp, outcome="ok")
-        # the reference marks the replica's cold-start milestone
-        # ("first_response") here; it waits for the compilation service
-        # (ROADMAP.md, port queue 1, item 10)
+        # the replica's cold-start milestone: import -> first served batch
+        compiler.mark_event("first_response")
         with self._cond:
             self.n_batches += 1
             self.close_reasons[reason] += 1
@@ -1277,6 +1276,8 @@ class Server:
                 g.span.end(outcome="ok")
                 g.span = None
             self._emit_token(g, int(np.argmax(logits[i])), t_now)
+        # a generate's first response is its first token
+        compiler.mark_event("first_response")
 
     def _decode_batch(self, chunk) -> None:
         """ONE decode step for up to max_batch active requests of ONE

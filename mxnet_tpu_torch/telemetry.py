@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/telemetry.py``: its registry of counters,
 gauges and fixed-bucket histograms, its JSON and Prometheus text
 exporters, and the recorders the port's serving, KV-cache, fault,
-retry, checkpoint and training code call, copied with their metric
-names and label sets. The HTTP exporter, the scrape parser and the
+retry, checkpoint, training and compilation-service code call, copied
+with their metric names and label sets. The HTTP exporter, the scrape parser and the
 recorders of layers the port has not ported (op dispatch, the eager and
 bulk caches, KVStore, the data pipeline, elastic training, the router
 and ingress) come with those layers.
@@ -14,8 +14,9 @@ module-level flag (``_state.enabled`` — a single attribute load + branch)
 so the disabled fast path costs one branch and allocates nothing. Enable
 with ``MXNET_TELEMETRY=1`` in the environment or ``telemetry.enable()``.
 
-:func:`xla_cost_analysis` has no counterpart (it reads an XLA
-executable's cost analysis); it raises, naming ROADMAP.md's item.
+:func:`xla_cost_analysis` keeps the reference's name and its ``{"flops":
+...}`` dict; it counts a step's forward and backward on ``meta`` copies
+(``compiler/flops.py``) and runs no update.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from .base import MXNetError
 
 __all__ = [
     "enable", "disable", "enabled", "reset",
@@ -39,6 +39,8 @@ __all__ = [
     "record_preemption", "record_kvcache_defrag", "set_kvcache_pages",
     "record_training_step", "record_optimizer_dispatch",
     "record_step_skipped", "TrainingTelemetry", "xla_cost_analysis",
+    "record_cache", "record_cache_eviction", "record_cold_start",
+    "record_warm_start",
     "record_data_wait", "set_data_queue_depth", "record_images_decoded",
     "chrome_counter_events", "record_kv", "record_kv_collective", "record_kv_bucket",
     "record_kv_bucket_fallback", "record_kv_compression",
@@ -689,6 +691,52 @@ def set_data_queue_depth(stage: str, depth: int) -> None:
           ("stage",)).labels(stage).set(depth)
 
 
+# ---------------------------------------------------------------------------
+# The compilation service (reference telemetry.py:772-823, the same names)
+# ---------------------------------------------------------------------------
+
+def record_cache(cache: str, hit: bool) -> None:
+    """One lookup in a compilation-service site cache."""
+    if not _state.enabled:
+        return
+    counter("mxnet_jit_cache_total",
+            "Compile-cache lookups by cache and result.",
+            ("cache", "result")).labels(
+                cache, "hit" if hit else "miss").inc()
+
+
+def record_cache_eviction(cache: str, n: int = 1) -> None:
+    """LRU eviction(s) from a site cache (or the disk tier,
+    ``cache="persistent"``)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_jit_cache_evictions_total",
+            "Compile-cache LRU evictions by cache.",
+            ("cache",)).labels(cache).inc(n)
+
+
+def record_cold_start(event: str, seconds: float) -> None:
+    """A cold-start milestone (``compiler.mark_event``): seconds from
+    package import to the first ``warm_start_done`` / ``first_train_step``
+    / ``first_response``. Set once per event per process."""
+    if not _state.enabled:
+        return
+    gauge("mxnet_coldstart_seconds",
+          "Seconds from package import to each first-time lifecycle "
+          "event.", ("event",)).labels(event).set(seconds)
+
+
+def record_warm_start(outcome: str, n: int = 1) -> None:
+    """Manifest warm-start replay outcomes (``replayed``: captured or
+    built now, ``deduped``: already there, ``skipped``: no provider for
+    the entry, ``failed``)."""
+    if not _state.enabled:
+        return
+    counter("mxnet_compile_warm_total",
+            "Signature-manifest warm-start entries by outcome.",
+            ("outcome",)).labels(outcome).inc(n)
+
+
 def record_training_step(seconds: float, examples: float,
                          mfu_pct: Optional[float] = None) -> None:
     if not _state.enabled:
@@ -826,15 +874,20 @@ def record_kv_overlap(when: str, n: int = 1) -> None:
 # ---------------------------------------------------------------------------
 
 def xla_cost_analysis(step, batch) -> Dict[str, float]:
-    """No counterpart: the reference reads XLA's static cost analysis of
-    a TrainStep's compiled executable. Raises :class:`MXNetError`; pass
-    ``flops_per_step`` or ``flops_per_sample`` to
-    :class:`TrainingTelemetry` instead."""
-    raise MXNetError(
-        "telemetry.xla_cost_analysis reads an XLA executable's cost "
-        "analysis and has no counterpart on the port (ROADMAP.md, port "
-        "queue 1, item 10: the compilation service); give "
-        "TrainingTelemetry flops_per_step or flops_per_sample")
+    """The FLOPs of one step of ``step`` (a ``parallel.TrainStep``) on
+    ``batch`` (``(data, label)``, each a tensor, an NDArray, a numpy
+    array or a tuple of them), as ``{"flops": n}``.
+
+    Unlike the reference's, this runs no update: the forward and the
+    backward run on ``meta`` copies of the parameters and the batch
+    under ``compiler.flops.counting()``, so nothing of the step, its
+    optimizer or the random streams moves and nothing is computed. The
+    count is of the work, whatever implements it: the matrix products
+    PyTorch dispatches, and each kernel entry point's own formula
+    (``compiler/flops.py``), so the same step counts the same on the CPU,
+    on ``meta`` and on the card; a recompute (remat, the backward's) is
+    not counted."""
+    return {"flops": float(step.count_flops(*batch, meta=True))}
 
 
 def _device_peak_flops() -> Optional[float]:
@@ -867,8 +920,8 @@ class TrainingTelemetry:
     consecutive calls, reference ``BatchEndParam`` contract).
 
     FLOP accounting: pass ``flops_per_step`` or ``flops_per_sample``
-    (6ND-style); :meth:`for_step` needs XLA's cost analysis and raises
-    (see :func:`xla_cost_analysis`). The MFU denominator is
+    (6ND-style), or build with :meth:`for_step`, which counts the step's
+    own (:func:`xla_cost_analysis`). The MFU denominator is
     ``peak_flops`` or one card's dense bf16 peak x ``num_devices``
     (default ``torch.cuda.device_count()``; None on hosts with no known
     peak — MFU is skipped then).
@@ -895,9 +948,8 @@ class TrainingTelemetry:
     @classmethod
     def for_step(cls, step, batch, batch_size: int, **kwargs
                  ) -> "TrainingTelemetry":
-        """The reference reads ``flops_per_step`` from XLA's cost
-        analysis of ``step``'s executable; the port has none, so this
-        raises (see :func:`xla_cost_analysis`)."""
+        """Build with ``flops_per_step`` counted from ``step`` on
+        ``batch`` by :func:`xla_cost_analysis` (no update runs)."""
         ca = xla_cost_analysis(step, batch)
         flops = float(ca.get("flops", 0.0)) or None
         return cls(batch_size, flops_per_step=flops, **kwargs)

@@ -39,9 +39,23 @@ Remat follows the JAX tool (``:111``): each block is rematerialised
 ``--no-remat`` turns it off, as the JAX benchmark (``bench_llama.py``)
 runs.
 
+``--compile-only`` (the JAX tool's ``_compile_only``, ``:285-334``)
+checks the recipe without its weights: the net is built under
+``gluon.parameter.abstract_init()`` on the ``meta`` device and
+``TrainStep.aot_compile`` runs the step's state code and its forward
+and backward there, so not one byte of weights reaches the card. The
+last line is the JAX tool's JSON (``config``, ``compile_only``,
+``params``, ``mesh`` (``{}`` on one card), ``batch``, ``seq``,
+``remat``, ``compile_s``, ``argument_bytes_per_device``,
+``temp_bytes_per_device``) with ``flops_per_step`` (the step's count,
+``telemetry.xla_cost_analysis``), ``fits`` (arguments and temporaries
+against ``torch.cuda.mem_get_info``'s total; None on the CPU),
+``params_in_net`` and the card's ``device_max_allocated_bytes``::
+
+    python -m mxnet_tpu_torch.tools.pretrain_llama --config 8b --compile-only
+
 Not ported yet, each raising :class:`MXNetError` with its ROADMAP.md
-item: a mesh over more than one device, ``--compile-only`` and
-``--no-fused-ce``.
+item: a mesh over more than one device and ``--no-fused-ce``.
 """
 from __future__ import annotations
 
@@ -199,22 +213,29 @@ def resolve_remat(config, remat):
 
 
 def build(config, *, ctx=None, dtype="bfloat16", lr=3e-4,
-          weight_decay=0.1, remat=None):
+          weight_decay=0.1, remat=None, abstract=False):
     """``(net, step)``: ``LlamaModel(**CONFIGS[config], fused_ce=True,
     remat=...)`` on ``ctx`` in ``dtype``, its weights drawn from seed 0,
     under a ``TrainStep`` with the pretraining tool's multi-precision
     AdamW. ``remat`` as ``--remat`` takes it (:func:`resolve_remat`:
-    None is the driver's default, on for every config but ``tiny``)."""
+    None is the driver's default, on for every config but ``tiny``).
+    ``abstract``: built under ``abstract_init()``, its parameters on the
+    ``meta`` device and nothing drawn (``--compile-only``)."""
     from .. import parallel
     from ..base import torch_dtype
     from ..context import resolve_device
     from ..gluon.model_zoo.nlp.llama import LlamaModel
+    from ..gluon.parameter import abstract_init
 
     device = resolve_device(ctx)
-    gen = torch.Generator(device=device).manual_seed(0)
-    net = LlamaModel(**CONFIGS[config], fused_ce=True, ctx=device,
-                     dtype=torch_dtype(dtype), generator=gen,
-                     remat=resolve_remat(config, remat))
+    kw = dict(CONFIGS[config], fused_ce=True, ctx=device,
+              dtype=torch_dtype(dtype), remat=resolve_remat(config, remat))
+    if abstract:
+        with abstract_init():
+            net = LlamaModel(**kw)
+    else:
+        net = LlamaModel(**kw, generator=torch.Generator(
+            device=device).manual_seed(0))
     step = parallel.TrainStep(
         net, _FusedLossPassthrough(), "adamw", loss_only=True,
         optimizer_params={"learning_rate": lr, "wd": weight_decay,
@@ -230,8 +251,6 @@ def _refuse(args) -> None:
     for flag, bad, item in (
             (f"--mesh {args.mesh}", world > 1,
              "the parallelism slice, item 11"),
-            ("--compile-only", args.compile_only,
-             "the compilation service, item 10"),
             ("--no-fused-ce", not args.fused_ce,
              "gluon/loss.py, item 6")):
         if bad:
@@ -240,6 +259,36 @@ def _refuse(args) -> None:
     if args.save_every < 1:
         raise MXNetError(f"--save-every {args.save_every}: must be at "
                          "least 1")
+
+
+def _compile_only(args, device, batch, seq, remat) -> int:
+    """``--compile-only``: the step on the ``meta`` device (see the module
+    docstring); prints the JSON line."""
+    n_params = param_count(CONFIGS[args.config])
+    t0 = time.perf_counter()
+    net, step = build(args.config, ctx=device, dtype=args.dtype, lr=args.lr,
+                      weight_decay=args.weight_decay, remat=args.remat,
+                      abstract=True)
+    tok = (torch.Size([batch, seq]), torch.int32)
+    # the fused head takes its labels as the model's second data input
+    compiled = step.aot_compile((tok, tok), ())
+    mem = compiled.memory_analysis()
+    on_card = device.type == "cuda"
+    need = mem.argument_size_in_bytes + mem.temp_size_in_bytes
+    print(json.dumps({
+        "config": args.config, "compile_only": True, "params": n_params,
+        "mesh": {}, "batch": batch, "seq": seq, "remat": bool(remat),
+        "compile_s": round(time.perf_counter() - t0, 1),
+        "argument_bytes_per_device": mem.argument_size_in_bytes,
+        "temp_bytes_per_device": mem.temp_size_in_bytes,
+        "flops_per_step": compiled.cost_analysis()["flops"],
+        "fits": need <= torch.cuda.mem_get_info(device)[1] if on_card
+        else None,
+        "params_in_net": sum(p.numel() for p in net.parameters()),
+        "device": torch.cuda.get_device_name(device) if on_card else "cpu",
+        "device_max_allocated_bytes": torch.cuda.max_memory_allocated(device)
+        if on_card else None}))
+    return 0
 
 
 def _sync(device) -> None:
@@ -281,6 +330,9 @@ def main(argv=None):
     seq = args.seq or (2048 if args.config != "tiny" else 128)
     batch = args.batch or (4 if args.config == "proxy1b" else 2)
     device = resolve_device(cpu() if args.ctx == "cpu" else None)
+    if args.compile_only:
+        return _compile_only(args, device, batch, seq,
+                             resolve_remat(args.config, args.remat))
     data = _make_data(args.data, batch, seq, cfg["vocab_size"], device)
     remat = resolve_remat(args.config, args.remat)
     # build resolves --remat itself: given the resolved None (--no-remat)

@@ -495,7 +495,8 @@ def test_proxy1b_preset_and_ce_chunk():
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "dp=2"], "item 11"),
-    (["--compile-only"], "item 10"),
+    # --compile-only is ported: it refuses what the live path refuses
+    (["--compile-only", "--no-fused-ce"], "item 6"),
     # --data and --save-dir are ported: what they refuse now
     (["--data", "no-such-tokens.rec"], "cannot open"),
     (["--save-dir", "ckpt", "--save-every", "0"], "--save-every"),
