@@ -323,6 +323,29 @@ package. Phases, each printing JSON lines and failing loudly:
              byte for byte, the AOT temp bytes beside the live peak less
              the arguments, the FLOPs within 1% of the analytic count,
              MFU beside the step's ms;
+17i. rnn — the RNN op's card route (one cuDNN call per layer) against
+             its plain step loop on the CPU, f32 with TF32 off, every
+             mode and direction at 2 layers, seq 35, batch 8, width 64:
+             outputs, states and gradients within RNN_F32_LIMIT of the
+             largest magnitude (1e-5 for rnn_relu, 5e-5 where cuDNN's
+             sigmoid/tanh run; both routes' distance from the step loop
+             in f64 printed; in bf16 the card within 2^-7 of the f64
+             loop or 1.5x the bf16 loop's distance), 2 cuDNN calls a
+             call, cuDNN's RNN kernels
+             named by the profiler, the inter-layer hash dropout's seeds
+             and masks the CPU's at p = 0.5; cuDNN's ms per layer beside
+             the step loop's on the card at the word LM's (35, 32, 650);
+17j. word_lm — MXNet's word language model at its 650-wide line
+             (Embedding(33278, 650), 2-layer LSTM with dropout 0.5, the
+             decoder tied to the embedding, 28.4M f32 parameters) over a
+             Zipf token stream: two clipped SGD steps on the card against
+             the CPU (losses to 1e-5, deltas to 1e-3, TF32 off), 25 steps
+             on the card (the loss falling over the first 5; exactly 3
+             hash_dropout, 3 hash_dropout_bwd, 1 SGD sweep and 2 cuDNN
+             layer calls a step; tokens/s, host/device ms and idle
+             share, device ms by kind, the CE head's ms, peak memory),
+             and evaluation through the hybridized LSTM (graph = eager
+             bit for bit, one capture);
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
              hash_dropout and twobit_quantize beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
@@ -7153,6 +7176,485 @@ def phase_compile_only(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17i-17j. the recurrent stack: the RNN op's cuDNN route, MXNet's word LM
+# ---------------------------------------------------------------------------
+
+RNN_MODES = ("rnn_relu", "rnn_tanh", "lstm", "gru")
+# the card route against the f32 step loop, relative to the largest
+# magnitude: cuDNN's sigmoid and tanh read up to 2.0e-5 against an f64
+# step loop on the H100 (the f32 loop 1.1e-6), relu, which calls neither,
+# 2.5e-7
+RNN_F32_LIMIT = {"rnn_relu": 1e-5, "rnn_tanh": 5e-5, "lstm": 5e-5,
+                 "gru": 5e-5}
+# MXNet's example/gluon/word_language_model at its 650-wide line (the
+# medium model of Zaremba et al. 2014) over WikiText-2's vocabulary
+WORD_LM = dict(vocab=33278, emb=650, hidden=650, layers=2, dropout=0.5,
+               batch=32, bptt=35, lr=1.0, clip=0.25)
+
+
+def _tf32(on: bool) -> tuple:
+    """Set both TF32 switches; returns the previous (matmul, cudnn)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    return prev
+
+
+def _restore_tf32(prev) -> None:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def _rnn_case(mode, bidirectional, layers, seq, batch, width, seed,
+              p=0.0, train=False, dtype=torch.float32):
+    """The RNN op on the card and on the CPU (the step loop) over the
+    same inputs in ``dtype``, forward and backward for a random head
+    gradient, and the step loop in f64; returns ({"card_vs_cpu", "card_vs_f64",
+    "cpu_vs_f64"}: the worst error of outputs, states and gradients
+    relative to each one's largest magnitude, the cuDNN route's calls on
+    the card, the seeds each device drew)."""
+    from mxnet_tpu_torch import autograd, random_state
+    from mxnet_tpu_torch.ops import rnn as prnn
+
+    rs = np.random.RandomState(seed)
+    dirs = 2 if bidirectional else 1
+    n = prnn.rnn_param_size(mode, layers, width, width, bidirectional)
+    arrays = [rs.randn(seq, batch, width), rs.randn(n) * 0.1,
+              rs.randn(layers * dirs, batch, width),
+              rs.randn(layers * dirs, batch, width)][:4 if mode == "lstm"
+                                                     else 3]
+    heads = [rs.randn(seq, batch, width * dirs),
+             rs.randn(layers * dirs, batch, width),
+             rs.randn(layers * dirs, batch, width)]
+    kw = dict(state_size=width, num_layers=layers, mode=mode,
+              bidirectional=bidirectional, p=p)
+    got = {}
+    # every route starts from the same values: dtype's rounding of them
+    arrays = [torch.from_numpy(a).to(dtype) for a in arrays]
+    for dev, dt in (("cuda", dtype), ("cpu", dtype),
+                    ("f64", torch.float64)):
+        ts = [a.to("cpu" if dev == "f64" else dev, dt, copy=True)
+              .requires_grad_() for a in arrays]
+        before = prnn.cudnn_rnn_layer.launches
+        with autograd.train_mode() if train else autograd.predict_mode(), \
+                random_state.scoped_seed(SEED + seed), \
+                random_state.seed_tape() as seeds:
+            outs = prnn.rnn(*ts, **kw)
+        calls = prnn.cudnn_rnn_layer.launches - before
+        torch.autograd.backward(outs, [
+            torch.from_numpy(h).to(dtype).to(ts[0].device, dt)
+            for h in heads[:len(outs)]])
+        got[dev] = ([o.detach().double().cpu() for o in outs]
+                    + [t.grad.double().cpu() for t in ts], calls,
+                    list(seeds))
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()
+                         / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(got[a][0], got[b][0]))
+
+    if got["cpu"][1] != 0 or got["f64"][1] != 0:
+        fail(f"rnn: the CPU route called cuDNN ({got['cpu'][1]})")
+    errs = {"card_vs_cpu": worst("cuda", "cpu"),
+            "card_vs_f64": worst("cuda", "f64"),
+            "cpu_vs_f64": worst("cpu", "f64")}
+    return errs, got["cuda"][1], got["cuda"][2], got["cpu"][2]
+
+
+def _rnn_kind(name) -> str:
+    """_kind, with cuDNN's RNN kernels apart (torch's own fused LSTM/GRU
+    cell kernels, ``at::native``, are not cuDNN's)."""
+    low = name.lower()
+    if any(k in low for k in ("rnn", "lstm", "gru")) \
+            and "at::native" not in name:
+        return "cudnn_rnn"
+    return _kind(name)
+
+
+def _layer_ms(fn, iters=20) -> float:
+    """fn's ms per call on the card from CUDA events, after 3 calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_rnn(card: str) -> dict:
+    """The RNN op's card route (one cuDNN call per layer) against the
+    plain step loop on the CPU: f32, TF32 off, every mode and direction
+    at 2 layers, seq 35, batch 8, width 64; outputs, states and every
+    gradient to RNN_F32_LIMIT of the largest magnitude (each route's
+    distance from the step loop in f64 beside it); in bf16 the card no
+    farther from the f64 loop than 2^-7 of the largest magnitude or 1.5
+    times the bf16 step loop's distance; the route's counter
+    moved by exactly 2 a call; the profiler naming cuDNN's RNN kernels;
+    at p = 0.5 in training both devices draw the same inter-layer seeds
+    and the kernel's masks at that shape are the plain version's bit for
+    bit.
+    Record: cuDNN's ms per layer and the step loop's ms on the card at
+    the word LM's (35, 32, 650), forward and forward + backward."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.kernels import hash_dropout, hash_dropout_reference
+    from mxnet_tpu_torch.ops import rnn as prnn
+
+    gc.collect()
+    t0 = time.perf_counter()
+    prev = _tf32(False)
+    errs, over = {}, []
+    for mode in RNN_MODES:
+        for bi in (False, True):
+            err, calls, _, _ = _rnn_case(mode, bi, 2, 35, 8, 64, seed=1)
+            errs[f"{mode}{'_bi' if bi else ''}"] = err
+            if calls != 2:
+                fail(f"rnn: {mode} bidirectional={bi}: {calls} cuDNN "
+                     "calls for 2 layers")
+            if not err["card_vs_cpu"] <= RNN_F32_LIMIT[mode]:
+                over.append(mode)
+    if over:
+        fail(f"rnn: card against the step loop {errs} (limits "
+             f"{RNN_F32_LIMIT})")
+    # bf16: each route's distance from the f64 step loop; the card may be
+    # no farther than 2^-7 or 1.5x the bf16 step loop's distance
+    bf16 = {}
+    for mode in RNN_MODES:
+        for bi in (False, True):
+            err, _, _, _ = _rnn_case(mode, bi, 2, 35, 8, 64, seed=3,
+                                     dtype=torch.bfloat16)
+            bf16[f"{mode}{'_bi' if bi else ''}"] = err
+    if any(e["card_vs_f64"] > max(BF16_ULP, 1.5 * e["cpu_vs_f64"])
+           for e in bf16.values()):
+        fail(f"rnn: bf16 card against the f64 step loop {bf16}")
+    drop_errs, masks_equal = {}, True
+    for mode in ("lstm", "gru"):
+        err, _, card_seeds, cpu_seeds = _rnn_case(
+            mode, True, 3, 35, 8, 64, seed=2, p=0.5, train=True)
+        drop_errs[mode] = err
+        if card_seeds != cpu_seeds or len(card_seeds) != 2:
+            fail(f"rnn: inter-layer seeds {card_seeds} on the card, "
+                 f"{cpu_seeds} on the CPU")
+        for s in card_seeds:
+            ones = torch.ones(35, 8, 128)
+            masks_equal &= torch.equal(
+                hash_dropout(ones.cuda(), 0.5, s).cpu(),
+                hash_dropout_reference(ones, 0.5, s))
+    if not masks_equal or any(e["card_vs_cpu"] > RNN_F32_LIMIT[m]
+                              for m, e in drop_errs.items()):
+        fail(f"rnn: dropout between layers: masks equal {masks_equal}, "
+             f"errors {drop_errs}")
+    # the profiler names cuDNN's kernels, forward and backward
+    x = torch.randn(35, 8, 64, device="cuda", requires_grad=True)
+    w = (torch.randn(prnn.rnn_param_size("lstm", 2, 64, 64, True),
+                     device="cuda") * 0.1).requires_grad_()
+    h = torch.zeros(4, 8, 64, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = prnn.rnn(x, w, h, h, state_size=64, num_layers=2,
+                       mode="lstm", bidirectional=True)
+        out[0].sum().backward()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if _rnn_kind(e.key) == "cudnn_rnn"})
+    if not names:
+        fail("rnn: the profiler saw no cuDNN RNN kernel: "
+             f"{sorted({e.key[:60] for e in prof.key_averages()})}")
+    # the word LM's layer: cuDNN against the step loop on the card
+    _restore_tf32(prev)
+    seq, batch, width = WORD_LM["bptt"], WORD_LM["batch"], WORD_LM["hidden"]
+    xs = torch.randn(seq, batch, width, device="cuda", requires_grad=True)
+    ws = (torch.randn(prnn.rnn_param_size("lstm", 1, width, width, False),
+                      device="cuda") * 0.04).requires_grad_()
+    h0 = torch.zeros(1, batch, width, device="cuda")
+    layer_ws = prnn._slice_params(ws, "lstm", 1, width, width, 1)[0]
+    timing = {}
+    for route, call in (
+            ("cudnn", lambda: prnn.cudnn_rnn_layer("lstm", xs, h0, h0,
+                                                   layer_ws)[0]),
+            ("step_loop", lambda: prnn._plain_layer("lstm", xs, h0, h0,
+                                                    layer_ws)[0])):
+        with torch.no_grad():
+            fwd = _layer_ms(call)
+        timing[route] = {"fwd_ms": fwd,
+                         "fwd_bwd_ms": _layer_ms(
+                             lambda: call().sum().backward())}
+    emit({"phase": "rnn", "card": card, "tf32": False,
+          "max_rel_err": errs, "limits": RNN_F32_LIMIT,
+          "bf16_max_rel_err": bf16,
+          "dropout_max_rel_err": drop_errs, "masks_bit_equal": masks_equal,
+          "cudnn_calls_per_call": 2, "cudnn_kernels": [n[:80] for n in names],
+          "lm_layer_shape": [seq, batch, width],
+          "lm_layer_ms": timing,
+          "lm_layer_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                            "cudnn": torch.backends.cudnn.allow_tf32},
+          "seconds": time.perf_counter() - t0})
+    return errs
+
+
+def _word_lm_model(mx, vocab, cfg):
+    """``example/gluon/word_language_model``'s RNNModel: the embedding,
+    dropout, the LSTM with dropout between its layers, dropout, and the
+    decoder tied to the embedding through ``params=``."""
+    gl = mx.gluon
+
+    class RNNModel(gl.Block):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.drop = gl.nn.Dropout(cfg["dropout"])
+                self.encoder = gl.nn.Embedding(vocab, cfg["emb"])
+                self.rnn = gl.rnn.LSTM(cfg["hidden"], cfg["layers"],
+                                       dropout=cfg["dropout"],
+                                       input_size=cfg["emb"])
+                self.decoder = gl.nn.Dense(vocab, in_units=cfg["hidden"],
+                                           params=self.encoder.params)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return (self.decoder(output.reshape((-1, cfg["hidden"]))),
+                    hidden)
+
+    return RNNModel()
+
+
+def _zipf_stream(vocab, n_tokens, batch, seed):
+    """A Zipf(1)-distributed token stream over ``vocab`` ids (ranks
+    mapped to ids by a permutation), laid out (length, batch) as the
+    example's batchify does."""
+    rs = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    ids = rs.permutation(vocab)[rs.choice(vocab, size=n_tokens, p=p / p.sum())]
+    n = n_tokens // batch
+    return ids[:n * batch].reshape(batch, n).T.astype(np.float32)
+
+
+class _WordLMLoop:
+    """The example's training loop over segments of ``stream``: the state
+    detached between segments, mean token cross-entropy under
+    ``autograd.record()``, ``loss.backward()``, ``clip_global_norm`` of
+    the gradients, ``trainer.step(1)``. ``seed_base``: each step runs
+    under ``random_state.scoped_seed(seed_base + step)``, so two devices
+    draw the same dropout seeds."""
+
+    def __init__(self, mx, model, stream, ctx, seed_base):
+        self.mx, self.model, self.ctx = mx, model, ctx
+        self.stream, self.seed_base = stream, seed_base
+        self.params = model.collect_params()
+        self.trainer = mx.gluon.Trainer(self.params, "sgd",
+                                        {"learning_rate": WORD_LM["lr"]})
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.hidden = model.rnn.begin_state(stream.shape[1], ctx=ctx)
+        self.step_no = 0
+        self.segments = []
+        bptt = WORD_LM["bptt"]
+        for i in range(0, stream.shape[0] - 1 - bptt + 1, bptt):
+            self.segments.append((mx.nd.array(stream[i:i + bptt], ctx=ctx),
+                                  mx.nd.array(stream[i + 1:i + 1 + bptt]
+                                              .reshape(-1), ctx=ctx)))
+
+    def step(self):
+        from mxnet_tpu_torch import random_state
+
+        mx = self.mx
+        data, target = self.segments[self.step_no % len(self.segments)]
+        self.hidden = [h.detach() for h in self.hidden]
+        with random_state.scoped_seed(self.seed_base + self.step_no):
+            with mx.autograd.record():
+                out, self.hidden = self.model(data, self.hidden)
+                loss = self.loss_fn(out, target).mean()
+            loss.backward()
+        mx.gluon.utils.clip_global_norm(
+            [p.grad() for p in self.params.values()], WORD_LM["clip"])
+        self.trainer.step(1)
+        self.step_no += 1
+        return loss
+
+
+def _wlm_values(model) -> dict:
+    return {k: p.data()._data.detach().float().cpu().clone()
+            for k, p in model._collect_params_with_prefix().items()}
+
+
+def _word_lm_counts() -> dict:
+    from mxnet_tpu_torch.ops import rnn as prnn
+
+    out = {k: v for k, v in _train_counts().items()
+           if k in ("hash_dropout", "hash_dropout_bwd", "fused_sgd_sweep")}
+    out["cudnn_rnn_layer"] = prnn.cudnn_rnn_layer.launches
+    return out
+
+
+def _reset_word_lm_counts() -> None:
+    from mxnet_tpu_torch.ops import rnn as prnn
+
+    _reset_train_counts()
+    prnn.cudnn_rnn_layer.launches = 0
+
+
+def phase_word_lm(card: str) -> dict:
+    """MXNet's word language model at its 650-wide line, not cut (the
+    vocabulary WikiText-2's 33278, ~28M f32 parameters), over a Zipf
+    token stream from SEED. Gate 1: two steps on the card against the
+    same two on the CPU, f32 with TF32 off, the same weights (a .params
+    file) and dropout seeds: each loss within 1e-5 relative, every
+    parameter's delta within 1e-3 by norm ratio. Gate 2: 25 steps on the
+    card at the process's TF32 settings (printed: off since the kernels
+    phase in a whole run, torch's defaults when the phase runs alone),
+    the loss finite and
+    each of steps 2-5 below step 1's; over the 20 timed steps exactly 3
+    hash_dropout and 3 hash_dropout_bwd launches, one SGD sweep and two
+    cuDNN layer calls per step. Record: tokens/s, ms per step, host
+    against device ms and the idle share, device ms by kind, the CE
+    head's own device ms, peak memory. Gate 3: predict through the
+    hybridized LSTM: four segments through the graph equal to the eager
+    forward bit for bit, one capture, none after, two cuDNN calls per
+    replay."""
+    import gc
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as prnn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, vocab = WORD_LM, WORD_LM["vocab"]
+    batch, bptt = cfg["batch"], cfg["bptt"]
+    gpu = mx.gpu(0)
+    stream = _zipf_stream(vocab, batch * (bptt * 40 + 1), batch, SEED + 19)
+    mx.random.seed(SEED + 19)
+    model = _word_lm_model(mx, vocab, cfg)
+    model.initialize(mx.init.Uniform(0.1), ctx=gpu)
+    model(mx.nd.array(stream[:bptt], ctx=gpu),
+          model.rnn.begin_state(batch, ctx=gpu))
+    n_params = sum(int(np.prod(p.shape))
+                   for p in model.collect_params().values())
+    # gate 1: card against CPU, f32, TF32 off
+    prev = _tf32(False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wlm.params")
+        model.save_parameters(path)
+        cpu_model = _word_lm_model(mx, vocab, cfg)
+        cpu_model.load_parameters(path, ctx=mx.cpu())
+        card_ref = _word_lm_model(mx, vocab, cfg)
+        card_ref.load_parameters(path, ctx=gpu)
+    w0 = _wlm_values(card_ref)
+    runs, cpu_s = {}, 0.0
+    for name, net, ctx in (("card", card_ref, gpu),
+                           ("cpu", cpu_model, mx.cpu())):
+        loop = _WordLMLoop(mx, net, stream, ctx, SEED + 190)
+        t1 = time.perf_counter()
+        losses = [float(loop.step().asnumpy()) for _ in range(2)]
+        if name == "cpu":
+            cpu_s = time.perf_counter() - t1
+        runs[name] = (losses, _wlm_values(net))
+    _restore_tf32(prev)
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(runs["card"][0], runs["cpu"][0]))
+    delta_err = {}
+    for k, w in w0.items():
+        d_card, d_cpu = runs["card"][1][k] - w, runs["cpu"][1][k] - w
+        delta_err[k] = float((d_card - d_cpu).norm()
+                             / d_cpu.norm().clamp_min(1e-30))
+    del card_ref, cpu_model, runs
+    gc.collect()
+    emit({"phase": "word_lm_reference", "card": card, "tf32": False,
+          "vocab": vocab, "params": n_params, "cpu_seconds_2_steps": cpu_s,
+          "loss_max_rel_err": loss_err, "delta_max_rel_err":
+          max(delta_err.values()), "delta_rel_err": delta_err})
+    if not loss_err <= 1e-5 or not max(delta_err.values()) <= 1e-3:
+        fail(f"word_lm: card against CPU: loss {loss_err}, deltas "
+             f"{delta_err}")
+    # gate 2: 25 steps at the process's TF32 settings
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    loop = _WordLMLoop(mx, model, stream, gpu, SEED + 191)
+    losses = [float(loop.step().asnumpy()) for _ in range(5)]
+    if not all(np.isfinite(losses)) or not max(losses[1:]) < losses[0]:
+        fail(f"word_lm: the loss over the first 5 steps: {losses}")
+    timed = 20
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_word_lm_counts()
+    t1 = time.perf_counter()
+    for _ in range(timed):
+        last = loop.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / timed
+    counts = _word_lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses.append(float(last.asnumpy()))
+    want = {"hash_dropout": 3 * timed, "hash_dropout_bwd": 3 * timed,
+            "fused_sgd_sweep": timed, "cudnn_rnn_layer": 2 * timed}
+    if counts != want:
+        fail(f"word_lm: launches over {timed} steps {counts}, want {want}")
+    breakdown = _device_breakdown(loop.step, 5, n_top=10, kind=_rnn_kind)
+    # the CE head alone: the loss forward and backward on the step's logits
+    logits = torch.randn(batch * bptt, vocab, device="cuda",
+                         requires_grad=True)
+    labels = torch.from_numpy(stream[1:bptt + 1].reshape(-1)).cuda()
+
+    def ce():
+        loop.loss_fn(logits, labels).mean().backward()
+
+    ce_ms = _layer_ms(ce)
+    # gate 3: predict through the hybridized LSTM
+    hidden = model.rnn.begin_state(batch, ctx=gpu)
+    evals = loop.segments[:4]
+
+    def evaluate():
+        h, outs = hidden, []
+        for data, _ in evals:
+            out, h = model(data, h)
+            outs += [out] + list(h)
+        return [o._data.detach().float().cpu() for o in outs]
+
+    eager = evaluate()
+    model.rnn.hybridize()
+    before = prnn.cudnn_rnn_layer.launches
+    first = evaluate()
+    graph = model.rnn.cached_graph
+    captures = graph.captures
+    mid = prnn.cudnn_rnn_layer.launches
+    again = evaluate()
+    per_replay = (prnn.cudnn_rnn_layer.launches - mid) / len(evals)
+    same = all(torch.equal(a, b) for a, b in zip(eager, first)) and all(
+        torch.equal(a, b) for a, b in zip(eager, again))
+    model.rnn.hybridize(False)
+    tokens = batch * bptt
+    emit({"phase": "word_lm", "card": card, "config": cfg,
+          "reduced": [], "data": "Zipf(1) token stream over the vocabulary "
+          "from SEED (no dataset in the repo)", "params": n_params,
+          "tf32": tf32, "losses_first_5_and_last": losses,
+          "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+          "launches_per_step": {k: v / timed for k, v in counts.items()},
+          "peak_memory_bytes": peak, "ce_head_fwd_bwd_ms": ce_ms,
+          **breakdown,
+          "eval_graph_equals_eager": same, "eval_captures": captures,
+          "eval_captures_after": graph.captures,
+          "eval_cudnn_calls_first_pass": mid - before,
+          "eval_cudnn_calls_per_replay": per_replay,
+          "seconds": time.perf_counter() - t0})
+    if not same or captures != 1 or graph.captures != 1 \
+            or per_replay != 2:
+        fail(f"word_lm: hybridized eval: equal {same}, captures "
+             f"{captures} then {graph.captures}, {per_replay} cuDNN calls "
+             "per replay")
+    return {k: counts[k] for k in ("hash_dropout", "hash_dropout_bwd",
+                                   "fused_sgd_sweep")}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -7204,6 +7706,8 @@ def main() -> None:
     data_image = phase_data_image(card)
     coldstart = phase_coldstart(card)
     phase_compile_only(card)
+    phase_rnn(card)
+    word_lm = phase_word_lm(card)
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -7306,7 +7810,8 @@ def main() -> None:
                           ("data_resnet", data_resnet),
                           ("data_gluon", data_gluon),
                           ("data_image", data_image),
-                          ("coldstart", coldstart)):
+                          ("coldstart", coldstart),
+                          ("word_lm", word_lm)):
             if got.get(name):
                 by_path[path] = got[name]
         if name == "fused_adamw_sweep":
@@ -7320,6 +7825,9 @@ def main() -> None:
             by_path["bert_train_dropout"] = {
                 "hash_dropout": train_drop["hash_dropout"],
                 "hash_dropout_bwd": train_drop["hash_dropout_bwd"]}
+            by_path["word_lm"] = {
+                "hash_dropout": word_lm["hash_dropout"],
+                "hash_dropout_bwd": word_lm["hash_dropout_bwd"]}
             launches = sum(by_path["bert_train_dropout"].values())
         rec = {"name": name, "route": "cuda", "source": csrc + src,
                "replaces": site, "launches": launches,

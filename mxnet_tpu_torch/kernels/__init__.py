@@ -45,12 +45,14 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
 
 def launch_counters() -> dict:
     """``{(wrapper, attribute): count}`` over every launch counter of the
-    kernel wrappers above (``launches``, ``wgmma_launches``, ...) and of
-    each live ``mx.rtc`` kernel: what a CUDA graph capture puts back and
-    each replay adds again."""
+    kernel wrappers above (``launches``, ``wgmma_launches``, ...), of
+    each live ``mx.rtc`` kernel and of the RNN op's cuDNN route: what a
+    CUDA graph capture puts back and each replay adds again."""
     from .. import rtc
+    from ..ops.rnn import cudnn_rnn_layer
 
     out = {(k, "launches"): k.launches for k in rtc.live_kernels()}
+    out[(cudnn_rnn_layer, "launches")] = cudnn_rnn_layer.launches
     for name in __all__:
         fn = globals()[name]
         for attr, v in vars(fn).items():

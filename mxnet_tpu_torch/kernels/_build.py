@@ -310,11 +310,31 @@ def graph_kernel_names(graph) -> list:
     return names
 
 
+_WARMUP_STREAMS = {}
+
+
+def _warmup_stream(device):
+    """The one side stream of ``device`` that every capture's warm-up
+    call runs on. torch keeps a cuBLAS workspace per (handle, stream), so
+    a new stream per capture would leave one more workspace behind at
+    each capture."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    side = _WARMUP_STREAMS.get(index)
+    if side is None:
+        side = _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
+    return side
+
+
 def capture_graph(body, device, pool, what):
     """Capture ``body()`` into a ``torch.cuda.CUDAGraph`` on ``device``,
     in the memory pool ``pool``: every graph of the port is captured so.
-    One eager call on a side stream comes first (cuBLAS workspaces, every
-    kernel module loaded: a lazy load inside a capture stalls); the
+    One eager call on the device's warm-up stream comes first (cuBLAS
+    workspaces, every kernel module loaded: a lazy load inside a capture
+    stalls); the
     capture runs with the cyclic GC off (a graph freed inside another
     capture, ``cudaGraphExecDestroy``, would invalidate it). A capture
     launches nothing, so the kernel wrappers' launch counters are put
@@ -328,7 +348,7 @@ def capture_graph(body, device, pool, what):
 
     from . import launch_counters
 
-    side = torch.cuda.Stream(device)
+    side = _warmup_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         body()

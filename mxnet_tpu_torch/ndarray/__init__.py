@@ -18,6 +18,8 @@ from ..context import Context
 from ..ops import elemwise as _elemwise  # noqa: F401  (registers the ops)
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_op as _optimizer_op  # noqa: F401
+from ..ops import rnn as _rnn  # noqa: F401
+from ..ops import spatial as _spatial  # noqa: F401
 from ..ops import tensor as _tensor  # noqa: F401
 from ..ops.registry import get_op, list_ops, render_attr_docs
 from .ndarray import NDArray, array, empty, imperative_invoke, waitall

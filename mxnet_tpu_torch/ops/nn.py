@@ -598,3 +598,207 @@ def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
         return torch.where(pos, data,
                            (lower_bound + upper_bound) / 2.0 * data)
     raise MXNetError(f"LeakyReLU: act_type {act_type!r} is not known")
+
+
+# ---------------------------------------------------------------------------
+# the ops a training loop meets (reference ops/nn.py:817-1191): the
+# output heads and make_loss keep the reference's hand-written VJPs,
+# which ignore the head gradient, as torch.autograd.Functions whose
+# backward is the reference's bwd on both devices
+# ---------------------------------------------------------------------------
+
+
+@register("LRN")
+def lrn(data, *, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Cross-channel local response normalisation of an NCHW input:
+    ``data / (knorm + alpha * sum(window of data^2) / nsize) ** beta``
+    (reference ``:817``)."""
+    sq = data.square()
+    half = nsize // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    acc = torch.zeros_like(data)
+    for i in range(nsize):
+        acc = acc + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + alpha * acc / nsize, beta)
+
+
+@register("softmin")
+def softmin(data, *, axis=-1, temperature=None, dtype=None):
+    """``softmax(-data)`` (reference ``:900``)."""
+    return softmax(-data, axis=axis, temperature=temperature, dtype=dtype)
+
+
+_F32_MIN = float(torch.finfo(torch.float32).min)
+
+
+@register("masked_softmax")
+def masked_softmax(data, mask, *, axis=-1, temperature=1.0, normalize=True):
+    """Softmax over the positions where ``mask`` is true, in f32; masked
+    positions and fully masked rows give 0 (reference ``:905``). With
+    ``normalize=False``, ``exp`` on the kept positions."""
+    m = mask.to(torch.bool)
+    x = data if temperature in (None, 1.0) else data / temperature
+    if not normalize:
+        return torch.where(m, torch.exp(x), 0.0).to(data.dtype)
+    out = torch.softmax(torch.where(m, x.float(), _F32_MIN), dim=axis)
+    return torch.where(m, out, 0.0).to(data.dtype)
+
+
+@register("masked_log_softmax")
+def masked_log_softmax(data, mask, *, axis=-1, temperature=1.0):
+    """The log of :func:`masked_softmax`, -inf at masked positions
+    (reference ``:925``)."""
+    m = mask.to(torch.bool)
+    x = data if temperature in (None, 1.0) else data / temperature
+    out = torch.log_softmax(torch.where(m, x.float(), _F32_MIN), dim=axis)
+    return torch.where(m, out, float("-inf")).to(data.dtype)
+
+
+def _label_grad(ctx, label):
+    """The label's gradient of the reference's heads: zeros."""
+    return torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+
+
+def _one_hot(label, n, dtype):
+    """``jax.nn.one_hot(label.astype(int32), n)``: a label out of [0, n)
+    gives a zero row."""
+    idx = label.to(torch.int32).to(torch.int64).unsqueeze(-1)
+    return (idx == torch.arange(n, device=label.device)).to(dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax over the last axis; the backward is ``(prob -
+    one_hot(label)) * grad_scale`` normalised as ``normalization`` says,
+    whatever the head gradient (reference ``_make_softmax_output``,
+    ``:938``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        prob = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(prob, label)
+        ctx.cfg = cfg
+        return prob
+
+    @staticmethod
+    def backward(ctx, g):
+        prob, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, smooth_alpha, norm = ctx.cfg
+        n_class = prob.shape[-1]
+        onehot = _one_hot(label, n_class, prob.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1 - smooth_alpha) \
+                + smooth_alpha / (n_class - 1) * (1 - onehot)
+        grad = prob - onehot
+        valid = None
+        if use_ignore:
+            mask = (label != ignore_label).to(prob.dtype)
+            grad = grad * mask[..., None]
+            valid = torch.clamp(mask.sum(), min=1.0)
+        if norm == "valid":
+            denom = valid if valid is not None else float(
+                prob[..., 0].numel())
+            grad = grad / denom
+        elif norm == "batch":
+            grad = grad / float(prob.shape[0])
+        return grad * grad_scale, _label_grad(ctx, label), None
+
+
+@register("SoftmaxOutput", aliases=["Softmax"], attrs=[
+    attr("normalization", str, "How the gradient is normalised.",
+         choices=("null", "batch", "valid")),
+])
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """The softmax head with the cross-entropy gradient (reference
+    ``:981``): over axis 1 with ``multi_output``, over every axis but the
+    first for a >2-d input unless ``preserve_shape``, else the last."""
+    cfg = (grad_scale, ignore_label, use_ignore, smooth_alpha, normalization)
+    if multi_output:
+        x = torch.movedim(data, 1, -1)
+        return torch.movedim(_SoftmaxOutput.apply(x, label, cfg), -1, 1)
+    if data.dim() > 2 and not preserve_shape:
+        flat = data.reshape(data.shape[0], -1)
+        return _SoftmaxOutput.apply(flat, label, cfg).reshape(data.shape)
+    return _SoftmaxOutput.apply(data, label, cfg)
+
+
+class _MakeLoss(torch.autograd.Function):
+    """The identity whose gradient is ``grad_scale`` everywhere, in f32
+    (cast to the input's dtype), whatever the head gradient (reference
+    ``:1002``)."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale):
+        ctx.grad_scale = grad_scale
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full(g.shape, ctx.grad_scale, dtype=torch.float32,
+                          device=g.device), None
+
+
+@register("make_loss", aliases=["MakeLoss"])
+def make_loss(data, *, grad_scale=1.0, valid_thresh=0.0,
+              normalization="null"):
+    return _MakeLoss.apply(data, grad_scale)
+
+
+@register("BlockGrad", aliases=["stop_gradient"])
+def block_grad(data):
+    """The identity with no gradient (reference ``:1019``)."""
+    return data.detach()
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """``out = fwd(data)``; the backward is ``bwd(out or data, label) *
+    grad_scale`` whatever the head gradient (reference ``:1138-1188``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out if kind == "logistic" else data, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        if ctx.kind == "linear":
+            grad = (x - y) * ctx.grad_scale / 1.0
+        elif ctx.kind == "mae":
+            d = x - y                   # jnp.sign keeps NaN, torch's is 0
+            grad = torch.where(torch.isnan(d), d, torch.sign(d)) \
+                * ctx.grad_scale
+        else:
+            grad = (x - y) * ctx.grad_scale
+        return grad, _label_grad(ctx, y), None, None
+
+
+@register("LinearRegressionOutput")
+def linear_regression_output(data, label, *, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label.reshape(data.shape), "linear",
+                                   grad_scale)
+
+
+@register("MAERegressionOutput")
+def mae_regression_output(data, label, *, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label.reshape(data.shape), "mae",
+                                   grad_scale)
+
+
+@register("LogisticRegressionOutput")
+def logistic_regression_output(data, label, *, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label.reshape(data.shape),
+                                   "logistic", grad_scale)
+
+
+@register("smooth_l1")
+def smooth_l1(data, *, scalar=1.0):
+    """``0.5 s^2 x^2`` where ``|x| < 1 / s^2``, else ``|x| - 0.5 / s^2``
+    (reference ``:1191``)."""
+    s2 = scalar * scalar
+    return torch.where(torch.abs(data) < 1.0 / s2,
+                       0.5 * s2 * data.square(),
+                       torch.abs(data) - 0.5 / s2)

@@ -7,9 +7,9 @@ view (``Reshape``, ``transpose``, ``broadcast_to``...):
 ``ndarray.imperative_invoke`` copies an output that aliases an input, as
 the reference's outputs are new arrays. Only ``NDArray.reshape`` and
 basic indexing give views. The creation ops take the device to create
-on as their ``device`` attribute. The ``_linalg_*`` ops, the
-``Sequence*`` ops, ``gather_nd``/``scatter_nd``, ``boolean_mask`` and
-the contrib ops wait (ROADMAP.md, port queue 1, item 4).
+on as their ``device`` attribute. The ``_linalg_*`` ops,
+``gather_nd``/``scatter_nd``, ``boolean_mask`` and the contrib ops wait
+(ROADMAP.md, port queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -255,6 +255,97 @@ def swapaxes(data, *, dim1=0, dim2=0):
     return data.transpose(dim1, dim2)
 
 
+@register("depth_to_space")
+def depth_to_space(data, *, block_size=1):
+    """(n, c, h, w) -> (n, c / b^2, h b, w b): the channel blocks moved
+    into the spatial axes in DCR order (reference ``ops/tensor.py:212``)."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, b, b, c // (b * b), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def space_to_depth(data, *, block_size=1):
+    """The inverse of :func:`depth_to_space` (reference ``:221``)."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, c, h // b, b, w // b, b)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+# ---------------------------------------------------------------------------
+# the Sequence ops (reference ops/tensor.py:294-335): masks and gathers,
+# on the device of the data, with no host sync
+# ---------------------------------------------------------------------------
+
+
+def _lengths(sequence_length, axis, ndim):
+    """The lengths as int64 (floats truncated, as ``astype(int32)``),
+    shaped to broadcast against the (time, batch) or (batch, time) axes
+    of an ``ndim``-dimensional input."""
+    lens = sequence_length.to(torch.int32).to(torch.int64)
+    shape = (1, -1) if axis == 0 else (-1, 1)
+    return lens.reshape(shape + (1,) * (ndim - 2))
+
+
+def _check_seq_axis(op, axis):
+    if axis not in (0, 1):
+        raise MXNetError(f"{op}: axis {axis} must be 0 (TNC) or 1 (NTC)")
+
+
+@register("SequenceMask", aliases=["sequence_mask"])
+def sequence_mask(data, sequence_length=None, *, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """The steps of each sequence at or past its length set to ``value``
+    (``axis`` 0: data is (time, batch, ...); 1: (batch, time, ...))."""
+    _check_seq_axis("SequenceMask", axis)
+    if not use_sequence_length or sequence_length is None:
+        return data
+    pos = torch.arange(data.shape[axis], device=data.device)
+    pos = pos.reshape((-1, 1) if axis == 0 else (1, -1))
+    mask = pos.reshape(pos.shape + (1,) * (data.dim() - 2)) \
+        < _lengths(sequence_length, axis, data.dim())
+    return torch.where(mask, data, data.new_full((), value))
+
+
+@register("SequenceLast")
+def sequence_last(data, sequence_length=None, *, use_sequence_length=False,
+                  axis=0):
+    """Each sequence's last valid step (the last step without lengths);
+    a length of 0 reads the step before step 0, i.e. the last one, as
+    the reference's ``take_along_axis`` of index -1 does."""
+    _check_seq_axis("SequenceLast", axis)
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    last = (_lengths(sequence_length, axis, data.dim()) - 1) \
+        % data.shape[axis]
+    shape = list(data.shape)
+    shape[axis] = 1
+    return torch.gather(data, axis, last.expand(shape)).squeeze(axis)
+
+
+@register("SequenceReverse")
+def sequence_reverse(data, sequence_length=None, *, use_sequence_length=False,
+                     axis=0):
+    """The first ``length`` steps of each sequence reversed, the padding
+    left in place. Without lengths the reference flips axis 0 whatever
+    ``axis`` says, and so does the port; with lengths ``axis`` 1 reverses
+    along axis 1 (the reference gathers along axis 0 there too, which
+    holds only for a square (batch, time) input)."""
+    _check_seq_axis("SequenceReverse", axis)
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (0,))
+    pos = torch.arange(data.shape[axis], device=data.device)
+    pos = pos.reshape(((-1, 1) if axis == 0 else (1, -1))
+                      + (1,) * (data.dim() - 2))
+    sl = _lengths(sequence_length, axis, data.dim())
+    src = torch.where(pos < sl, sl - 1 - pos, pos)
+    return torch.gather(data, axis, src.expand(data.shape))
+
+
 # ---------------------------------------------------------------------------
 # indexing
 # ---------------------------------------------------------------------------
@@ -352,6 +443,23 @@ def _arg(fn, data, axis, keepdims):
     if axis is None:
         return fn(data).to(torch.float32)
     return fn(data, dim=axis, keepdim=keepdims).to(torch.float32)
+
+
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over every axis but the first
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``) (reference ``ops/tensor.py:377``)."""
+    if mode == "instance":
+        ax = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        ax = (1,)
+    elif mode == "spatial":
+        ax = tuple(range(2, data.dim()))
+    else:
+        raise MXNetError(f"L2Normalization: mode {mode!r} is not instance, "
+                         "channel or spatial")
+    return data / torch.sqrt(data.square().sum(dim=ax, keepdim=True) + eps)
 
 
 @register("argmax")

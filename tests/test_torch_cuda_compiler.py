@@ -153,14 +153,13 @@ def test_an_evicted_graph_frees_its_buffers():
     gone.append(weakref.ref(entry.graph))
     static = sum(t.untyped_storage().nbytes()
                  for t in entry.outputs + entry.inputs)
-    # each capture's side stream takes a cuBLAS workspace of its own:
-    # dropped before each reading, so the bytes compared are the graphs'
+    # every capture warms up on the device's one warm-up stream, so no
+    # capture leaves a cuBLAS workspace behind: the bytes compared are the
+    # graphs'
     torch.cuda.synchronize()
-    torch._C._cuda_clearCublasWorkspaces()
     with_big = torch.cuda.memory_allocated()
     net(*small)
     torch.cuda.synchronize()
-    torch._C._cuda_clearCublasWorkspaces()
     assert graph._cache.evictions == 1 and len(graph._cache) == 1
     assert entry.graph is None and entry.outputs is None
     assert all(ref() is None for ref in gone)
@@ -250,3 +249,23 @@ def test_flop_count_on_the_card_equals_meta_and_the_cpu(make):
     on_cpu = make(torch.device("cpu")).count_flops(*batch, meta=False)
     assert on_card == on_meta == on_cpu > 0
     assert card.optimizer.num_update == 0
+
+
+@pytest.mark.cuda
+def test_recaptures_leave_no_workspace_behind():
+    """Twenty recaptures of one block leave the card's allocated bytes
+    where the second capture left them: every capture's warm-up call runs
+    on one stream per device, which holds one cuBLAS workspace (a new
+    stream per capture left 32 MB more at each)."""
+    _require_card()
+    net = BERTModel(**BERT, dtype=torch.bfloat16, ctx=mx.gpu(0),
+                    generator=torch.Generator("cuda").manual_seed(4))
+    args = _bert_inputs(4, 32, 2)
+    allocated = []
+    for _ in range(20):
+        net.hybridize()                 # drops the graph and its pool
+        net(*args)
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+    assert net._graph().captures == 1
+    assert allocated[1:] == [allocated[1]] * 19, allocated
