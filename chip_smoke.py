@@ -346,6 +346,34 @@ package. Phases, each printing JSON lines and failing loudly:
              share, device ms by kind, the CE head's ms, peak memory),
              and evaluation through the hybridized LSTM (graph = eager
              bit for bit, one capture);
+17k. vision_reference — f32, TF32 off: alexnet, vgg16_bn,
+             squeezenet1.1, densenet121, inceptionv3 (299),
+             mobilenet1.0, mobilenetv2_1.0 and mobilenetv3_large through
+             get_model at batch 2, the card's NHWC build against the
+             CPU's NCHW build from one .params file (1e-4 of the largest
+             logit) and the hybridized graph against eager bit for bit
+             with one capture; the new ops (1-D/3-D, grouped, depthwise,
+             dilated convolution and Deconvolution with gradients, every
+             pooling type and convention, the resize ops) card against
+             CPU to 1e-5; a Conv2DLSTMCell over 10 64x64 frames; three
+             SGD steps of mobilenet_v2_0_25 card against CPU with the
+             card's ReLU6 decisions replayed; one AlexNet training step
+             with the CPU's dropout seeds (2 + 2 hash-dropout launches,
+             the masks bit for bit);
+17l. mobilenet_train — mobilenetv2_1.0 (NHWC, 3.50M parameters) at its
+             published widths and depth, bf16 with f32 BatchNorm, batch
+             128 x 224, SGD lr 0.1, momentum 0.9, wd 4e-5,
+             multi-precision: 3 warm-up and 20 timed TrainStep calls;
+             the loss falling over the first three, step 2 against the
+             SGD rule by hand, every running statistic moved, exactly 2
+             SGD sweeps a step, the counted multiply-adds within 5% of
+             300M an image; images/s, MFU, peak memory, host and device
+             ms, device ms by kind, the depthwise convolutions',
+             BatchNorms' and ReLU6s' own device ms;
+17m. vision_serve — the hybridized inceptionv3 (NHWC) predict in bf16 at
+             (32, 3, 299, 299): 20 graph replays equal to the eager
+             forward bit for bit, one capture; host and device ms per
+             forward, graph and eager, images/s;
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
              hash_dropout and twobit_quantize beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
@@ -358,6 +386,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import json
 import subprocess
@@ -4233,7 +4262,7 @@ RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "multi_precision": True}
 
 
 class _Decisions:
-    """The card's ReLU and max-pool decisions, recorded in call order
+    """The card's ReLU, ReLU6 and max-pool decisions, recorded in call order
     during its run and replayed on the CPU copy's. A ReLU network's
     gradient jumps where a ReLU input crosses 0 or two inputs of a
     max-pool window swap places; the card and the CPU round differently,
@@ -4280,18 +4309,41 @@ class _Decisions:
         return x.reshape(n, c, -1).gather(2, want.reshape(n, c, -1)) \
             .view(want.shape)
 
+    def relu6(self, x, real):
+        """MobileNet's ReLU6: which side of 0 and of 6 each input takes
+        (0 below, 1 between, 2 above), recorded (the block's own
+        ``real()`` computing) or replayed."""
+        side = (x > 0).to(torch.int8) + (x >= 6).to(torch.int8)
+        if self.mode == "record":
+            self.log.append(side.cpu())
+            return real()
+        want = self.log[self.pos].to(x.device)
+        self.pos += 1
+        self.disagreements += int((side != want).sum())
+        self.elements += want.numel()
+        return torch.where(want == 1, x, torch.where(
+            want == 2, torch.full((), 6.0, dtype=x.dtype, device=x.device),
+            torch.zeros((), dtype=x.dtype, device=x.device)))
+
     def run(self, mode, fn):
         """``fn()`` with the decisions recorded (``"record"``) or
         replayed (``"replay"``)."""
+        from mxnet_tpu_torch.gluon.model_zoo.vision import mobilenet
+
         self.mode, self.pos = mode, 0
         relu = self._ops._ACTIVATIONS["relu"]
         self._ops._ACTIVATIONS["relu"] = self.relu
         self._f.max_pool2d = self.max_pool2d
+        self._relu6 = mobilenet.ReLU6.hybrid_forward
+        relu6 = self._relu6
+        mobilenet.ReLU6.hybrid_forward = \
+            lambda blk, F, x: self.relu6(x, lambda: relu6(blk, F, x))
         try:
             return fn()
         finally:
             self._ops._ACTIVATIONS["relu"] = relu
             self._f.max_pool2d = self._max_pool2d
+            mobilenet.ReLU6.hybrid_forward = self._relu6
 
 
 def _resnet_per_step(buckets) -> dict:
@@ -4422,18 +4474,20 @@ def _masters_and_momenta(step) -> list:
 def _sgd_rule_excess(step, before, opt) -> dict:
     """How far one TrainStep SGD step strayed from its rule, worked by
     hand in f64 from ``before`` (_masters_and_momenta) and each
-    parameter's gradient, which the step leaves in ``.grad``: the new
-    momentum ``momentum * mom - lr * g`` within 1e-6 of its largest
-    term, the new master ``master + mom`` within 1e-6 of the largest
-    master (f32 rounding of each operation), each bf16 weight its master
-    rounded. ``worst_excess`` is the largest error over its limit (above
-    1 breaks the rule); no weight decay, clipping or rescale, as the
-    benchmark's optimizer has none."""
+    parameter's gradient, which the step leaves in ``.grad``: with
+    ``g' = g + wd * master`` (wd the optimizer's for that parameter),
+    the new momentum ``momentum * mom - lr * g'`` within 1e-6 of its
+    largest term, the new master ``master + mom`` within 1e-6 of the
+    largest master (f32 rounding of each operation), each bf16 weight its
+    master rounded. ``worst_excess`` is the largest error over its limit
+    (above 1 breaks the rule); no clipping or rescale, as the benchmark's
+    optimizer has none."""
     mu, lr = opt["momentum"], opt["learning_rate"]
     worst, rounded = 0.0, True
-    for p, (w0, m0), (w1, m1) in zip(step._params, before,
-                                     _masters_and_momenta(step)):
-        g = p.grad.double()
+    for k, (p, (w0, m0), (w1, m1)) in enumerate(zip(
+            step._params, before, _masters_and_momenta(step))):
+        wd = float(step.optimizer._get_wd(k))
+        g = p.grad.double() + wd * w0
         lim = 1e-6 * float((mu * m0.abs() + lr * g.abs()).max())
         worst = max(worst, float((m1 - (mu * m0 - lr * g)).abs().max())
                     / max(lim, 1e-30))
@@ -4448,70 +4502,96 @@ def _sgd_rule_excess(step, before, opt) -> dict:
 
 def _conv_flops_per_image(net, size=224) -> float:
     """Training FLOPs per image from the model's own convolution and
-    classifier shapes: 2 x the multiply-adds of the forward (each
-    convolution's output elements times its kernel's in-channels and
-    taps, the classifier's in x out), times 3 for the forward and the
-    two backward products."""
+    Dense shapes: 2 x the multiply-adds of the forward (each
+    convolution's output elements times its weight's in-channels per
+    group and taps, each Dense's in x out), times 3 for the forward and
+    the two backward products."""
+    return 3.0 * 2.0 * _macs_per_image(net, size)
+
+
+def _macs_per_image(net, size=224) -> float:
+    """The forward's multiply-adds per image, counted by hooks on every
+    convolution and Dense of ``net`` over one (1, 3, size, size) bf16
+    forward on the card."""
     from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
 
     macs = []
 
     def hook(mod, inp, out):
         k = mod.weight.tensor
-        macs.append(out.numel() / out.shape[0] * k[0].numel())
+        if isinstance(mod, gnn.Dense):
+            macs.append(k.numel())
+        else:
+            macs.append(out.numel() / out.shape[0] * k[0].numel())
 
     handles = [m.register_forward_hook(hook) for m in net.modules()
-               if isinstance(m, gnn.Conv2D)]
+               if isinstance(m, (_Conv, gnn.Dense))]
     with torch.no_grad():
         net(torch.zeros(1, 3, size, size, device="cuda",
                         dtype=torch.bfloat16))
     for h in handles:
         h.remove()
-    dense = net.output.weight.tensor.numel()
-    return 3.0 * 2.0 * (sum(macs) + dense)
+    return float(sum(macs))
 
 
-def _bn_glue_ms(net, x) -> dict:
+def _bn_glue_ms(net, x, timer=None) -> dict:
     """Device ms of the plain BatchNorm forward and backward over one
-    step's 53 calls: each BatchNorm's input shape read from one forward
-    at the step's batch, and each distinct shape event-timed once (cold
-    L2, bf16 input, f32 gamma and beta) and counted as often as the
-    model has it. Not a Pallas site; this is its share of the step."""
+    step's calls (53 in ResNet-50 and MobileNet v2), by
+    :func:`_shape_glue_ms` with ``timer`` (default :func:`time_ms`, five
+    calls): bf16 input, f32 gamma and beta. Not a Pallas site; this is
+    its share of the step."""
     from mxnet_tpu_torch.gluon import nn as gnn
+
+    return _shape_glue_ms(
+        net, x, lambda m: isinstance(m, gnn.BatchNorm), _bn_fwd_bwd,
+        timer or functools.partial(time_ms, iters=5, warmup=1))
+
+
+def _bn_fwd_bwd(mod, xx):
     from mxnet_tpu_torch.ops import nn as ops_nn
 
-    shapes = {}
+    c = xx.shape[-1]
+    g = torch.ones(c, device="cuda", requires_grad=True)
+    b = torch.zeros(c, device="cuda", requires_grad=True)
+    dy = torch.randn_like(xx)
+
+    def run():
+        out = ops_nn.batch_norm(xx, g, b, b, g, eps=1e-5, fix_gamma=False,
+                                axis=-1, training=True)[0]
+        torch.autograd.grad(out, (xx, g, b), dy)
+
+    return run
+
+
+def _shape_glue_ms(net, x, want, make, timer) -> dict:
+    """Device ms of the modules of ``net`` that ``want(module)`` picks,
+    forward and backward, over one step: each one's input shape read
+    from a forward at the step's batch, each distinct shape timed once
+    on bf16 inputs (cold L2) through ``make(module, x)``'s closure by
+    ``timer(fn, flush)`` and counted as often as the model has it."""
+    shapes, mods = {}, {}
 
     def hook(mod, inp, out):
         key = tuple(inp[0].shape)
         shapes[key] = shapes.get(key, 0) + 1
+        mods[key] = mod
 
     handles = [m.register_forward_hook(hook) for m in net.modules()
-               if isinstance(m, gnn.BatchNorm)]
+               if want(m)]
     with torch.no_grad():
         net(x)
     for h in handles:
         h.remove()
     flush = _L2Flush()
     total, per = 0.0, {}
-    for shape, count in shapes.items():
-        c = shape[-1]
-        xx = torch.randn(shape, device="cuda",
+    for key, count in shapes.items():
+        xx = torch.randn(key, device="cuda",
                          dtype=torch.bfloat16).requires_grad_()
-        g = torch.ones(c, device="cuda", requires_grad=True)
-        b = torch.zeros(c, device="cuda", requires_grad=True)
-        dy = torch.randn_like(xx)
-
-        def fwd_bwd():
-            out = ops_nn.batch_norm(xx, g, b, b, g, eps=1e-5,
-                                    fix_gamma=False, axis=-1,
-                                    training=True)[0]
-            torch.autograd.grad(out, (xx, g, b), dy)
-
-        ms = time_ms(fwd_bwd, flush, iters=5, warmup=1)
-        per[str(list(shape))] = {"calls": count, "ms_fwd_bwd": ms}
+        ms = timer(make(mods[key], xx), flush)
+        per[str(list(key))] = {"calls": count, "ms_fwd_bwd": ms}
         total += count * ms
-        del xx, dy
+        del xx
     torch.cuda.empty_cache()
     return {"ms_per_step": total, "by_shape": per}
 
@@ -7655,6 +7735,705 @@ def phase_word_lm(card: str) -> dict:
                                    "fused_sgd_sweep")}
 
 
+# ---------------------------------------------------------------------------
+# 17k-17m. the vision zoo: the new ops and families against the CPU,
+# MobileNet v2 training at full width, Inception v3 serving
+# ---------------------------------------------------------------------------
+
+# get_model's families at batch 2 and their published input sizes
+VISION_FAMILIES = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+                   ("densenet121", 224), ("inceptionv3", 299),
+                   ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+                   ("mobilenetv3_large", 224))
+# SGD for mobilenetv2_1.0 (the batch and rate are the issue's choice, the
+# widths and depth the published model's)
+MOBILENET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 4e-5,
+                 "multi_precision": True}
+
+
+def _redraw(net, gen) -> None:
+    """Every parameter of ``net`` drawn anew from ``gen`` on its device:
+    gammas near 1, positive running variances, small betas, means and
+    biases, He-scaled weights, so activations stay of order 1 through
+    any depth."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            _fill(name, p, gen)
+        for name, b in net.named_buffers():
+            _fill(name, b, gen)
+
+
+def _fill(name, t, gen) -> None:
+    r = torch.randn(t.shape, generator=gen, device=t.device)
+    if name.endswith("gamma"):
+        v = 1.0 + 0.1 * r
+    elif name.endswith("running_var"):
+        v = 1.0 + 0.5 * torch.rand(t.shape, generator=gen, device=t.device)
+    elif name.endswith(("beta", "running_mean", "bias")):
+        v = 0.1 * r
+    else:
+        v = r * (2.0 / max(t[0].numel(), 1)) ** 0.5
+    t.copy_(v.to(t.dtype))
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, in f64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _vision_family(mx, name, size, rs, tmp) -> dict:
+    """One family: built NHWC on the card from the seed, its weights
+    written to a .params file and read by an NCHW build on the CPU; the
+    card's forward of a batch of 2 against the CPU's, then the
+    hybridized graph of the card's NDArray call against its eager call,
+    bit for bit, with one capture and no recapture on a second call."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    net = get_model(name, layout="NHWC", ctx=mx.gpu(0))
+    with torch.no_grad():
+        net(torch.zeros(1, 3, size, size, device="cuda"))
+    _redraw(net, gen)
+    path = f"{tmp}/{name}.params"
+    net.save_parameters(path)
+    cpu_net = get_model(name, ctx=mx.cpu())
+    cpu_net.load_parameters(path, ctx=mx.cpu())
+    x = rs.rand(2, 3, size, size).astype(np.float32)
+    with torch.no_grad():
+        ref = cpu_net(torch.from_numpy(x))
+        got = net(torch.from_numpy(x).cuda())
+    xn = mx.nd.array(x, ctx=mx.gpu(0))
+    eager = net(xn)._data.clone()
+    net.hybridize()
+    first = net(xn)._data.clone()
+    second = net(xn)._data.clone()
+    captures = net.cached_graph.captures
+    rec = {"input": [2, 3, size, size], "card_vs_cpu": _rel(got, ref),
+           "graph_equals_eager_bits": bool(torch.equal(first, eager)
+                                           and torch.equal(second, eager)),
+           "captures": captures,
+           "params": sum(p.numel() for p in net.parameters())}
+    del net, cpu_net
+    return rec
+
+
+def _op_cases(mx) -> dict:
+    """The new ops on the card against the CPU, f32, each output and
+    gradient's error relative to its largest magnitude: 1-D/3-D,
+    grouped, depthwise and dilated convolutions and Deconvolution with
+    their data, weight and bias gradients, every pooling convention and
+    type, UpSampling (nearest and bilinear), BilinearResize2D
+    (antialiased downscale and upscale), AdaptiveAvgPooling2D."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.ops import spatial
+
+    rs = np.random.RandomState(SEED + 12)
+
+    def arr(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    conv = ops_nn.convolution
+    deconv = ops_nn.deconvolution
+    cases = {
+        "conv1d_dilated_NWC": (conv, [arr(4, 50, 16), arr(32, 16, 5),
+                                      arr(32)],
+                               dict(kernel=(5,), pad=(4,), dilate=(2,),
+                                    num_filter=32, layout="NWC")),
+        "conv2d_grouped_dilated": (conv, [arr(4, 32, 20, 20),
+                                          arr(32, 8, 3, 3), arr(32)],
+                                   dict(kernel=(3, 3), pad=(2, 2),
+                                        dilate=(2, 2), num_group=4,
+                                        num_filter=32)),
+        "conv2d_depthwise_NHWC": (conv, [arr(4, 28, 28, 96),
+                                         arr(96, 1, 3, 3), arr(96)],
+                                  dict(kernel=(3, 3), stride=(2, 2),
+                                       pad=(1, 1), num_group=96,
+                                       num_filter=96, layout="NHWC")),
+        "conv3d_NCDHW": (conv, [arr(2, 8, 8, 16, 16), arr(16, 8, 3, 3, 3),
+                                arr(16)],
+                         dict(kernel=(3, 3, 3), pad=(1, 1, 1),
+                              num_filter=16)),
+        "conv3d_grouped_NDHWC": (conv, [arr(2, 8, 16, 16, 8),
+                                        arr(16, 4, 1, 3, 3), arr(16)],
+                                 dict(kernel=(1, 3, 3), stride=(1, 2, 2),
+                                      pad=(0, 1, 1), num_group=2,
+                                      num_filter=16, layout="NDHWC")),
+        "deconv1d": (deconv, [arr(4, 16, 30), arr(16, 8, 4), arr(8)],
+                     dict(kernel=(4,), stride=(2,), pad=(1,), adj=(1,),
+                          num_filter=8, no_bias=False)),
+        "deconv2d_grouped_NHWC": (deconv, [arr(2, 12, 13, 16),
+                                           arr(16, 4, 3, 4), arr(8)],
+                                  dict(kernel=(3, 4), stride=(2, 2),
+                                       pad=(1, 1), num_group=2,
+                                       num_filter=8, no_bias=False,
+                                       layout="NHWC")),
+        "deconv3d_dilated": (deconv, [arr(2, 4, 5, 6, 6),
+                                      arr(4, 6, 3, 3, 3), arr(6)],
+                             dict(kernel=(3, 3, 3), stride=(1, 2, 2),
+                                  dilate=(2, 1, 1), num_filter=6,
+                                  no_bias=False)),
+        "upsampling_nearest_concat": (
+            spatial.upsampling, [arr(2, 8, 14, 14), arr(2, 8, 7, 7)],
+            dict(scale=2, num_args=2)),
+        "upsampling_bilinear": (
+            spatial.upsampling, [arr(2, 8, 14, 14),
+                                 np.abs(arr(8, 1, 4, 4))],
+            dict(scale=2, sample_type="bilinear", num_args=2)),
+        "bilinear_resize_down": (spatial.bilinear_resize_2d,
+                                 [arr(2, 8, 64, 64)],
+                                 dict(height=23, width=37)),
+        "bilinear_resize_up": (spatial.bilinear_resize_2d,
+                               [arr(2, 8, 16, 16)],
+                               dict(height=45, width=40)),
+        "adaptive_avg_pool": (spatial.adaptive_avg_pooling_2d,
+                              [arr(2, 8, 29, 31)],
+                              dict(output_size=(7, 5))),
+    }
+    pools = {
+        "max_valid_NHWC": dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                               layout="NHWC"),
+        "max_full": dict(kernel=(3, 3), stride=(2, 2),
+                         pooling_convention="full"),
+        "max_same_1d": dict(kernel=(3,), stride=(2,),
+                            pooling_convention="same"),
+        "avg_full": dict(kernel=(3, 3), stride=(2, 2), pool_type="avg",
+                         pooling_convention="full"),
+        "avg_exclude_pad_3d": dict(kernel=(3, 3, 3), stride=(2, 2, 2),
+                                   pad=(1, 1, 1), pool_type="avg",
+                                   count_include_pad=False),
+        "sum_same": dict(kernel=(2, 3), stride=(2, 2), pool_type="sum",
+                         pooling_convention="same"),
+        "lp2_NDHWC": dict(kernel=(2, 2, 2), stride=(2, 2, 2),
+                          pool_type="lp", p_value=2, layout="NDHWC"),
+        "global_lp3": dict(kernel=(1, 1), pool_type="lp", p_value=3,
+                           global_pool=True),
+    }
+    for key, kw in pools.items():
+        nd = len(kw["kernel"])
+        shape = {1: (4, 16, 33), 2: (4, 16, 33, 35),
+                 3: (2, 8, 9, 12, 13)}[nd]
+        if kw.get("layout", "").endswith("C"):
+            shape = (shape[0],) + shape[2:] + (shape[1],)
+        cases["pool_" + key] = (ops_nn.pooling, [arr(*shape)],
+                                dict(pool_type=kw.pop("pool_type", "max"),
+                                     **kw))
+    out = {}
+    for key, (fn, arrays, kw) in cases.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in arrays]
+            y = fn(*ts, **kw)
+            dy = torch.from_numpy(np.random.RandomState(1).randn(
+                *y.shape).astype(np.float32)).to(dev)
+            y.backward(dy)
+            got[dev] = [y] + [t.grad for t in ts]
+        out[key] = max(_rel(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    return out
+
+
+def _conv_lstm_case(mx) -> dict:
+    """A Conv2DLSTMCell (hidden 32, 5x5 kernels, i2h padded to keep the
+    64x64 frame) unrolled 10 steps over a batch of 4 one-channel frames,
+    card against CPU from the same weights: the outputs, the last states
+    and every parameter's gradient of a weighted sum of the outputs,
+    relative to each one's largest magnitude."""
+    from mxnet_tpu_torch.gluon.contrib.rnn import Conv2DLSTMCell
+
+    rs = np.random.RandomState(SEED + 13)
+    xs = rs.rand(10, 4, 1, 64, 64).astype(np.float32)
+    head = rs.randn(10, 4, 32, 64, 64).astype(np.float32)
+    got = {}
+    weights = None
+    for dev, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+        cell = Conv2DLSTMCell((1, 64, 64), 32, i2h_kernel=5, h2h_kernel=5,
+                              i2h_pad=2)
+        cell.initialize(ctx=ctx)
+        params = cell.collect_params()
+        if weights is None:
+            weights = [0.1 * rs.randn(*p.shape).astype(np.float32)
+                       for p in params.values()]
+        for p, w in zip(params.values(), weights):
+            p.set_data(w)
+        with mx.autograd.record():
+            outs, states = cell.unroll(
+                10, mx.nd.array(xs, ctx=ctx), layout="TNC",
+                merge_outputs=True)
+            loss = (outs * mx.nd.array(head, ctx=ctx)).sum()
+        loss.backward()
+        got[dev] = ([outs._data] + [s._data for s in states],
+                    [p.grad()._data for p in params.values()])
+    return {"outputs_and_states": max(_rel(a, b) for a, b in zip(
+                got["cuda"][0], got["cpu"][0])),
+            "gradients": max(_rel(a, b) for a, b in zip(
+                got["cuda"][1], got["cpu"][1]))}
+
+
+def _mobilenet_reference(mx) -> dict:
+    """Three TrainStep SGD steps (lr 1e-3, momentum 0.9) of
+    mobilenet_v2_0_25(classes=10, layout="NHWC") at 64x64, batch 4, from
+    one set of weights: in f64 on the CPU, which records its ReLU6
+    decisions (_Decisions), then in f32 on the card and in f32 on the
+    CPU, both replaying them. Each f32 run's distance from the f64 one
+    (each step's loss, relative; every running statistic after each
+    step, as a multiple of 1e-5 + 1e-5 |f64|; each parameter's delta by
+    norm ratio; the replayed decisions it would have taken otherwise),
+    and the card's distance from the CPU's f32 run beside them."""
+    import copy
+
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import mobilenet_v2_0_25
+
+    steps, opt = 3, {"learning_rate": 1e-3, "momentum": 0.9}
+    card_net = mobilenet_v2_0_25(classes=10, layout="NHWC", ctx=mx.gpu(0))
+    with torch.no_grad():
+        card_net(torch.zeros(1, 3, 64, 64, device="cuda"))
+    _redraw(card_net, torch.Generator(device="cuda").manual_seed(SEED + 9))
+    cpu_net = copy.deepcopy(card_net).cpu()
+    f64_net = copy.deepcopy(cpu_net).double()
+    w0 = {k: v.detach().double().cpu().clone()
+          for k, v in card_net.named_parameters()}
+    rs = np.random.RandomState(SEED + 9)
+    x = rs.rand(4, 3, 64, 64)
+    y = rs.randint(0, 10, (4,)).astype(np.float64)
+    decisions = _Decisions()
+    losses, stats, nets, disagree = {}, {}, {}, {}
+    for name, net, dt in (("f64", f64_net, np.float64),
+                          ("card", card_net, np.float32),
+                          ("cpu", cpu_net, np.float32)):
+        step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                     optimizer_params=dict(opt))
+        _reset_train_counts()
+        decisions.disagreements = decisions.elements = 0
+
+        def run():
+            return [(float(step(x.astype(dt), y.astype(dt))[0]),
+                     _running_stats(net)) for _ in range(steps)]
+
+        got = decisions.run("record" if name == "f64" else "replay", run)
+        losses[name] = [g[0] for g in got]
+        stats[name] = [{k: v.double() for k, v in g[1].items()}
+                       for g in got]
+        nets[name] = {k: v.detach().double().cpu()
+                      for k, v in net.named_parameters()}
+        disagree[name] = decisions.disagreements
+        if name == "card":
+            launches = _train_counts()
+            buckets = len(step._buckets)
+    replayed = decisions.elements
+
+    def distance(a, b) -> dict:
+        loss = max(abs(p - q) / abs(q) for p, q in zip(losses[a],
+                                                       losses[b]))
+        stat = max(float(((u[k] - v[k]).abs()
+                          / (1e-5 + 1e-5 * v[k].abs())).max())
+                   for u, v in zip(stats[a], stats[b]) for k in u)
+        ratios, still = {}, 0.0
+        for key, start in w0.items():
+            da = (nets[a][key] - start).flatten()
+            db = (nets[b][key] - start).flatten()
+            if key.endswith(".out.7.beta"):
+                # feeds a 1x1 convolution and a train-mode BatchNorm,
+                # which removes any per-channel shift: its true gradient
+                # is 0, and both move by rounding alone
+                still = max(still, float(da.abs().max()))
+                continue
+            ratios[key] = float((da - db).norm()) / float(db.norm())
+        worst = max(ratios, key=ratios.get)
+        return {"loss_max_rel": loss, "running_stats_over_limit": stat,
+                "delta_worst": [worst, ratios[worst]],
+                "delta_median": float(np.median(list(ratios.values()))),
+                "zero_gradient_betas_max_move": still}
+
+    want = {k: v * steps for k, v in _resnet_per_step(buckets).items()}
+    return {"model": "mobilenet_v2_0_25(classes=10, layout='NHWC')",
+            "batch": [4, 3, 64, 64], "optimizer": opt, "losses": losses,
+            "card_vs_f64": distance("card", "f64"),
+            "cpu_vs_f64": distance("cpu", "f64"),
+            "card_vs_cpu": distance("card", "cpu"),
+            "decisions_replayed": replayed,
+            "decision_disagreements": {k: disagree[k]
+                                       for k in ("card", "cpu")},
+            "launches": launches, "launches_expected": want}
+
+
+def _within_twice_the_cpus(t) -> list:
+    """The limits the card's f32 run misses: each distance from the f64
+    run at most phase 14's limit (loss 1e-5, statistics 1e-5 + 1e-5
+    |ref|, deltas 1e-3, disagreements 1e-5 of those replayed) or twice
+    the CPU f32 run's own, whichever is larger; the zero-gradient betas
+    under 1e-5."""
+    card, cpu = t["card_vs_f64"], t["cpu_vs_f64"]
+    missed = []
+    if card["loss_max_rel"] > max(1e-5, 2 * cpu["loss_max_rel"]):
+        missed.append("loss")
+    if card["running_stats_over_limit"] > max(
+            1.0, 2 * cpu["running_stats_over_limit"]):
+        missed.append("running statistics")
+    if card["delta_worst"][1] > max(1e-3, 2 * cpu["delta_worst"][1]):
+        missed.append("deltas")
+    if card["zero_gradient_betas_max_move"] >= 1e-5:
+        missed.append("zero-gradient betas")
+    dis = t["decision_disagreements"]
+    if dis["card"] > max(1e-5 * t["decisions_replayed"], 2 * dis["cpu"]):
+        missed.append("decisions")
+    if not all(np.isfinite(t["losses"]["card"])):
+        missed.append("finite loss")
+    if t["launches"] != t["launches_expected"]:
+        missed.append("launches")
+    return missed
+
+
+def _alexnet_dropout(mx) -> dict:
+    """One train-mode TrainStep of alexnet(classes=10) at 224 (batch 2)
+    on the card and on the CPU from one seed: each Dropout's seed and p
+    recorded; the card's kernel and the CPU's plain version give the
+    same mask at each site's shape and seed, bit for bit; the card's
+    step launches exactly 2 hash_dropout and 2 hash_dropout_bwd."""
+    import copy
+
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import alexnet
+    from mxnet_tpu_torch.kernels import hash_dropout
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    card_net = alexnet(classes=10, layout="NHWC", ctx=mx.gpu(0))
+    with torch.no_grad():
+        card_net(torch.zeros(1, 3, 224, 224, device="cuda"))
+    _redraw(card_net, torch.Generator(device="cuda").manual_seed(SEED + 14))
+    cpu_net = copy.deepcopy(card_net).cpu()
+    rs = np.random.RandomState(SEED + 14)
+    x = rs.rand(2, 3, 224, 224).astype(np.float32)
+    y = rs.randint(0, 10, (2,)).astype(np.float32)
+    sites, orig = {}, ops_nn.hash_dropout
+    losses = {}
+    for name, net in (("cpu", cpu_net), ("card", card_net)):
+        calls = sites.setdefault(name, [])
+
+        def recording(data, p, seed, axes=(), calls=calls):
+            calls.append((tuple(data.shape), float(p), int(seed)))
+            return orig(data, p, seed, axes)
+
+        step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                     optimizer_params={"learning_rate": 0.01})
+        mx.random.seed(SEED + 14, ctx=step._device)
+        ops_nn.hash_dropout = recording
+        _reset_train_counts()
+        try:
+            losses[name] = float(step(x, y)[0])
+        finally:
+            ops_nn.hash_dropout = orig
+        launches = _train_counts()             # the card's, read last
+    same_masks = len(sites["card"]) == 2 and sites["card"] == sites["cpu"]
+    for shape, p, seed in sites["card"]:
+        ones = torch.ones(shape)
+        a = hash_dropout(ones.cuda(), p, seed).cpu()
+        b = hash_dropout(ones, p, seed)
+        same_masks &= bool(torch.equal(a, b))
+    return {"sites": sites["card"], "masks_equal_bits": bool(same_masks),
+            "losses": losses,
+            "launches": {k: launches[k] for k in (
+                "hash_dropout", "hash_dropout_bwd", "fused_sgd_sweep")}}
+
+
+def phase_vision_reference(card: str) -> dict:
+    """The vision zoo in f32 with TF32 off (restored after): every
+    family through get_model at batch 2 and its published input (224;
+    299 for inceptionv3), card (NHWC) against the CPU (NCHW, the same
+    .params), to 1e-4 of the largest logit, and the hybridized graph
+    against eager bit for bit with one capture; three TrainStep SGD steps
+    of mobilenet_v2_0_25 in f32 on the card and on the CPU, both
+    replaying the ReLU6 decisions of the same steps in f64 on the CPU,
+    the card no farther from the f64 run than phase 14's limits or twice
+    the CPU's f32 run, whichever is larger (_within_twice_the_cpus: the
+    17 bottlenecks' train-mode BatchNorms over 16 values a channel at
+    the last stages carry f32 rounding far past phase 14's limits on
+    either device); one AlexNet training step with
+    the CPU's dropout seeds (2 + 2 hash-dropout launches, masks bit for
+    bit); the new ops card against CPU to 1e-5 of the largest magnitude;
+    a Conv2DLSTMCell over 10 steps, outputs to 1e-5 and gradients to
+    1e-4."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    prev = _tf32(False)
+    rs = np.random.RandomState(SEED + 10)
+    families = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, size in VISION_FAMILIES:
+            t1 = time.perf_counter()
+            families[name] = _vision_family(mx, name, size, rs, tmp)
+            families[name]["seconds"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+    ops = _op_cases(mx)
+    lstm = _conv_lstm_case(mx)
+    train = _mobilenet_reference(mx)
+    drop = _alexnet_dropout(mx)
+    _restore_tf32(prev)
+    out = {"phase": "vision_reference", "card": card, "dtype": "float32",
+           "families": families, "family_tol": 1e-4, "ops": ops,
+           "ops_tol": 1e-5, "conv2d_lstm": lstm,
+           "conv2d_lstm_tol": {"outputs_and_states": 1e-5,
+                               "gradients": 1e-4},
+           "mobilenet_v2_train": train, "alexnet_dropout": drop,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    for name, rec in families.items():
+        if not rec["card_vs_cpu"] <= 1e-4:
+            fail(f"vision_reference: {name} on the card is "
+                 f"{rec['card_vs_cpu']} of its largest logit from the CPU")
+        if not rec["graph_equals_eager_bits"] or rec["captures"] != 1:
+            fail(f"vision_reference: {name}'s graph ({rec['captures']} "
+                 "captures) does not give the eager forward bit for bit")
+    bad = {k: v for k, v in ops.items() if not v <= 1e-5}
+    if bad:
+        fail(f"vision_reference: ops on the card miss the CPU: {bad}")
+    if not (lstm["outputs_and_states"] <= 1e-5
+            and lstm["gradients"] <= 1e-4):
+        fail(f"vision_reference: Conv2DLSTMCell on the card: {lstm}")
+    missed = _within_twice_the_cpus(train)
+    if missed:
+        fail(f"vision_reference: MobileNet v2 training on the card misses "
+             f"{missed}: {train}")
+    if not drop["masks_equal_bits"] or drop["launches"]["hash_dropout"] != 2 \
+            or drop["launches"]["hash_dropout_bwd"] != 2:
+        fail(f"vision_reference: AlexNet's dropout: {drop}")
+    torch.cuda.empty_cache()
+    return drop["launches"]
+
+
+def _queued_glue_ms(fn, flush):
+    """_queued_ms over 10 calls: the calls queued behind a sleep kernel,
+    so a small shape's event pair times the card, not the host's
+    autograd."""
+    return _queued_ms(fn, flush, iters=10, warmup=2)
+
+
+def _depthwise(m) -> bool:
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+
+    return isinstance(m, _Conv) and m._kwargs["num_group"] > 1
+
+
+def _conv_fwd_bwd(mod, x):
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    w = mod.weight.tensor.detach().clone().requires_grad_()
+    kw = dict(mod._kwargs)
+
+    def run():
+        out = ops_nn.convolution(x, w, None, no_bias=True, **kw)
+        torch.autograd.grad(out, (x, w), torch.ones_like(out))
+
+    return run
+
+
+def _relu6_fwd_bwd(mod, x):
+    from mxnet_tpu_torch.ops.elemwise import clip
+
+    def run():
+        out = clip(x, a_min=0, a_max=6)
+        torch.autograd.grad(out, x, torch.ones_like(out))
+
+    return run
+
+
+def _mobilenet_kind(name) -> str:
+    """_resnet_kind, with cuDNN's depthwise convolution kernels apart
+    (``conv2d_c1_k1_nhwc``, ``dgrad2d_c1_k1_nhwc``, ``wgrad2d_c1_k1_nhwc``:
+    one input channel and one filter a group)."""
+    low = name.lower()
+    if "c1_k1" in low or "depthwise" in low:
+        return "depthwise_conv"
+    return _resnet_kind(name)
+
+
+def phase_mobilenet_train(card: str) -> dict:
+    """mobilenetv2_1.0(layout="NHWC") at its published widths and depth
+    (1000 classes, 3.50M parameters), bf16 with f32 BatchNorm, seeded
+    random weights, SoftmaxCrossEntropyLoss, SGD at lr 0.1, momentum 0.9,
+    wd 4e-5, multi-precision: one (128, 3, 224, 224) batch of
+    RandomState(0) images with float labels, 3 warm-up and 20 timed
+    TrainStep calls, cuDNN's autotuner on (restored after). The loss
+    must be finite and fall strictly over the first three steps; the
+    second step must follow the update rule by hand (_sgd_rule_excess);
+    every running statistic must move; exactly one SGD sweep per dtype
+    bucket (2) per step and no other training kernel; the counted
+    multiply-adds within 5% of Sandler et al.'s 300M per image. Printed:
+    ms per step, images/s, MFU, peak memory, host and device ms and the
+    idle share, device ms by kind, and the depthwise convolutions',
+    BatchNorms' and ReLU6s' own device ms per step."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import mobilenet as mnet
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, timed_steps = 128, 20
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    mx.random.seed(SEED)
+    net = mnet.mobilenet_v2_1_0(layout="NHWC", dtype=torch.bfloat16,
+                                ctx=mx.gpu(0))
+    macs = _macs_per_image(net)
+    step = mx.parallel.TrainStep(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                 optimizer_params=dict(MOBILENET_OPT))
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(batch, 3, 224, 224).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 1000, (batch,)).astype(np.float32)) \
+        .cuda()
+    stats0 = _running_stats(net)
+    warm = [float(step(x, y)[0])]
+    before = _masters_and_momenta(step)
+    warm.append(float(step(x, y)[0]))
+    rule = _sgd_rule_excess(step, before, MOBILENET_OPT)
+    del before
+    warm.append(float(step(x, y)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    timed, enq = [], []
+    t1 = time.perf_counter()
+    for _ in range(timed_steps):
+        timed.append(step(x, y)[0])
+        enq.append(time.perf_counter())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = warm + [float(v) for v in timed]
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in _running_stats(net).items())
+    per_step = _resnet_per_step(len(step._buckets))
+    want = {k: v * timed_steps for k, v in per_step.items()}
+    flops = 6.0 * macs
+    images_s = batch * timed_steps / wall
+    out = {"phase": "mobilenet_train", "card": card,
+           "model": "mobilenetv2_1.0(layout='NHWC')",
+           "dtype": "bfloat16, f32 BatchNorm, multi-precision sgd",
+           "optimizer": MOBILENET_OPT,
+           "params": sum(p.numel() for p in net.parameters()),
+           "batch": [batch, 3, 224, 224], "steps": timed_steps,
+           "cudnn_benchmark": True,
+           "ms_per_step": wall * 1e3 / timed_steps,
+           "images_per_s": images_s, "macs_per_image": macs,
+           "macs_vs_300M": macs / 300e6, "flops_per_image": flops,
+           "mfu": flops * images_s / 989e12, "peak_mem_gib": peak,
+           "losses": losses, "running_stats_moved": [moved, len(stats0)],
+           "update_rule_step2": rule,
+           "launches": launches, "launches_expected": want,
+           "launches_per_step": per_step,
+           "enqueue_ms": [1e3 * (b - a) for a, b in zip([t1] + enq, enq)],
+           "buckets": [(len(b.members), str(b.wdtype), b.mp)
+                       for b in step._buckets]}
+    out["step_breakdown"] = _device_breakdown(lambda: step(x, y), 2,
+                                              n_top=16, kind=_mobilenet_kind)
+    out["depthwise_conv"] = _shape_glue_ms(net, x, _depthwise,
+                                           _conv_fwd_bwd, _queued_glue_ms)
+    out["relu6_glue"] = _shape_glue_ms(
+        net, x, lambda m: isinstance(m, mnet.ReLU6), _relu6_fwd_bwd,
+        _queued_glue_ms)
+    out["bn_glue"] = _bn_glue_ms(net, x, timer=_queued_glue_ms)
+    out["seconds"] = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = bench
+    emit(out)
+    if not all(np.isfinite(losses)) \
+            or not losses[0] > losses[1] > losses[2]:
+        fail(f"bf16 MobileNet v2 training loss is not finite or did not "
+             f"fall over the first three steps: {losses}")
+    if rule["worst_excess"] > 1.0 or not rule["bf16_is_master_rounded"]:
+        fail(f"MobileNet v2's second SGD step broke its update rule: {rule}")
+    if moved != len(stats0):
+        fail(f"only {moved} of {len(stats0)} BatchNorm running statistics "
+             "moved")
+    if launches != want or per_step["fused_sgd_sweep"] != 2:
+        fail(f"MobileNet v2 training launch counts {launches} are not "
+             f"{want} ({per_step} per step)")
+    if abs(macs / 300e6 - 1.0) > 0.05:
+        fail(f"MobileNet v2 counts {macs} multiply-adds per image, not "
+             "within 5% of 300M")
+    if not isinstance(net.output[0], gnn.Conv2D):
+        fail("MobileNet v2's classifier is not its 1x1 convolution")
+    del step, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vision_serve(card: str) -> dict:
+    """The hybridized inceptionv3(layout="NHWC") predict in bf16 at (32,
+    3, 299, 299), seeded random weights, NDArrays on the card: the eager
+    forward first, then the graph: its first call (the capture) and 20
+    replays equal to the eager forward bit for bit, one capture and none
+    after. Printed: host and device ms per forward and the idle share,
+    graph and eager, images/s through the graph, the top device
+    events."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import inception_v3
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch = 32
+    mx.random.seed(SEED + 15)
+    net = inception_v3(layout="NHWC", dtype=torch.bfloat16, ctx=mx.gpu(0))
+    rs = np.random.RandomState(SEED + 15)
+    x = mx.nd.array(rs.rand(batch, 3, 299, 299).astype(np.float32),
+                    ctx=mx.gpu(0), dtype="bfloat16")
+    with torch.no_grad():
+        net(x._data[:1])                       # settle the deferred shapes
+    eager = net(x)._data.clone()
+
+    def fwd():
+        net(x)
+
+    eager_times = _device_breakdown(fwd, 10)
+    net.hybridize(static_alloc=True, static_shape=True)
+    first = net(x)._data.clone()
+    same = torch.equal(first, eager)
+    replays = 20
+    for _ in range(replays):
+        same &= torch.equal(net(x)._data, eager)
+    captures = net.cached_graph.captures
+    graph_times = _device_breakdown(fwd, 10, n_top=10)
+    out = {"phase": "vision_serve", "card": card,
+           "model": "inceptionv3(layout='NHWC')", "dtype": "bfloat16",
+           "batch": [batch, 3, 299, 299],
+           "params": sum(p.numel() for p in net.parameters()),
+           "graph_equals_eager_bits": bool(same), "captures": captures,
+           "replays": replays,
+           "graph": {k: graph_times[k] for k in (
+               "host_ms_per_step", "device_ms_per_step",
+               "device_idle_share", "top_device_ms_per_step",
+               "device_ms_per_step_by_kind")},
+           "eager": {k: eager_times[k] for k in (
+               "host_ms_per_step", "device_ms_per_step",
+               "device_idle_share")},
+           "images_per_s": batch * 1e3 / graph_times["host_ms_per_step"],
+           "finite": bool(torch.isfinite(eager.float()).all())}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if not same or captures != 1 or net.cached_graph.captures != 1:
+        fail(f"vision_serve: graph = eager {same}, {captures} captures")
+    if not out["finite"] or tuple(eager.shape) != (batch, 1000):
+        fail(f"vision_serve: output {tuple(eager.shape)}, finite "
+             f"{out['finite']}")
+    del net, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -7708,6 +8487,9 @@ def main() -> None:
     phase_compile_only(card)
     phase_rnn(card)
     word_lm = phase_word_lm(card)
+    vision_ref = phase_vision_reference(card)
+    mobilenet = phase_mobilenet_train(card)
+    phase_vision_serve(card)
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -7772,8 +8554,9 @@ def main() -> None:
                              "sweep per bucket; ms and bound_ms cover both "
                              "launches",
         "fused_sgd_sweep": "the sgd family: one sweep per dtype bucket, two "
-                           "per ResNet-50 step (bf16-mp and f32); ms and "
-                           "bound_ms cover both buckets",
+                           "per ResNet-50 and per MobileNet v2 step (bf16-mp "
+                           "and f32); ms and bound_ms cover ResNet-50's two "
+                           "buckets",
         "fused_lamb_sweep": "the lamb family (_lamb_phase1_elem, "
                             "segment_sumsq, _lamb_phase2_elem): three "
                             "kernels per dtype bucket; ms and bound_ms "
@@ -7797,6 +8580,8 @@ def main() -> None:
             by_path["llama_train[scan]"] = llama[name + "[scan]"]
         if resnet.get(name):
             by_path["resnet_train"] = resnet[name]
+        if mobilenet.get(name):
+            by_path["mobilenet_train"] = mobilenet[name]
         if trainer.get(name):
             by_path["bert_trainer"] = trainer[name]
         if imperative["step_launches"].get(name):
@@ -7828,6 +8613,9 @@ def main() -> None:
             by_path["word_lm"] = {
                 "hash_dropout": word_lm["hash_dropout"],
                 "hash_dropout_bwd": word_lm["hash_dropout_bwd"]}
+            by_path["vision_reference"] = {
+                "hash_dropout": vision_ref["hash_dropout"],
+                "hash_dropout_bwd": vision_ref["hash_dropout_bwd"]}
             launches = sum(by_path["bert_train_dropout"].values())
         rec = {"name": name, "route": "cuda", "source": csrc + src,
                "replaces": site, "launches": launches,

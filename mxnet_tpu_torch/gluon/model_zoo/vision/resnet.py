@@ -29,14 +29,12 @@ from __future__ import annotations
 
 import os
 
-import torch
-
 from .... import initializer
 from ....base import MXNetError
-from ....ndarray import NDArray
 from ...block import HybridBlock
 from ... import nn
 from .._build import materialize
+from ._layout import nhwc_input
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BottleneckV1",
            "BasicBlockV2", "BottleneckV2", "get_resnet",
@@ -158,13 +156,6 @@ class BottleneckV2(_ResidualV2):
             if downsample else None
 
 
-def _nhwc_input(x):
-    """NCHW at the API edge, channels-last inside: one reorder."""
-    t = x._data if isinstance(x, NDArray) else x
-    t = t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    return NDArray(t) if isinstance(x, NDArray) else t
-
-
 class ResNetV1(HybridBlock):
     """ResNet v1 ("Deep Residual Learning for Image Recognition").
 
@@ -212,7 +203,7 @@ class ResNetV1(HybridBlock):
 
     def hybrid_forward(self, F, x):
         if self._layout == "NHWC":
-            x = _nhwc_input(x)
+            x = nhwc_input(x)
         return self.output(self.features(x))
 
 
@@ -265,7 +256,7 @@ class ResNetV2(HybridBlock):
 
     def hybrid_forward(self, F, x):
         if self._layout == "NHWC":
-            x = _nhwc_input(x)
+            x = nhwc_input(x)
         return self.output(self.features(x))
 
 

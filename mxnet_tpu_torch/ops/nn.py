@@ -1,10 +1,11 @@
-"""Neural-network ops of the BERT, Llama and ResNet paths.
+"""Neural-network ops of the BERT, Llama, ResNet and vision-zoo paths.
 
 Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the paths run:
-``fully_connected`` (``:36``), ``convolution`` (``:86``), ``pooling``
-(``:434``), ``batch_norm`` (``:580``), ``embedding`` (``:1030``),
-``layer_norm`` (``:707``), ``fused_layer_norm_op`` (``:742``),
-``fused_bias_gelu_op`` (``:775``), ``activation`` (``:835``), ``dropout``
+``fully_connected`` (``:36``), ``convolution`` (``:86``),
+``deconvolution`` (``:359``), ``pooling`` (``:434``), ``batch_norm``
+(``:580``), ``embedding`` (``:1030``), ``layer_norm`` (``:707``),
+``fused_layer_norm_op`` (``:742``), ``fused_bias_gelu_op`` (``:775``),
+``activation`` (``:835``), ``dropout``
 (``dropout_op``, ``:1079``, its position-hash branch), ``softmax``
 (``:876``), ``log_softmax`` (``:893``) and ``flatten``; the ones NDArray
 reaches are registered under the reference's op names and attribute
@@ -13,11 +14,13 @@ CUDA tensor takes the port's kernels, a CPU tensor their plain versions;
 under autograd the fused ops go through the kernels' differentiable
 wrappers (their backward kernels on the card). The matrix products and
 convolutions go to the library (``torch.nn.functional.linear``, cuDNN
-through ``conv2d``), as the JAX package leaves them to XLA outside any
-kernel; pooling and BatchNorm are plain PyTorch here as they are plain
-XLA there.
+through ``conv{1,2,3}d`` and ``conv_transpose{1,2,3}d``), as the JAX
+package leaves them to XLA outside any kernel; pooling and BatchNorm are
+plain PyTorch here as they are plain XLA there.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -28,10 +31,11 @@ from ..kernels import fused_bias_gelu, fused_layer_norm, hash_dropout
 from .elemwise import relu
 from .registry import attr, register
 
-__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "flatten", "embedding", "layer_norm", "fused_layer_norm_op",
-           "fused_bias_gelu_op", "activation", "dropout", "softmax",
-           "log_softmax", "instance_norm", "group_norm", "leaky_relu"]
+__all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
+           "batch_norm", "flatten", "embedding", "layer_norm",
+           "fused_layer_norm_op", "fused_bias_gelu_op", "activation",
+           "dropout", "softmax", "log_softmax", "instance_norm",
+           "group_norm", "leaky_relu"]
 
 
 def fully_connected(data, weight, bias=None, *, flatten=True):
@@ -43,96 +47,247 @@ def fully_connected(data, weight, bias=None, *, flatten=True):
                     None if bias is None else bias.to(data.dtype))
 
 
-_LAYOUTS = {None: False, "NCHW": False, "NHWC": True}
+_LAYOUTS = {None: None, "NCW": False, "NCHW": False, "NCDHW": False,
+            "NWC": True, "NHWC": True, "NDHWC": True}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
-def _channels_last(op, layout) -> bool:
+def _channels_last(op, layout, nd) -> bool:
+    """Whether ``layout`` puts the channels last, for an input of ``nd``
+    spatial axes: one of the reference's six layouts (``NCW``, ``NCHW``,
+    ``NCDHW``, ``NWC``, ``NHWC``, ``NDHWC``) with ``nd`` spatial letters,
+    or None (channels first)."""
     if layout not in _LAYOUTS:
-        raise MXNetError(f"{op}: layout {layout!r} is not ported yet, only "
-                         "NCHW and NHWC (ROADMAP.md, port queue 1, item 4)")
-    return _LAYOUTS[layout]
+        raise MXNetError(f"{op}: layout {layout!r} is not one of "
+                         f"{[k for k in _LAYOUTS if k]}")
+    if nd not in _CONV:
+        raise MXNetError(f"{op}: {nd} spatial axes; 1, 2 or 3 are "
+                         "supported")
+    if layout is not None and len(layout) - 2 != nd:
+        raise MXNetError(f"{op}: layout {layout} does not have {nd} "
+                         "spatial axes")
+    return bool(_LAYOUTS[layout])
 
 
-def _spatial_2d(op, data):
-    if data.dim() != 4:
-        raise MXNetError(f"{op}: {data.dim() - 2} spatial axes are not "
-                         "ported yet, only 2 (ROADMAP.md, port queue 1, "
-                         "item 4)")
-
-
-def _pair(v):
+def _tuplize(v, n):
+    """The reference's ``_tuplize``: an int or a 1-tuple repeated ``n``
+    times, a longer tuple as it is."""
     if isinstance(v, int):
-        return (v, v)
+        return (v,) * n
     v = tuple(v)
-    return v * 2 if len(v) == 1 else v
+    return v * n if len(v) == 1 else v
 
 
-def convolution(data, weight, bias=None, *, kernel=(), stride=(), pad=(),
-                num_filter=1, no_bias=False, layout=None):
-    """2-D ``Convolution``, ungrouped and undilated. ``layout``: ``NCHW``
-    (or None) or ``NHWC``; the weight is ``(num_filter, C, kh, kw)`` in
-    both, so a checkpoint does not depend on the layout (the reference's
-    ``_conv_dnums``, ``:55-67``). The weight is cast to data's dtype, the
-    bias added after the product in the output's dtype. 1-D and 3-D
-    convolutions, groups, dilation and the other layouts are not ported
-    yet (ROADMAP.md, port queue 1, item 4).
+def _to_first(data, last):
+    """The channels-first view of ``data``'s memory: for a channels-last
+    input, torch's ``channels_last`` (``channels_last_3d``) format, so
+    cuDNN reads it in place. The plain CPU path runs on a row-major copy:
+    torch's CPU (oneDNN) backward of a strided 1x1 convolution on a
+    channels-last input crashes now and then (torch 2.13)."""
+    x = data.movedim(-1, 1) if last else data
+    return x.contiguous() if x.device.type == "cpu" else x
 
-    A channels-last input goes to ``conv2d`` (cuDNN on the card) as the
-    NCHW view of its memory, torch's ``channels_last`` format, and the
-    output comes back as the NHWC view of cuDNN's channels-last result:
-    no copy either way. The reference's own reformulations of some convs
-    (``_conv_s2d``, ``_conv1x1_dot`` at ``:185``, the dW path behind
+
+def _add_bias(out, bias, last):
+    shape = [1] * out.dim()
+    shape[-1 if last else 1] = bias.shape[0]
+    return out + bias.to(out.dtype).reshape(shape)
+
+
+def convolution(data, weight, bias=None, *, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=1, num_group=1, no_bias=False,
+                layout=None):
+    """``Convolution`` over ``len(kernel)`` (1, 2 or 3) spatial axes, with
+    ``num_group`` groups and ``dilate``, in any of the reference's six
+    layouts; the weight is ``(num_filter, C / num_group, *kernel)`` in
+    every layout, so a checkpoint does not depend on the layout (the
+    reference's ``_conv_dnums``, ``:55-67``). The weight is cast to
+    data's dtype, the bias added after the product in the output's
+    dtype.
+
+    A channels-last input goes to ``conv{1,2,3}d`` (cuDNN on the card) as
+    the channels-first view of its memory, torch's ``channels_last`` /
+    ``channels_last_3d`` format, and the output comes back as the
+    channels-last view of cuDNN's result: no copy either way. The
+    reference's own reformulations of some convs (``_conv_s2d``,
+    ``_conv1x1_dot`` at ``:185``, the dW path behind
     ``MXNET_TPU_CONV_DW``) rework the TPU's matrix unit and XLA's
     conv-backward choice; cuDNN picks its own algorithms, so they are not
     ported."""
-    last = _channels_last("convolution", layout)
-    _spatial_2d("convolution", data)
-    x = data.movedim(-1, 1) if last else data
-    if x.device.type == "cpu":
-        # torch's CPU (oneDNN) backward of a strided 1x1 convolution on a
-        # channels-last input crashes now and then (torch 2.13); the
-        # plain CPU path runs on a row-major copy
-        x = x.contiguous()
-    out = F.conv2d(x, weight.to(data.dtype), None, _pair(stride or 1),
-                   _pair(pad or 0))
+    nd = len(kernel) if kernel else data.dim() - 2
+    last = _channels_last("convolution", layout, nd)
+    if data.dim() != nd + 2:
+        raise MXNetError(f"convolution: a {len(kernel)}-D kernel over a "
+                         f"{data.dim()}-D input")
+    out = _CONV[nd](_to_first(data, last), weight.to(data.dtype), None,
+                    _tuplize(stride or 1, nd), _tuplize(pad or 0, nd),
+                    _tuplize(dilate or 1, nd), num_group)
     if last:
         out = out.movedim(1, -1)
     if not no_bias and bias is not None:
-        shape = [1] * out.dim()
-        shape[-1 if last else 1] = bias.shape[0]
-        out = out + bias.to(out.dtype).reshape(shape)
+        out = _add_bias(out, bias, last)
     return out
 
 
+def deconvolution(data, weight, bias=None, *, kernel=(), stride=(),
+                  dilate=(), pad=(), adj=(), num_filter=1, num_group=1,
+                  no_bias=True, target_shape=(), layout=None):
+    """``Deconvolution``, the transposed convolution, with the weight
+    ``(C, num_filter / num_group, *kernel)``; the output's spatial size
+    is ``(in - 1) stride - 2 pad + dilate (k - 1) + 1 + adj``.
+
+    It computes the reference's orientation (``mxnet_tpu/ops/nn.py:359-
+    418``: ``lax.conv_transpose(transpose_kernel=False)``, and for groups
+    the lhs-dilated convolution with the weight unflipped), which is
+    torch's ``conv_transpose`` with the weight flipped on every spatial
+    axis. Upstream MXNet's Deconvolution is torch's unflipped one, so a
+    kernel that is not symmetric gives other numbers there; the port keeps
+    the reference's, as ``.params`` files cross between the packages.
+    ``target_shape``, which the reference accepts and ignores, raises."""
+    if target_shape:
+        raise MXNetError("Deconvolution: target_shape is not supported "
+                         "(the reference ignores it); give pad and adj")
+    nd = len(kernel) if kernel else data.dim() - 2
+    last = _channels_last("deconvolution", layout, nd)
+    w = weight.to(data.dtype).flip(tuple(range(2, 2 + nd)))
+    out = _CONV_T[nd](_to_first(data, last), w, None,
+                      _tuplize(stride or 1, nd), _tuplize(pad or 0, nd),
+                      _tuplize(adj or 0, nd), num_group,
+                      _tuplize(dilate or 1, nd))
+    if last:
+        out = out.movedim(1, -1)
+    if not no_bias and bias is not None:
+        out = _add_bias(out, bias, last)
+    return out
+
+
+def _pool_pads(shape, kernel, stride, pad, convention):
+    """Each spatial axis's (low, high) padding under the reference's
+    ``pads_for`` (``:471-495``): ``valid`` pads ``pad`` on both sides,
+    ``full`` adds ``stride - rem`` on the high side (a ceil in place of
+    the floor), ``same`` pads TF's way (``ceil(in / stride)`` outputs,
+    the odd cell at the end)."""
+    pads = []
+    for size, k, s, p in zip(shape, kernel, stride, pad):
+        if convention == "same":
+            out = -(-size // s)
+            total = max((out - 1) * s + k - size, 0)
+            pads.append((total // 2, total - total // 2))
+            continue
+        hi = p
+        if convention == "full":
+            rem = (size + 2 * p - k) % s
+            if rem:
+                hi += s - rem
+        pads.append((p, hi))
+    return pads
+
+
+def _window_sum(x, kernel, stride, divisor=1):
+    """The sum of every window of the (already padded) channels-first
+    ``x`` over ``divisor``: torch's average pool with that divisor (1-D
+    through the 2-D pool)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=divisor).squeeze(-2)
+    return _AVG_POOL[len(kernel)](x, kernel, stride,
+                                  divisor_override=divisor)
+
+
+def _flat_pads(pads):
+    """(low, high) per axis, first axis first, as ``F.pad`` takes them
+    (last axis first)."""
+    return [v for lo_hi in reversed(pads) for v in lo_hi]
+
+
+def _lp(x, p):
+    return torch.abs(x) if p == 1 else torch.pow(torch.abs(x), p)
+
+
 def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
-            global_pool=False, pooling_convention="valid", layout=None):
-    """2-D ``Pooling``, max or avg (layouts as :func:`convolution`).
-    ``global_pool`` reduces both spatial axes, keeping them as size 1.
-    Otherwise MXNet's ``"valid"`` convention (output ``floor((in + 2 pad
-    - kernel) / stride) + 1``); max pads with -inf, avg divides by the
-    whole window, padding included (MXNet's default
-    ``count_include_pad``). The other conventions and pool types
-    (``full``, ``same``, ``sum``, ``lp``), ``count_include_pad=False``
-    and 1-D or 3-D pooling come with the op registry (ROADMAP.md, port
-    queue 1, item 4)."""
-    if pool_type not in ("max", "avg"):
-        raise MXNetError(f"pooling: pool_type {pool_type!r} is not ported "
-                         "yet (ROADMAP.md, port queue 1, item 4)")
-    last = _channels_last("pooling", layout)
-    _spatial_2d("pooling", data)
+            global_pool=False, pooling_convention="valid",
+            count_include_pad=True, p_value=2, layout=None):
+    """``Pooling`` over 1, 2 or 3 spatial axes in any of the six layouts,
+    as the reference computes it (``mxnet_tpu/ops/nn.py:434-519``):
+
+    * ``pool_type`` ``max`` (padding at -inf), ``avg``, ``sum`` or ``lp``
+      (``sum(|x|^p) ^ (1/p)`` over the window, zeros in the padding: not
+      ``F.lp_pool``, which takes no absolute value);
+    * ``pooling_convention`` ``valid`` (floor), ``full`` (ceil: extra
+      padding on the high side) or ``same`` (TF's; ``pad`` must be 0);
+    * ``avg`` divides by the kernel's size, padding included, whatever
+      the convention (with ``full``, the extra high padding too, where
+      torch's ``ceil_mode`` leaves it out of the divisor), or with
+      ``count_include_pad=False`` by the count of input elements in the
+      window;
+    * ``global_pool`` reduces every spatial axis, keeping it as size 1.
+
+    Symmetric padding of at most half the kernel (the ResNets' and the
+    zoo's pools) goes to torch's pools directly; any other is applied
+    explicitly first (-inf for max, zeros else) and the windows reduced
+    unpadded. So is an average's padding on a channels-last CUDA input:
+    torch's CUDA average-pool backward (torch 2.11) gives wrong
+    gradients there, 0.33-1.25 against the CPU's on unit inputs, while
+    its forward and its unpadded pool are right
+    (tests/test_torch_cuda_vision.py ``avg_s1p1``)."""
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"pooling: pool_type {pool_type!r} is not max, "
+                         "avg, sum or lp")
+    if pooling_convention not in ("valid", "full", "same"):
+        raise MXNetError(f"pooling: pooling_convention "
+                         f"{pooling_convention!r} is not valid, full or "
+                         "same")
+    nd = data.dim() - 2
+    last = _channels_last("pooling", layout, nd)
     if global_pool:
-        axes = (1, 2) if last else (2, 3)
+        axes = tuple(range(1, 1 + nd)) if last else tuple(range(2, 2 + nd))
         if pool_type == "max":
             return data.amax(dim=axes, keepdim=True)
-        return data.mean(dim=axes, keepdim=True)
-    if pooling_convention != "valid":
-        raise MXNetError(f"pooling: pooling_convention "
-                         f"{pooling_convention!r} is not ported yet "
-                         "(ROADMAP.md, port queue 1, item 4)")
-    args = (_pair(kernel), _pair(stride or 1), _pair(pad or 0))
+        if pool_type == "avg":
+            return data.mean(dim=axes, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=axes, keepdim=True)
+        return torch.pow(_lp(data, p_value).sum(dim=axes, keepdim=True),
+                         1.0 / p_value)
+    kernel = _tuplize(kernel, nd)
+    stride = _tuplize(stride or 1, nd)
+    pad = _tuplize(pad or 0, nd)
+    if pooling_convention == "same" and any(p != 0 for p in pad):
+        raise MXNetError("pooling: pooling_convention='same' requires "
+                         "pad=0 (the reference's pooling.cc check)")
     x = data.movedim(-1, 1) if last else data
-    pool = F.max_pool2d if pool_type == "max" else F.avg_pool2d
-    out = pool(x, *args)
+    pads = _pool_pads(x.shape[2:], kernel, stride, pad, pooling_convention)
+    direct = all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads,
+                                                                 kernel))
+    padded_nhwc_cuda = last and x.is_cuda and any(lo for lo, _ in pads)
+    if pool_type == "max":
+        if direct:
+            out = _MAX_POOL[nd](x, kernel, stride, [lo for lo, _ in pads])
+        else:
+            out = _MAX_POOL[nd](F.pad(x, _flat_pads(pads),
+                                      value=float("-inf")), kernel, stride)
+    elif pool_type == "avg" and count_include_pad and direct \
+            and not padded_nhwc_cuda:
+        out = _AVG_POOL[nd](x, kernel, stride, [lo for lo, _ in pads],
+                            count_include_pad=True)
+    elif pool_type == "avg" and count_include_pad:
+        out = _window_sum(F.pad(x, _flat_pads(pads)), kernel, stride,
+                          math.prod(kernel))
+    else:
+        src = _lp(x, p_value) if pool_type == "lp" else x
+        if any(lo or hi for lo, hi in pads):
+            src = F.pad(src, _flat_pads(pads))
+        out = _window_sum(src, kernel, stride)
+        if pool_type == "lp":
+            out = torch.pow(out, 1.0 / p_value)
+        elif pool_type == "avg":
+            ones = F.pad(x.new_ones((1, 1) + tuple(x.shape[2:])),
+                         _flat_pads(pads))
+            out = out / _window_sum(ones, kernel, stride)
     return out.movedim(1, -1) if last else out
 
 
@@ -435,13 +590,34 @@ def _fully_connected_op(data, weight, bias=None, *, num_hidden=0,
 ])
 def _convolution_op(data, weight, bias=None, *, kernel=(), stride=(),
                     dilate=(), pad=(), num_filter=1, num_group=1,
-                    no_bias=False, layout=None):
-    if num_group != 1 or any(d != 1 for d in _pair(dilate or 1)):
-        raise MXNetError("Convolution: groups and dilation are not ported "
-                         "yet (ROADMAP.md, port queue 1, item 4)")
+                    no_bias=False, layout=None, workspace=1024,
+                    cudnn_tune=None, cudnn_off=False):
     return convolution(data, weight, bias, kernel=kernel, stride=stride,
-                       pad=pad, num_filter=num_filter, no_bias=no_bias,
-                       layout=layout)
+                       dilate=dilate, pad=pad, num_filter=num_filter,
+                       num_group=num_group, no_bias=no_bias, layout=layout)
+
+
+@register("Deconvolution", aliases=["deconvolution"], attrs=[
+    attr("kernel", tuple, "Spatial kernel size, e.g. (3, 3)."),
+    attr("stride", tuple, "Strides per spatial dim (default 1).", low=1),
+    attr("dilate", tuple, "Dilation per spatial dim (default 1).", low=1),
+    attr("pad", tuple, "Padding removed from each side of the output.",
+         low=0),
+    attr("adj", tuple, "Extra output cells on the high side.", low=0),
+    attr("num_filter", int, "Number of output channels.", low=1),
+    attr("num_group", int, "Grouped-convolution group count.", low=1),
+    attr("no_bias", bool, "Whether to disable the bias term."),
+    attr("layout", str, "Input/output layout.", choices=_LAYOUT_CHOICES),
+])
+def _deconvolution_op(data, weight, bias=None, *, kernel=(), stride=(),
+                      dilate=(), pad=(), adj=(), num_filter=1, num_group=1,
+                      no_bias=True, target_shape=(), layout=None,
+                      workspace=1024, cudnn_tune=None, cudnn_off=False):
+    return deconvolution(data, weight, bias, kernel=kernel, stride=stride,
+                         dilate=dilate, pad=pad, adj=adj,
+                         num_filter=num_filter, num_group=num_group,
+                         no_bias=no_bias, target_shape=target_shape,
+                         layout=layout)
 
 
 @register("Pooling", attrs=[
@@ -453,13 +629,18 @@ def _convolution_op(data, weight, bias=None, *, kernel=(), stride=(),
     attr("global_pool", bool, "Pool over the whole spatial extent."),
     attr("pooling_convention", str, "Output-size rounding rule.",
          choices=("valid", "full", "same")),
+    attr("p_value", int, "p of the Lp pooling norm.", low=1),
     attr("layout", str, "Input layout.", choices=_LAYOUT_CHOICES),
 ])
 def _pooling_op(data, *, kernel=(), pool_type="max", stride=(), pad=(),
-                global_pool=False, pooling_convention="valid", layout=None):
+                global_pool=False, pooling_convention="valid",
+                count_include_pad=True, cudnn_off=False, p_value=2,
+                layout=None):
     return pooling(data, kernel=kernel, pool_type=pool_type, stride=stride,
                    pad=pad, global_pool=global_pool,
-                   pooling_convention=pooling_convention, layout=layout)
+                   pooling_convention=pooling_convention,
+                   count_include_pad=count_include_pad, p_value=p_value,
+                   layout=layout)
 
 
 @register("Dropout", attrs=[

@@ -232,7 +232,8 @@ def test_conv_pool_stack():
 def test_conv_layers_nhwc_and_pools():
     """NHWC convolution (weights still OIHW) equals NCHW on the permuted
     input; AvgPool2D and GlobalMaxPool2D against the JAX layers; the
-    transposed, grouped and 1-D/3-D forms raise naming item 4."""
+    transposed, grouped and 1-D/3-D forms, which raised naming item 4
+    until its convolutions came, against the JAX layers too."""
     rs = np.random.RandomState(3)
     x = rs.randn(2, 4, 6, 6).astype(np.float32)
     a = nn.Conv2D(5, 3, padding=1, in_channels=4)
@@ -248,12 +249,19 @@ def test_conv_layers_nhwc_and_pools():
                    (jnn.GlobalMaxPool2D(), nn.GlobalMaxPool2D()),
                    (jnn.ReflectionPad2D(1), nn.ReflectionPad2D(1))):
         _close(pl(mx.nd.array(x)).asnumpy(), jl(jmx.nd.array(x)).asnumpy())
-    for cls, args in ((nn.Conv2DTranspose, (3, 4)), (nn.Conv1D, (3, 2)),
-                      (nn.Conv3D, (3, 2))):
-        with pytest.raises(mx.MXNetError, match="item 4"):
-            cls(*args)
-    with pytest.raises(mx.MXNetError, match="item 4"):
-        nn.Conv2D(8, 3, groups=2, in_channels=4)
+    for cls, args, kw, xs in (
+            ("Conv2DTranspose", (3, 4), {}, x),
+            ("Conv1D", (3, 2), {}, x[:, :, 0]),
+            ("Conv3D", (3, 2), {}, np.stack([x, 2 * x], 2)),
+            ("Conv2D", (8, 3), {"groups": 2}, x)):
+        pl, jl = getattr(nn, cls)(*args, **kw), getattr(jnn, cls)(*args, **kw)
+        pl.initialize()
+        jl.initialize()
+        jout = jl(jmx.nd.array(xs))
+        pl(mx.nd.array(xs))
+        pl.weight.set_data(jl.weight.data().asnumpy())
+        pl.bias.set_data(jl.bias.data().asnumpy())
+        _close(pl(mx.nd.array(xs)).asnumpy(), jout.asnumpy())
 
 
 def test_parameter_sharing():

@@ -573,11 +573,19 @@ def test_bidirectional_cell_refuses_a_step():
 
 
 def test_contrib_conv_cells_name_the_roadmap_item():
+    """The convolutional cells, which raised naming item 4 until its
+    convolutions came, are recurrent cells that build and step
+    (tests/test_torch_conv_rnn.py holds them against the reference)."""
     from mxnet_tpu_torch.gluon.contrib import rnn as crnn
 
-    with pytest.raises(MXNetError, match="item 4"):
-        crnn.Conv2DLSTMCell((3, 8, 8), 4, 3, 3)
+    cell = crnn.Conv2DLSTMCell((3, 8, 8), 4, 3, 3)
+    assert isinstance(cell, rnn.RecurrentCell)
     assert issubclass(crnn.Conv1DGRUCell, rnn.RecurrentCell)
+    with mx.cpu():
+        cell.initialize()
+        out, states = cell(mx.nd.ones((2, 3, 8, 8)),
+                           cell.begin_state(2, ctx=mx.cpu()))
+    assert out.shape == (2, 4, 6, 6) and len(states) == 2
 
 
 # ---------------------------------------------------------------------------
