@@ -374,8 +374,38 @@ package. Phases, each printing JSON lines and failing loudly:
              (32, 3, 299, 299): 20 graph replays equal to the eager
              forward bit for bit, one capture; host and device ms per
              forward, graph and eager, images/s;
+17n. ssd_reference — ssd_toy(num_classes=3) at 64x64, batch 2, f32 with
+             TF32 off, seeded weights carried to a CPU build by a .params
+             file: the predict forward card against CPU (1e-4 of each
+             output's largest), then two record / targets (mining at 3) /
+             SSDMultiBoxLoss / backward / Trainer('adam') steps on each
+             device: cls_target and loc_mask equal, each loss within
+             1e-5, each delta within 1e-3 by norm ratio (the convolution
+             biases feeding a BatchNorm, whose gradients are rounding,
+             held to 1e-5 of the largest gradient); box_nms on the card
+             against its plain version on the card and the CPU's op, bit
+             for bit, over crafted rows (score ties, +-0 and NaN scores,
+             shared and distinct ids, force_suppress, topk, the center
+             format in and out, leading axes, 1000 and 3000 rows);
+17o. ssd_train — get_ssd(20, base="small") (7,620 anchors at 300x300),
+             f32, batch 32 of seeded images with up to 8 filled
+             rectangles of known class, the eager Gluon path (record,
+             net.targets with hard-negative mining at 3, SSDMultiBoxLoss,
+             backward, Trainer('adam', lr 1e-3).step): 3 warm-up and 10
+             timed steps, the loss finite and lower at the last step than
+             the first, exactly one Adam sweep a step and no box_nms;
+             images/s, ms per step, host and device ms, idle share,
+             device ms by kind, MultiBoxTarget's own ms, peak memory;
+17p. ssd_detect — that net hybridized: the forward's graph equal to the
+             eager forward bit for bit with one capture; detect at batch
+             32 (nms_topk 400, nms_threshold 0.45) equal to the plain
+             route's rows (box_nms through its plain version on the same
+             card inputs) bit for bit; exactly one box_nms call a
+             detect; images/s, host and device ms a detect; the kernels
+             phase holds box_nms against its plain version at detect's
+             (32, 7620, 6) rows with topk 400, bit for bit;
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
-             hash_dropout and twobit_quantize beside them, and an mx.rtc
+             hash_dropout, twobit_quantize and box_nms beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
              SGD kernel, the rtc phase's axpy beside it), and the eager
              path's step beside TrainStep's at the same shape and
@@ -1941,6 +1971,7 @@ def phase_kernels() -> dict:
     recs.append(sgd_case(flush, gen))
     recs.append(lamb_case(flush, gen))
     recs.extend(twobit_case(flush, gen))
+    recs.append(nms_case(flush, gen))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -1955,7 +1986,8 @@ def phase_kernels() -> dict:
     # proxy1b step's (8 x 2048, 2048)
     pick = {r["kernel"]: r for r in recs
             if r["kernel"] in ("fused_adam_sweep", "fused_adamw_sweep",
-                               "fused_sgd_sweep", "fused_lamb_sweep")}
+                               "fused_sgd_sweep", "fused_lamb_sweep",
+                               "box_nms")}
     for r in recs:
         if r["dtype"] != "bfloat16":
             continue
@@ -2593,7 +2625,8 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "dkdv_kernel",
                  "paged_split_kernel", "paged_combine_kernel",
                  "dropout_kernel", "adamw_kernel",
                  "adamw_scan_kernel", "sgd_kernel", "lamb_phase1_kernel",
-                 "lamb_norms_kernel", "lamb_phase2_kernel")
+                 "lamb_norms_kernel", "lamb_phase2_kernel",
+                 "nms_mask_kernel", "nms_sweep_kernel")
 
 
 def _kind(name) -> str:
@@ -8434,6 +8467,449 @@ def phase_vision_serve(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# SSD: the box ops, the MultiBox ops, the box_nms kernel, training and
+# detection (ssd_reference, ssd_train, ssd_detect)
+# ---------------------------------------------------------------------------
+
+# the convolution biases that feed a batch-statistics BatchNorm: their
+# gradient is 0 up to rounding, so Adam's first steps there are the sign
+# of that rounding on either device
+SSD_BIAS_BEFORE_BN = ("trunk.0.bias", "trunk.3.bias", "trunk.6.bias",
+                      "stage1.0.bias", "stage2.0.bias")
+SSD_LR = 1e-3
+
+
+def _nms_rows(seed, n=60, lead=(2,), fmt="corner", ids=3):
+    """(*lead, n, 6) rows [id, score, box] whose boxes cluster; scores
+    with ties, +-0 and NaN; ids shared and distinct (the generator of
+    tests/test_torch_cuda_ssd.py)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(int(np.prod(lead))):
+        centers = rs.rand(5, 2) * 0.6 + 0.2
+        a = (centers[rs.randint(0, 5, n)] + rs.randn(n, 2) * 0.04) \
+            .astype(np.float32)
+        size = (0.15 + rs.rand(n, 2) * 0.1).astype(np.float32)
+        boxes = np.concatenate([a, size] if fmt == "center"
+                               else [a - size / 2, a + size / 2], axis=1)
+        score = np.round(rs.rand(n), 1).astype(np.float32)
+        score[::9] = 0.0
+        score[4::9] = -0.0
+        score[7::17] = np.nan
+        score[2::19] = -0.25
+        cls = rs.randint(0, ids, n).astype(np.float32)
+        cls[11::23] = -1.0
+        out.append(np.concatenate([cls[:, None], score[:, None], boxes],
+                                  axis=1))
+    return np.stack(out).reshape(tuple(lead) + (n, 6)).astype(np.float32)
+
+
+def _sorted_nms_rows(rows, topk=-1):
+    """The box_nms op's glue: each image's rows sorted by score (stable),
+    cut to the first topk; returns (sorted (B, m, 6), n)."""
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    n, k = flat.shape[1:]
+    m = n if topk <= 0 else min(n, topk)
+    order = torch.argsort(-flat[..., 1], dim=-1, stable=True)
+    return flat.gather(1, order[:, :m, None].expand(-1, -1, k)) \
+        .contiguous(), n
+
+
+def _nan_same(a, b) -> bool:
+    """Bit for bit with NaN equal to NaN (the sign of a zero counts)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _ssd_scene(batch, size, classes, seed, max_boxes=8):
+    """Seeded images of ``batch`` x 3 x ``size`` x ``size`` with 1 to
+    ``max_boxes`` filled rectangles each, the colour its class's, over
+    noise; labels (batch, max_boxes, 5) [cls, x1, y1, x2, y2] in [0, 1],
+    padded with -1."""
+    rs = np.random.RandomState(seed)
+    palette = rs.rand(classes, 3).astype(np.float32)
+    x = (rs.rand(batch, 3, size, size) * 0.3).astype(np.float32)
+    labels = np.full((batch, max_boxes, 5), -1.0, np.float32)
+    for b in range(batch):
+        for j in range(rs.randint(1, max_boxes + 1)):
+            c = rs.randint(classes)
+            w, h = rs.uniform(0.1, 0.5, 2)
+            x1, y1 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            c0, r0 = int(x1 * size), int(y1 * size)
+            c1, r1 = int((x1 + w) * size), int((y1 + h) * size)
+            x[b, :, r0:r1, c0:c1] = palette[c][:, None, None]
+            labels[b, j] = [c, c0 / size, r0 / size, c1 / size, r1 / size]
+    return x, labels
+
+
+def nms_case(flush, gen) -> dict:
+    """The box_nms kernel at SSD detect's shapes (ssd_detect: 32 images of
+    7,620 rows [id, score, box], topk 400, overlap 0.45, valid 0.01, per
+    class) against its plain version on the same sorted rows, bit for
+    bit; kernels per call (a graph capture's kernel nodes: the mask and
+    the sweep). Bound: the sorted rows read once and the (32, 7620, 6)
+    output written once (f32), against 20 f32 operations per pair
+    (i, j > i) of the 400 rows. No single PyTorch call computes it
+    (torchvision's nms is not installed, and it takes no classes, topk
+    or -1 rows)."""
+    from mxnet_tpu_torch.kernels import (box_nms_sorted,
+                                         box_nms_sorted_reference)
+    from mxnet_tpu_torch.kernels._build import kernels_per_call
+
+    batch, n, topk = 32, 7620, 400
+    rs = np.random.RandomState(SEED + 23)
+    rows = torch.from_numpy(_nms_rows(SEED + 23, n=n, lead=(batch,),
+                                      ids=20)).cuda()
+    score = torch.from_numpy(rs.rand(batch, n).astype(np.float32)).cuda()
+    rows[..., 1] = torch.where(score > 0.3, score, -1.0)
+    srt, n_out = _sorted_nms_rows(rows, topk)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.01, coord_start=2,
+              score_index=1, id_index=0)
+    got = box_nms_sorted(srt, n_out, **kw)
+    want = box_nms_sorted_reference(srt, n_out, **kw)
+    same = _nan_same(got, want)
+    twice = _nan_same(box_nms_sorted(srt, n_out, **kw), got)
+    per_call = kernels_per_call(lambda: box_nms_sorted(srt, n_out, **kw))
+    m = srt.shape[1]
+    b_ms, b_by = bound(4.0 * batch * 6 * (m + n_out),
+                       20.0 * batch * m * (m - 1) / 2, torch.float32)
+    rec = {"phase": "kernels", "kernel": "box_nms", "shape": [batch, n, 6],
+           "topk": topk, "dtype": "float32",
+           "kept_per_image": float((got[..., 0] >= 0).sum()) / batch,
+           "bit_identical": same, "same_bits_twice": twice,
+           "kernels_per_call": per_call,
+           "max_abs_err": 0.0 if same else None,
+           "ms": time_ms(lambda: box_nms_sorted(srt, n_out, **kw), flush),
+           "plain_ms": time_ms(lambda: box_nms_sorted_reference(
+               srt, n_out, **kw), flush, iters=5, warmup=1),
+           "library_ms": None,
+           "library": "null (no single call: torchvision is not installed)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    rec["device_ms"] = _queued_ms(lambda: box_nms_sorted(srt, n_out, **kw),
+                                  flush)
+    rec["ok"] = same and twice and per_call == 2
+    emit(rec)
+    return rec
+
+
+def phase_ssd_reference(card: str) -> None:
+    """ssd_toy(num_classes=3) at 64x64, batch 2, f32 with TF32 off, seeded
+    random weights drawn on the card and carried to a CPU build by a
+    .params file: the card's predict forward against the CPU's (each
+    output within 1e-4 of its largest); then two record / targets /
+    SSDMultiBoxLoss / backward / Trainer('adam').step steps on each
+    device: cls_target and loc_mask equal, each loss within 1e-5
+    relative, each trained parameter's delta over the two steps within
+    1e-3 by norm ratio (the convolution biases that feed a BatchNorm,
+    whose gradients are rounding, held to 1e-5 of the largest gradient
+    instead; the running statistics, which absorb those biases, are
+    not Adam's); then box_nms on the card, kernel against its plain version
+    on the card and the op against the CPU's, bit for bit, over crafted
+    rows (score ties, +-0 and NaN scores, shared and distinct ids,
+    force_suppress, topk, the center format in and out, leading axes)."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.kernels import (box_nms_sorted,
+                                         box_nms_sorted_reference)
+    from mxnet_tpu_torch.ops import spatial
+
+    t0 = time.perf_counter()
+    prev = _tf32(False)
+    x_np, lab_np = _ssd_scene(2, 64, 3, SEED + 21, max_boxes=4)
+    mx.random.seed(SEED + 21)
+    card_net = vision.ssd_toy(num_classes=3)
+    card_net.initialize(ctx=mx.gpu(0))
+    card_net(mx.nd.array(x_np, ctx=mx.gpu(0)))          # settle the shapes
+    _redraw(card_net, torch.Generator(device="cuda").manual_seed(SEED + 21))
+    with tempfile.TemporaryDirectory() as tmp:
+        card_net.save_parameters(f"{tmp}/ssd.params")
+        cpu_net = vision.ssd_toy(num_classes=3)
+        cpu_net.load_parameters(f"{tmp}/ssd.params", ctx=mx.cpu())
+    runs = {}
+    for dev, net, ctx in (("card", card_net, mx.gpu(0)),
+                          ("cpu", cpu_net, mx.cpu())):
+        x, lab = mx.nd.array(x_np, ctx=ctx), mx.nd.array(lab_np, ctx=ctx)
+        fwd = [o._data.cpu() for o in net(x)]
+        loss_fn = vision.SSDMultiBoxLoss()
+        trainer = Trainer(net.collect_params(), "adam",
+                          {"learning_rate": SSD_LR})
+        params = net._collect_params_with_prefix()
+        w0 = {k: p.data()._data.detach().cpu().clone()
+              for k, p in params.items()}
+        losses, targets, grads = [], [], {}
+        for _ in range(2):
+            with autograd.record():
+                an, cp, bp = net(x)
+                lt, lm, ct = net.targets(an, lab, cp)
+                loss = loss_fn(cp, bp, ct, lt, lm)
+            loss.backward()
+            for k in SSD_BIAS_BEFORE_BN:
+                grads[k] = params[k].grad()._data.abs().max().item()
+            grads["top"] = max(p.grad()._data.abs().max().item()
+                               for p in params.values()
+                               if p.grad_req != "null")
+            trainer.step(1)
+            losses.append(float(loss.asnumpy()))
+            targets.append((ct._data.cpu(), lm._data.cpu()))
+        runs[dev] = dict(fwd=fwd, losses=losses, targets=targets,
+                         grads=grads, deltas={
+                             k: p.data()._data.detach().cpu() - w0[k]
+                             for k, p in params.items()
+                             if p.grad_req != "null"})
+    on_card, on_cpu = runs["card"], runs["cpu"]
+    fwd_err = [_rel(a, b) for a, b in zip(on_card["fwd"], on_cpu["fwd"])]
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(on_card["losses"],
+                                                     on_cpu["losses"])]
+    targets_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                        for a, b in zip(on_card["targets"],
+                                        on_cpu["targets"]))
+    delta_err = {k: float((on_card["deltas"][k] - d).norm()
+                          / d.norm().clamp_min(1e-30))
+                 for k, d in on_cpu["deltas"].items()
+                 if k not in SSD_BIAS_BEFORE_BN}
+    rounding = max(r["grads"][k] / r["grads"]["top"]
+                   for r in (on_card, on_cpu) for k in SSD_BIAS_BEFORE_BN)
+    _restore_tf32(prev)
+    # box_nms over the crafted rows
+    cases = {"per_class": dict(id_index=0), "one_class": dict(),
+             "force": dict(id_index=0, force_suppress=True),
+             "topk": dict(id_index=0, topk=17),
+             "zeros_valid": dict(id_index=0, valid_thresh=-0.5),
+             "center_in_out": dict(id_index=0, in_format="center",
+                                   out_format="center", fmt="center"),
+             "corner_to_center": dict(id_index=0, out_format="center"),
+             "lead_axes": dict(id_index=0, lead=(2, 3), topk=25),
+             "n_1000": dict(id_index=0, n=1000, lead=(3,)),
+             "n_3000": dict(id_index=0, n=3000, lead=(2,))}
+    nms = {}
+    for name, kw in cases.items():
+        kw = dict(kw)
+        gen = {k: kw.pop(k) for k in ("fmt", "lead", "n") if k in kw}
+        rows = torch.from_numpy(_nms_rows(len(name), **gen))
+        srt, n = _sorted_nms_rows(rows.cuda(), kw.get("topk", -1))
+        args = dict(overlap_thresh=kw.get("overlap_thresh", 0.5),
+                    valid_thresh=kw.get("valid_thresh", 0.0),
+                    coord_start=2, score_index=1,
+                    id_index=-1 if kw.get("force_suppress")
+                    else kw.get("id_index", -1),
+                    in_format=kw.get("in_format", "corner"),
+                    out_format=kw.get("out_format", "corner"))
+        kernel = _nan_same(box_nms_sorted(srt, n, **args),
+                           box_nms_sorted_reference(srt, n, **args))
+        op = _nan_same(spatial.box_nms(rows.cuda(), **kw),
+                       spatial.box_nms(rows, **kw))
+        nms[name] = kernel and op
+    out = {"phase": "ssd_reference", "card": card,
+           "model": "ssd_toy(num_classes=3)", "batch": [2, 3, 64, 64],
+           "dtype": "float32, TF32 off",
+           "forward_rel_err": fwd_err, "losses_card": on_card["losses"],
+           "losses_cpu": on_cpu["losses"], "loss_rel_err": loss_err,
+           "targets_equal": targets_equal,
+           "delta_rel_err_max": max(delta_err.values()),
+           "delta_rel_err_worst": max(delta_err, key=delta_err.get),
+           "bias_before_bn_grad_over_top": rounding,
+           "box_nms_bits": nms, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if max(fwd_err) > 1e-4 or max(loss_err) > 1e-5 or not targets_equal:
+        fail(f"ssd_reference: forward {fwd_err}, loss {loss_err}, targets "
+             f"equal {targets_equal}")
+    if max(delta_err.values()) > 1e-3 or rounding > 1e-5:
+        fail(f"ssd_reference: deltas {delta_err}, biases before BatchNorm "
+             f"{rounding} of the largest gradient")
+    if not all(nms.values()):
+        fail(f"ssd_reference: box_nms on the card is not its plain "
+             f"version: {nms}")
+
+
+def _ssd_kind(name) -> str:
+    low = name.lower()
+    if "nms_" in name:
+        return "box_nms_kernel"
+    if any(k in low for k in ("sort", "radix", "scan")):
+        return "sort_scan"
+    return _kind(name)
+
+
+def phase_ssd_train(card: str):
+    """get_ssd(20, base="small"), the widest SSD the reference builds (a
+    32/64/128 trunk, 64-channel stages, 3 scales of 4 anchors, VOC's 20
+    classes: 7,620 anchors at 300x300), f32 parameters, seeded
+    initialisation, trained through the eager Gluon path at batch 32:
+    record, net(x), net.targets (hard-negative mining at 3),
+    SSDMultiBoxLoss, backward, Trainer('adam', lr 1e-3).step. The data:
+    seeded images with up to 8 filled rectangles of known class, labels
+    (32, 8, 5) padded with -1. 3 warm-up and 10 timed steps: the loss
+    finite and lower at the last step than at the first, exactly one
+    Adam sweep per step and no box_nms. Printed: images/s, ms per step,
+    host and device ms, idle share, device ms by kind, MultiBoxTarget's
+    own host and device ms, peak memory. Returns (the Adam sweep's
+    launches, the net, the batch) for ssd_detect."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.kernels import box_nms_sorted, fused_adam_sweep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch, timed_steps = 32, 10
+    x_np, lab_np = _ssd_scene(batch, 300, 20, SEED + 22)
+    mx.random.seed(SEED + 22)
+    net = vision.get_ssd(20, base="small")
+    net.initialize(ctx=mx.gpu(0))
+    x = mx.nd.array(x_np, ctx=mx.gpu(0))
+    lab = mx.nd.array(lab_np, ctx=mx.gpu(0))
+    loss_fn = vision.SSDMultiBoxLoss()
+    trainer = Trainer(net.collect_params(), "adam",
+                      {"learning_rate": SSD_LR})
+
+    def step():
+        with autograd.record():
+            an, cp, bp = net(x)
+            lt, lm, ct = net.targets(an, lab, cp)
+            loss = loss_fn(cp, bp, ct, lt, lm)
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    losses = [float(step().asnumpy()) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adam_sweep.launches = box_nms_sorted.launches = 0
+    timed = []
+    t1 = time.perf_counter()
+    for _ in range(timed_steps):
+        timed.append(step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"fused_adam_sweep": fused_adam_sweep.launches,
+                "box_nms_sorted": box_nms_sorted.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses += [float(v.asnumpy()) for v in timed]
+    with autograd.pause():
+        an, cp, _ = net(x)
+    anchors = an.shape[1]
+    out = {"phase": "ssd_train", "card": card,
+           "model": "get_ssd(20, base='small')", "dtype": "float32",
+           "params": sum(p.numel() for p in net.parameters()),
+           "anchors": anchors, "batch": [batch, 3, 300, 300],
+           "boxes_per_image": float((lab_np[..., 0] >= 0).sum()) / batch,
+           "optimizer": {"adam": {"learning_rate": SSD_LR}},
+           "steps": timed_steps, "ms_per_step": wall * 1e3 / timed_steps,
+           "images_per_s": batch * timed_steps / wall,
+           "peak_mem_gib": peak, "losses": losses, "launches": launches}
+    out["step_breakdown"] = _device_breakdown(step, 2, n_top=12,
+                                              kind=_ssd_kind)
+    tgt = _device_breakdown(lambda: net.targets(an, lab, cp), 5, n_top=6,
+                            kind=_ssd_kind)
+    out["multibox_target"] = {k: tgt[k] for k in (
+        "host_ms_per_step", "device_ms_per_step", "device_idle_share",
+        "top_device_ms_per_step")}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if anchors != 7620:
+        fail(f"ssd_train: {anchors} anchors at 300x300, not 7,620")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"ssd_train: the loss is not finite or did not fall: {losses}")
+    if launches != {"fused_adam_sweep": timed_steps, "box_nms_sorted": 0}:
+        fail(f"ssd_train: launches {launches}, not one Adam sweep a step "
+             "and no box_nms")
+    return launches, net, x
+
+
+def phase_ssd_detect(card: str, net, x) -> dict:
+    """ssd_train's net hybridized, detect at batch 32 (nms_topk 400,
+    nms_threshold 0.45): the forward's graph (its first call the capture,
+    then replays) equal to the eager forward bit for bit with one
+    capture; detect's rows equal to the plain route's (box_nms through
+    its plain version, on the same card inputs) bit for bit; exactly one
+    box_nms call (the mask and the sweep) per detect. Printed:
+    images/s through detect, host and device ms per detect, the idle
+    share and device ms by kind."""
+    import gc
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.kernels import (box_nms_sorted,
+                                         box_nms_sorted_reference)
+    from mxnet_tpu_torch.ops import spatial
+
+    t0 = time.perf_counter()
+    batch, timed = x.shape[0], 10
+    with autograd.predict_mode():
+        eager = [o._data.clone() for o in net(x)]
+        net.hybridize()
+        same = all(torch.equal(a._data, b)
+                   for a, b in zip(net(x), eager))
+        for _ in range(5):
+            same &= all(torch.equal(a._data, b)
+                        for a, b in zip(net(x), eager))
+        captures = net.cached_graph.captures
+        box_nms_sorted.launches = 0
+        det = net.detect(x)._data.clone()
+        one = box_nms_sorted.launches
+        spatial.box_nms_sorted = box_nms_sorted_reference
+        try:
+            plain = net.detect(x)._data
+        finally:
+            spatial.box_nms_sorted = box_nms_sorted
+        rows_equal = _nan_same(det, plain)
+        box_nms_sorted.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(timed):
+            net.detect(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = box_nms_sorted.launches
+        brk = _device_breakdown(lambda: net.detect(x), 3, n_top=10,
+                                kind=_ssd_kind)
+    kept = (det[..., 0] >= 0).sum(dim=1).float()
+    out = {"phase": "ssd_detect", "card": card,
+           "model": "get_ssd(20, base='small'), hybridized",
+           "batch": list(x.shape), "nms_topk": net.nms_topk,
+           "nms_threshold": net.nms_threshold,
+           "graph_equals_eager_bits": bool(same), "captures": captures,
+           "detect_rows_equal_plain_bits": rows_equal,
+           "box_nms_launches_first_detect": one,
+           "box_nms_sorted": launches, "detects": timed,
+           "kept_per_image": [float(kept.min()), float(kept.mean()),
+                              float(kept.max())],
+           "images_per_s": batch * timed / wall,
+           "ms_per_detect": wall * 1e3 / timed,
+           "detect_breakdown": {k: brk[k] for k in (
+               "host_ms_per_step", "device_ms_per_step",
+               "device_idle_share", "top_device_ms_per_step",
+               "device_ms_per_step_by_kind")},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not same or captures != 1:
+        fail(f"ssd_detect: graph = eager {same}, {captures} captures")
+    if not rows_equal:
+        fail("ssd_detect: detect's rows differ from the plain route's")
+    if one != 1 or launches != timed:
+        fail(f"ssd_detect: box_nms launched {one} times in one detect and "
+             f"{launches} in {timed}")
+    if not torch.isfinite(det).all() or tuple(det.shape) != (batch, 7620, 6):
+        fail(f"ssd_detect: rows {tuple(det.shape)} not finite or not "
+             f"({batch}, 7620, 6)")
+    del net, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -8490,6 +8966,10 @@ def main() -> None:
     vision_ref = phase_vision_reference(card)
     mobilenet = phase_mobilenet_train(card)
     phase_vision_serve(card)
+    phase_ssd_reference(card)
+    ssd_train, ssd_net, ssd_x = phase_ssd_train(card)
+    ssd_detect = phase_ssd_detect(card, ssd_net, ssd_x)
+    del ssd_net, ssd_x
     pk = "mxnet_tpu/pallas_kernels/"
     csrc = "mxnet_tpu_torch/kernels/csrc/"
     replaces = {
@@ -8534,6 +9014,8 @@ def main() -> None:
         # not a Pallas site: the kvstore's 2-bit quantizer, which XLA fuses
         "twobit_quantize": ("gradient_compression.cu",
                             "mxnet_tpu/kvstore/gradient_compression.py:68"),
+        # not a Pallas site: box_nms's lax.scan, which XLA compiles
+        "box_nms": ("box_nms.cu", "mxnet_tpu/ops/spatial.py:80"),
     }
     bwd_sites = [pk + "flash_attention.py:937", pk + "flash_attention.py:959",
                  pk + "flash_attention.py:977"]
@@ -8544,6 +9026,11 @@ def main() -> None:
     notes = {
         "hash_dropout": "not a Pallas site: dropout_op's hash branch, "
                         "which XLA fuses into its neighbours",
+        "box_nms": "not a Pallas site: box_nms's greedy scan over the "
+                   "score-sorted rows (lax.scan, mxnet_tpu/ops/spatial.py:"
+                   "113-121), which XLA compiles; one call (the mask and "
+                   "the sweep, two kernels) per MultiBoxDetection, so one "
+                   "per SSD detect",
         "twobit_quantize": "not a Pallas site: the kvstore's 2-bit "
                            "quantizer with error feedback (_q), which XLA "
                            "fuses; one launch per gradient bucket per step "
@@ -8601,6 +9088,10 @@ def main() -> None:
                 by_path[path] = got[name]
         if name == "fused_adamw_sweep":
             by_path["data_llama[scan]"] = data_llama[name + "[scan]"]
+        if name == "fused_adam_sweep":
+            by_path["ssd_train"] = ssd_train[name]
+        if name == "box_nms":
+            by_path["ssd_detect"] = ssd_detect["box_nms_sorted"]
         if name == "fused_lamb_sweep":
             for sub in ("[phase1]", "[norms]"):
                 by_path["bert_trainer" + sub] = trainer[name + sub]

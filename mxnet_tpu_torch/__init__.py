@@ -90,8 +90,10 @@ from . import ndarray as nd  # noqa: E402
 from .base import MXNetError  # noqa: E402
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: E402
                       gpu, num_gpus)
+from .ndarray import NDArray  # noqa: E402
+from .optimizer import Optimizer  # noqa: E402
 
-__all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu", "num_gpus",
+__all__ = ["MXNetError", "NDArray", "Optimizer", "Context", "cpu", "cpu_pinned", "gpu", "num_gpus",
            "current_context", "autograd", "base", "callback", "checkpoint",
            "compiler", "context", "convert", "engine", "fault", "gluon",
            "image", "init", "initializer", "io", "kernels", "kv", "kvstore",

@@ -79,12 +79,19 @@ __all__ = ["Block", "HybridBlock", "SymbolBlock", "tensor_ops",
 class _TensorOps:
     """``F`` for torch tensors: ``F.<op>`` is the registered op of that
     name called on tensors, with the positional-to-attribute mapping of
-    the ``mx.nd`` wrappers (``F.cast(x, "float32")``)."""
+    the ``mx.nd`` wrappers (``F.cast(x, "float32")``); ``F.contrib.<op>``
+    is the op ``_contrib_<op>``, as ``mx.nd.contrib`` holds it."""
+
+    def __init__(self, prefix=""):
+        self._prefix = prefix
 
     def __getattr__(self, name):
         if name.startswith("__"):
             raise AttributeError(name)
-        opdef = get_op(name)
+        if name == "contrib" and not self._prefix:
+            self.contrib = _TensorOps("_contrib_")
+            return self.contrib
+        opdef = get_op(self._prefix + name)
         n = len(opdef.tensor_params)
         names = opdef.attr_params
 

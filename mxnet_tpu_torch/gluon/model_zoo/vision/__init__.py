@@ -1,10 +1,10 @@
 """Vision models of the port (counterpart of
 ``mxnet_tpu/gluon/model_zoo/vision``): ResNet v1 and v2, VGG, AlexNet,
 DenseNet, SqueezeNet, Inception v3 and MobileNet v1/v2/v3, each taking
-``layout``, ``ctx``, ``dtype`` and ``generator``, and :func:`get_model`
-over the reference's names. ``pretrained=True`` reads the local model
-store. ``ssd_toy`` waits for the contrib MultiBox ops (ROADMAP.md, port
-queue 1, item 4)."""
+``layout``, ``ctx``, ``dtype`` and ``generator``, the SSD detector
+(``SSD``, ``SSDMultiBoxLoss``, ``get_ssd``, ``ssd_toy``), and
+:func:`get_model` over the reference's names. ``pretrained=True`` reads
+the local model store."""
 from ....base import MXNetError
 from . import alexnet as _alexnet
 from . import densenet as _densenet
@@ -12,6 +12,7 @@ from . import inception as _inception
 from . import mobilenet as _mobilenet
 from . import resnet as _resnet
 from . import squeezenet as _squeezenet
+from . import ssd as _ssd
 from . import vgg as _vgg
 from .alexnet import *  # noqa: F401,F403
 from .densenet import *  # noqa: F401,F403
@@ -19,18 +20,12 @@ from .inception import *  # noqa: F401,F403
 from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
 from .squeezenet import *  # noqa: F401,F403
+from .ssd import *  # noqa: F401,F403
 from .vgg import *  # noqa: F401,F403
 
 
-def ssd_toy(**kwargs):
-    """``ssd_toy``: needs the contrib MultiBox ops, not ported yet."""
-    raise MXNetError("ssd_toy needs the contrib MultiBoxPrior/"
-                     "MultiBoxTarget/MultiBoxDetection ops, not ported yet "
-                     "(ROADMAP.md, port queue 1, item 4)")
-
-
 _models = {
-    "ssd_toy": ssd_toy,
+    "ssd_toy": _ssd.ssd_toy,
     "resnet18_v1": _resnet.resnet18_v1,
     "resnet34_v1": _resnet.resnet34_v1,
     "resnet50_v1": _resnet.resnet50_v1,
@@ -80,6 +75,6 @@ def get_model(name, **kwargs):
     return _models[name](**kwargs)
 
 
-__all__ = (["get_model", "ssd_toy"] + _resnet.__all__ + _vgg.__all__
+__all__ = (["get_model"] + _ssd.__all__ + _resnet.__all__ + _vgg.__all__
            + _alexnet.__all__ + _densenet.__all__ + _squeezenet.__all__
            + _inception.__all__ + _mobilenet.__all__)

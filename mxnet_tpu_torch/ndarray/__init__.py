@@ -5,17 +5,21 @@ Each registered op of ``ops/registry.py`` becomes ``mx.nd.<name>``, as
 MXNet generates its wrappers from the C op registry: tensors go
 positionally or by name, attributes as keywords (positionals past the
 tensors fill the attributes in order, ``nd.clip(x, 0, 6)``), plus
-``out=`` and ``ctx=``. ``random``, ``contrib``, ``linalg``, ``image``
-and ``sparse`` wait (ROADMAP.md, port queue 1, item 4).
+``out=`` and ``ctx=``. ``mx.nd.contrib`` holds every ``_contrib_`` op
+under its short name (``mx.nd.contrib.MultiBoxPrior``), as the
+reference builds it. ``random``, ``linalg``, ``image`` and ``sparse``
+wait (ROADMAP.md, port queue 1, item 4).
 """
 from __future__ import annotations
 
 import sys
+import types
 from typing import Optional
 
 from ..base import numeric_types
 from ..context import Context
 from ..ops import elemwise as _elemwise  # noqa: F401  (registers the ops)
+from ..ops import multibox as _multibox  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_op as _optimizer_op  # noqa: F401
 from ..ops import rnn as _rnn  # noqa: F401
@@ -25,9 +29,10 @@ from ..ops.registry import get_op, list_ops, render_attr_docs
 from .ndarray import NDArray, array, empty, imperative_invoke, waitall
 from .serialization import load, loads, save
 
-__all__ = ["NDArray", "array", "empty", "save", "load", "loads", "waitall",
+__all__ = ["NDArray", "contrib", "array", "empty", "save", "load", "loads", "waitall",
            "zeros", "ones", "full", "arange", "concat", "zeros_like",
-           "ones_like", "moveaxis", "maximum", "minimum", "power"]
+           "ones_like", "moveaxis", "maximum", "minimum", "power", "equal",
+           "not_equal", "greater", "lesser"]
 
 
 def _make_wrapper(opname: str):
@@ -82,9 +87,13 @@ def _make_wrapper(opname: str):
 
 
 _this = sys.modules[__name__]
+contrib = types.ModuleType(__name__ + ".contrib")
+sys.modules[contrib.__name__] = contrib
 for _name in list_ops():
     if not hasattr(_this, _name):
         setattr(_this, _name, _make_wrapper(_name))
+    if _name.startswith("_contrib_"):
+        setattr(contrib, _name[len("_contrib_"):], getattr(_this, _name))
 
 
 def zeros(shape, ctx: Optional[Context] = None, dtype=None, **kwargs):
@@ -140,6 +149,22 @@ def _scalar_or_broadcast(lhs, rhs, scalar_op, rscalar_op, op):
         return imperative_invoke(get_op(rscalar_op), [rhs],
                                  {"scalar": float(lhs)})
     return imperative_invoke(get_op(op), [lhs, rhs], {})
+
+
+def equal(lhs, rhs):
+    return lhs == rhs
+
+
+def not_equal(lhs, rhs):
+    return lhs != rhs
+
+
+def greater(lhs, rhs):
+    return lhs > rhs
+
+
+def lesser(lhs, rhs):
+    return lhs < rhs
 
 
 def maximum(lhs, rhs):

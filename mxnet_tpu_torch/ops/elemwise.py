@@ -21,8 +21,10 @@ op here is written so that it gives the reference's: ``s / x`` correctly
 rounded; integer ``mod`` by zero 0; integer ``power`` by ``jnp``'s
 binary exponentiation over the exponent's low 6 bits; ``hypot`` of
 integers in float; ``cbrt`` taken in f32 and rounded once; ``sign`` of
-NaN NaN and of -0 -0; half the gradient at the ties of ``maximum``,
-``minimum`` and ``clip`` and none at NaN; ``abs``'s gradient 1 at +-0;
+NaN NaN and of -0 -0; -0 ordered below +0 by ``maximum``, ``minimum``
+and ``clip``, as XLA orders them (torch keeps the first zero); half the
+gradient at the ties of ``maximum``, ``minimum`` and ``clip`` and none
+at NaN; ``abs``'s gradient 1 at +-0;
 ``relu`` +0 at -0 with no gradient at NaN; the gradient of ``gamma`` and
 ``gammaln`` NaN at +-0; the gradients of
 ``power`` and ``hypot`` at 0 as ``jnp``'s; ``Cast`` of a float to an
@@ -39,7 +41,8 @@ import torch.nn.functional as F
 from ..base import torch_dtype
 from .registry import register
 
-__all__ = ["cast_scalar", "relu"]
+__all__ = ["cast_scalar", "relu", "maximum", "minimum", "signed_zeros",
+           "max_zero_sign", "min_zero_sign"]
 
 # ---------------------------------------------------------------------------
 # binary arithmetic
@@ -184,6 +187,99 @@ def _hypot(x, y):
     return _Hypot.apply(x, y)
 
 
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
+def signed_zeros(x, negative: bool, dtype=torch.bool):
+    """Where the float ``x`` holds a zero of the given sign (-0 if
+    ``negative``), as ``dtype`` 1s and 0s, in one pass: +0's bits are
+    all clear, -0's only the sign bit."""
+    bits = x.detach().view(_INT_OF_SIZE[x.element_size()])
+    zero = torch.iinfo(bits.dtype).min if negative else 0
+    if dtype == torch.bool:
+        return bits == zero
+    return torch.eq(bits, zero, out=torch.empty_like(bits, dtype=dtype))
+
+
+def max_zero_sign(out, plus0):
+    """``out``, a max, with XLA's sign of a zero max: +0 where ``plus0``
+    (a +0 took part), else the zero as it is. Adding +0 turns only -0
+    into +0 and adding -0 changes nothing, so the gradient is
+    untouched."""
+    return out + torch.where(plus0, out.new_zeros(()),
+                             out.new_full((), -0.0))
+
+
+def min_zero_sign(out, minus0):
+    """``out``, a min, with XLA's sign of a zero min: -0 where ``minus0``
+    (a -0 took part); see :func:`max_zero_sign`."""
+    return -(max_zero_sign(-out, minus0))
+
+
+class _Extremum(torch.autograd.Function):
+    """``jnp.maximum``/``jnp.minimum`` of two arrays, or of an array and
+    a scalar of its dtype: NaN wins, and -0 orders below +0 (torch keeps
+    ``a``'s zero at a tie of zeros); each operand's gradient is 1 where
+    it alone is the result, half at a tie, 0 where it lost or the result
+    is NaN (torch passes the gradient to a NaN operand). The scalar form
+    saves only the array."""
+
+    @staticmethod
+    def forward(ctx, a, b, upper):
+        scalar = not torch.is_tensor(b)
+        other = a.new_full((), b) if scalar else b
+        zeros = signed_zeros(a, not upper) | signed_zeros(other, not upper)
+        if upper:
+            out = max_zero_sign(torch.maximum(a, other), zeros)
+        else:
+            out = min_zero_sign(torch.minimum(a, other), zeros)
+        ctx.upper, ctx.s = upper, b if scalar else None
+        if scalar:
+            ctx.save_for_backward(a)
+        else:
+            ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.s is not None:
+            (d,), s = ctx.saved_tensors, ctx.s
+            wins = d > s if ctx.upper else d < s
+            w = torch.where(wins, 1.0, torch.where(d == s, 0.5, 0.0))
+            return g * w.to(g.dtype), None, None
+        a, b, out = ctx.saved_tensors
+
+        def share(x, other, needed):
+            if not needed:
+                return None
+            w = torch.where(x == out, torch.where(other == out, 0.5, 1.0),
+                            0.0)
+            return (g * w.to(g.dtype)).sum_to_size(x.shape)
+
+        return (share(a, b, ctx.needs_input_grad[0]),
+                share(b, a, ctx.needs_input_grad[1]), None)
+
+
+def _extremum(a, b, upper):
+    if not torch.result_type(a, b).is_floating_point:
+        if not torch.is_tensor(b):
+            b = torch.full_like(a, b)
+        return torch.maximum(a, b) if upper else torch.minimum(a, b)
+    return _Extremum.apply(a, b, upper)
+
+
+def maximum(a, b):
+    """``jnp.maximum`` of two arrays, or of an array and a scalar of its
+    dtype (:class:`_Extremum`; integers: torch's)."""
+    return _extremum(a, b, True)
+
+
+def minimum(a, b):
+    """``jnp.minimum``; see :func:`maximum`."""
+    return _extremum(a, b, False)
+
+
 def _binary(name, aliases, fn, strict_shape=False):
     def impl(lhs, rhs):
         if strict_shape and lhs.shape != rhs.shape:
@@ -203,8 +299,8 @@ _binary("broadcast_mul", [], torch.mul)
 _binary("broadcast_div", [], torch.true_divide)
 _binary("broadcast_mod", [], _mod)
 _binary("broadcast_power", ["broadcast_pow"], _power)
-_binary("broadcast_maximum", [], torch.maximum)
-_binary("broadcast_minimum", [], torch.minimum)
+_binary("broadcast_maximum", [], maximum)
+_binary("broadcast_minimum", [], minimum)
 _binary("broadcast_hypot", [], _hypot)
 _binary("elemwise_add", ["_plus", "_add"], torch.add, strict_shape=True)
 _binary("elemwise_sub", ["_minus", "_sub"], torch.sub, strict_shape=True)
@@ -290,44 +386,8 @@ _scalar_op("_rpower_scalar", lambda d, s: _power(torch.full_like(d, s), d))
 
 
 
-class _ExtremumScalar(torch.autograd.Function):
-    """``jnp.maximum``/``jnp.minimum`` of an array and a scalar: NaN
-    wins, and -0 orders below +0 (torch's keep ``d`` at a tie of zeros);
-    the gradient 1 where ``d`` wins, half at a tie, 0 at NaN (torch
-    passes it whole there)."""
-
-    @staticmethod
-    def forward(ctx, d, s, upper):
-        full = torch.full_like(d, s)
-        # at a tie of zeros the result is +0 for max, -0 for min: d's
-        # zero wins when the scalar's sign says it is the worse one
-        tie_d = math.copysign(1.0, s) < 0 if upper else \
-            math.copysign(1.0, s) > 0
-        wins = d > s if upper else d < s
-        wins = wins | torch.isnan(d)
-        if tie_d:
-            wins = wins | (d == s)
-        ctx.save_for_backward(d)
-        ctx.s, ctx.upper = s, upper
-        return torch.where(wins, d, full)
-
-    @staticmethod
-    def backward(ctx, g):
-        (d,) = ctx.saved_tensors
-        wins = d > ctx.s if ctx.upper else d < ctx.s
-        share = torch.where(wins, 1.0, torch.where(d == ctx.s, 0.5, 0.0))
-        return g * share.to(g.dtype), None, None
-
-
-def _extremum_scalar(d, s, upper):
-    if _int(d):
-        full = torch.full_like(d, s)
-        return torch.maximum(d, full) if upper else torch.minimum(d, full)
-    return _ExtremumScalar.apply(d, s, upper)
-
-
-_scalar_op("_maximum_scalar", lambda d, s: _extremum_scalar(d, s, True))
-_scalar_op("_minimum_scalar", lambda d, s: _extremum_scalar(d, s, False))
+_scalar_op("_maximum_scalar", maximum)
+_scalar_op("_minimum_scalar", minimum)
 _scalar_op("_equal_scalar", lambda d, s: (d == s).to(d.dtype))
 _scalar_op("_not_equal_scalar", lambda d, s: (d != s).to(d.dtype))
 _scalar_op("_greater_scalar", lambda d, s: (d > s).to(d.dtype))
@@ -504,17 +564,49 @@ _unary("negative", torch.negative, aliases=["_np_negative"])
 _unary("identity", lambda x: x, aliases=["_copy"])
 
 
+class _Clip(torch.autograd.Function):
+    """``jnp.clip``, ``minimum(maximum(x, lo), hi)`` in one clamp: a zero
+    bound orders -0 below +0 as XLA does (``clip(-0, 0, 6)`` is +0); the
+    gradient is g strictly inside the bounds, g/2 on one, 0 outside and
+    at NaN (the product of ``maximum``'s and ``minimum``'s)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        out = torch.clamp(x, lo, hi)
+        if lo == 0 and math.copysign(1.0, lo) > 0:
+            out.add_(0.0)                    # -0 -> +0, nothing else
+        if hi == 0 and math.copysign(1.0, hi) < 0:
+            out.neg_().add_(0.0).neg_()      # +0 -> -0, nothing else
+        ctx.save_for_backward(x, out)
+        ctx.bounds = (lo, hi)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        if lo is None or hi is None or lo < hi:
+            # x == out inside or on a bound (not outside, not NaN)
+            on = (x == lo) if hi is None else (x == hi) if lo is None \
+                else (x == lo) | (x == hi)
+            return torch.where(x == out, torch.where(on, g * 0.5, g),
+                               0.0).to(g.dtype), None, None
+        # lo >= hi: the composition's product of the two weights
+        w = torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0))
+        y = torch.clamp(x, min=lo)
+        w = w * torch.where(y < hi, 1.0, torch.where(y == hi, 0.5, 0.0))
+        return g * w.to(g.dtype), None, None
+
+
 @register("clip")
 def clip(data, *, a_min=None, a_max=None):
-    """``jnp.clip``: ``minimum(maximum(x, a_min), a_max)``, so a value on
-    a bound gets half the gradient (integers keep ``clamp``)."""
+    """``jnp.clip`` (:class:`_Clip`), the bounds rounded to the data's
+    dtype first; integers keep ``clamp``."""
     if _int(data):
         return torch.clamp(data, a_min, a_max)
-    if a_min is not None:
-        data = torch.maximum(data, torch.full_like(data, a_min))
-    if a_max is not None:
-        data = torch.minimum(data, torch.full_like(data, a_max))
-    return data
+    lo = None if a_min is None else cast_scalar(a_min, data.dtype)
+    hi = None if a_max is None else cast_scalar(a_max, data.dtype)
+    return _Clip.apply(data, lo, hi)
 
 
 @register("Cast", aliases=["cast", "amp_cast"])

@@ -20,6 +20,7 @@ plain PyTorch here as they are plain XLA there.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -28,8 +29,9 @@ import torch.nn.functional as F
 from .. import autograd, random_state
 from ..base import MXNetError, torch_dtype
 from ..kernels import fused_bias_gelu, fused_layer_norm, hash_dropout
-from .elemwise import relu
+from .elemwise import _abs, max_zero_sign, relu, signed_zeros
 from .registry import attr, register
+from .tensor import amax
 
 __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "batch_norm", "flatten", "embedding", "layer_norm",
@@ -190,7 +192,13 @@ def _pool_pads(shape, kernel, stride, pad, convention):
 def _window_sum(x, kernel, stride, divisor=1):
     """The sum of every window of the (already padded) channels-first
     ``x`` over ``divisor``: torch's average pool with that divisor (1-D
-    through the 2-D pool)."""
+    through the 2-D pool). An integer ``x`` (which torch's pools refuse)
+    is summed exactly in its own dtype, wrapping as it does, over
+    ``unfold``'s windows (``divisor`` 1)."""
+    if not x.dtype.is_floating_point:
+        for i, (k, s) in enumerate(zip(kernel, stride)):
+            x = x.unfold(2 + i, k, s)
+        return x.sum(dim=tuple(range(-len(kernel), 0)), dtype=x.dtype)
     if len(kernel) == 1:
         return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
                             divisor_override=divisor).squeeze(-2)
@@ -205,7 +213,80 @@ def _flat_pads(pads):
 
 
 def _lp(x, p):
-    return torch.abs(x) if p == 1 else torch.pow(torch.abs(x), p)
+    """``|x| ** p`` through the registered ``abs``, whose gradient at +-0
+    is 1 as ``jnp.abs``'s (torch's is 0)."""
+    return _abs(x) if p == 1 else torch.pow(_abs(x), p)
+
+
+def _avg_dtype(x):
+    """An integer average's dtype, the reference's: float64 for int64,
+    float32 else."""
+    if x.dtype.is_floating_point:
+        return x.dtype
+    return torch.float64 if x.dtype == torch.int64 else torch.float32
+
+
+class _MaxPoolSelect(torch.autograd.Function):
+    """The identity on a max pool's channels-first output ``out`` of
+    ``x``, whose backward sends each window's gradient where the
+    reference's (XLA's select-and-scatter) sends it. The selection starts
+    at the window's first element (a padded one is -inf and has no input
+    to take the gradient) and moves to each next element c, in window
+    order, when ``not (sel >= c)``. That is torch's first max wherever
+    the max is neither NaN nor -inf, so only those windows are
+    re-selected here, and torch's own backward gets their gradient
+    zeroed; finite inputs keep torch's route. Whether any such window
+    exists is found in the forward and, on the card, copied to the host
+    behind the pool, so the backward waits for its forward's pool, not
+    for the backward queued before it."""
+
+    @staticmethod
+    def forward(ctx, out, x, kernel, stride, lows):
+        ctx.save_for_backward(out, x)
+        ctx.cfg = (kernel, stride, lows)
+        any_bad = (torch.isnan(out) | (out == float("-inf"))).any()
+        ctx.ready = None
+        if out.is_cuda:
+            ctx.any_bad = torch.empty((), dtype=torch.bool, pin_memory=True)
+            ctx.any_bad.copy_(any_bad, non_blocking=True)
+            ctx.ready = torch.cuda.Event()
+            ctx.ready.record()
+        else:
+            ctx.any_bad = any_bad
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.ready is not None:
+            ctx.ready.synchronize()
+        if not bool(ctx.any_bad):
+            return g, None, None, None, None
+        out, x = ctx.saved_tensors
+        bad = torch.isnan(out) | (out == float("-inf"))
+        kernel, stride, lows = ctx.cfg
+        n, c, *outs = bad.nonzero(as_tuple=True)
+        sizes = x.shape[2:]
+        sel = None
+        for offs in itertools.product(*(range(k) for k in kernel)):
+            at = [o * s - lo + d
+                  for o, s, lo, d in zip(outs, stride, lows, offs)]
+            real = torch.ones_like(n, dtype=torch.bool)
+            for a, size in zip(at, sizes):
+                real &= (a >= 0) & (a < size)
+            at = [a.clamp(0, size - 1) for a, size in zip(at, sizes)]
+            v = torch.where(real, x[(n, c, *at)], float("-inf"))
+            if sel is None:
+                sel, sel_at, sel_real = v, at, real
+                continue
+            move = ~(sel >= v)
+            sel = torch.where(move, v, sel)
+            sel_at = [torch.where(move, a, b) for a, b in zip(at, sel_at)]
+            sel_real = torch.where(move, real, sel_real)
+        gx = torch.zeros_like(x)
+        gx.index_put_((n, c, *sel_at),
+                      torch.where(sel_real, g[bad], 0.0).to(x.dtype),
+                      accumulate=True)
+        return g.masked_fill(bad, 0.0), gx, None, None, None
 
 
 def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
@@ -224,7 +305,10 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
       torch's ``ceil_mode`` leaves it out of the divisor), or with
       ``count_include_pad=False`` by the count of input elements in the
       window;
-    * ``global_pool`` reduces every spatial axis, keeping it as size 1.
+    * ``global_pool`` reduces every spatial axis, keeping it as size 1;
+    * integers: ``avg`` gives float32 (float64 from int64), ``sum`` the
+      input's dtype; a max's zero sign and its gradient where a window's
+      max is NaN or -inf are the reference's (:func:`_max_pool`).
 
     Symmetric padding of at most half the kernel (the ResNets' and the
     zoo's pools) goes to torch's pools directly; any other is applied
@@ -246,9 +330,9 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
     if global_pool:
         axes = tuple(range(1, 1 + nd)) if last else tuple(range(2, 2 + nd))
         if pool_type == "max":
-            return data.amax(dim=axes, keepdim=True)
+            return amax(data, axes, True)
         if pool_type == "avg":
-            return data.mean(dim=axes, keepdim=True)
+            return data.to(_avg_dtype(data)).mean(dim=axes, keepdim=True)
         if pool_type == "sum":
             return data.sum(dim=axes, keepdim=True)
         return torch.pow(_lp(data, p_value).sum(dim=axes, keepdim=True),
@@ -264,17 +348,14 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
     direct = all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads,
                                                                  kernel))
     padded_nhwc_cuda = last and x.is_cuda and any(lo for lo, _ in pads)
+    floats = x.dtype.is_floating_point
     if pool_type == "max":
-        if direct:
-            out = _MAX_POOL[nd](x, kernel, stride, [lo for lo, _ in pads])
-        else:
-            out = _MAX_POOL[nd](F.pad(x, _flat_pads(pads),
-                                      value=float("-inf")), kernel, stride)
-    elif pool_type == "avg" and count_include_pad and direct \
+        out = _max_pool(x, kernel, stride, pads, direct)
+    elif pool_type == "avg" and count_include_pad and direct and floats \
             and not padded_nhwc_cuda:
         out = _AVG_POOL[nd](x, kernel, stride, [lo for lo, _ in pads],
                             count_include_pad=True)
-    elif pool_type == "avg" and count_include_pad:
+    elif pool_type == "avg" and count_include_pad and floats:
         out = _window_sum(F.pad(x, _flat_pads(pads)), kernel, stride,
                           math.prod(kernel))
     else:
@@ -285,10 +366,38 @@ def pooling(data, *, kernel=(), pool_type="max", stride=(), pad=(),
         if pool_type == "lp":
             out = torch.pow(out, 1.0 / p_value)
         elif pool_type == "avg":
-            ones = F.pad(x.new_ones((1, 1) + tuple(x.shape[2:])),
-                         _flat_pads(pads))
-            out = out / _window_sum(ones, kernel, stride)
+            out = out.to(_avg_dtype(x))
+            if count_include_pad:
+                out = out / math.prod(kernel)
+            else:
+                ones = F.pad(x.new_ones((1, 1) + tuple(x.shape[2:]),
+                                        dtype=out.dtype), _flat_pads(pads))
+                out = out / _window_sum(ones, kernel, stride)
     return out.movedim(1, -1) if last else out
+
+
+def _max_pool(x, kernel, stride, pads, direct):
+    """Max pooling of channels-first ``x`` at the reference's: padding
+    at -inf, a zero max +0 where a +0 is in the window (torch keeps the
+    window's first zero), and the gradient of a window whose max is NaN
+    or -inf where the reference sends it (:class:`_MaxPoolSelect`)."""
+    pool = _MAX_POOL[len(kernel)]
+    lows = [lo for lo, _ in pads]
+
+    def run(t):
+        if direct:
+            return pool(t, kernel, stride, lows)
+        return pool(F.pad(t, _flat_pads(pads), value=float("-inf")),
+                    kernel, stride)
+
+    out = run(x)
+    if not x.dtype.is_floating_point:
+        return out
+    if x.requires_grad and torch.is_grad_enabled():
+        out = _MaxPoolSelect.apply(out, x, kernel, stride, lows)
+    # which windows hold a +0: the max pool of a float16 +0 indicator,
+    # made in one pass
+    return max_zero_sign(out, run(signed_zeros(x, False, torch.float16)) > 0)
 
 
 def flatten(data):
@@ -565,7 +674,7 @@ def log_softmax(data, *, axis=-1, temperature=None, dtype=None,
 _LAYOUT_CHOICES = ("NCW", "NCHW", "NCDHW", "NWC", "NHWC", "NDHWC")
 
 
-@register("FullyConnected", attrs=[
+@register("FullyConnected", aliases=["fully_connected"], attrs=[
     attr("num_hidden", int, "Number of output hidden units.", low=0),
     attr("no_bias", bool, "Whether to disable the bias term."),
     attr("flatten", bool,
@@ -578,7 +687,7 @@ def _fully_connected_op(data, weight, bias=None, *, num_hidden=0,
                            flatten=flatten)
 
 
-@register("Convolution", attrs=[
+@register("Convolution", aliases=["convolution"], attrs=[
     attr("kernel", tuple, "Spatial kernel size, e.g. (3, 3)."),
     attr("stride", tuple, "Strides per spatial dim (default 1).", low=1),
     attr("dilate", tuple, "Dilation per spatial dim (default 1).", low=1),
@@ -620,7 +729,7 @@ def _deconvolution_op(data, weight, bias=None, *, kernel=(), stride=(),
                          layout=layout)
 
 
-@register("Pooling", attrs=[
+@register("Pooling", aliases=["pooling"], attrs=[
     attr("kernel", tuple, "Pooling window size."),
     attr("pool_type", str, "Pooling reduction.",
          choices=("max", "avg", "sum", "lp")),
@@ -643,7 +752,7 @@ def _pooling_op(data, *, kernel=(), pool_type="max", stride=(), pad=(),
                    layout=layout)
 
 
-@register("Dropout", attrs=[
+@register("Dropout", aliases=["dropout"], attrs=[
     attr("p", float, "Fraction of units dropped.", low=0.0, high=1.0),
     attr("mode", str, "When to apply dropout.",
          choices=("training", "always")),
@@ -652,7 +761,7 @@ def _dropout_op(data, *, p=0.5, mode="training", axes=()):
     return dropout(data, p, mode, axes)
 
 
-@register("Activation", attrs=[
+@register("Activation", aliases=["activation"], attrs=[
     attr("act_type", str, "The activation.", choices=tuple(_ACTIVATIONS)),
 ])
 def _activation_op(data, *, act_type="relu"):

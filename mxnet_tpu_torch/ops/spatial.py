@@ -2,55 +2,35 @@
 (``:17``), ``multi_all_finite`` (``:28``), ``all_finite`` (``:205``),
 ``moments`` (``:210``), ``SoftmaxActivation`` (``:242``) and
 ``SVMOutput`` (``:252``, whose hand-written VJP ignores the head
-gradient, as a ``torch.autograd.Function`` on both devices), and the
-resize ops ``UpSampling``, ``BilinearResize2D`` (reference
-``ops/nn.py:1261``, ``:1298``) and ``AdaptiveAvgPooling2D``
-(``ops/contrib.py:536``). The box and sampling ops of that module wait
-(ROADMAP.md, port queue 1, item 4)."""
+gradient, as a ``torch.autograd.Function`` on both devices), the resize
+ops ``UpSampling``, ``BilinearResize2D`` (reference ``ops/nn.py:1261``,
+``:1298``) and ``AdaptiveAvgPooling2D`` (``ops/contrib.py:536``), and the
+box ops ``box_iou`` and ``box_nms`` (``:74``, ``:80``) with
+``bipartite_matching`` (``ops/contrib.py:566``). ``box_nms`` sorts and
+gathers here on both devices and suppresses through
+``kernels.box_nms_sorted`` (the hand-written kernel on the card). The
+sampling ops of that module wait (ROADMAP.md, port queue 1, item 4)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..kernels.box_nms import box_nms_sorted, corner_iou, to_corner
+from .elemwise import clip
 from .nn import _label_grad, _one_hot, deconvolution
 from .registry import register
 
 __all__ = ["hard_sigmoid", "multi_all_finite", "all_finite", "moments",
            "softmax_activation", "svm_output", "upsampling",
-           "bilinear_resize_2d", "adaptive_avg_pooling_2d"]
-
-
-def _balanced(x, z, other):
-    """The weight of ``x``'s gradient through ``z = max(x, other)`` (or
-    min) in JAX: 1 where x won, 0.5 at a tie, 0 where it lost or where
-    either is NaN."""
-    return torch.where(x == z, torch.where(other == z, 0.5, 1.0), 0.0)
-
-
-class _Clip01(torch.autograd.Function):
-    """``minimum(maximum(y, 0), 1)`` with the reference's ``jnp.clip``
-    gradient: halved where y sits on a bound, 0 at NaN (torch's
-    ``maximum`` passes the gradient through a NaN)."""
-
-    @staticmethod
-    def forward(ctx, y):
-        lo = torch.maximum(y, y.new_zeros(()))
-        out = torch.minimum(lo, y.new_ones(()))
-        ctx.save_for_backward(y, lo, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        y, lo, out = ctx.saved_tensors
-        w = _balanced(y, lo, 0.0) * _balanced(lo, out, 1.0)
-        return g * w.to(g.dtype)
+           "bilinear_resize_2d", "adaptive_avg_pooling_2d", "box_iou",
+           "box_nms", "bipartite_matching"]
 
 
 @register("hard_sigmoid")
 def hard_sigmoid(data, *, alpha=0.2, beta=0.5):
     """``clip(alpha * x + beta, 0, 1)``."""
-    return _Clip01.apply(alpha * data + beta)
+    return clip(alpha * data + beta, a_min=0.0, a_max=1.0)
 
 
 @register("multi_all_finite")
@@ -206,3 +186,79 @@ def adaptive_avg_pooling_2d(data, *, output_size=()):
         out = tuple(output_size)
         size = (out[0], out[0]) if len(out) == 1 else (out[0], out[1])
     return F.adaptive_avg_pool2d(data.float(), size).to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the box ops (reference ops/spatial.py:41-129, ops/contrib.py:566)
+# ---------------------------------------------------------------------------
+
+
+@register("_contrib_box_iou", aliases=["box_iou"])
+def box_iou(lhs, rhs, *, format="corner"):
+    """Pairwise IoU of the boxes of ``lhs`` (..., M, 4) and ``rhs`` (...,
+    N, 4) in ``format`` (``corner`` or ``center``), f32."""
+    return corner_iou(to_corner(lhs.float(), format),
+                      to_corner(rhs.float(), format))
+
+
+@register("_contrib_box_nms", aliases=["box_nms"])
+def box_nms(data, *, overlap_thresh=0.5, valid_thresh=0.0, topk=-1,
+            coord_start=2, score_index=1, id_index=-1,
+            force_suppress=False, in_format="corner",
+            out_format="corner"):
+    """Greedy NMS of the rows of ``data`` (..., N, K) per leading index
+    (reference ``bounding_box.cc::BoxNMS``): the rows sorted by score
+    (stable, as ``jnp.argsort(-scores)``: ties in index order, NaN last,
+    -0 equal to +0), suppressed and invalid rows -1, f32, ``data``'s
+    shape. Only the first ``topk`` sorted rows can be kept (``topk > 0``),
+    so only they take part; ``id_index < 0`` or ``force_suppress``
+    suppresses across classes."""
+    x = data.detach().float()
+    n, k = x.shape[-2:]
+    flat = x.reshape(-1, n, k)
+    m = n if topk <= 0 else min(n, int(topk))
+    order = torch.argsort(-flat[..., score_index], dim=-1, stable=True)
+    rows = flat.gather(1, order[:, :m, None].expand(-1, -1, k))
+    out = box_nms_sorted(
+        rows.contiguous(), n, overlap_thresh=overlap_thresh,
+        valid_thresh=valid_thresh, coord_start=coord_start,
+        score_index=score_index,
+        id_index=-1 if force_suppress else id_index,
+        in_format=in_format, out_format=out_format)
+    return out.reshape(x.shape)
+
+
+@register("_contrib_bipartite_matching", aliases=["bipartite_matching"])
+def bipartite_matching(data, *, is_ascend=False, threshold=0.0, topk=-1):
+    """Greedy bipartite matching on a (..., N, M) score matrix
+    (reference ``bounding_box.cc::BipartiteMatching``): ``min(N, M)``
+    rounds (``min(topk, N, M)`` with ``topk``), each taking the best
+    remaining pair (the largest, or with ``is_ascend`` the smallest;
+    ``argmax``'s first at a tie) and retiring its row and column if its
+    score passes ``threshold`` (``>=``, on the sign-flipped scores with
+    ``is_ascend``). Returns f32 ``(row_match (..., N), col_match (...,
+    M))``, -1 where unmatched."""
+    lead = data.shape[:-2]
+    n, m = data.shape[-2:]
+    sgn = -1.0 if is_ascend else 1.0
+    s = data.detach().float().reshape(-1, n, m) * sgn
+    thr = threshold * sgn
+    rounds = min(n, m) if topk < 0 else min(topk, n, m)
+    b = s.shape[0]
+    rmatch = s.new_full((b, n), -1.0)
+    cmatch = s.new_full((b, m), -1.0)
+    rows = torch.arange(n, device=s.device)
+    cols = torch.arange(m, device=s.device)
+    for _ in range(rounds):
+        idx = s.reshape(b, -1).argmax(dim=1)
+        val = s.reshape(b, -1).gather(1, idx[:, None])[:, 0]
+        r, c = idx // m, idx % m
+        ok = val >= thr
+        rmatch = torch.where(ok[:, None] & (rows == r[:, None]),
+                             c[:, None].float(), rmatch)
+        cmatch = torch.where(ok[:, None] & (cols == c[:, None]),
+                             r[:, None].float(), cmatch)
+        gone = ok[:, None, None] & ((rows == r[:, None])[:, :, None]
+                                    | (cols == c[:, None])[:, None, :])
+        s = s.masked_fill(gone, float("-inf"))
+    return rmatch.reshape(lead + (n,)), cmatch.reshape(lead + (m,))

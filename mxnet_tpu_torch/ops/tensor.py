@@ -8,7 +8,8 @@ view (``Reshape``, ``transpose``, ``broadcast_to``...):
 the reference's outputs are new arrays. Only ``NDArray.reshape`` and
 basic indexing give views. The creation ops take the device to create
 on as their ``device`` attribute. The ``_linalg_*`` ops,
-``gather_nd``/``scatter_nd``, ``boolean_mask`` and the contrib ops wait
+``gather_nd``/``scatter_nd``, ``boolean_mask`` and the contrib ops
+other than SSD's (``ops/multibox.py``, ``ops/spatial.py``) wait
 (ROADMAP.md, port queue 1, item 4).
 """
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
-from .elemwise import _abs
+from .elemwise import (_abs, max_zero_sign, min_zero_sign,
+                       signed_zeros)
 from .registry import register
 
 __all__ = ["reshape_with_magic"]
@@ -423,10 +425,27 @@ _reduce("sum", lambda x, d, k: torch.sum(x, dim=d, keepdim=k, dtype=x.dtype),
         aliases=["sum_axis"])
 _reduce("mean", _mean)
 _reduce("prod", _prod)
-_reduce("max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k),
-        aliases=["max_axis"])
-_reduce("min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
-        aliases=["min_axis"])
+def amax(x, dim, keepdim):
+    """``jnp.max``: torch's ``amax`` (the gradient split over the ties,
+    as the reference's), with XLA's +0 where a +0 meets a -0."""
+    out = torch.amax(x, dim=dim, keepdim=keepdim)
+    if not x.dtype.is_floating_point:
+        return out
+    return max_zero_sign(out, signed_zeros(x, False).any(dim=dim,
+                                                          keepdim=keepdim))
+
+
+def amin(x, dim, keepdim):
+    """``jnp.min``; see :func:`amax`."""
+    out = torch.amin(x, dim=dim, keepdim=keepdim)
+    if not x.dtype.is_floating_point:
+        return out
+    return min_zero_sign(out, signed_zeros(x, True).any(dim=dim,
+                                                         keepdim=keepdim))
+
+
+_reduce("max", amax, aliases=["max_axis"])
+_reduce("min", amin, aliases=["min_axis"])
 
 
 @register("norm")
@@ -482,9 +501,17 @@ def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
          dtype="float32"):
     # a stable sort, then the first k: equal values come in index order,
     # as jax.lax.top_k gives them (torch.topk's order among ties is not
-    # the reference's)
-    vals, raw = torch.sort(data, dim=axis, descending=not is_ascend,
-                           stable=True)
+    # the reference's); top_k orders -0 below +0, so a float input is
+    # sorted by its zeros' signs first
+    if data.dtype.is_floating_point:
+        first = torch.sort(torch.signbit(data).to(torch.uint8), dim=axis,
+                           descending=is_ascend, stable=True)[1]
+        vals, raw = torch.sort(data.gather(axis, first), dim=axis,
+                               descending=not is_ascend, stable=True)
+        raw = first.gather(axis, raw)
+    else:
+        vals, raw = torch.sort(data, dim=axis, descending=not is_ascend,
+                               stable=True)
     vals, raw = vals.narrow(axis, 0, k), raw.narrow(axis, 0, k)
     if ret_typ == "indices":
         return raw.to(torch_dtype(dtype))

@@ -330,8 +330,8 @@ def _max_pool_edges():
 def test_max_pooling_edges_and_ties(pad):
     """±0, NaN, ±inf and ties in max pooling: the values bit for bit
     (NaN propagates, the sign of a zero max is the reference's), and the
-    gradient of every finite window, ties included (each framework gives
-    a tie's whole gradient to one input: its first in the window)."""
+    whole gradient, every window's head carried: a finite tie's to its
+    first input, a NaN or -inf window's where the reference selects."""
     x = _max_pool_edges()
     kw = dict(kernel=(2, 2), stride=(2, 2), pad=(pad, pad), pool_type="max")
     jout, vjp = jax.vjp(lambda a: jnn.pooling(a, **kw), jnp.asarray(x))
@@ -341,13 +341,183 @@ def test_max_pooling_edges_and_ties(pad):
     assert out.shape == want.shape
     np.testing.assert_array_equal(np.signbit(_np(out)), np.signbit(want))
     np.testing.assert_array_equal(_np(out), want)
-    dy = np.ones(want.shape, np.float32)
-    dy[~np.isfinite(want)] = 0.0        # a NaN window's gradient is not a
-    (jdx,) = vjp(jnp.asarray(dy))       # number either framework defines
+    dy = 1.0 + np.arange(want.size, dtype=np.float32).reshape(want.shape)
+    (jdx,) = vjp(jnp.asarray(dy))
     out.backward(torch.from_numpy(dy))
-    finite = np.isfinite(x)
-    np.testing.assert_array_equal(_np(tx.grad)[finite],
-                                  np.asarray(jdx)[finite])
+    np.testing.assert_array_equal(_np(tx.grad), np.asarray(jdx))
+
+
+# ---------------------------------------------------------------------------
+# pooling's faults against the reference (ROADMAP.md, queue 3, F1-F3, D1),
+# each case failing before the fix
+# ---------------------------------------------------------------------------
+
+
+def _zero_windows(nd, last, seed):
+    """An input of (2, 3) channels whose windows of 2 (per axis) hold
+    -0 before +0, +0 before -0, -0 alone, and ordinary values; laid out
+    channels first or last."""
+    rs = np.random.RandomState(seed)
+    sizes = (4,) * nd
+    x = rs.choice(np.array([-0.0, 0.0, -0.0, -1.0, 0.5], np.float32),
+                  size=(2, 3) + sizes)
+    flat = x.reshape(2, 3, -1)
+    flat[0, 0, :2] = [-0.0, 0.0]
+    flat[0, 1] = np.where(np.arange(flat.shape[2]) % 2, 0.0, -0.0)
+    flat[0, 2] = np.where(np.arange(flat.shape[2]) % 3, -0.0, 0.0)
+    flat[1, 0] = -0.0
+    if last:
+        x = np.moveaxis(x, 1, -1)
+    return np.ascontiguousarray(x)
+
+
+def _vjp_exact(jfn, pfn, x, dy_seed=0):
+    jout, vjp = jax.vjp(jfn, jnp.asarray(x))
+    want = np.asarray(jout)
+    tx = torch.from_numpy(x.copy()).requires_grad_()
+    out = pfn(tx)
+    dy = (1.0 + np.random.RandomState(dy_seed).randint(
+        0, 8, want.shape)).astype(np.float32)
+    (jdx,) = vjp(jnp.asarray(dy))
+    out.backward(torch.from_numpy(dy))
+    return out, want, tx.grad, np.asarray(jdx)
+
+
+@pytest.mark.parametrize("global_pool", [False, True],
+                         ids=["window", "global"])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("last", [False, True], ids=["first", "last"])
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_max_pooling_gives_the_references_zero_sign(nd, last, pad,
+                                                    global_pool):
+    """F1: a window's zero max is +0 where a +0 is in it, whichever zero
+    comes first; the gradient still goes to the window's first zero."""
+    x = _zero_windows(nd, last, 10 * nd + pad)
+    kw = dict(kernel=(2,) * nd, stride=(2,) * nd, pad=(pad,) * nd,
+              pool_type="max", global_pool=global_pool,
+              layout=_LAYOUT[(nd, last)])
+    out, want, gx, jgx = _vjp_exact(lambda a: jnn.pooling(a, **kw),
+                                    lambda a: pops.pooling(a, **kw), x)
+    np.testing.assert_array_equal(_np(out), want)
+    np.testing.assert_array_equal(np.signbit(_np(out)), np.signbit(want))
+    assert (want == 0).any() and not np.signbit(want[want == 0]).all()
+    np.testing.assert_array_equal(_np(gx), jgx)
+
+
+@pytest.mark.parametrize("global_pool", [False, True],
+                         ids=["window", "global"])
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_lp_pooling_gradient_at_zero(p, global_pool):
+    """F2: ``|x| ** p`` takes ``jnp.abs``'s gradient, 1 at +-0: the 2x2
+    window [0, 1, 2, 0] at p = 1 gives [1, 1, 1, 1]."""
+    x = np.array([[[[0.0, 1.0], [2.0, -0.0]], [[-0.0, 0.0], [3.0, -4.0]]]],
+                 np.float32)
+    kw = dict(kernel=(2, 2), stride=(2, 2), pool_type="lp", p_value=p,
+              global_pool=global_pool)
+    tx = torch.from_numpy(x.copy()).requires_grad_()
+    pops.pooling(tx, **kw).sum().backward()
+    jgx = np.asarray(jax.grad(lambda a: jnn.pooling(a, **kw).sum())(
+        jnp.asarray(x)))
+    np.testing.assert_allclose(_np(tx.grad), jgx, rtol=1e-6)
+    if p == 1:
+        np.testing.assert_array_equal(_np(tx.grad), jgx)
+        np.testing.assert_array_equal(jgx[0, 0], np.ones((2, 2)))
+
+
+INT_POOL_CASES = {
+    "avg": dict(pool_type="avg"),
+    "sum": dict(pool_type="sum"),
+    "avg_pad": dict(pool_type="avg", pad=(1, 1)),
+    "sum_pad": dict(pool_type="sum", pad=(1, 1)),
+    "avg_no_pad_count": dict(pool_type="avg", pad=(1, 1),
+                             count_include_pad=False),
+    "avg_full_k3": dict(pool_type="avg", kernel=(3, 3),
+                        pooling_convention="full"),
+    "avg_nhwc": dict(pool_type="avg", layout="NHWC"),
+    "sum_1d": dict(pool_type="sum", kernel=(2,), stride=(2,)),
+    "avg_3d": dict(pool_type="avg", kernel=(2, 2, 2), stride=(2, 2, 2)),
+    "avg_global": dict(pool_type="avg", global_pool=True),
+    "max": dict(pool_type="max"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INT_POOL_CASES))
+def test_integer_avg_and_sum_pooling(case):
+    """F3: int32 ``avg`` gives float32 and ``sum`` int32, as the
+    reference: ``arange(16).reshape(1, 1, 4, 4) - 8``, kernel 2, stride
+    2: avg [-5.5, -3.5, 2.5, 4.5], sum [-22, -14, 10, 18]."""
+    kw = dict(kernel=(2, 2), stride=(2, 2))
+    kw.update(INT_POOL_CASES[case])
+    nd = len(kw["kernel"])
+    x = (np.arange(2 * 4 ** nd, dtype=np.int32)
+         .reshape((1, 2) + (4,) * nd) - 8)
+    if kw.get("layout") == "NHWC":
+        x = np.ascontiguousarray(np.moveaxis(x, 1, -1))
+    want = np.asarray(jnn.pooling(jnp.asarray(x), **kw))
+    got = pops.pooling(torch.from_numpy(x), **kw).numpy()
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+    if case in ("avg", "sum"):
+        ref = {"avg": [-5.5, -3.5, 2.5, 4.5], "sum": [-22, -14, 10, 18]}
+        np.testing.assert_array_equal(got[0, 0].ravel(), ref[case])
+
+
+_INF, _NAN = np.inf, np.nan
+D1_CASES = {
+    "nan_first": ([_NAN, 1, 2, 3], (2, 2), (2, 2), (0, 0), [0, 0, 0, 1]),
+    "inf_nan_inf": ([_INF, _NAN, _INF, -1], (2, 2), (2, 2), (0, 0),
+                    [0, 0, 1, 0]),
+    "all_minus_inf_padded": ([-_INF] * 9, (3, 3), (2, 2), (1, 1),
+                             [0, 0, 0, 0, 1, 0, 0, 0, 0]),
+    "two_nans": ([1, _NAN, 3, _NAN], (2, 2), (2, 2), (0, 0), [0, 0, 0, 1]),
+    "nan_between_minus_infs": ([-_INF, -_INF, _NAN, -_INF], (2, 2), (2, 2),
+                               (0, 0), [0, 0, 0, 1]),
+    "finite_ties": ([2, 2, -1, 2], (2, 2), (2, 2), (0, 0), [1, 0, 0, 0]),
+    "zero_ties": ([-0.0, 0.0, 0.0, -0.0], (2, 2), (2, 2), (0, 0),
+                  [1, 0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D1_CASES))
+def test_max_pooling_gradient_where_the_max_is_not_finite(case):
+    """D1: the reference's selection (XLA's select-and-scatter): start at
+    the window's first element (a padded one is -inf and takes nothing),
+    move to each next element c when ``not (sel >= c)``."""
+    vals, k, s, p, grad = D1_CASES[case]
+    side = int(round(len(vals) ** 0.5))
+    x = np.array(vals, np.float32).reshape(1, 1, side, side)
+    kw = dict(kernel=k, stride=s, pad=p, pool_type="max")
+    out, want, gx, jgx = _vjp_exact(lambda a: jnn.pooling(a, **kw),
+                                    lambda a: pops.pooling(a, **kw), x)
+    np.testing.assert_array_equal(_np(out), want)
+    heads = jax.vjp(lambda a: jnn.pooling(a, **kw), jnp.asarray(x))[1](
+        jnp.ones(want.shape, jnp.float32))[0]
+    np.testing.assert_array_equal(np.asarray(heads).ravel(), grad)
+    np.testing.assert_array_equal(_np(gx), jgx)
+
+
+@pytest.mark.parametrize("conv", ["valid", "full", "same"])
+@pytest.mark.parametrize("last", [False, True], ids=["first", "last"])
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_max_pooling_selection_on_mixed_windows(nd, last, conv):
+    """D1 over many windows at once: NaN, +-inf, -inf-only and finite
+    ties mixed, overlapping 3-wide windows at stride 2, every head
+    carried: the whole gradient equals the reference's."""
+    rs = np.random.RandomState(nd * 7 + len(conv))
+    pool = np.array([np.nan, np.inf, -np.inf, -np.inf, 1.0, 1.0, -2.0,
+                     0.0, -0.0], np.float32)
+    x = rs.choice(pool, size=(2, 2) + (5,) * nd)
+    x[(0, 1) + (slice(0, 3),) * nd] = -np.inf    # a window of -inf alone
+    if last:
+        x = np.ascontiguousarray(np.moveaxis(x, 1, -1))
+    kw = dict(kernel=(3,) * nd, stride=(2,) * nd,
+              pad=(0 if conv == "same" else 1,) * nd, pool_type="max",
+              pooling_convention=conv, layout=_LAYOUT[(nd, last)])
+    out, want, gx, jgx = _vjp_exact(lambda a: jnn.pooling(a, **kw),
+                                    lambda a: pops.pooling(a, **kw), x, 3)
+    np.testing.assert_array_equal(_np(out), want)
+    np.testing.assert_array_equal(_np(gx), jgx)
+    assert np.isnan(want).any() and (want == -np.inf).any()
 
 
 # ---------------------------------------------------------------------------

@@ -1194,3 +1194,142 @@ def test_half_precision_activations_against_an_f64_oracle(act_type, dtype):
            int((_value(want[0]) != oracle).sum()))
     assert off == _HALF_ACT_OFF[(act_type, dtype)], off
     assert off[0] <= off[1]
+
+
+# ---------------------------------------------------------------------------
+# the sign of a zero max or min: XLA orders -0 below +0 (ROADMAP.md, queue
+# 3, F1). Each case puts -0 before and after +0; values compared with
+# their signs, gradients to the reference's (half at a tie, split over
+# the ties of a reduction, 0 at NaN in clip)
+# ---------------------------------------------------------------------------
+
+_Z = [-0.0, 0.0, 0.0, -0.0, -0.0, -0.0, 0.0, 0.0, 1.5, np.nan, -2.0, 6.0]
+_Z2 = [0.0, -0.0, -0.0, 0.0, -0.0, 0.0, -0.0, 0.0, 1.5, 3.0, -2.0, -np.inf]
+
+_SIGNED_ZERO_CASES = {
+    "broadcast_maximum": (lambda m, x, y: m.nd.broadcast_maximum(x, y),
+                          [_Z, _Z2]),
+    "broadcast_minimum": (lambda m, x, y: m.nd.broadcast_minimum(x, y),
+                          [_Z, _Z2]),
+    "maximum_broadcast": (lambda m, x, y: m.nd.maximum(
+        x.reshape((3, 4)), y.reshape((3, 4))[:1]), [_Z, _Z2]),
+    "clip_0_6": (lambda m, x: m.nd.clip(x, 0, 6), [_Z]),
+    "clip_minus0_plus0": (lambda m, x: m.nd.clip(x, -0.0, 0.0), [_Z2]),
+    "clip_upper_minus0": (lambda m, x: m.nd.clip(x, -3.0, -0.0), [_Z]),
+    "clip_upper_only": (lambda m, x: m.nd.clip(x, a_max=0.0), [_Z]),
+    "hard_sigmoid": (lambda m, x: m.nd.hard_sigmoid(x, alpha=1.0,
+                                                     beta=-0.0), [_Z]),
+    "max": (lambda m, x: m.nd.max(x.reshape((6, 2)), axis=1), [_Z]),
+    "max_axis_keepdims": (lambda m, x: m.nd.max_axis(
+        x.reshape((2, 6)), axis=0, keepdims=True), [_Z2]),
+    "min": (lambda m, x: m.nd.min(x.reshape((6, 2)), axis=1), [_Z2]),
+    "min_axis_all": (lambda m, x: m.nd.min_axis(x[:8]), [_Z2]),
+    "max_all": (lambda m, x: m.nd.max(x[:8]), [_Z]),
+}
+
+
+def _with_signs(v):
+    a = _value(v)
+    return a, np.signbit(a)
+
+
+@pytest.mark.parametrize("name", sorted(_SIGNED_ZERO_CASES))
+def test_signed_zero_extrema_are_the_references(name):
+    f, arrays = _SIGNED_ZERO_CASES[name]
+    want, got = both(lambda m: [f(m, *[m.nd.array(np.array(a, np.float32))
+                                       for a in arrays])])
+    (wv, ws), (gv, gs) = _with_signs(want[0]), _with_signs(got[0])
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gs, ws)
+    want, got = both(lambda m: _grads(m, f, *arrays))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_value(g), _value(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relu6_and_hard_sigmoid_blocks_give_plus_zero(dtype):
+    """MobileNet's ReLU6 and HardSigmoid (``clip``) at -0, +0, the bounds
+    and NaN: the reference's values and signs, its gradient (half at a
+    bound, 0 at NaN)."""
+    from mxnet_tpu.gluon.model_zoo.vision import mobilenet as jmob
+    from mxnet_tpu_torch.gluon.model_zoo.vision import mobilenet as pmob
+
+    x = [-0.0, 0.0, 6.0, -3.0, 3.0, np.nan, 7.5, -0.0]
+    for jblk, pblk in ((jmob.ReLU6(), pmob.ReLU6()),
+                       (jmob.HardSigmoid(), pmob.HardSigmoid())):
+        want = _grads(jmx, lambda m, a: jblk(a), x, dtype=dtype)
+        with mx.cpu():
+            got = _grads(mx, lambda m, a: pblk(a), x, dtype=dtype)
+            out = pblk(mx.nd.array(np.array(x, np.float32), dtype=dtype))
+        ref = jblk(jmx.nd.array(np.array(x, np.float32), dtype=dtype))
+        np.testing.assert_array_equal(_value(out), _value(ref))
+        np.testing.assert_array_equal(np.signbit(_value(out)),
+                                      np.signbit(_value(ref)))
+        np.testing.assert_array_equal(_value(got[0]), _value(want[0]))
+
+
+@pytest.mark.parametrize("is_ascend", [False, True])
+@pytest.mark.parametrize("order", ["minus_first", "plus_first"])
+def test_topk_orders_minus_zero_below_plus_zero(order, is_ascend):
+    z = [-0.0, 0.0] if order == "minus_first" else [0.0, -0.0]
+    x = np.array([[-1.0] + z + [-2.0], [z[0], 3.0, z[1], z[0]]],
+                 np.float32)
+    for k in (1, 2, 3):
+        want, got = both(lambda m: list(m.nd.topk(
+            m.nd.array(x), k=k, ret_typ="both", is_ascend=is_ascend)))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(_value(g), _value(w))
+            np.testing.assert_array_equal(np.signbit(_value(g)),
+                                          np.signbit(_value(w)))
+
+
+# ---------------------------------------------------------------------------
+# names of what the port computes (ROADMAP.md, queue 1, item 4 (a))
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("alias,op", [
+    ("activation", "Activation"), ("convolution", "Convolution"),
+    ("dropout", "Dropout"), ("fully_connected", "FullyConnected"),
+    ("pooling", "Pooling")])
+def test_lowercase_aliases_are_the_ops(alias, op):
+    from mxnet_tpu.ops.registry import get_op as jget
+    from mxnet_tpu_torch.ops.registry import get_op as pget
+
+    assert pget(alias) is pget(op) and jget(alias) is jget(op)
+    rs = np.random.RandomState(3)
+    x = rs.randn(2, 3, 6, 6).astype(np.float32)
+    w = rs.randn(4, 3, 3, 3).astype(np.float32)
+    fc = rs.randn(4, 108).astype(np.float32)
+    b = rs.randn(4).astype(np.float32)
+    calls = {
+        "activation": lambda m: [m.nd.activation(m.nd.array(x),
+                                                 act_type="tanh")],
+        "convolution": lambda m: [m.nd.convolution(
+            m.nd.array(x), m.nd.array(w), m.nd.array(b), kernel=(3, 3),
+            num_filter=4, pad=(1, 1))],
+        "dropout": lambda m: [m.nd.dropout(m.nd.array(x), p=0.5)],
+        "fully_connected": lambda m: [m.nd.fully_connected(
+            m.nd.array(x), m.nd.array(fc), m.nd.array(b), num_hidden=4)],
+        "pooling": lambda m: [m.nd.pooling(m.nd.array(x), kernel=(2, 2),
+                                           stride=(2, 2), pool_type="avg")],
+    }
+    check(calls[alias], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["equal", "not_equal", "greater", "lesser"])
+def test_comparison_wrappers(name):
+    a = np.array([[1.0, 2.0, np.nan], [0.0, -0.0, 5.0]], np.float32)
+    b = np.array([[2.0, 2.0, np.nan], [-0.0, 1.0, 5.0]], np.float32)
+    check(lambda m: [getattr(m.nd, name)(m.nd.array(a), m.nd.array(b)),
+                     getattr(m.nd, name)(m.nd.array(a), 2.0),
+                     getattr(m.nd, name)(m.nd.array(a), m.nd.array(b[0]))])
+
+
+def test_ndarray_and_optimizer_at_the_top_level():
+    assert mx.NDArray is mx.nd.NDArray and jmx.NDArray is jmx.nd.NDArray
+    assert mx.Optimizer is mx.optimizer.Optimizer
+    assert jmx.Optimizer is jmx.optimizer.Optimizer
+    assert {"NDArray", "Optimizer"} <= set(mx.__all__)
+    opt = mx.optimizer.create("sgd", learning_rate=0.5)
+    assert isinstance(opt, mx.Optimizer) and opt.learning_rate == 0.5

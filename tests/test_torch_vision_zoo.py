@@ -164,8 +164,8 @@ def test_get_model_covers_every_reference_name():
     assert set(pvision._models) == set(jvision._models)
     for name in sorted(pvision._models):
         if name == "ssd_toy":
-            with pytest.raises(MXNetError, match="MultiBox.*item 4"):
-                pvision.get_model(name)
+            net = pvision.get_model(name, num_classes=3)
+            assert isinstance(net, pvision.SSD) and net.num_classes == 3
             continue
         net = pvision.get_model(name.upper() if name == "alexnet" else name,
                                 classes=7)
@@ -174,8 +174,7 @@ def test_get_model_covers_every_reference_name():
         pvision.get_model("resnet999")
     public = {n for n in dir(jvision) if not n.startswith("_")
               and callable(getattr(jvision, n))}
-    assert public - set(pvision.__all__) <= {"SSD", "SSDMultiBoxLoss",
-                                             "get_ssd", "get_resnet",
+    assert public - set(pvision.__all__) <= {"get_resnet",
                                              "get_model"} | {
         n for n in public if n[0].isupper() and n not in pvision.__all__
         and not hasattr(pvision, n)} - {"VGG", "AlexNet", "DenseNet",
