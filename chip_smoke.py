@@ -400,10 +400,12 @@ package. Phases, each printing JSON lines and failing loudly:
              eager forward bit for bit with one capture; detect at batch
              32 (nms_topk 400, nms_threshold 0.45) equal to the plain
              route's rows (box_nms through its plain version on the same
-             card inputs) bit for bit; exactly one box_nms call a
-             detect; images/s, host and device ms a detect; the kernels
-             phase holds box_nms against its plain version at detect's
-             (32, 7620, 6) rows with topk 400, bit for bit;
+             card inputs) bit for bit; exactly one box_nms call and one
+             box_nms kernel (nms_plan's shared route) a detect;
+             images/s, host and device ms a detect; the kernels phase
+             holds box_nms against its plain version at detect's (32,
+             7620, 6) rows with topk 400 (one kernel a call) and at the
+             op's default topk=-1 (two), bit for bit;
 18. summary — one {"kernels": [...]} line (the Pallas sites' kernels,
              hash_dropout, twobit_quantize and box_nms beside them, and an mx.rtc
              entry for mxnet_tpu/rtc.py:62: the imperative path's user
@@ -1972,6 +1974,7 @@ def phase_kernels() -> dict:
     recs.append(lamb_case(flush, gen))
     recs.extend(twobit_case(flush, gen))
     recs.append(nms_case(flush, gen))
+    recs.append(nms_case(flush, gen, topk=-1))
     bad = [r for r in recs if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -1987,7 +1990,10 @@ def phase_kernels() -> dict:
     pick = {r["kernel"]: r for r in recs
             if r["kernel"] in ("fused_adam_sweep", "fused_adamw_sweep",
                                "fused_sgd_sweep", "fused_lamb_sweep",
-                               "box_nms")}
+                               "box_nms") and r.get("topk") != -1}
+    pick["box_nms[topk=-1]"] = next(r for r in recs
+                                    if r["kernel"] == "box_nms"
+                                    and r["topk"] == -1)
     for r in recs:
         if r["dtype"] != "bfloat16":
             continue
@@ -2626,7 +2632,8 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "dkdv_kernel",
                  "dropout_kernel", "adamw_kernel",
                  "adamw_scan_kernel", "sgd_kernel", "lamb_phase1_kernel",
                  "lamb_norms_kernel", "lamb_phase2_kernel",
-                 "nms_mask_kernel", "nms_sweep_kernel")
+                 "nms_cluster_kernel", "nms_tile_kernel",
+                 "nms_sweep_kernel")
 
 
 def _kind(name) -> str:
@@ -8547,52 +8554,119 @@ def _ssd_scene(batch, size, classes, seed, max_boxes=8):
     return x, labels
 
 
-def nms_case(flush, gen) -> dict:
-    """The box_nms kernel at SSD detect's shapes (ssd_detect: 32 images of
-    7,620 rows [id, score, box], topk 400, overlap 0.45, valid 0.01, per
-    class) against its plain version on the same sorted rows, bit for
-    bit; kernels per call (a graph capture's kernel nodes: the mask and
-    the sweep). Bound: the sorted rows read once and the (32, 7620, 6)
-    output written once (f32), against 20 f32 operations per pair
-    (i, j > i) of the 400 rows. No single PyTorch call computes it
-    (torchvision's nms is not installed, and it takes no classes, topk
-    or -1 rows)."""
+def _nms_detect_rows(device="cuda"):
+    """SSD detect's box_nms input as nms_case times it: (32, 7620, 6) rows
+    [id, score, box] of _nms_rows's boxes over 20 classes (and -1), the
+    scores drawn anew, uniform in [0, 1), -1 at or below 0.3."""
+    batch, n = 32, 7620
+    rows = torch.from_numpy(_nms_rows(SEED + 23, n=n, lead=(batch,),
+                                      ids=20))
+    score = torch.from_numpy(np.random.RandomState(SEED + 23).rand(
+        batch, n).astype(np.float32))
+    rows[..., 1] = torch.where(score > 0.3, score, -1.0)
+    return rows.to(device)
+
+
+# box_nms_sorted's keywords at SSD detect's (ssd.py's nms_thresh, and
+# MultiBoxDetection's valid threshold and columns)
+NMS_DETECT_KW = dict(overlap_thresh=0.45, valid_thresh=0.01, coord_start=2,
+                     score_index=1, id_index=0)
+
+
+def nms_case(flush, gen, topk=400) -> dict:
+    """The box_nms kernels at SSD detect's rows (_nms_detect_rows;
+    NMS_DETECT_KW: overlap 0.45, valid 0.01, per class) with detect's topk
+    400 or the op's default topk=-1, against their plain version on the
+    same sorted rows, bit for bit (at topk=-1 the plain version four
+    images at a time); kernels per call (a graph capture's kernel nodes)
+    as nms_plan states them: one at topk 400, two at topk=-1; the scratch
+    a call allocates. ms: event pairs after the flush (time_ms, as every
+    kernel's); device_ms: the same queued behind a sleep (_queued_ms),
+    the card's time without the wrapper's host work. plain_ms: at topk
+    400 time_ms over 5 calls; at topk=-1 the one plain call of the
+    bit-for-bit check (eight calls of four images, ~4 s), timed once.
+    Bound: the sorted rows read once and the (32, 7620, 6) output written
+    once (f32), against the operations this run's rows need: 20 f32
+    operations for each pair of valid rows of one class (i < j, both
+    scores above valid_thresh: only those IoUs can change the output) and
+    a class test for each valid pair; bound_ms_all_pairs counts 20 for
+    every pair (i, j > i) of the m sorted rows instead. No single PyTorch
+    call computes it (torchvision's nms is not installed, and it takes no
+    classes, topk or -1 rows)."""
     from mxnet_tpu_torch.kernels import (box_nms_sorted,
-                                         box_nms_sorted_reference)
+                                         box_nms_sorted_reference, nms_plan)
     from mxnet_tpu_torch.kernels._build import kernels_per_call
 
-    batch, n, topk = 32, 7620, 400
-    rs = np.random.RandomState(SEED + 23)
-    rows = torch.from_numpy(_nms_rows(SEED + 23, n=n, lead=(batch,),
-                                      ids=20)).cuda()
-    score = torch.from_numpy(rs.rand(batch, n).astype(np.float32)).cuda()
-    rows[..., 1] = torch.where(score > 0.3, score, -1.0)
-    srt, n_out = _sorted_nms_rows(rows, topk)
-    kw = dict(overlap_thresh=0.45, valid_thresh=0.01, coord_start=2,
-              score_index=1, id_index=0)
-    got = box_nms_sorted(srt, n_out, **kw)
-    want = box_nms_sorted_reference(srt, n_out, **kw)
+    srt, n_out = _sorted_nms_rows(_nms_detect_rows(), topk)
+    batch, m = srt.shape[:2]
+    kw = NMS_DETECT_KW
+    step = 4 if topk <= 0 else batch
+
+    def plain():
+        return torch.cat([box_nms_sorted_reference(srt[i:i + step], n_out,
+                                                   **kw)
+                          for i in range(0, batch, step)])
+
+    def call():
+        return box_nms_sorted(srt, n_out, **kw)
+
+    got = call()
+    if topk > 0:
+        want = plain()
+        plain_ms = time_ms(plain, flush, iters=5, warmup=1)
+        plain_timing = "time_ms, 5 calls after 1"
+    else:
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        flush()
+        start.record()
+        want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        plain_timing = "one event pair: the checked call"
     same = _nan_same(got, want)
-    twice = _nan_same(box_nms_sorted(srt, n_out, **kw), got)
-    per_call = kernels_per_call(lambda: box_nms_sorted(srt, n_out, **kw))
-    m = srt.shape[1]
-    b_ms, b_by = bound(4.0 * batch * 6 * (m + n_out),
-                       20.0 * batch * m * (m - 1) / 2, torch.float32)
-    rec = {"phase": "kernels", "kernel": "box_nms", "shape": [batch, n, 6],
-           "topk": topk, "dtype": "float32",
+    del want
+    twice = _nan_same(call(), got)
+    per_call = kernels_per_call(call)
+    plan = nms_plan(m, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - got.numel() * 4
+    valid = srt[..., 1] > kw["valid_thresh"]
+    n_valid = valid.sum(dim=1).double()
+    # class c at column c + 2 (-1 too: it is a class of its own), the
+    # invalid rows at column 0
+    ids = torch.where(valid, srt[..., 0], -2.0).long() + 2
+    per_id = torch.zeros(batch, int(ids.max()) + 1, dtype=torch.float64,
+                         device=ids.device).scatter_add_(
+        1, ids, valid.double())[:, 1:]
+    same_class = float((per_id * (per_id - 1) / 2).sum())
+    valid_pairs = float((n_valid * (n_valid - 1) / 2).sum())
+    n_bytes = 4.0 * batch * 6 * (m + n_out)
+    b_ms, b_by = bound(n_bytes, 20.0 * same_class + valid_pairs,
+                       torch.float32)
+    rec = {"phase": "kernels", "kernel": "box_nms",
+           "shape": [batch, n_out, 6],
+           "topk": topk, "dtype": "float32", "route": plan.route,
            "kept_per_image": float((got[..., 0] >= 0).sum()) / batch,
+           "valid_rows_per_image": float(n_valid.mean()),
            "bit_identical": same, "same_bits_twice": twice,
-           "kernels_per_call": per_call,
+           "kernels_per_call": per_call, "planned_kernels": plan.kernels,
+           "scratch_bytes": scratch,
+           "planned_scratch_bytes": plan.scratch_bytes,
            "max_abs_err": 0.0 if same else None,
-           "ms": time_ms(lambda: box_nms_sorted(srt, n_out, **kw), flush),
-           "plain_ms": time_ms(lambda: box_nms_sorted_reference(
-               srt, n_out, **kw), flush, iters=5, warmup=1),
+           "ms": time_ms(call, flush), "device_ms": _queued_ms(call, flush),
+           "plain_ms": plain_ms, "plain_timing": plain_timing,
            "library_ms": None,
            "library": "null (no single call: torchvision is not installed)",
-           "bound_ms": b_ms, "bound_by": b_by}
-    rec["device_ms"] = _queued_ms(lambda: box_nms_sorted(srt, n_out, **kw),
-                                  flush)
-    rec["ok"] = same and twice and per_call == 2
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_ms_all_pairs": bound(
+               n_bytes, 20.0 * batch * m * (m - 1) / 2, torch.float32)[0]}
+    rec["ok"] = same and twice and per_call == plan.kernels
     emit(rec)
     return rec
 
@@ -8835,14 +8909,16 @@ def phase_ssd_detect(card: str, net, x) -> dict:
     then replays) equal to the eager forward bit for bit with one
     capture; detect's rows equal to the plain route's (box_nms through
     its plain version, on the same card inputs) bit for bit; exactly one
-    box_nms call (the mask and the sweep) per detect. Printed:
+    box_nms call per detect, and in the profile of detects as many
+    box_nms kernels a detect as nms_plan states for 400 rows (one: the
+    cluster kernel of the shared route). Printed:
     images/s through detect, host and device ms per detect, the idle
     share and device ms by kind."""
     import gc
 
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.kernels import (box_nms_sorted,
-                                         box_nms_sorted_reference)
+                                         box_nms_sorted_reference, nms_plan)
     from mxnet_tpu_torch.ops import spatial
 
     t0 = time.perf_counter()
@@ -8876,6 +8952,9 @@ def phase_ssd_detect(card: str, net, x) -> dict:
         brk = _device_breakdown(lambda: net.detect(x), 3, n_top=10,
                                 kind=_ssd_kind)
     kept = (det[..., 0] >= 0).sum(dim=1).float()
+    nms_kernels = sum(r["launches"] for name, r in
+                      brk["port_kernels_per_step"].items() if "nms_" in name)
+    planned = nms_plan(min(net.nms_topk, det.shape[1])).kernels
     out = {"phase": "ssd_detect", "card": card,
            "model": "get_ssd(20, base='small'), hybridized",
            "batch": list(x.shape), "nms_topk": net.nms_topk,
@@ -8884,6 +8963,8 @@ def phase_ssd_detect(card: str, net, x) -> dict:
            "detect_rows_equal_plain_bits": rows_equal,
            "box_nms_launches_first_detect": one,
            "box_nms_sorted": launches, "detects": timed,
+           "box_nms_kernels_per_detect": nms_kernels,
+           "box_nms_planned_kernels": planned,
            "kept_per_image": [float(kept.min()), float(kept.mean()),
                               float(kept.max())],
            "images_per_s": batch * timed / wall,
@@ -8901,6 +8982,9 @@ def phase_ssd_detect(card: str, net, x) -> dict:
     if one != 1 or launches != timed:
         fail(f"ssd_detect: box_nms launched {one} times in one detect and "
              f"{launches} in {timed}")
+    if nms_kernels != planned:
+        fail(f"ssd_detect: {nms_kernels} box_nms kernels a detect, planned "
+             f"{planned}")
     if not torch.isfinite(det).all() or tuple(det.shape) != (batch, 7620, 6):
         fail(f"ssd_detect: rows {tuple(det.shape)} not finite or not "
              f"({batch}, 7620, 6)")
@@ -9028,9 +9112,11 @@ def main() -> None:
                         "which XLA fuses into its neighbours",
         "box_nms": "not a Pallas site: box_nms's greedy scan over the "
                    "score-sorted rows (lax.scan, mxnet_tpu/ops/spatial.py:"
-                   "113-121), which XLA compiles; one call (the mask and "
-                   "the sweep, two kernels) per MultiBoxDetection, so one "
-                   "per SSD detect",
+                   "113-121), which XLA compiles; one call per "
+                   "MultiBoxDetection, so one per SSD detect: one kernel "
+                   "(the cluster kernel) up to 1,856 sorted rows, as at "
+                   "detect's topk 400, two (tiles, sweep) above, as at the "
+                   "op's default topk=-1 (default_topk)",
         "twobit_quantize": "not a Pallas site: the kvstore's 2-bit "
                            "quantizer with error feedback (_q), which XLA "
                            "fuses; one launch per gradient bucket per step "
@@ -9117,13 +9203,22 @@ def main() -> None:
                "shape": r["shape"], "dtype": r["dtype"]}
         for key in ("device_ms", "library_device_ms", "ctas", "splits",
                     "same_bits_twice", "empty_kernel_device_ms",
-                    "kernels_per_call", "plain_device_ms"):
+                    "kernels_per_call", "plain_device_ms", "event_ms"):
             if key in r:
                 rec[key] = r[key]
         if name in counts:
             rec["kernels_per_call"] = counts[name]
-        if "route" in r:       # the flash kernels' own route (fwd/bwd_route)
+        # the flash kernels' own route (fwd/bwd_route), box_nms's (shared
+        # or global)
+        if "route" in r:
             rec["kernel_route"] = r["route"]
+        if name == "box_nms":
+            d = picks["box_nms[topk=-1]"]
+            rec["default_topk"] = {k: d[k] for k in (
+                "shape", "topk", "route", "kernels_per_call",
+                "scratch_bytes", "max_abs_err", "ms", "device_ms",
+                "plain_ms", "plain_timing", "bound_ms", "bound_by",
+                "bound_ms_all_pairs")}
         if name in ("flash_attention", "flash_attention_bwd"):
             p1 = picks[name + "[proxy1b]"]
             rec["proxy1b_causal"] = {k: p1[k] for k in (

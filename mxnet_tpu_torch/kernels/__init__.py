@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (counterpart of ``mxnet_tpu/pallas_kernels``): a CUDA tensor
 launches the kernel, a CPU or ``meta`` tensor takes the plain version."""
-from .box_nms import box_nms_sorted, box_nms_sorted_reference
+from .box_nms import box_nms_sorted, box_nms_sorted_reference, nms_plan
 from .dropout import (hash_dropout, hash_dropout_bwd,
                       hash_dropout_reference)
 from .flash import (flash_attention, flash_attention_bwd,
@@ -42,7 +42,7 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "paged_attention_kernel", "paged_attention_reference",
            "paged_attention_split_reference", "paged_splits",
            "twobit_quantize", "twobit_quantize_reference",
-           "box_nms_sorted", "box_nms_sorted_reference"]
+           "box_nms_sorted", "box_nms_sorted_reference", "nms_plan"]
 
 
 def launch_counters() -> dict:

@@ -1,5 +1,5 @@
 """Greedy non-maximum suppression over score-sorted box rows: the
-hand-written CUDA kernel (``csrc/box_nms.cu``) and its plain PyTorch
+hand-written CUDA kernels (``csrc/box_nms.cu``) and their plain PyTorch
 version, with the box geometry both the NMS and the box ops share.
 
 No Pallas site: the reference's ``box_nms`` (``mxnet_tpu/ops/spatial.py
@@ -14,13 +14,22 @@ order of operations) exceeds ``overlap_thresh`` and they share a class
 out with their box in ``out_format``, every other row -1. The kernel's
 header says what bounds it on an H100.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(two launches, counted once per call) or raises. The two agree bit for
-bit.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernels
+or raises, and the two agree bit for bit. :func:`nms_plan` picks the
+route from the number of sorted rows m alone: up to 1,856 rows (SSD's
+topk 400 among them) the ``shared`` route enqueues ONE kernel a call (a
+thread block cluster per image keeps the image's suppression triangle in
+one CTA's shared memory) and needs no scratch; above, the ``global``
+route (the op's default ``topk=-1`` at SSD's 7,620 rows) enqueues TWO
+(the tiles into scratch over the whole grid, then one sweep per image)
+and allocates the triangle as scratch. Either route counts one launch per
+call.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,10 +37,44 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["corner_iou", "to_corner", "convert_format", "box_nms_sorted",
-           "box_nms_sorted_reference"]
+           "box_nms_sorted_reference", "nms_plan", "NmsPlan"]
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 \
-    + [ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+
+_TILE = 64                      # rows and columns of a tile of the triangle
+_SLOTS = 4                      # tiles a CTA computes at once
+SMEM_LIMIT = 232448             # a CTA's shared memory on sm_90 (227 KB)
+# the shared route's fixed part: four slots of 64 column boxes (six f32
+# each) and one flag per warp of 512 threads. The layout is
+# csrc/box_nms.cu's (cluster_smem, sweep_smem): mx_box_nms refuses a plan
+# whose shared bytes differ from it.
+_STAGE_BYTES = _SLOTS * _TILE * 6 * 4 + (_SLOTS * 2 * _TILE // 32) * 4
+
+
+class NmsPlan(NamedTuple):
+    """How :func:`box_nms_sorted` runs ``m`` sorted rows of ``batch``
+    images on the card (``csrc/box_nms.cu``)."""
+    route: str                  # "shared" or "global"
+    shared_bytes: int           # dynamic shared memory of the sweeping CTA
+    scratch_bytes: int          # device scratch a call allocates
+    kernels: int                # kernels a call enqueues
+
+
+@functools.lru_cache(maxsize=64)
+def nms_plan(m: int, batch: int = 1) -> NmsPlan:
+    """The route for ``m`` score-sorted rows (by ``m`` alone): ``shared``
+    while an image's triangle of tiles (words (words + 1) / 2 tiles of 512
+    bytes, words = ceil(m / 64)) and the route's fixed part fit one CTA's
+    shared memory, which holds up to 1,856 rows; ``global`` above, its
+    triangles in scratch."""
+    words = -(-m // _TILE)
+    tiles = words * (words + 1) // 2
+    shared = tiles * _TILE * 8 + 2 * words * 8 + _STAGE_BYTES
+    if shared <= SMEM_LIMIT:
+        return NmsPlan("shared", shared, 0, 1)
+    return NmsPlan("global", words * 8 * (3 if words > 32 else 2),
+                   batch * tiles * _TILE * 8, 2)
 
 
 def _clip0(v):
@@ -115,15 +158,16 @@ def box_nms_sorted(rows, n_out, *, overlap_thresh, valid_thresh,
                    out_format="corner"):
     """NMS of the score-sorted ``rows`` (batch, m, k) into (batch, n_out,
     k) rows, ``n_out >= m`` (rows m..n_out-1 are -1). See the module
-    docstring; on the card two launches (the mask, the sweep), counted
-    once in ``box_nms_sorted.launches``."""
+    docstring; on the card one kernel (m <= 1,856) or two
+    (:func:`nms_plan`), counted once in ``box_nms_sorted.launches``."""
     _check_format(in_format)
     _check_format(out_format)
-    kw = dict(overlap_thresh=overlap_thresh, valid_thresh=valid_thresh,
-              coord_start=coord_start, score_index=score_index,
-              id_index=id_index, in_format=in_format, out_format=out_format)
     if rows.device.type == "cpu":
-        return box_nms_sorted_reference(rows, n_out, **kw)
+        return box_nms_sorted_reference(
+            rows, n_out, overlap_thresh=overlap_thresh,
+            valid_thresh=valid_thresh, coord_start=coord_start,
+            score_index=score_index, id_index=id_index, in_format=in_format,
+            out_format=out_format)
     if rows.device.type != "cuda":
         raise MXNetError(f"box_nms: unsupported device {rows.device}")
     if rows.dtype != torch.float32 or rows.dim() != 3 \
@@ -137,18 +181,21 @@ def box_nms_sorted(rows, n_out, *, overlap_thresh, valid_thresh,
         return out
     if m == 0:
         return out.fill_(-1.0)
-    # the entry point checks the columns, n_out >= m and the shared
-    # memory the sweep needs
-    words = -(-m // 64)
-    mask = torch.empty(batch * m * words, dtype=torch.int64,
-                       device=rows.device)
+    # the entry point checks the columns and n_out >= m
+    plan = nms_plan(m, batch)
     dev = rows.device
+    scratch = None
+    if plan.scratch_bytes:
+        scratch = torch.empty(plan.scratch_bytes // 8, dtype=torch.int64,
+                              device=dev)
     with torch.cuda.device(dev):
         _build.call("box_nms.cu", "mx_box_nms", _ARGS, "box_nms",
-                    rows.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                    rows.data_ptr(), None if scratch is None
+                    else scratch.data_ptr(), out.data_ptr(),
                     batch, m, n_out, k, coord_start, score_index, id_index,
                     int(in_format == "center"), int(out_format == "center"),
                     float(overlap_thresh), float(valid_thresh),
+                    int(plan.route == "global"), plan.shared_bytes,
                     torch.cuda.current_stream(dev).cuda_stream)
     box_nms_sorted.launches += 1
     return out

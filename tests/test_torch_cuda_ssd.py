@@ -1,10 +1,15 @@
 """SSD's ops on the card against their plain versions and the CPU: the
-``box_nms`` kernel (``kernels/csrc/box_nms.cu``) against its plain
+``box_nms`` kernels (``kernels/csrc/box_nms.cu``) against their plain
 version on the same card over crafted rows (score ties, +-0 and NaN
 scores, shared and distinct ids, ``force_suppress``, ``topk``, the
 center format in and out, leading axes), random rows at SSD's n = 7,620
-with ``topk`` 400 and counts of rows that are not a multiple of 64, bit
-for bit; ``MultiBoxPrior``, ``MultiBoxTarget`` and ``MultiBoxDetection``
+with ``topk`` 400 and at the op's default ``topk=-1``, counts of rows at
+each boundary of the kernels' design (63/64/65 and 128 rows, 2,048/2,049
+where the sweep's removed bits leave registers, the last row count of
+the one-launch route and the first of the two-launch one), rows all
+kept, none valid and all overlapping, bit for bit; a CUDA graph's
+replays of each route against the eager call; kernels per call and
+shared memory against ``nms_plan``; ``MultiBoxPrior``, ``MultiBoxTarget`` and ``MultiBoxDetection``
 on the card against the CPU; and the pooling and extremum faults of
 ROADMAP.md's queue 3 (the sign of a zero max, integer pooling, the max
 pool's selection where a window's max is not finite) on CUDA tensors
@@ -19,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch.kernels import box_nms_sorted, box_nms_sorted_reference
+from mxnet_tpu_torch.kernels import (box_nms_sorted,
+                                     box_nms_sorted_reference, nms_plan)
 from mxnet_tpu_torch.ops import multibox, spatial
 from mxnet_tpu_torch.ops import nn as ops_nn
 from mxnet_tpu_torch.ops.registry import get_op
@@ -45,10 +51,14 @@ def _same_bits(a, b):
     return torch.equal(a[~nan].view(view), b[~nan].view(view))
 
 
-def nms_rows(seed, n=60, lead=(2,), fmt="corner", ids=3):
+def nms_rows(seed, n=60, lead=(2,), fmt="corner", ids=3, layout="cluster",
+             pad=False):
     """(*lead, n, 6) rows [id, score, box] whose boxes cluster, so that
-    many pairs overlap; scores with ties, +-0 and NaN; ids shared and
-    distinct. ``tests/test_torch_ssd.py`` draws its rows here too."""
+    many pairs overlap (``layout="grid"``: no two boxes overlap;
+    ``"same"``: every box is one box); scores with ties, +-0 and NaN; ids
+    shared and distinct. ``pad``: a seventh column of -3 first, so that
+    the id, the score and the box start at columns 1, 2 and 3.
+    ``tests/test_torch_ssd.py`` draws its rows here too."""
     rs = np.random.RandomState(seed)
     out = []
     for _ in range(int(np.prod(lead))):
@@ -56,6 +66,14 @@ def nms_rows(seed, n=60, lead=(2,), fmt="corner", ids=3):
         a = (centers[rs.randint(0, 5, n)] + rs.randn(n, 2) * 0.04) \
             .astype(np.float32)
         size = (0.15 + rs.rand(n, 2) * 0.1).astype(np.float32)
+        if layout == "grid":
+            side = int(np.ceil(np.sqrt(n)))
+            cell = np.stack([np.arange(n) % side, np.arange(n) // side], 1)
+            a = ((cell + 0.5) / side).astype(np.float32)
+            size = np.full((n, 2), 0.5 / side, np.float32)
+        elif layout == "same":
+            a = np.full((n, 2), 0.5, np.float32)
+            size = np.full((n, 2), 0.3, np.float32)
         boxes = np.concatenate([a, size] if fmt == "center"
                                else [a - size / 2, a + size / 2], axis=1)
         score = np.round(rs.rand(n), 1).astype(np.float32)
@@ -67,8 +85,15 @@ def nms_rows(seed, n=60, lead=(2,), fmt="corner", ids=3):
         cls[11::23] = -1.0
         out.append(np.concatenate([cls[:, None], score[:, None], boxes],
                                   axis=1))
-    return np.stack(out).reshape(tuple(lead) + (n, 6)).astype(np.float32)
+    rows = np.stack(out).reshape(tuple(lead) + (n, 6)).astype(np.float32)
+    if pad:
+        rows = np.concatenate([np.full_like(rows[..., :1], -3.0), rows], -1)
+    return rows
 
+
+# the most sorted rows the one-launch (shared) route takes
+LAST_SHARED_M = max(m for m in range(64, 8193, 64)
+                    if nms_plan(m).route == "shared")
 
 NMS_CASES = {
     "per_class": dict(id_index=0),
@@ -90,6 +115,30 @@ NMS_CASES = {
     "n_3000_mask_in_memory": dict(id_index=0, n=3000, lead=(2,)),
     "ssd_7620_topk_400": dict(id_index=0, n=7620, lead=(32,), topk=400,
                               overlap_thresh=0.45, valid_thresh=0.01),
+    # where the kernels' design branches: one word (63, 64), a second
+    # word, two full words, the words crossing 32 on the global route
+    # (2,048 / 2,049), and the last row count of the shared route and the
+    # first of the global one
+    "n_63": dict(id_index=0, n=63),
+    "n_64": dict(id_index=0, n=64),
+    "n_128": dict(id_index=0, n=128),
+    "n_2048": dict(id_index=0, n=2048, lead=(2,)),
+    "n_2049": dict(id_index=0, n=2049, lead=(2,)),
+    "n_last_shared_route": dict(id_index=0, n=LAST_SHARED_M, lead=(2,)),
+    "n_first_global_route": dict(id_index=0, n=LAST_SHARED_M + 1,
+                                 lead=(2,)),
+    # rows all kept, none valid, all overlapping (one kept an image)
+    "all_kept": dict(id_index=0, layout="grid", expect="all_valid"),
+    "none_valid": dict(id_index=0, valid_thresh=2.0, expect="none"),
+    "all_overlap": dict(layout="same", expect="one_an_image"),
+    "topk_1": dict(id_index=0, topk=1, expect="one_an_image"),
+    "n_out_equals_m": dict(id_index=0, topk=60),
+    # other columns: the id, the score and the box at 1, 2 and 3 of 7
+    "seven_columns": dict(id_index=1, score_index=2, coord_start=3,
+                          pad=True, out_format="center"),
+    # the op's default topk = -1 at SSD's row count
+    "ssd_7620_default_topk": dict(id_index=0, n=7620, lead=(4,),
+                                  overlap_thresh=0.45, valid_thresh=0.01),
 }
 
 
@@ -110,16 +159,12 @@ def test_box_nms_kernel_is_its_plain_version(case):
     op on the card against the op on the CPU, bit for bit."""
     _require_card()
     kw = dict(NMS_CASES[case])
-    gen = {k: kw.pop(k) for k in ("fmt", "lead", "n") if k in kw}
+    gen = {k: kw.pop(k) for k in ("fmt", "lead", "n", "layout", "pad")
+           if k in kw}
+    expect = kw.pop("expect", "some")
     rows = torch.from_numpy(nms_rows(len(case), **gen))
     sorted_rows, n = _sorted_rows(rows.cuda(), kw)
-    args = dict(overlap_thresh=kw.get("overlap_thresh", 0.5),
-                valid_thresh=kw.get("valid_thresh", 0.0), coord_start=2,
-                score_index=1,
-                id_index=-1 if kw.get("force_suppress")
-                else kw.get("id_index", -1),
-                in_format=kw.get("in_format", "corner"),
-                out_format=kw.get("out_format", "corner"))
+    args = _nms_args(kw)
     before = box_nms_sorted.launches
     got = box_nms_sorted(sorted_rows, n, **args)
     torch.cuda.synchronize()
@@ -129,8 +174,94 @@ def test_box_nms_kernel_is_its_plain_version(case):
     card = spatial.box_nms(rows.cuda(), **kw)
     cpu = spatial.box_nms(rows, **kw)
     assert _same_bits(card, cpu), case
-    kept = int((cpu[..., 1] != -1).sum())
-    assert 0 < kept < rows[..., 1].numel()
+    kept = int((cpu[..., args["score_index"]] != -1).sum())
+    valid = sorted_rows[..., args["score_index"]].cpu() > \
+        args["valid_thresh"]
+    if expect == "some":
+        assert 0 < kept < rows[..., 1].numel()
+    elif expect == "none":
+        assert kept == 0
+    elif expect == "all_valid":
+        assert kept == int(valid.sum()) > 0
+    else:
+        assert kept == int(valid.any(dim=1).sum()) > 0
+
+
+def _nms_args(kw):
+    """box_nms_sorted's arguments for an op's keywords."""
+    return dict(overlap_thresh=kw.get("overlap_thresh", 0.5),
+                valid_thresh=kw.get("valid_thresh", 0.0),
+                coord_start=kw.get("coord_start", 2),
+                score_index=kw.get("score_index", 1),
+                id_index=-1 if kw.get("force_suppress")
+                else kw.get("id_index", -1),
+                in_format=kw.get("in_format", "corner"),
+                out_format=kw.get("out_format", "corner"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [400, 2049])
+def test_box_nms_graph_replays_are_the_eager_call(n):
+    """Each route captured into a CUDA graph (the global route's scratch
+    from the graph's pool) and replayed 12 times over a zeroed output:
+    every replay the eager call's bits."""
+    _require_card()
+    rows = torch.from_numpy(nms_rows(n, n=n, lead=(3,))).cuda()
+    sorted_rows, _ = _sorted_rows(rows, {})
+    args = _nms_args(dict(id_index=0))
+    eager = box_nms_sorted(sorted_rows, n + 7, **args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        box_nms_sorted(sorted_rows, n + 7, **args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = box_nms_sorted(sorted_rows, n + 7, **args)
+    for _ in range(12):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64, 65, 400, 1856, 1857, 2048, 2049])
+def test_box_nms_kernels_and_shared_memory_are_the_plan(m):
+    """Kernels a call enqueues (a graph capture's kernel nodes) as
+    ``nms_plan`` states them, and the sweeping launch's shared memory: the
+    kernel's entry point takes the plan's bytes and refuses bytes that
+    differ from its own layout by a word either way."""
+    _require_card()
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels.box_nms import _ARGS
+
+    plan = nms_plan(m, 2)
+    rows = torch.from_numpy(nms_rows(m, n=m, lead=(2,))).cuda()
+    sorted_rows, _ = _sorted_rows(rows, {})
+    args = _nms_args(dict(id_index=0))
+    box_nms_sorted(sorted_rows, m, **args)
+    assert _build.kernels_per_call(
+        lambda: box_nms_sorted(sorted_rows, m, **args)) == plan.kernels
+    fn = _build.load("box_nms.cu").mx_box_nms
+    fn.argtypes = _ARGS
+    out = torch.empty_like(sorted_rows)
+    scratch = torch.empty(max(plan.scratch_bytes // 8, 1), dtype=torch.int64,
+                          device="cuda")
+
+    def launch(shared_bytes):
+        return fn(sorted_rows.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                  2, m, m, 6, 2, 1, 0, 0, 0, args["overlap_thresh"],
+                  args["valid_thresh"],
+                  int(plan.route == "global"), shared_bytes,
+                  torch.cuda.current_stream().cuda_stream)
+
+    bad = 1  # cudaErrorInvalidValue
+    assert launch(plan.shared_bytes - 8) == bad
+    assert launch(plan.shared_bytes + 8) == bad
+    assert launch(plan.shared_bytes) == 0
+    torch.cuda.synchronize()
+    assert _same_bits(out, box_nms_sorted(sorted_rows, m, **args))
 
 
 @pytest.mark.cuda

@@ -35,7 +35,8 @@ from mxnet_tpu_torch import autograd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon.model_zoo import vision
-from mxnet_tpu_torch.kernels import box_nms_sorted
+from mxnet_tpu_torch.kernels import box_nms_sorted, nms_plan
+from mxnet_tpu_torch.kernels.box_nms import SMEM_LIMIT
 from mxnet_tpu_torch.ops import multibox as pmb
 from mxnet_tpu_torch.ops import spatial as psp
 from test_torch_cuda_ssd import nms_rows
@@ -145,19 +146,62 @@ NMS_CASES = {
     "lead_axes": dict(id_index=0, lead=(2, 3), topk=25),
     "unbatched": dict(id_index=0, lead=()),
     "n_65": dict(id_index=0, n=65),
+    # the boundaries of the kernels' routes (nms_plan): one full word, the
+    # first row count of the two-launch route, the sweep's removed bits
+    # past 32 words
+    "n_64": dict(id_index=0, n=64),
+    "n_1857": dict(id_index=0, n=1857, lead=(1,)),
+    "n_2049": dict(id_index=0, n=2049, lead=(1,)),
+    "seven_columns": dict(id_index=1, score_index=2, coord_start=3,
+                          pad=True, out_format="center"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NMS_CASES))
 def test_box_nms_is_the_references_bits(case):
     kw = dict(NMS_CASES[case])
-    gen = {k: kw.pop(k) for k in ("fmt", "lead", "n") if k in kw}
+    gen = {k: kw.pop(k) for k in ("fmt", "lead", "n", "pad") if k in kw}
     rows = nms_rows(len(case), **gen)
     want = np.asarray(jsp.box_nms(jnp.asarray(rows), **kw))
     got = psp.box_nms(torch.from_numpy(rows), **kw)
     _bits_equal(got.numpy(), want, case)
-    kept = (want[..., 1] != -1).sum()
-    assert 0 < kept < (rows[..., 1] > kw.get("valid_thresh", 0.0)).sum()
+    score = kw.get("score_index", 1)
+    kept = (want[..., score] != -1).sum()
+    assert 0 < kept < (rows[..., score] > kw.get("valid_thresh", 0.0)).sum()
+
+
+# m: (route, shared bytes of the sweeping launch, scratch bytes at batch
+# 32, kernels a call)
+PLAN_CASES = {
+    1: ("shared", 6736, 0, 1),
+    64: ("shared", 6736, 0, 1),
+    65: ("shared", 7776, 0, 1),
+    129: ("shared", 9328, 0, 1),
+    400: ("shared", 20656, 0, 1),
+    1856: ("shared", 229392, 0, 1),
+    1857: ("global", 480, 7618560, 2),
+    2048: ("global", 512, 8650752, 2),
+    2049: ("global", 792, 9191424, 2),
+    7620: ("global", 2880, 118947840, 2),
+}
+
+
+@pytest.mark.parametrize("m", sorted(PLAN_CASES))
+def test_box_nms_route_is_planned_from_m(m):
+    """The route at each of its boundaries: one launch while an image's
+    triangle of 64 x 64 tiles (512 bytes each) and the fixed 6,208 bytes
+    fit a CTA's 232,448, two above with the triangles as scratch (the
+    sweep's removed bits in shared memory past 32 words). The same route
+    at any batch, its scratch in proportion."""
+    plan = nms_plan(m, 32)
+    assert tuple(plan) == PLAN_CASES[m]
+    assert plan.shared_bytes <= SMEM_LIMIT
+    words = -(-m // 64)
+    assert (plan.route == "shared") == (
+        words * (words + 1) // 2 * 512 + 16 * words + 6208 <= SMEM_LIMIT)
+    one = nms_plan(m, 1)
+    assert one.route == plan.route and one.kernels == plan.kernels
+    assert one.scratch_bytes * 32 == plan.scratch_bytes
 
 
 def test_box_ops_carry_no_gradient():
