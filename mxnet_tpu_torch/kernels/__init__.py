@@ -2,6 +2,8 @@
 version (counterpart of ``mxnet_tpu/pallas_kernels``): a CUDA tensor
 launches the kernel, a CPU or ``meta`` tensor takes the plain version."""
 from .box_nms import box_nms_sorted, box_nms_sorted_reference, nms_plan
+from .correlation import (correlation, correlation_bwd,
+                          correlation_reference)
 from .dropout import (hash_dropout, hash_dropout_bwd,
                       hash_dropout_reference)
 from .flash import (flash_attention, flash_attention_bwd,
@@ -24,6 +26,7 @@ from .gradient_compression import (twobit_quantize,
 from .paged_attention import (paged_attention_kernel,
                               paged_attention_reference,
                               paged_attention_split_reference, paged_splits)
+from .roi_align import roi_align, roi_align_bwd, roi_align_reference
 
 __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "fused_rms_norm", "fused_rms_norm_reference",
@@ -42,7 +45,9 @@ __all__ = ["hash_dropout", "hash_dropout_bwd", "hash_dropout_reference",
            "paged_attention_kernel", "paged_attention_reference",
            "paged_attention_split_reference", "paged_splits",
            "twobit_quantize", "twobit_quantize_reference",
-           "box_nms_sorted", "box_nms_sorted_reference", "nms_plan"]
+           "box_nms_sorted", "box_nms_sorted_reference", "nms_plan",
+           "roi_align", "roi_align_bwd", "roi_align_reference",
+           "correlation", "correlation_bwd", "correlation_reference"]
 
 
 def launch_counters() -> dict:

@@ -43,7 +43,7 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "layer_norm.cu",
            "bias_gelu.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "fused_optimizer.cu", "dropout.cu", "gradient_compression.cu",
-           "jpeg_codec.cu", "box_nms.cu")
+           "jpeg_codec.cu", "box_nms.cu", "roi_align.cu", "correlation.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # libraries of the CUDA toolkit a source links against (nvcc finds them

@@ -7,8 +7,12 @@ positionally or by name, attributes as keywords (positionals past the
 tensors fill the attributes in order, ``nd.clip(x, 0, 6)``), plus
 ``out=`` and ``ctx=``. ``mx.nd.contrib`` holds every ``_contrib_`` op
 under its short name (``mx.nd.contrib.MultiBoxPrior``), as the
-reference builds it. ``random``, ``linalg``, ``image`` and ``sparse``
-wait (ROADMAP.md, port queue 1, item 4).
+reference builds it; the spatial group (``ROIPooling``, ``Correlation``,
+``BilinearSampler``, ``SpatialTransformer``, ``GridGenerator``, ``Crop``,
+``im2col``, ``col2im``, ``contrib.ROIAlign``, ``contrib.PSROIPooling``,
+``contrib.DeformableConvolution``) is here with the reference's aliases.
+``random``, ``linalg``, ``image`` and ``sparse`` wait (ROADMAP.md, port
+queue 1, item 4 (d)-(h)).
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ from typing import Optional
 
 from ..base import numeric_types
 from ..context import Context
-from ..ops import elemwise as _elemwise  # noqa: F401  (registers the ops)
+from ..ops import contrib as _contrib  # noqa: F401  (registers the ops)
+from ..ops import deformable as _deformable  # noqa: F401
+from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import multibox as _multibox  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_op as _optimizer_op  # noqa: F401

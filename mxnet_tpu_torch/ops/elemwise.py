@@ -444,6 +444,14 @@ def _cbrt(x):
     return _Cbrt.apply(x)
 
 
+def true_div(x, n):
+    """``x / n`` for a Python number ``n``, rounded as one division on
+    every device, as XLA's and the CPU's: torch's CUDA kernels multiply by
+    a Python scalar's reciprocal instead, an ulp off the quotient, which
+    moves a ``floor`` or ``ceil`` at an integer."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
 class _Abs(torch.autograd.Function):
     """``|x|`` whose gradient is ``jnp.abs``'s: +g where x >= 0 (so 1 at
     +-0, where torch gives 0), -g elsewhere."""

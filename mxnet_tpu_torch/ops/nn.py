@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from .. import autograd, random_state
 from ..base import MXNetError, torch_dtype
 from ..kernels import fused_bias_gelu, fused_layer_norm, hash_dropout
-from .elemwise import _abs, max_zero_sign, relu, signed_zeros
+from .elemwise import _abs, max_zero_sign, relu, signed_zeros, true_div
 from .registry import attr, register
 from .tensor import amax
 
@@ -37,7 +37,8 @@ __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "batch_norm", "flatten", "embedding", "layer_norm",
            "fused_layer_norm_op", "fused_bias_gelu_op", "activation",
            "dropout", "softmax", "log_softmax", "instance_norm",
-           "group_norm", "leaky_relu"]
+           "group_norm", "leaky_relu", "grid_generator", "crop", "im2col",
+           "col2im", "roi_pooling"]
 
 
 def fully_connected(data, weight, bias=None, *, flatten=True):
@@ -1092,3 +1093,172 @@ def smooth_l1(data, *, scalar=1.0):
     return torch.where(torch.abs(data) < 1.0 / s2,
                        0.5 * s2 * data.square(),
                        torch.abs(data) - 0.5 / s2)
+
+
+# ---------------------------------------------------------------------------
+# the spatial group: GridGenerator, Crop, im2col / col2im, ROIPooling
+# (reference :1309, :1387, :1329, :1353, :521)
+# ---------------------------------------------------------------------------
+
+
+@register("GridGenerator")
+def grid_generator(data, *, transform_type="affine", target_shape=(0, 0)):
+    """The affine sampling grid: ``data`` (N, 6) thetas times the target's
+    normalised (x, y, 1) grid, (N, 2, h, w). In float64, as the
+    reference's x64 ``linspace`` promotes it whatever data's dtype. The
+    reference computes the affine grid for any ``transform_type``; the
+    port raises for another than ``affine``."""
+    if transform_type != "affine":
+        raise MXNetError(f"GridGenerator: transform_type {transform_type!r}"
+                         " is not supported (the reference computes the "
+                         "affine grid only)")
+    h, w = (int(v) for v in target_shape)
+    gy, gx = torch.meshgrid(
+        torch.linspace(-1.0, 1.0, h, dtype=torch.float64, device=data.device),
+        torch.linspace(-1.0, 1.0, w, dtype=torch.float64, device=data.device),
+        indexing="ij")
+    base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.ones(h * w, dtype=torch.float64,
+                                   device=data.device)])
+    theta = data.reshape(-1, 2, 3).double()
+    return torch.matmul(theta, base).reshape(-1, 2, h, w)
+
+
+@register("Crop")
+def crop(*inputs, offset=(0, 0), h_w=(0, 0), center_crop=False,
+         num_args=1):
+    """``inputs[0]`` (NCHW) cropped to ``h_w``, or to the spatial size of
+    a second (``crop_like``) input, at ``offset`` (y, x) or centred; a
+    copy."""
+    data = inputs[0]
+    if len(inputs) > 1:
+        th, tw = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        th, tw = h_w
+        if th <= 0 or tw <= 0:
+            raise ValueError(
+                "Crop: h_w must be given (positive) when no crop_like "
+                "input is passed (reference crop.cc parameter check)")
+    h, w = data.shape[2], data.shape[3]
+    if center_crop:
+        oy, ox = (h - th) // 2, (w - tw) // 2
+    else:
+        oy, ox = offset
+    return data[:, :, oy:oy + th, ox:ox + tw].clone()
+
+
+def _patch_grid(spatial, kernel, stride, dilate, pad):
+    """Each spatial axis's output size and, per kernel tap, the slice of
+    the padded axis that tap reads."""
+    outs, taps = [], []
+    for n, k, s, d, p in zip(spatial, kernel, stride, dilate, pad):
+        o = (n + 2 * p - (d * (k - 1) + 1)) // s + 1
+        outs.append(o)
+        taps.append([slice(t * d, t * d + s * (o - 1) + 1, s)
+                     for t in range(k)])
+    return outs, taps
+
+
+def _patch_args(kernel, stride, dilate, pad):
+    nd = len(kernel)
+    return (tuple(kernel), _tuplize(stride or 1, nd),
+            _tuplize(dilate or 1, nd), _tuplize(pad or 0, nd))
+
+
+@register("im2col", attrs=[
+    attr("kernel", tuple, "Sliding window size."),
+])
+def im2col(data, *, kernel=(), stride=(), dilate=(), pad=()):
+    """(N, C, *spatial) over ``len(kernel)`` (1, 2 or 3) spatial axes to
+    (N, C * prod(kernel), prod(out)): feature ``c * prod(kernel) + tap``,
+    channel-major as ``conv_general_dilated_patches`` orders it, zero
+    padding; one strided view of the padded input per tap."""
+    kernel, stride, dilate, pad = _patch_args(kernel, stride, dilate, pad)
+    n, c = data.shape[:2]
+    outs, taps = _patch_grid(data.shape[2:], kernel, stride, dilate, pad)
+    x = F.pad(data, [v for p in reversed(pad) for v in (p, p)])
+    cols = [x[(slice(None), slice(None)) + sl]
+            for sl in itertools.product(*taps)]
+    return torch.stack(cols, dim=2).reshape(n, c * len(cols),
+                                            math.prod(outs))
+
+
+@register("col2im", attrs=[
+    attr("kernel", tuple, "Sliding window size."),
+])
+def col2im(data, *, output_size=(), kernel=(), stride=(), dilate=(),
+           pad=()):
+    """The exact adjoint of :func:`im2col`: (N, C * prod(kernel), L)
+    columns scatter-added into (N, C, *output_size), overlaps summed, the
+    padding cropped."""
+    kernel, stride, dilate, pad = _patch_args(kernel, stride, dilate, pad)
+    size = tuple(int(v) for v in output_size)
+    n, ckk = data.shape[:2]
+    kk = math.prod(kernel)
+    c = ckk // kk
+    outs, taps = _patch_grid(size, kernel, stride, dilate, pad)
+    cols = data.reshape((n, c, kk) + tuple(outs))
+    x = data.new_zeros((n, c) + tuple(s + 2 * p for s, p in zip(size, pad)))
+    for t, sl in enumerate(itertools.product(*taps)):
+        x[(slice(None), slice(None)) + sl] += cols[:, :, t]
+    crop_sl = tuple(slice(p, p + s) for s, p in zip(size, pad))
+    return x[(slice(None), slice(None)) + crop_sl]
+
+
+_ROI_POOL_CHUNK = 1 << 26      # elements of a chunk's (rois, C, H, W, pw)
+
+
+@register("ROIPooling")
+def roi_pooling(data, rois, *, pooled_size=(), spatial_scale=1.0):
+    """Max pooling of ``data`` (N, C, H, W) over quantised bins of ``rois``
+    (R, 5) ``[batch, x1, y1, x2, y2]``: (R, C, ph, pw) in data's dtype.
+    Corners round half away from zero (``floor(x * scale + 0.5)``); bin i
+    spans ``[floor(i rh / ph), ceil((i + 1) rh / ph))`` (bins overlap by
+    one), clipped into the map; an empty bin is 0. The batch column is
+    truncated to an int, a negative one wraps once, and one still out of
+    range gives a zero output (``jnp.take``'s fill). The max is taken over
+    W, then over H, each splitting its gradient evenly among tied maxima
+    as JAX's does (``amax``). RoIs go in chunks, so no (R, C, H, W, pw)
+    mask outgrows ``_ROI_POOL_CHUNK`` elements."""
+    ph, pw = pooled_size
+    n, c, h, w = data.shape
+    r = rois.detach().float()
+    dev = data.device
+    bi = r[:, 0].to(torch.int32).long()
+    bi = torch.where(bi < 0, bi + n, bi)
+    inb = (bi >= 0) & (bi < n)
+    bi = bi.clamp(0, n - 1)
+
+    def q(col):
+        return torch.floor(r[:, col] * spatial_scale + 0.5).to(torch.int32)
+
+    x1, y1, x2, y2 = q(1), q(2), q(3), q(4)
+    rh = (y2 - y1 + 1).clamp_min(1).float()[:, None]
+    rw = (x2 - x1 + 1).clamp_min(1).float()[:, None]
+    iy = torch.arange(ph, device=dev)[None]
+    ix = torch.arange(pw, device=dev)[None]
+    hstart = y1[:, None] + torch.floor(true_div(iy * rh, ph)).to(torch.int32)
+    hend = y1[:, None] + torch.ceil(true_div((iy + 1) * rh, ph)).to(
+        torch.int32)
+    wstart = x1[:, None] + torch.floor(true_div(ix * rw, pw)).to(torch.int32)
+    wend = x1[:, None] + torch.ceil(true_div((ix + 1) * rw, pw)).to(
+        torch.int32)
+    hs = torch.arange(h, device=dev)[None, :, None]
+    ws = torch.arange(w, device=dev)[None, :, None]
+    ymask = (hs >= hstart[:, None]) & (hs < hend[:, None])     # (R, H, ph)
+    xmask = (ws >= wstart[:, None]) & (ws < wend[:, None])     # (R, W, pw)
+    neg = float("-inf")
+    per = max(1, _ROI_POOL_CHUNK // max(1, c * h * w * pw))
+    outs = []
+    for s in range(0, r.shape[0], per):
+        sl = slice(s, s + per)
+        img = data[bi[sl]].float()                           # (m, C, H, W)
+        tmp = torch.amax(torch.where(xmask[sl][:, None, None],
+                                     img[..., None], neg), dim=3)
+        out = torch.amax(torch.where(ymask[sl][:, None, :, :, None],
+                                     tmp[:, :, :, None, :], neg), dim=2)
+        keep = torch.isfinite(out) & inb[sl][:, None, None, None]
+        outs.append(torch.where(keep, out, 0.0).to(data.dtype))
+    if not outs:
+        return data.new_zeros((0, c, ph, pw))
+    return torch.cat(outs)

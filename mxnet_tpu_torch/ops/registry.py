@@ -184,7 +184,7 @@ def get_op(name: str) -> OpDef:
     except KeyError:
         raise NotImplementedError(
             f"operator {name!r} is not ported to mxnet_tpu_torch yet "
-            "(ROADMAP.md, port queue 1, item 4)") from None
+            "(ROADMAP.md, port queue 1, item 4 (d)-(h))") from None
 
 
 def has_op(name: str) -> bool:

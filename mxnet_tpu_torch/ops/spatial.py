@@ -4,12 +4,15 @@
 ``SVMOutput`` (``:252``, whose hand-written VJP ignores the head
 gradient, as a ``torch.autograd.Function`` on both devices), the resize
 ops ``UpSampling``, ``BilinearResize2D`` (reference ``ops/nn.py:1261``,
-``:1298``) and ``AdaptiveAvgPooling2D`` (``ops/contrib.py:536``), and the
+``:1298``) and ``AdaptiveAvgPooling2D`` (``ops/contrib.py:536``), the
 box ops ``box_iou`` and ``box_nms`` (``:74``, ``:80``) with
-``bipartite_matching`` (``ops/contrib.py:566``). ``box_nms`` sorts and
-gathers here on both devices and suppresses through
-``kernels.box_nms_sorted`` (the hand-written kernel on the card). The
-sampling ops of that module wait (ROADMAP.md, port queue 1, item 4)."""
+``bipartite_matching`` (``ops/contrib.py:566``), and the sampling ops:
+the zero-padded bilinear gather ``_bilinear_gather`` (``:135``) with
+``BilinearSampler`` (``:160``) and ``SpatialTransformer`` (``:175``) over
+it, plain PyTorch on both devices (four clipped gathers, as the
+reference's). ``box_nms`` sorts and gathers here on both devices and
+suppresses through ``kernels.box_nms_sorted`` (the hand-written kernel
+on the card)."""
 from __future__ import annotations
 
 import torch
@@ -24,7 +27,8 @@ from .registry import register
 __all__ = ["hard_sigmoid", "multi_all_finite", "all_finite", "moments",
            "softmax_activation", "svm_output", "upsampling",
            "bilinear_resize_2d", "adaptive_avg_pooling_2d", "box_iou",
-           "box_nms", "bipartite_matching"]
+           "box_nms", "bipartite_matching", "bilinear_sampler",
+           "spatial_transformer"]
 
 
 @register("hard_sigmoid")
@@ -160,7 +164,11 @@ def bilinear_resize_2d(data, *, height=0, width=0, scale_height=None,
     that is ``F.interpolate(mode="bilinear", align_corners=False,
     antialias=True)``. The reference ignores ``align_corners`` and
     ``mode``; the port ignores ``align_corners`` as well (so its answer
-    is the reference's) and raises for a ``mode`` other than ``"size"``."""
+    is the reference's) and raises for a ``mode`` other than ``"size"``.
+    A bf16 (or f16) input is resized in f32 and rounded once, forward and
+    backward: torch's CUDA backward of this resize adds into the input's
+    dtype with atomics, so in bf16 each of the ~30 adds an upscaled
+    pixel takes rounded, in an order that changed from run to run."""
     if mode != "size":
         raise MXNetError(f"BilinearResize2D: mode {mode!r} is not supported "
                          "(the reference ignores it); give height and "
@@ -168,8 +176,10 @@ def bilinear_resize_2d(data, *, height=0, width=0, scale_height=None,
     h, w = data.shape[2:]
     out_h = int(height or round(h * (scale_height or 1)))
     out_w = int(width or round(w * (scale_width or 1)))
-    return F.interpolate(data, size=(out_h, out_w), mode="bilinear",
-                         align_corners=False, antialias=True)
+    x = data.float() if data.dtype in (torch.bfloat16, torch.float16) \
+        else data
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=True).to(data.dtype)
 
 
 @register("_contrib_AdaptiveAvgPooling2D", aliases=["AdaptiveAvgPooling2D"])
@@ -262,3 +272,78 @@ def bipartite_matching(data, *, is_ascend=False, threshold=0.0, topk=-1):
                                     | (cols == c[:, None])[:, None, :])
         s = s.masked_fill(gone, float("-inf"))
     return rmatch.reshape(lead + (n,)), cmatch.reshape(lead + (m,))
+
+
+# ---------------------------------------------------------------------------
+# the sampling ops (reference ops/spatial.py:135-198)
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_gather(img, xs, ys):
+    """``img`` (B, C, H, W), f32, sampled at pixel coordinates ``xs``,
+    ``ys`` (B, ...) with zero padding outside, corner by corner (the
+    reference's ``at``): (B, C, ...). Differentiable in ``img``, ``xs``
+    and ``ys`` (``floor`` carries none). The image is gathered
+    channels-last, a row of C values a corner."""
+    b, c, h, w = img.shape
+    lead = xs.shape[1:]
+    rows = img.permute(0, 2, 3, 1).reshape(b, h * w, c)
+    bi = torch.arange(b, device=img.device).reshape((b,) + (1,) * len(lead))
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    dx = xs - x0
+    dy = ys - y0
+
+    def at(ix, iy):
+        inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        flat = torch.where(inb, iy, 0.0).long() * w \
+            + torch.where(inb, ix, 0.0).long()
+        vals = rows[bi, flat].movedim(-1, 1)          # (B, C, ...)
+        return torch.where(inb.unsqueeze(1), vals, 0.0)
+
+    v00 = at(x0, y0)
+    v01 = at(x0 + 1, y0)
+    v10 = at(x0, y0 + 1)
+    v11 = at(x0 + 1, y0 + 1)
+    dx, dy = dx.unsqueeze(1), dy.unsqueeze(1)
+    top = v00 * (1 - dx) + v01 * dx
+    bot = v10 * (1 - dx) + v11 * dx
+    return top * (1 - dy) + bot * dy
+
+
+@register("BilinearSampler")
+def bilinear_sampler(data, grid):
+    """``data`` (B, C, H, W) sampled at ``grid`` (B, 2, Ho, Wo), (x, y)
+    normalised to [-1, 1] (corners at the edge pixels' centres), zero
+    outside: (B, C, Ho, Wo) in f32 whatever data's dtype (the reference
+    casts). Differentiable in data and grid."""
+    data = data.float()
+    grid = grid.float()
+    h, w = data.shape[2:]
+    xs = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    ys = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    return _bilinear_gather(data, xs, ys)
+
+
+@register("SpatialTransformer")
+def spatial_transformer(data, loc, *, target_shape, transform_type="affine",
+                        sampler_type="bilinear", cudnn_off=None):
+    """The affine spatial transformer: ``loc`` (B, 6) thetas map the
+    target's normalised grid (``target_shape`` (Ho, Wo)) to sampling
+    positions, which ``BilinearSampler`` reads: (B, C, Ho, Wo) f32. The
+    grid is formed in f64 and rounded to f32, as the reference's x64
+    ``linspace`` promotes it. Differentiable in data and loc."""
+    if transform_type != "affine" or sampler_type != "bilinear":
+        raise NotImplementedError(
+            "SpatialTransformer supports affine + bilinear")
+    ho, wo = int(target_shape[0]), int(target_shape[1])
+    b = data.shape[0]
+    theta = loc.float().reshape(b, 2, 3).double()
+    ys, xs = torch.meshgrid(
+        torch.linspace(-1.0, 1.0, ho, dtype=torch.float64,
+                       device=data.device),
+        torch.linspace(-1.0, 1.0, wo, dtype=torch.float64,
+                       device=data.device), indexing="ij")
+    coords = torch.stack([xs, ys, torch.ones_like(xs)]).reshape(3, -1)
+    grid = torch.matmul(theta, coords).reshape(b, 2, ho, wo)
+    return bilinear_sampler(data, grid)

@@ -593,6 +593,37 @@ def test_bilinear_resize_trap_and_mode_refusal():
     _close_to_max(got.asnumpy(), want, "registered")
 
 
+@pytest.mark.parametrize("case", ["down_7x11", "up_23x30"])
+def test_bilinear_resize_bf16_rounds_once(case):
+    """A bf16 input resizes in f32 and rounds once, forward and gradient
+    (the f32 resize of the same values, rounded: bit for bit), so no
+    bf16 sum is rounded add by add; within 2^-7 of the reference's bf16
+    resize, which rounds its weights to bf16 before the product
+    (``jax.image.scale_and_translate``)."""
+    kw = RESIZE_CASES[case]
+    x = np.random.RandomState(82).randn(2, 3, 16, 16).astype(np.float32)
+    xb = torch.from_numpy(x).bfloat16()
+    t16 = xb.clone().requires_grad_()
+    t32 = xb.float().requires_grad_()
+    y16 = pspatial.bilinear_resize_2d(t16, **kw)
+    y32 = pspatial.bilinear_resize_2d(t32, **kw)
+    g = torch.from_numpy(np.random.RandomState(83).randn(*y16.shape)
+                         .astype(np.float32)).bfloat16()
+    y16.backward(g)
+    y32.backward(g.float())
+    assert y16.dtype == t16.grad.dtype == torch.bfloat16
+    assert torch.equal(y16, y32.bfloat16())
+    assert torch.equal(t16.grad, t32.grad.bfloat16())
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jy, pull = jax.vjp(lambda a: jnn.bilinear_resize_2d(a, **kw), jx)
+    (jg,) = pull(jnp.asarray(g.float().numpy()).astype(jnp.bfloat16))
+    assert jy.dtype == jnp.bfloat16
+    for got, want in ((y16, jy), (t16.grad, jg)):
+        want = np.asarray(want, np.float32)
+        err = np.abs(got.detach().float().numpy() - want).max()
+        assert err <= 2.0 ** -7 * np.abs(want).max(), (case, err)
+
+
 @pytest.mark.parametrize("size", [(), 1, 3, (5, 2), (7,)])
 def test_adaptive_avg_pooling_matches_the_reference(size):
     x = np.random.RandomState(90).randn(2, 3, 11, 9).astype(np.float32)
